@@ -1,0 +1,50 @@
+"""Carry state across from the JAX reference into the port.
+
+Plain numpy in, tensors out: the tests use these to make both packages
+compute on the same history, keys and space constants.  Nothing here
+imports the reference; callers hand over its numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.compile import CONST_FIELDS
+from .ops.kernels import HistoryState
+from .utils import resolve_device
+
+__all__ = ["history_from_numpy", "key_from_numpy", "space_consts_from_numpy"]
+
+
+def history_from_numpy(values, active, losses, valid, device=None):
+    """A reference ``ObsBuffer``'s four arrays -> the port's
+    :class:`~hyperopt_tpu_torch.ops.kernels.HistoryState` on ``device``."""
+    dev = resolve_device(device)
+    arrays = (
+        np.array(values, dtype=np.float32),
+        np.array(active, dtype=bool),
+        np.array(losses, dtype=np.float32),
+        np.array(valid, dtype=bool),
+    )  # copies: jax hands out read-only views
+    return HistoryState(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def key_from_numpy(key_data, device=None):
+    """``jax.random.key_data(key)`` (uint32 ``[..., 2]``) -> a port key
+    (int64 ``[..., 2]``)."""
+    data = np.asarray(key_data, dtype=np.uint32).astype(np.int64)  # a copy
+    return torch.from_numpy(data).to(resolve_device(device))
+
+
+def space_consts_from_numpy(ps, device=None):
+    """A reference ``PackedSpace``'s numpy fields -> the port's
+    :attr:`~hyperopt_tpu_torch.ops.compile.PackedSpace.consts` layout."""
+    dev = resolve_device(device)
+    out = {}
+    for k in CONST_FIELDS:
+        a = np.array(getattr(ps, k))
+        if a.dtype == np.int32:
+            a = a.astype(np.int64)
+        out[k] = torch.from_numpy(a).to(dev)
+    return out

@@ -1,0 +1,79 @@
+"""Guards of the PyTorch port: it never imports JAX or the JAX package,
+and never falls back to the CPU on its own."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+import hyperopt_tpu_torch as H
+from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "hyperopt_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "hyperopt_tpu")
+
+
+def test_fmin_in_a_fresh_process_loads_no_jax():
+    """(a) a 30-trial fmin on the CPU; afterwards neither jax nor the JAX
+    package is in sys.modules."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import hyperopt_tpu_torch as H
+        from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+        t = H.Trials()
+        H.fmin(mixed_space_fn, mixed_space(), max_evals=30, trials=t,
+               rstate=np.random.default_rng(0), device="cpu")
+        assert len(t.trials) == 30
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import_in_source(path):
+    """(b) no module of the port and nothing in chip_smoke.py imports jax
+    or hyperopt_tpu (absolute imports; relative ones stay in the port)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, node.lineno, name)
+
+
+def test_no_cuda_means_no_silent_cpu(monkeypatch):
+    """(c) without CUDA, fmin without device="cpu" raises -- and runs no
+    trial on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trials = H.Trials()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.fmin(mixed_space_fn, mixed_space(), max_evals=3, trials=trials)
+    assert len(trials.trials) == 0

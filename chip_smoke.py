@@ -7,13 +7,18 @@ Run from the root of a checkout on a machine with a CUDA card; it builds
 the port's CUDA kernel from the sources in the checkout and needs no
 network.  Every phase asserts, and a failure exits non-zero:
 
-1. the card's name and power limit; build the kernel (nvcc, sm_90a);
+1. the card's name and power limit; build the kernel (nvcc, sm_90a) and
+   count the SASS instructions per term of its inner loop (cuobjdump);
 2. the kernel against its plain PyTorch version on the card at the
    shapes the 20-dim mixed space gives it (Dg=12, S=128): the sequential
    fmin's asks (B=1, K_below=17, K_above=512), ``suggest_batch`` at
    B=64 on a 500-obs history (K_below=9, K_above=512), and the
-   reference's stage batch (B=4096): max error, argmax agreement, kernel
-   and plain times (CUDA events, warm-up, median) and the bound;
+   reference's stage batch (B=4096): max error, argmax agreement, two
+   launches bitwise equal, kernel and plain times (device time by
+   ``torch.profiler``, per call by CUDA events and by the host clock)
+   and the bound, and the device time of every split the kernel is
+   compiled for beside the one the wrapper picks; at B=64 a second
+   K_above splits the time into a part per component and a fixed part;
 3. ``tpe.suggest_batch`` at batch 64 on a 500-obs history of
    ``mixed_space()``: suggestions/s, and the kernel launched;
 4. the main path: a sequential 1000-trial ``fmin`` on ``mixed_space_fn``
@@ -30,6 +35,9 @@ beside it, it exits non-zero and prints no result.
 """
 
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -55,7 +63,6 @@ FP32_OPS_PER_TERM = 7
 FMIN_SHAPE = dict(B=1, Dg=12, S=128, Kb=17, Ka=512)
 MAIN_SHAPE = dict(B=64, Dg=12, S=128, Kb=9, Ka=512)
 STAGE_SHAPE = dict(B=4096, Dg=12, S=128, Kb=9, Ka=512)
-KERNEL_RTOL = KERNEL_ATOL = 1e-5  # same per-term rounding; K-sum order differs
 NEAR_TIE = 1e-3
 
 
@@ -69,6 +76,56 @@ def smi(query):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "cuobjdump")):
+            return os.path.join(root, "bin", "cuobjdump")
+    return None
+
+
+def sass_inner_loops(sass):
+    """For each kernel in ``cuobjdump -sass`` text, its hot loop: of the
+    innermost loops (a backward branch enclosing no other), the one
+    with the most ``MUFU.EX2``, as ``(instructions, MUFU.EX2 count)``,
+    or None where no loop holds one."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    loops = {}
+    for name, code in funcs.items():
+        back = []
+        for addr, ins in code:
+            m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", ins)
+            if m and int(m.group(1), 16) <= addr:
+                back.append((int(m.group(1), 16), addr))
+        best = None
+        for lo, hi in back:
+            if any((l2, h2) != (lo, hi) and lo <= l2 and h2 <= hi for l2, h2 in back):
+                continue
+            body = [ins for addr, ins in code if lo <= addr <= hi]
+            n_ex2 = sum("MUFU.EX2" in ins for ins in body)
+            if n_ex2 and (best is None or n_ex2 > best[1]):
+                best = (len(body), n_ex2)
+        loops[name] = best
+    return loops
+
+
+def kernel_config(name):
+    """``(k_lanes, rows)`` of a mangled ``gmm_llr_kernel<G, R>`` name."""
+    m = re.search(r"gmm_llr_kernelILi(\d+)ELi(\d+)E", name)
+    return (int(m.group(1)), int(m.group(2))) if m else None
 
 
 def cuda_ms(fn, warmup=3, reps=7, iters=10):
@@ -109,15 +166,22 @@ def device_trace(run):
                      for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, n):
+def device_ms(fn, n, tries=5):
     """Device time of one call of ``fn``: the summed duration of its
     device kernels and copies, over ``n`` calls after a warm-up.  Unlike
     CUDA events around a loop of calls, it does not count the host's
-    launch gaps, which dominate a small launch."""
-    fn()
-    _, spans = device_trace(lambda: [fn() for _ in range(n)])
-    assert spans, "torch.profiler recorded no device events"
-    return sum(e - s for s, e, _ in spans) / n / 1e3
+    launch gaps, which dominate a small launch.  The profiler can drop an
+    event, so the trace is taken again (up to ``tries`` times) until its
+    events are a multiple of ``n`` and at least ``n`` times those of one
+    call traced alone."""
+    _, one = device_trace(fn)
+    assert one, "torch.profiler recorded no device events"
+    for _ in range(tries):
+        _, spans = device_trace(lambda: [fn() for _ in range(n)])
+        if len(spans) % n == 0 and len(spans) >= n * len(one):
+            return sum(e - s for s, e, _ in spans) / n / 1e3
+    raise AssertionError(f"torch.profiler kept {len(spans)} device events of {n} calls "
+                         f"of {len(one)} each")
 
 
 def scoring_inputs(shape, seed, device):
@@ -159,6 +223,21 @@ def plain_chunked(G, x, ls, pb, pa, chunk=256):
         return G.gmm_llr_plain(x, ls, pb, pa)
     return torch.cat([G.gmm_llr_plain(x[i:i + chunk], ls, pb, pa)
                       for i in range(0, x.shape[0], chunk)])
+
+
+def host_ms(fn, n):
+    """Host clock per call over ``n`` back-to-back calls (after a
+    warm-up), then one synchronize: what a caller waits for a launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def bound(shape, sfu_per_s):
@@ -283,41 +362,86 @@ def main():
     if G.KERNEL.build_log:
         log("[1] ptxas: " + " | ".join(
             ln.strip() for ln in G.KERNEL.build_log.splitlines() if "ptxas" in ln))
+    sass_per_term = {}
+    tool = cuobjdump()
+    if tool is None:
+        log("[1] SASS: cuobjdump is absent; the inner loop's instructions per term "
+            "were not counted")
+    else:
+        sass = subprocess.run([tool, "-sass", G.KERNEL.library_path()[1]],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        for name, loop in sorted(sass_inner_loops(sass).items()):
+            config = kernel_config(name)
+            if config is None or loop is None:
+                continue
+            n_ins, n_ex2 = loop
+            sass_per_term[config] = n_ins / n_ex2
+            log(f"[1] SASS inner loop of gmm_llr_kernel<k_lanes={config[0]}, rows={config[1]}>: "
+                f"{n_ins} instructions, {n_ex2} MUFU.EX2: {n_ins / n_ex2:.3f} per term")
+        assert set(sass_per_term) == set(G.CONFIGS), sorted(sass_per_term)
 
     # -- 2. kernel against its plain version -----------------------------
     results = {}
     for name, shape in (("fmin", FMIN_SHAPE), ("main", MAIN_SHAPE), ("stage", STAGE_SHAPE)):
         x, ls, pb, pa = scoring_inputs(shape, seed=7, device=dev)
         got = G.gmm_llr(x, ls, pb, pa)
+        again = G.gmm_llr(x, ls, pb, pa)
         torch.cuda.synchronize()
         want = plain_chunked(G, x, ls, pb, pa)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all(), "kernel output not finite"
+        assert torch.equal(got, again), "two launches on the same inputs differ"
         err = (got - want).abs()
         max_abs = float(err.max())
         max_rel = float((err / want.abs().clamp_min(1e-6)).max())
         argmax_agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        ok = torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+        ok = torch.allclose(got, want, rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL)
         run_kernel = lambda: G.gmm_llr(x, ls, pb, pa)
         run_plain = lambda: plain_chunked(G, x, ls, pb, pa)
         big = shape["B"] > 256
         ms = device_ms(run_kernel, 20)
         call_ms = cuda_ms(run_kernel)
+        call_host_ms = host_ms(run_kernel, 200)
         plain_ms = device_ms(run_plain, 2 if big else 10)
         plain_call_ms = cuda_ms(run_plain, warmup=1, reps=3, iters=1 if big else 5)
         b = bound(shape, sfu_per_s)
-        results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, **b)
+        picked = G.launch_config(shape["B"] * shape["S"], shape["Dg"],
+                                 props.multi_processor_count)
+        out = torch.empty_like(x)
+        by_config = {c: device_ms(lambda c=c: G.launch(x, ls, pb, pa, out, c), 10)
+                     for c in G.CONFIGS}
+        results[name] = dict(B=shape["B"], max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                             config=picked, host_ms=call_host_ms, **b)
         log(f"[2] {name} {shape}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} "
             f"argmax agreement {argmax_agree:.6f}; device time: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms; per call by CUDA events: kernel {call_ms:.4f} ms, "
-            f"plain {plain_call_ms:.4f} ms; "
+            f"plain {plain_call_ms:.4f} ms; wrapper host time per call {call_host_ms:.4f} ms "
+            f"(host clock over 200 calls); "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes {b['bytes_ms']:.4f}, "
             f"fp32 {b['fp32_ms']:.4f}, sfu {b['sfu_ms']:.4f} ms; {b['terms']} terms); "
             f"kernel at {b['bound_ms'] / ms:.3f} of the bound")
+        log(f"[2] {name}: device ms by (k_lanes, rows), wrapper picks {picked}: "
+            + ", ".join(f"{c} {t:.4f}" for c, t in by_config.items()))
         assert ok, f"kernel disagrees with the plain version at {shape}: {max_abs}"
         assert argmax_agree >= 0.999, argmax_agree
-        del x, ls, pb, pa, got, want
+        del x, ls, pb, pa, got, again, want, out
         torch.cuda.empty_cache()
+    # the B=64 kernel's time split into a part that grows with K and one
+    # that does not, from a second K_above at the same split
+    short = dict(MAIN_SHAPE, Ka=128)
+    x, ls, pb, pa = scoring_inputs(short, seed=7, device=dev)
+    assert G.launch_config(short["B"] * short["S"], short["Dg"],
+                           props.multi_processor_count) == results["main"]["config"]
+    ms_short = device_ms(lambda: G.gmm_llr(x, ls, pb, pa), 20)
+    k_long, k_short = MAIN_SHAPE["Kb"] + MAIN_SHAPE["Ka"], short["Kb"] + short["Ka"]
+    per_k = (results["main"]["ms"] - ms_short) / (k_long - k_short)
+    fixed = ms_short - per_k * k_short
+    terms_per_clock = (results["main"]["terms"] / k_long / (per_k * 1e-3)
+                       / props.multi_processor_count / (max_clock_mhz * 1e6))
+    log(f"[2] main at K_above {short['Ka']}: {ms_short:.4f} ms; so at B=64 the kernel takes "
+        f"{fixed:.4f} ms whatever K, and {per_k * 1e3:.4f} us per component of K "
+        f"({terms_per_clock:.2f} terms per SM per clock of the SFU's 16)")
+    del x, ls, pb, pa
 
     # -- 3. suggest_batch at batch 64 on a 500-obs history ----------------
     domain = H.Domain(mixed_space_fn, mixed_space(), device="cuda")
@@ -428,6 +552,7 @@ def main():
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     main = results["fmin"]  # the shape of the main path's asks
+    picked = main["config"]
     kernels = {"kernels": [{
         "name": "gmm_llr",
         "route": "cuda",
@@ -440,6 +565,12 @@ def main():
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "sass_per_term": sass_per_term.get(picked),
+        "shapes": {name: {"B": r["B"], "k_lanes": r["config"][0], "rows": r["config"][1],
+                          "ms": r["ms"], "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
+                          "host_ms": r["host_ms"], "max_abs_err": r["max_abs_err"],
+                          "sass_per_term": sass_per_term.get(r["config"])}
+                   for name, r in results.items()},
     }]}
     print(json.dumps(kernels))
     print(smi("name,power.limit"))

@@ -19,14 +19,33 @@ pass over K, and where the sum underflows (``sum > 1e-38`` fails) take
 the largest shifted term instead.  The log-space Jacobian cancels, but
 is applied on both sides as the reference does.
 
-What bounds it on an H100: each term costs seven FP32 operations and one
-``exp``.  The ``exp`` issues on the special-function units, 16 per clock
-per SM against 128 FP32 lanes, so the kernel is bound by exp throughput;
-the bytes (x read once, llr written once, [Dg, K] constants) are a
-rounding error beside it.  The design is the simple one: one block per
-(dim, tile of B*S candidates), the dim's constants staged through shared
-memory in chunks of K, one thread per candidate looping over both
-mixtures and reading ``x`` once.  Making it fast is later work.
+What bounds it on an H100: one ``exp`` per (candidate, component) term,
+on the special-function units (16 per SM per clock), so the kernel can
+reach its bound only if its inner loop issues at most 8 instructions per
+term.  The kernel (``csrc/gmm_scores.cu``, whose head says how) spends 7
+on the term itself: the exp is one ``ex2.approx`` of ``t * log2(e)``,
+loads and loop control add under one more, the constants sit in
+one ``float4`` per component in shared memory shared by several
+candidates of a thread, and the max and the subnormal band leave the hot
+loop for a second pass that only far-tail candidates take.  The
+components of a candidate are split across ``k_lanes`` lanes whose
+partial sums meet in a fixed shuffle order, so a small batch still fills
+the card and the same inputs give the same bits; :func:`launch_config`
+picks the split from the shape.
+
+Tolerance against the plain version (:data:`KERNEL_RTOL`,
+:data:`KERNEL_ATOL`).  The terms ``t`` round alike (``-fmad=false``);
+the exp does not.  Its argument ``t * log2(e)`` is rounded to float32
+(and ``log2(e)`` is too), a relative error of at most ``|t| * 7.4e-8``
+in the term, and ``ex2.approx`` adds about ``2**-22``.  The terms that
+carry a sum have ``|t| <= |ll| + log K`` on average (weighted by their
+share), and a sum that does not fall back has ``|ll| <= 87.5``, so each
+mixture's ``ll`` moves by at most ``(87.5 + log K) * 7.4e-8 + 2.4e-7``,
+about ``7.4e-6`` at K = 5000; the llr, a difference of two, twice that.
+Beside it stays the 1e-5 that the order of the K-sum and ``log``'s last
+bits took before: ``atol`` 3e-5, ``rtol`` 1e-5.  Where a sum sits within
+that error of the ``1e-38`` threshold the two may take different
+branches, as any two summation orders may.
 
 On a CUDA tensor :func:`gmm_llr` launches the kernel (building it at
 first use) or raises; it never falls back.  On a CPU tensor it runs the
@@ -37,12 +56,14 @@ the kernel against.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .cuda_build import CudaKernel
 
-__all__ = ["KERNEL", "gmm_llr", "gmm_llr_plain", "gmm_logpdf_cont_pre"]
+__all__ = ["CONFIGS", "KERNEL", "KERNEL_ATOL", "KERNEL_RTOL", "gmm_llr", "gmm_llr_plain",
+           "gmm_logpdf_cont_pre", "launch", "launch_config"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,8 +74,20 @@ KERNEL = CudaKernel(
     [_P, _P,                    # x, logspace
      _P, _P, _P, _P, _I,        # below: c1, inv_s, mu_inv_s, c1max, K
      _P, _P, _P, _P, _I,        # above: the same
-     _P, _I, _I, _I, _P],       # out, B, Dg, S, stream
+     _P, _I, _I, _I,            # out, B, Dg, S
+     _I, _I, _P],               # k_lanes, rows, stream
 )
+
+#: the kernel against :func:`gmm_llr_plain` (derivation: module docstring)
+KERNEL_RTOL = 1e-5
+KERNEL_ATOL = 3e-5
+
+#: (k_lanes, rows) splits the kernel is compiled for, most candidates per
+#: warp (32 / k_lanes * rows) first: on the H100 they serve B=4096, B=64
+#: and B=1 at Dg=12, S=128 (PERF.md)
+CONFIGS = ((1, 4), (2, 2), (32, 1))
+_WARPS = 4  # warps per block, as in the kernel
+_BLOCKS_PER_SM = 4  # fewest blocks per SM a split must give, where one can
 
 _PRE_KEYS = ("c1", "inv_s", "mu_inv_s", "c1max")
 
@@ -92,6 +125,35 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"gmm_llr: {name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=256)
+def launch_config(n_cand, n_dims, n_sms):
+    """``(k_lanes, rows)`` for ``n_cand`` candidates per dim over
+    ``n_dims`` dims on a card of ``n_sms`` SMs: the split with the most
+    candidates per warp that still gives every SM ``_BLOCKS_PER_SM``
+    blocks, else the finest."""
+    for g, r in CONFIGS:
+        if -(-n_cand // (32 // g * r * _WARPS)) * n_dims >= _BLOCKS_PER_SM * n_sms:
+            return g, r
+    return CONFIGS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(x, logspace, pre_b, pre_a, out, config):
+    """One launch of the kernel at ``config`` (``(k_lanes, rows)``) on
+    checked tensors, counting nothing; returns the CUDA error code."""
+    B, Dg, S = x.shape
+    mix = [(*(pre[n].data_ptr() for n in _PRE_KEYS), pre["c1"].shape[-1])
+           for pre in (pre_b, pre_a)]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        return KERNEL.fn()(x.data_ptr(), logspace.data_ptr(), *mix[0], *mix[1],
+                           out.data_ptr(), B, Dg, S, *config, stream)
+
+
 def gmm_llr(x, logspace, pre_b, pre_a):
     """EI log-likelihood ratios ``[B, Dg, S]`` of candidates ``x [B, Dg,
     S]`` (float32, natural space) for dims with ``logspace [Dg]`` (bool),
@@ -107,7 +169,6 @@ def gmm_llr(x, logspace, pre_b, pre_a):
     dev = x.device
     _check("x", x, (B, Dg, S), torch.float32, dev)
     _check("logspace", logspace, (Dg,), torch.bool, dev)
-    mix = []
     for side, pre in (("below", pre_b), ("above", pre_a)):
         k = pre["c1"].shape[-1]
         for name in _PRE_KEYS:
@@ -115,15 +176,12 @@ def gmm_llr(x, logspace, pre_b, pre_a):
             _check(f"{side} {name}", pre[name], shape, torch.float32, dev)
         if k < 1:
             raise ValueError(f"gmm_llr: the {side} mixture has no components")
-        mix.append((*(pre[n].data_ptr() for n in _PRE_KEYS), k))
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    fn = KERNEL.fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), logspace.data_ptr(), *mix[0], *mix[1],
-                 out.data_ptr(), B, Dg, S, stream)
+    config = launch_config(B * S, Dg, _sm_count(dev.index if dev.index is not None
+                                                 else torch.cuda.current_device()))
+    err = launch(x, logspace, pre_b, pre_a, out, config)
     if err != 0:
         raise RuntimeError(f"gmm_llr: kernel launch failed with CUDA error {err}")
     KERNEL.launches += 1

@@ -24,6 +24,24 @@ def cuda():
     return torch.device("cuda")
 
 
+def subnormal_band_case(k=512, device="cpu"):
+    """Every term of the above mixture lies below 2**-126 (t about
+    -88.5) while their sum, some ``k * 3.7e-39``, is far above 1e-38: a
+    flushed exp would take the fallback where the plain version takes
+    the log of the sum, log(k) apart."""
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    rng = np.random.default_rng(5)
+    mu = rng.uniform(-0.01, 0.01, (1, k))
+    inf = np.full(1, np.inf)
+    pre_a = TK.gmm_precompute(f(np.full((1, k), 1.0 / k)), f(mu), f(np.ones((1, k))),
+                              f(-inf), f(inf))
+    pre_b = TK.gmm_precompute(f([[1.0]]), f([[13.0]]), f([[1.0]]), f(-inf), f(inf))
+    x = f(np.linspace(13.29, 13.32, 8))[None, None]
+    return (x, torch.zeros(1, dtype=torch.bool, device=device),
+            {k_: pre_b[k_].contiguous() for k_ in G._PRE_KEYS},
+            {k_: pre_a[k_].contiguous() for k_ in G._PRE_KEYS})
+
+
 def _inputs(device, B=64, Dg=12, S=128, Kb=9, Ka=512, seed=3):
     """One unquantized group at the main path's shapes for a 500-obs
     history of the 20-dim mixed space: 8 uniform and 4 log-space dims."""
@@ -47,21 +65,68 @@ def _inputs(device, B=64, Dg=12, S=128, Kb=9, Ka=512, seed=3):
     return x, torch.from_numpy(logspace).to(device), pres[0], pres[1]
 
 
+def _assert_close(got, want):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,Ka", [(64, 128, 512), (3, 100, 1300), (1, 7, 1)])
-def test_cuda_kernel_matches_plain(cuda, B, S, Ka):
-    """The hand-written kernel against the plain version on the card: the
-    main path's shapes, a ragged edge with K above one shared-memory
-    chunk, and a one-component mixture.  Both round every multiply and
-    add separately (the kernel is built with -fmad=false); the order of
-    the K-sum and expf/logf's last bits differ: rtol/atol 1e-5."""
-    x, ls, pb, pa = _inputs(cuda, B=B, S=S, Ka=Ka)
+@pytest.mark.parametrize("B,Dg,S,Kb,Ka", [
+    (64, 12, 128, 9, 512),   # suggest_batch at B=64
+    (3, 12, 100, 9, 1300),   # a ragged edge, both mixtures past one staging
+    (1, 12, 7, 9, 1),        # a one-component mixture
+    (1, 12, 128, 17, 512),   # the sequential ask
+    (2, 3, 64, 9, 5000),     # the above mixture staged in three chunks
+    (5, 1, 37, 9, 40),       # one dim, a ragged S
+])
+def test_cuda_kernel_matches_plain(cuda, B, Dg, S, Kb, Ka):
+    """The hand-written kernel against the plain version on the card at
+    the kernel's stated tolerance (``G.KERNEL_ATOL``: the exp is
+    ``ex2.approx`` of a float32 ``t * log2(e)``; derivation in
+    ops/gmm_scores.py)."""
+    x, ls, pb, pa = _inputs(cuda, B=B, Dg=Dg, S=S, Kb=Kb, Ka=Ka)
     before = G.KERNEL.launches
     got = G.gmm_llr(x, ls, pb, pa)
     torch.cuda.synchronize()
     assert G.KERNEL.launches == before + 1
+    _assert_close(got, G.gmm_llr_plain(x, ls, pb, pa))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", G.CONFIGS, ids=lambda c: f"k_lanes{c[0]}-rows{c[1]}")
+def test_cuda_every_config_matches_plain(cuda, config):
+    """Each split the kernel is compiled for, whichever the wrapper would
+    pick, on a ragged shape with a chunked above mixture."""
+    x, ls, pb, pa = _inputs(cuda, B=3, Dg=4, S=90, Kb=17, Ka=2100)
+    out = torch.empty_like(x)
+    assert G.launch(x, ls, pb, pa, out, config) == 0
+    torch.cuda.synchronize()
+    _assert_close(out, G.gmm_llr_plain(x, ls, pb, pa))
+
+
+@pytest.mark.cuda
+def test_cuda_subnormal_band(cuda):
+    """Terms each below 2**-126 whose sum is far above 1e-38: the kernel
+    takes the log of the sum, as the plain version does, not the
+    fallback that a flushed exp would reach (about log(512) away)."""
+    x, ls, pb, pa = subnormal_band_case(device=cuda)
     want = G.gmm_llr_plain(x, ls, pb, pa)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    _assert_close(G.gmm_llr(x, ls, pb, pa), want)
+    for config in G.CONFIGS:
+        out = torch.empty_like(x)
+        assert G.launch(x, ls, pb, pa, out, config) == 0
+        _assert_close(out, want)
+
+
+@pytest.mark.cuda
+def test_cuda_two_launches_are_bitwise_equal(cuda):
+    """No atomics and a fixed combine order: the same inputs give the
+    same bits on every launch."""
+    for shape in (dict(B=1, Kb=17), dict(B=64), dict(B=3, S=100, Ka=2100)):
+        x, ls, pb, pa = _inputs(cuda, **shape)
+        first = G.gmm_llr(x, ls, pb, pa)
+        second = G.gmm_llr(x, ls, pb, pa)
+        assert torch.equal(first, second), shape
 
 
 @pytest.mark.cuda

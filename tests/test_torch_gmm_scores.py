@@ -6,10 +6,17 @@ interpret mode, on the fixtures and tolerances of tests/test_pallas.py
 (rtol/atol 2e-4 and 3e-4, equal argmax), (b) the reference's
 ``gmm_logpdf_cont_pre`` below minus above -- the function the port's
 suggest path replaces with the kernel -- at rtol/atol 1e-5, and (c) a
-far-tail case that takes the underflow fallback.  The CUDA kernel itself
-is held against the plain version in tests/test_torch_cuda.py, which
-needs no JAX and runs only where there is a card.
+far-tail case that takes the underflow fallback, and (d) a torch
+emulation of the CUDA kernel's arithmetic -- split-K partial sums in its
+combine order, ``exp`` as ``ex2.approx.ftz`` of the float32 ``t *
+log2(e)``, and its far-tail pass -- at the tolerance the kernel states
+(``G.KERNEL_RTOL``/``G.KERNEL_ATOL``).  The CUDA kernel itself is held
+against the plain version in tests/test_torch_cuda.py, which needs no
+JAX and runs only where there is a card.
 """
+
+import itertools
+import math
 
 import numpy as np
 import pytest
@@ -22,6 +29,7 @@ from hyperopt_tpu.ops import kernels as JK
 from hyperopt_tpu.ops.pallas_kernels import ei_scores
 from hyperopt_tpu_torch.ops import gmm_scores as G
 from hyperopt_tpu_torch.ops import kernels as TK
+from test_torch_cuda import subnormal_band_case
 
 # (b): the same formula on the same constants; only exp/log's last bits,
 # XLA's FMA contraction and the order of the K-sum differ
@@ -180,3 +188,152 @@ def test_cpu_tensors_take_the_plain_version():
     out = G.gmm_llr(x, torch.from_numpy(logspace), tb, ta)
     assert G.KERNEL.launches == before
     assert torch.equal(out, G.gmm_llr_plain(x, torch.from_numpy(logspace), tb, ta))
+
+
+# -- (d) the CUDA kernel's arithmetic, emulated ------------------------------
+
+HALF_LOG2E = torch.tensor(math.log2(math.e) / 2, dtype=torch.float32)
+TINY_NORMAL = 2.0 ** -126
+
+
+def _ex2_ftz(a):
+    """``ex2.approx.ftz.f32``: 2**a with subnormal results flushed to 0."""
+    e = torch.exp2(a)
+    return torch.where(e < TINY_NORMAL, 0.0, e)
+
+
+def _lane_combine(terms, g, op):
+    """Lane ``kl`` of ``g`` folds components ``kl, kl + g, ...`` in turn
+    from ``init``; the ``g`` partials then meet in the xor butterfly
+    (offsets 1, 2, ..., g/2), as the kernel's shuffles do."""
+    k = terms.shape[-1]
+    init = 0.0 if op is torch.add else -math.inf
+    pad = (-k) % g
+    if pad:
+        terms = torch.cat([terms, terms.new_full((*terms.shape[:-1], pad), init)], -1)
+    lanes = terms.reshape(*terms.shape[:-1], -1, g)
+    acc = lanes.new_full((*lanes.shape[:-2], g), init)
+    for i in range(lanes.shape[-2]):
+        acc = op(acc, lanes[..., i, :])
+    o = 1
+    while o < g:
+        acc = op(acc, acc[..., torch.arange(g) ^ o])
+        o *= 2
+    return acc[..., 0]
+
+
+def _emulated_ll(lat, pre, g, tail_pass=True):
+    """log(sum exp t) (or the largest t) of each candidate ``lat [B, Dg,
+    S]`` under one mixture, computed as the kernel computes it."""
+    cd2 = 2.0 * (pre["c1"] - pre["c1max"][:, None])
+    z = lat[..., None] * pre["inv_s"][:, None, :] - pre["mu_inv_s"][:, None, :]
+    u = cd2[:, None, :] - z * z  # 2t, exactly
+    a = u * HALF_LOG2E
+    sm = _lane_combine(_ex2_ftz(a), g, torch.add)
+    ll = torch.log(sm)
+    if not tail_pass:
+        return torch.where(sm > 1e-38, ll, 0.5 * torch.amax(u, -1))
+    k = pre["c1"].shape[-1]
+    sm_tail = _lane_combine(_ex2_ftz(a + 64.0), g, torch.add) * 2.0 ** -64
+    top = 0.5 * _lane_combine(u, g, torch.maximum)
+    ll_tail = torch.where(sm_tail > 1e-38, torch.log(sm_tail), top)
+    return torch.where(sm < k * 2.0 ** -100, ll_tail, ll)
+
+
+def _emulated_llr(x, logspace, pre_b, pre_a, g, tail_pass=True):
+    ls = logspace[:, None]
+    lat = torch.where(ls, torch.log(torch.clamp(x, min=1e-30)), x)
+    jac = torch.where(ls, lat, 0.0)
+    ll_b = _emulated_ll(lat, pre_b, g, tail_pass)
+    ll_a = _emulated_ll(lat, pre_a, g, tail_pass)
+    return ((pre_b["c1max"][:, None] + ll_b - jac)
+            - (pre_a["c1max"][:, None] + ll_a - jac))
+
+
+def _mixtures(seed, dims, k_b, k_a):
+    """Below/above constants of ``dims`` dims (every third log-space) as
+    the main path makes them, and in-bounds candidates' bounds."""
+    rng = np.random.default_rng(seed)
+    logspace = np.arange(dims) % 3 == 1
+    low = np.full(dims, -5.0, np.float32)
+    high = np.where(logspace, 2.0, 5.0).astype(np.float32)
+    pres = []
+    for k in (k_b, k_a):
+        w = rng.uniform(0.05, 1.0, (dims, k))
+        if k > 2:
+            w[:, k - 2:] = 0.0  # zero-weight padding
+        w /= w.sum(-1, keepdims=True)
+        mu = rng.uniform(low[:, None], high[:, None], (dims, k))
+        sig = rng.uniform(0.05, 3.0, (dims, k))
+        pres.append({k_: v.contiguous() for k_, v in _port_pre(w, mu, sig, low, high).items()
+                     if k_ in G._PRE_KEYS})
+    return rng, logspace, low, high, pres
+
+
+def _shape_case(B, Dg, S, Ka):
+    rng, logspace, low, high, (pb, pa) = _mixtures(B * 1000 + Dg * 100 + S + Ka, Dg, 9, Ka)
+    lo = np.where(logspace, np.exp(low), low)[None, :, None]
+    hi = np.where(logspace, np.exp(high), high)[None, :, None]
+    # a few candidates far outside the bounds, where the sums get small
+    x = rng.uniform(lo - 0.5 * (hi - lo), hi + 0.5 * (hi - lo), (B, Dg, S))
+    x = np.where(logspace[None, :, None], np.abs(x), x).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(logspace), pb, pa
+
+
+def _far_tail_case():
+    """test_far_tail_underflow_fallback's mixture, below and above."""
+    f = lambda a: torch.from_numpy(np.array(a, np.float32))
+    pre = TK.gmm_precompute(f([[0.5, 0.5, 0.0]]), f([[0.0, 0.1, 0.0]]), f([[0.01, 0.02, 1.0]]),
+                            f([-np.inf]), f([np.inf]))
+    pre_b = {k: pre[k] for k in G._PRE_KEYS}
+    pre_a = TK.gmm_precompute(f([[0.3, 0.7]]), f([[-0.05, 0.05]]), f([[0.015, 0.03]]),
+                              f([-np.inf]), f([np.inf]))
+    x = torch.linspace(1.0, 3.0, 16, dtype=torch.float32)[None, None]
+    return x, torch.zeros(1, dtype=torch.bool), pre_b, {k: pre_a[k] for k in G._PRE_KEYS}
+
+
+_EMU_CASES = [pytest.param(("shape", B, Dg, S, Ka), id=f"B{B}-Dg{Dg}-S{S}-Ka{Ka}")
+              for B, Dg, S, Ka in itertools.product((1, 3), (1, 6), (7, 128), (1, 40, 600))]
+_EMU_CASES += [pytest.param(("far_tail",), id="far_tail"),
+               pytest.param(("subnormal_band",), id="subnormal_band")]
+_K_LANES = sorted({g for g, _ in G.CONFIGS})
+
+
+@pytest.mark.parametrize("case", _EMU_CASES)
+def test_kernel_arithmetic_emulated_matches_plain(case):
+    """(d) the kernel's arithmetic at every split it is compiled for,
+    against the plain version at the kernel's stated tolerance."""
+    if case[0] == "shape":
+        x, ls, pb, pa = _shape_case(*case[1:])
+    elif case[0] == "far_tail":
+        x, ls, pb, pa = _far_tail_case()
+    else:
+        x, ls, pb, pa = subnormal_band_case()
+    want = G.gmm_llr_plain(x, ls, pb, pa)
+    assert torch.isfinite(want).all()
+    for g in _K_LANES:
+        got = _emulated_llr(x, ls, pb, pa, g)
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL, err_msg=f"k_lanes {g}")
+    if case[0] != "shape":
+        # the fixture reaches the far-tail pass, and without it the
+        # flushed exp would be wrong: by the fallback's gap, about log K
+        flushed = _emulated_llr(x, ls, pb, pa, 1, tail_pass=False)
+        gap = (flushed - want).abs().max()
+        assert gap > 1.0 if case[0] == "subnormal_band" else gap == 0.0
+
+
+@pytest.mark.parametrize("B,Dg,S", [(1, 12, 128), (64, 12, 128), (4096, 12, 128), (1, 1, 7),
+                                    (3, 1, 100)])
+def test_launch_config_fills_the_card(B, Dg, S):
+    """The split the wrapper picks on a 132-SM H100: the most candidates
+    per warp that still give each SM several blocks, and at the
+    sequential ask's shape (B=1) blocks on every SM."""
+    g, r = G.launch_config(B * S, Dg, 132)
+    assert (g, r) in G.CONFIGS
+    blocks = lambda g_, r_: -(-B * S // (32 // g_ * r_ * G._WARPS)) * Dg
+    if B * S * Dg >= 132 * G._WARPS:
+        assert blocks(g, r) >= 132
+    for fg, fr in G.CONFIGS:  # every split with more candidates per warp gives too few
+        if 32 // fg * fr > 32 // g * r:
+            assert blocks(fg, fr) < G._BLOCKS_PER_SM * 132

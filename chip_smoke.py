@@ -26,9 +26,23 @@ network.  Every phase asserts, and a failure exits non-zero:
    launch per TPE ask (980); then 20 more asks under ``torch.profiler``
    (host time, device busy time and idle share per ask);
 5. the port on CUDA against the port on the CPU, teacher-forced on the
-   phase-3 history: every disagreeing pick must be a near-tie.
+   phase-3 history: every disagreeing pick must be a near-tie;
+6. every other suggest path on the card, each with the launch counter set
+   to 0 just before it and read just after: (a) the fused sequential
+   driver (``partial(tpe.suggest, fused=True)`` on a resident
+   ``TorchTrials``, 1000 trials): its loss stream bitwise phase 4's, the
+   buffer's transfer counters as the reference counts them, the
+   ask-ahead hook still installed and every warm ask served by its
+   pre-dispatched draw, and a profiled window beside phase 4's;
+   (b) ``joint_ei`` at B=64, CUDA against CPU under the near-tie rule of
+   the joint score; (c) ``speculative=4``, one launch per warm k-wide
+   redraw; (d) ``anneal.suggest``, resident and not, bitwise equal and
+   launching nothing; (e) ``atpe.suggest``, one launch per warm ask, and
+   ``build_atpe_device_fn`` at B=64, CUDA against CPU; (f)
+   ``rand.suggest(speculative=4)``, one prior draw per four asks.
 
-The last lines are one JSON object per kernel (``{"kernels": [...]}``),
+The last lines are one JSON object per kernel (``{"kernels": [...]}``,
+with each path's launches under ``launches_by_path``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -328,6 +342,276 @@ def history_trials(domain, n, seed):
     return trials
 
 
+def pick_margins(vals, llr):
+    """[B, D, S] candidates -> [B, D]: the winning llr minus the best llr
+    of a candidate with another value (inf where all agree)."""
+    import numpy as np
+
+    best = llr.argmax(-1)
+    win_v = np.take_along_axis(vals, best[..., None], -1)
+    other = np.where(vals != win_v, llr, -np.inf).max(-1)
+    return np.take_along_axis(llr, best[..., None], -1)[..., 0] - other
+
+
+def sweep_margins(ps, state, key, gamma, prior_weight, n_cont, n_cat, batch):
+    """The port's own near-tie margin ``[D, B]`` of every factorized pick
+    of one ask (TPE's key tree from ``key``), computed where ``state``
+    lies -- on the CPU, as the judge of a CUDA pick."""
+    import numpy as np
+
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.ops import kernels as TK
+
+    fits = TK.fit_all_dims(ps.consts, *state, gamma, 25.0, prior_weight, pad_gamma=0.35,
+                           above_cap=TK.DEFAULT_ABOVE_CAP)
+    dc, dk = len(ps.cont_idx), len(ps.cat_idx)
+    keys = R.split(key, batch * (dc + dk))
+    cv, cl = TK.ei_sweep_cont_scores(ps.q, ps.consts, keys[: batch * dc].reshape(batch, dc, 2),
+                                     fits["cont"], n_cont)
+    kv, kl = TK.ei_sweep_cat_scores(keys[batch * dc:].reshape(batch, dk, 2), *fits["cat"], n_cat)
+    out = np.empty((ps.n_dims, batch))
+    out[ps.cont_idx] = pick_margins(cv.numpy(), cl.numpy()).T
+    out[ps.cat_idx] = pick_margins(kv.numpy(), kl.numpy()).T
+    return out
+
+
+def joint_scores(ps, state, key, n_cand, batch):
+    """The port's joint-EI score ``[B, S]`` of every configuration column
+    (``tpe.build_suggest_fn(joint_ei=True)``'s body, default settings)."""
+    import torch
+
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.ops import kernels as TK
+
+    c = ps.consts
+    fits = TK.fit_all_dims(c, *state, 0.25, 25.0, 1.0, above_cap=TK.DEFAULT_ABOVE_CAP)
+    dc, dk, D = len(ps.cont_idx), len(ps.cat_idx), ps.n_dims
+    keys = R.split(key, batch * (dc + dk))
+    cand = torch.zeros((batch, D, n_cand))
+    llrs = torch.zeros((batch, D, n_cand))
+    v, l = TK.ei_sweep_cont_scores(ps.q, c, keys[: batch * dc].reshape(batch, dc, 2),
+                                   fits["cont"], n_cand)
+    cand[:, c["cont_idx"]], llrs[:, c["cont_idx"]] = v, l
+    v, l = TK.ei_sweep_cat_scores(keys[batch * dc:].reshape(batch, dk, 2), *fits["cat"], n_cand)
+    cand[:, c["cat_idx"]], llrs[:, c["cat_idx"]] = v + c["int_low"][None, :, None], l
+    act = ps.active_fn(cand.transpose(0, 1).reshape(D, -1)).reshape(D, batch, n_cand)
+    return torch.sum(torch.where(act.transpose(0, 1), llrs, 0.0), dim=1).numpy()
+
+
+def ask_window(it, n, in_suggest, buf):
+    """Run ``n`` asks (and evaluations) of an FMinIter whose algo appends
+    its own time to ``in_suggest``: the host ms per ask, the ms of it in
+    the algo, and the bytes ``buf`` moved to the card per ask."""
+    import torch
+
+    in_suggest.clear()
+    b0, t0 = buf.transfer_bytes_total, time.perf_counter()
+    it.run(n)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / n * 1e3, sum(in_suggest) / n * 1e3,
+            (buf.transfer_bytes_total - b0) / n)
+
+
+def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
+    """Drive every suggest path besides phase 4's on the card; returns the
+    kernel launches of each, counted from 0 just before it.
+    ``plain_window()`` runs 20 more of phase 4's asks (:func:`ask_window`),
+    to time the fused ask in turns with the plain one."""
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.fmin import FMinIter
+    from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.ops import kernels as TK
+    from hyperopt_tpu_torch.torch_trials import obs_buffer_for, packed_space_for
+
+    launches = {}
+
+    def run(algo, n, seed=0, trials=None):
+        """One sequential fmin on the card with its own Domain; the kernel
+        launches it made, its iterator and its trials."""
+        trials = H.Trials() if trials is None else trials
+        it = FMinIter(algo, H.Domain(mixed_space_fn, mixed_space(), device="cuda"), trials,
+                      rstate=np.random.default_rng(seed), max_evals=n)
+        G.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        it.exhaust()
+        torch.cuda.synchronize()
+        return G.KERNEL.launches, it, trials, time.perf_counter() - t0
+
+    # -- 6a. the fused sequential driver, 1000 trials ----------------------
+    n_trials, n_startup = 1000, 20
+    fused = H.partial(H.tpe.suggest, fused=True)
+    n, it, ftrials, wall = run(fused, n_trials, trials=H.TorchTrials(resident=True))
+    launches["fmin_fused"] = n
+    (buf,) = ftrials._buffers.values()
+    D = buf.space.n_dims
+    # one full upload per bucket (128, 256, 512, then 2048 past the 512
+    # compaction cap); every warm tell a delta but the three that a bucket
+    # change folds into its upload
+    buckets = (128, 256, 512, 2048)
+    n_deltas = n_trials - n_startup - (len(buckets) - 1)
+    want_bytes = sum(buckets) * (5 * D + 5) + n_deltas * (5 * D + 8)
+    log(f"[6a] fused fmin {n_trials} trials: wall {wall:.2f} s ({wall / n_trials * 1e3:.2f} ms "
+        f"per trial), kernel launches {n}, best loss {min(ftrials.losses()):.6f}; buffer: "
+        f"{buf.full_uploads} full uploads, {buf.delta_tells} delta tells, "
+        f"{buf.dispatch_count} dispatches, {buf.transfer_bytes_total} bytes "
+        f"({buf.transfer_bytes_total / (n_trials - n_startup):.1f} per warm ask)")
+    assert ftrials.losses() == plain_losses, "the fused stream is not phase 4's"
+    # 980 asks, and the pre-dispatch after the last result (the reference's
+    # driver makes it too: 61 dispatches for 60 trials)
+    assert n == n_trials - n_startup + 1, n
+    assert (buf.full_uploads, buf.delta_tells, buf.dispatch_count) == (
+        len(buckets), n_deltas, n_trials + 1), (buf.full_uploads, buf.delta_tells)
+    assert buf.transfer_bytes_total == want_bytes, (buf.transfer_bytes_total, want_bytes)
+    st = it.domain._ask_ahead_state
+    assert it.domain._ask_ahead_hook is not None, "the ask-ahead hook was removed"
+    assert st["taken"] == n_trials - 1, st["taken"]  # every ask after the first
+    # where an ask's time goes, as phase 4 measures it
+    in_suggest = []
+
+    def timed_fused(*args):
+        t = time.perf_counter()
+        docs = fused(*args)
+        in_suggest.append(time.perf_counter() - t)
+        return docs
+
+    pit = FMinIter(timed_fused, H.Domain(mixed_space_fn, mixed_space(), device="cuda"),
+                   ftrials, rstate=np.random.default_rng(1))
+    pit.run(3)
+    (pbuf,) = [b for b in ftrials._buffers.values() if b is not buf]  # pit's own space
+    hook, in_hook = pit.domain._ask_ahead_hook, []
+
+    def timed_hook(trials, seed):  # the hook enqueues the fused tell+ask
+        t = time.perf_counter()
+        hook(trials, seed)
+        in_hook.append(time.perf_counter() - t)
+
+    pit.domain._ask_ahead_hook = timed_hook
+    # 20-ask windows in turns with phase 4's plain asks, on the same card
+    turns = [(name, *(plain_window() if name == "plain" else
+                      ask_window(pit, 20, in_suggest, pbuf)))
+             for name in ("plain", "fused", "fused", "plain", "plain", "fused")]
+    median = {name: statistics.median(a for n_, a, _, _ in turns if n_ == name)
+              for name in ("plain", "fused")}
+    log("[6a] 20-ask windows in turns at about 1000 obs, (ms per ask and evaluation, ms in "
+        "tpe.suggest, bytes moved per ask): " + "; ".join(
+            f"{name} ({a:.3f}, {b:.3f}, {c:.1f})" for name, a, b, c in turns)
+        + f"; median ms per ask: plain {median['plain']:.3f}, fused {median['fused']:.3f}; "
+        f"the fused asks' hook took {sum(in_hook) / len(in_hook) * 1e3:.3f} ms per ask")
+    pit.domain._ask_ahead_hook = hook
+    ask_ms = median["fused"]
+    prof = profile_asks(pit, 20)
+    log(f"[6a] fused asks: the ask's work runs in the ask-ahead hook after the tell, "
+        f"tpe.suggest only fetches the draw; "
+        f"20 more under torch.profiler: {prof['wall_ms']:.3f} ms per ask, device busy "
+        f"{prof['busy_ms']:.3f} ms per ask (idle share {1.0 - prof['busy_ms'] / ask_ms:.4f} "
+        f"of the unprofiled ask), {prof['kernels_per_ask']:.1f} device kernels per ask, "
+        f"gmm_llr_kernel {prof['llr_ms']:.4f} ms per ask; top device time per ask: "
+        + ", ".join(f"{name} {ms:.4f} ms" for name, ms in prof["top"]))
+    ops = count_ops(lambda: pit.run(5))
+    log(f"[6a] PyTorch operations per fused ask: {sum(ops.values()) / 5:.1f}; by module: "
+        + ", ".join(f"{m} {c / 5:.1f}" for m, c in ops.most_common()))
+
+    # -- 6b. joint EI at B=64 on the phase-3 history -----------------------
+    batch = 64
+    G.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    for i in range(5):
+        H.tpe.suggest_batch(list(range(500, 500 + batch)), domain, hist_trials, 40 + i,
+                            joint_ei=True)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 5
+    launches["joint_b64"] = G.KERNEL.launches
+    assert G.KERNEL.launches == 5, G.KERNEL.launches
+    picks = {}
+    for name, d in (("cuda", domain), ("cpu", cpu_domain)):
+        ps = packed_space_for(d)
+        state = obs_buffer_for(d, hist_trials).device_arrays(pow2_cap=TK.DEFAULT_ABOVE_CAP)
+        fn = H.tpe.build_suggest_fn(ps, 128, 0.25, 25, 1.0, joint_ei=True)
+        v, a = fn(R.key(2024, device=ps.device), *state, batch)
+        picks[name] = (v.cpu().numpy(), a.cpu().numpy())
+    ps = packed_space_for(cpu_domain)
+    state = obs_buffer_for(cpu_domain, hist_trials).device_arrays(pow2_cap=TK.DEFAULT_ABOVE_CAP)
+    joint = joint_scores(ps, state, R.key(2024), 128, batch)
+    (gv, ga), (cv, ca) = picks["cuda"], picks["cpu"]
+    same = np.all(np.isclose(gv, cv, rtol=1e-4, atol=1e-5), axis=0)
+    top2 = np.sort(joint, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    bad = int((~same & (margin >= NEAR_TIE)).sum())
+    log(f"[6b] joint_ei suggest_batch B={batch} on 500 obs: {dt * 1e3:.2f} ms per call "
+        f"({batch / dt:.1f} suggestions/s), {launches['joint_b64']} kernel launches in 5 calls; "
+        f"CUDA vs CPU: {int(same.sum())} of {batch} columns equal, {int((~same).sum())} "
+        f"differ, {bad} not near-ties (joint margin >= {NEAR_TIE})")
+    assert bad == 0 and np.array_equal(ga[:, same], ca[:, same])
+
+    # -- 6c. speculative=4, 200 trials -------------------------------------
+    k = 4
+    n, it, strials, wall = run(H.partial(H.tpe.suggest, speculative=k), 200)
+    launches["speculative"] = n
+    dispatches = obs_buffer_for(it.domain, strials).dispatch_count
+    warm_draws = dispatches - n_startup // k  # the startup draws are the prior's
+    log(f"[6c] speculative={k} fmin 200 trials: wall {wall:.2f} s, {dispatches} draws "
+        f"({warm_draws} warm), kernel launches {n}, best loss {min(strials.losses()):.6f}")
+    assert n == warm_draws == (200 - n_startup) // k, (n, warm_draws)
+
+    # -- 6d. annealing, resident and not -----------------------------------
+    streams = {}
+    for resident in (None, True):
+        n, it, atrials, wall = run(H.partial(H.anneal.suggest, resident=resident), 300, seed=3)
+        launches["anneal" + ("_resident" if resident else "")] = n
+        streams[resident] = atrials.losses()
+        log(f"[6d] anneal fmin 300 trials (resident={resident}): wall {wall:.2f} s, "
+            f"best loss {min(atrials.losses()):.6f}, kernel launches {n}")
+        assert n == 0, n
+    assert streams[None] == streams[True], "the resident anneal stream differs"
+    ops = count_ops(lambda: it.run(5))
+    log(f"[6d] PyTorch operations per anneal ask: {sum(ops.values()) / 5:.1f}; by module: "
+        + ", ".join(f"{m} {c / 5:.1f}" for m, c in ops.most_common()))
+
+    # -- 6e. ATPE: the sequential driver, and the device fn at B=64 --------
+    n, it, ttrials, wall = run(H.atpe.suggest, 300, seed=4)
+    launches["atpe"] = n
+    log(f"[6e] atpe fmin 300 trials: wall {wall:.2f} s ({wall / 300 * 1e3:.2f} ms per trial), "
+        f"best loss {min(ttrials.losses()):.6f}, kernel launches {n}")
+    assert n == 300 - n_startup, n
+    picks = {}
+    for name, d in (("cuda", domain), ("cpu", cpu_domain)):
+        ps = packed_space_for(d)
+        state = obs_buffer_for(d, hist_trials).device_arrays(pow2_cap=TK.DEFAULT_ABOVE_CAP)
+        fn = H.atpe.build_atpe_device_fn(ps, 25.0)
+        v, a = fn(R.key(77, device=ps.device), *state, batch)
+        g, pw, *_ = fn.settings(state.losses, state.valid)
+        picks[name] = (v.cpu().numpy(), a.cpu().numpy(), float(g), float(pw))
+    (gv, ga, gg, gpw), (cv, ca, cg, cpw) = picks["cuda"], picks["cpu"]
+    assert (gg, gpw) == (cg, cpw), ((gg, gpw), (cg, cpw))
+    ps = packed_space_for(cpu_domain)
+    state = obs_buffer_for(cpu_domain, hist_trials).device_arrays(pow2_cap=TK.DEFAULT_ABOVE_CAP)
+    margins = sweep_margins(ps, state, R.split(R.key(77), 3)[0], torch.tensor(cg),
+                            torch.tensor(cpw), 256, 24, batch)
+    cat = np.zeros(ps.n_dims, bool)
+    cat[ps.cat_idx] = True
+    same = np.where(cat[:, None], gv == cv, np.isclose(gv, cv, rtol=1e-4, atol=1e-5))
+    bad = int((~same & (margins >= NEAR_TIE)).sum())
+    log(f"[6e] build_atpe_device_fn B={batch} on 500 obs (gamma {cg}, prior weight {cpw}): "
+        f"CUDA vs CPU picks agree {same.mean():.6f}, {int((~same).sum())} differ, {bad} not "
+        f"near-ties (margin >= {NEAR_TIE})")
+    assert bad == 0 and np.array_equal(ga, ca)
+
+    # -- 6f. random search, speculative=4 ----------------------------------
+    n, it, rtrials, wall = run(H.partial(H.rand.suggest, speculative=k), 100)
+    launches["rand"] = n
+    draws = it.domain._rand_draws
+    log(f"[6f] rand speculative={k} fmin 100 trials: wall {wall:.2f} s, {draws} prior draws, "
+        f"kernel launches {n}")
+    assert draws == 100 // k and n == 0, (draws, n)
+    assert all(np.all(np.isfinite(t.losses())) for t in (ftrials, strials, ttrials, rtrials))
+    return launches
+
+
 def main():
     import torch
 
@@ -490,15 +774,12 @@ def main():
     it = FMinIter(timed_suggest, H.Domain(mixed_space_fn, mixed_space(), device="cuda"),
                   fmin_trials, rstate=np.random.default_rng(1))
     it.run(3)  # warm-up: compile the space, sync the buffer
-    in_suggest.clear()
-    t0 = time.perf_counter()
-    it.run(20)
-    torch.cuda.synchronize()
-    ask_ms = (time.perf_counter() - t0) / 20 * 1e3
-    suggest_ms = sum(in_suggest) / 20 * 1e3
+    plain_buf = it.domain._torch_obs_buffer[1]
+    ask_ms, suggest_ms, plain_bytes_per_ask = ask_window(it, 20, in_suggest, plain_buf)
     prof = profile_asks(it, 20)
     log(f"[4] 20 asks at {len(fmin_trials.trials) - 40} obs: {ask_ms:.3f} ms per ask "
-        f"and evaluation, {suggest_ms:.3f} ms of it in tpe.suggest; "
+        f"and evaluation, {suggest_ms:.3f} ms of it in tpe.suggest, "
+        f"{plain_bytes_per_ask:.1f} bytes moved per ask; "
         f"20 more under torch.profiler: {prof['wall_ms']:.3f} ms per ask, "
         f"device busy {prof['busy_ms']:.3f} ms per ask (idle share "
         f"{1.0 - prof['busy_ms'] / ask_ms:.4f} of the unprofiled ask), "
@@ -549,6 +830,11 @@ def main():
         f"{(~cont_same).sum() + (~cat_same).sum()} disagreements, {bad} not near-ties "
         f"(margin >= {NEAR_TIE})")
     assert bad == 0, "CUDA and CPU disagree beyond near-ties"
+
+    # -- 6. every other suggest path on the card ---------------------------
+    launches_by_path = {"fmin": main_launches}
+    launches_by_path.update(phase6(domain, cpu_domain, trials, losses,
+                                   lambda: ask_window(it, 20, in_suggest, plain_buf)))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     main = results["fmin"]  # the shape of the main path's asks
@@ -565,6 +851,7 @@ def main():
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": None,
+        "launches_by_path": launches_by_path,
         "sass_per_term": sass_per_term.get(picked),
         "shapes": {name: {"B": r["B"], "k_lanes": r["config"][0], "rows": r["config"][1],
                           "ms": r["ms"], "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],

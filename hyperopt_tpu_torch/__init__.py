@@ -6,9 +6,13 @@ against it by tests that run both on the same inputs.  It imports
 entry points compute on the card unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.
 
-This slice ports the sequential TPE driver: ``fmin(fn, space,
-algo=tpe.suggest)`` with the EI scoring of continuous candidates in a
-hand-written Hopper kernel (:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
+Ported: the sequential driver ``fmin`` with its stopping rules and its
+ask-ahead seam, and the device algorithms at its plugin seam --
+``tpe.suggest`` (every mode: joint EI, speculative draws, the resident
+history with O(D) delta tells, fused tell+ask with ask-ahead),
+``rand.suggest``, ``anneal.suggest`` and ``atpe.suggest``.  The EI
+scoring of continuous candidates runs in a hand-written Hopper kernel
+(:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
 """
 
 import torch
@@ -18,8 +22,10 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import hp, tpe  # noqa: E402
+from . import anneal, atpe, hp, rand, tpe  # noqa: E402
 from .base import STATUS_OK, Domain, Trials  # noqa: E402
-from .fmin import fmin  # noqa: E402
+from .fmin import fmin, partial  # noqa: E402
+from .torch_trials import TorchTrials  # noqa: E402
 
-__all__ = ["Domain", "STATUS_OK", "Trials", "fmin", "hp", "tpe"]
+__all__ = ["Domain", "STATUS_OK", "TorchTrials", "Trials", "anneal", "atpe", "fmin", "hp",
+           "partial", "rand", "tpe"]

@@ -2,11 +2,15 @@
 
 The counterpart of :mod:`hyperopt_tpu.fmin`, trimmed to the sequential
 path: ask the algo for new trial docs at the plugin seam, evaluate them
-in order (``serial_evaluate``), stop at ``max_evals``, and return the
-argmin config.  The seed draw takes the same ``rstate`` draws as the
-reference's driver, so equal ``rstate``s hand the algo equal seeds.  The
-engine, client, compiled, checkpoint/WAL, timeout and progress-bar
-branches of the reference are later work.
+in order (``serial_evaluate``), stop at ``max_evals``, ``timeout``,
+``loss_threshold`` or ``early_stop_fn``, and return the argmin config.
+The seed draw takes the same ``rstate`` draws as the reference's driver,
+so equal ``rstate``s hand the algo equal seeds, with or without the
+ask-ahead hook (``_notify_result``/``_take_seed``) that
+``tpe.suggest(fused=True)`` installs.  The progress bar, per-trial
+containment (``trial_timeout``, ``catch``), checkpoints and the WAL,
+the engine and the compiled loop are later work and raise
+``NotImplementedError``.
 
 One addition: ``device`` (None = the card) is stored on the ``Domain``,
 where the port's suggest path reads it.
@@ -14,7 +18,9 @@ where the port's suggest path reads it.
 
 from __future__ import annotations
 
+import functools
 import logging
+import timeit
 import traceback
 
 import numpy as np
@@ -35,11 +41,18 @@ from .utils import coarse_utcnow
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["fmin", "FMinIter", "StopExperiment"]
+__all__ = ["fmin", "FMinIter", "StopExperiment", "partial"]
 
 
 class StopExperiment:
     """Sentinel an algo may return instead of new trials to halt fmin."""
+
+
+def partial(fn, **kwargs):
+    """``functools.partial`` that keeps the wrapped algo's attributes."""
+    rval = functools.partial(fn, **kwargs)
+    functools.update_wrapper(rval, fn, updated=[])
+    return rval
 
 
 class FMinIter:
@@ -48,7 +61,8 @@ class FMinIter:
     catch_eval_exceptions = False
 
     def __init__(self, algo, domain, trials, rstate, max_queue_len=1,
-                 max_evals=float("inf")):
+                 max_evals=float("inf"), timeout=None, loss_threshold=None,
+                 early_stop_fn=None):
         if trials.asynchronous:
             raise NotImplementedError(
                 "the port's fmin drives sequential Trials stores only"
@@ -59,12 +73,75 @@ class FMinIter:
         self.rstate = rstate
         self.max_queue_len = max_queue_len
         self.max_evals = max_evals
+        self.timeout = timeout
+        self.loss_threshold = loss_threshold
+        self.early_stop_fn = early_stop_fn
+        self.early_stop_args = []
+        self.start_time = timeit.default_timer()
+        # ask-ahead seam: the seed pre-drawn for the NEXT ask, so that an
+        # algo's result hook can pre-dispatch it (see _notify_result)
+        self._ask_ahead_seed = None
 
     def _draw_seed(self):
         # works for both np.random.Generator and legacy RandomState
         if hasattr(self.rstate, "integers"):
             return int(self.rstate.integers(2**31 - 1))
         return int(self.rstate.randint(2**31 - 1))
+
+    def _take_seed(self):
+        """The next ask's seed: the one pre-drawn for the ask-ahead hook
+        if a result notification drew it, else a fresh draw.  One seed
+        per ask either way, so the stream is the same with and without
+        a hook."""
+        seed = self._ask_ahead_seed
+        if seed is not None:
+            self._ask_ahead_seed = None
+            return seed
+        return self._draw_seed()
+
+    def _notify_result(self):
+        """Right after a result is recorded, hand the algo's registered
+        hook (``domain._ask_ahead_hook``, installed by
+        ``tpe.suggest(fused=True)``) the next ask's seed, pre-drawn from
+        the same rstate stream, so it can enqueue that ask.  A failing
+        hook is logged and removed: ask-ahead is an optimization, never a
+        correctness dependency."""
+        hook = getattr(self.domain, "_ask_ahead_hook", None)
+        if hook is None:
+            return
+        if self._ask_ahead_seed is None:
+            self._ask_ahead_seed = self._draw_seed()
+        try:
+            hook(self.trials, self._ask_ahead_seed)
+        except Exception:
+            logger.exception("ask-ahead hook failed; continuing with plain asks")
+            self.domain._ask_ahead_hook = None
+
+    # -- stopping rules ----------------------------------------------------
+    def _timed_out(self):
+        return (
+            self.timeout is not None
+            and timeit.default_timer() - self.start_time >= self.timeout
+        )
+
+    def _loss_reached(self):
+        if self.loss_threshold is None:
+            return False
+        try:
+            best = self.trials.best_trial["result"]["loss"]
+        except AllTrialsFailed:
+            return False
+        return best <= self.loss_threshold
+
+    def _early_stopped(self):
+        if self.early_stop_fn is None or len(self.trials.trials) == 0:
+            return False
+        stop, kwargs = self.early_stop_fn(self.trials, *self.early_stop_args)
+        self.early_stop_args = kwargs
+        return bool(stop)
+
+    def should_stop(self):
+        return self._timed_out() or self._loss_reached() or self._early_stopped()
 
     def _evaluate_trial(self, trial):
         """Evaluate ONE queued trial doc in place."""
@@ -88,6 +165,7 @@ class FMinIter:
         trial["state"] = JOB_STATE_DONE
         trial["result"] = base.SONify(result)
         trial["refresh_time"] = coarse_utcnow()
+        self._notify_result()
 
     def serial_evaluate(self, N=-1):
         for trial in self.trials._dynamic_trials:
@@ -108,9 +186,12 @@ class FMinIter:
             qlen = trials.count_by_state_unsynced(JOB_STATE_NEW)
             while qlen < self.max_queue_len and n_queued < N:
                 n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
+                if self.should_stop():
+                    stopped = True
+                    break
                 new_ids = trials.new_trial_ids(n_to_enqueue)
                 trials.refresh()
-                new_trials = self.algo(new_ids, self.domain, trials, self._draw_seed())
+                new_trials = self.algo(new_ids, self.domain, trials, self._take_seed())
                 if new_trials is StopExperiment or not new_trials:
                     stopped = True
                     break
@@ -143,28 +224,69 @@ def _fmin_result(trials, return_argmin):
     return None
 
 
+def _validate_stopping(timeout, loss_threshold):
+    if timeout is not None and (not isinstance(timeout, (int, float)) or timeout <= 0):
+        raise ValueError(
+            f"The timeout argument should be None or a positive value. Given value: {timeout}"
+        )
+    if loss_threshold is not None and not isinstance(loss_threshold, (int, float)):
+        raise ValueError(
+            "The loss_threshold argument should be None or a numeric value. "
+            f"Given value: {loss_threshold}"
+        )
+
+
 def fmin(
     fn,
     space,
     algo=None,
     max_evals=None,
+    timeout=None,
+    loss_threshold=None,
     trials=None,
     rstate=None,
     pass_expr_memo_ctrl=None,
     catch_eval_exceptions=False,
     return_argmin=True,
     max_queue_len=1,
+    early_stop_fn=None,
     device=None,
+    show_progressbar=False,
+    trials_save_file="",
+    resume_from=None,
+    trial_timeout=None,
+    catch=(),
+    compiled=False,
+    engine=None,
+    ask_ahead=None,
 ):
     """Minimize ``fn`` over ``space`` with ``algo`` (default: the port's
     ``tpe.suggest``), sequentially.
 
     ``rstate`` is a ``np.random.Generator`` (or an int seed): one
     ``integers(2**31 - 1)`` draw per ask, as the reference draws.
+    The run stops at ``max_evals`` trials, after ``timeout`` seconds,
+    once the best loss is at most ``loss_threshold``, or when
+    ``early_stop_fn(trials, *args) -> (stop, args)`` says so (for example
+    :func:`hyperopt_tpu_torch.early_stop.no_progress_loss`).
     ``device`` (None = the card, ``"cpu"`` to opt in to the CPU) is where
     the suggest path computes; without CUDA and without ``device="cpu"``
-    this raises rather than falling back.
+    this raises rather than falling back.  The reference's progress bar,
+    ``trial_timeout``/``catch``, checkpoints (``trials_save_file``,
+    ``resume_from``), ``compiled`` and ``engine``/``ask_ahead`` are not
+    ported: setting one raises ``NotImplementedError``.
     """
+    unported = [
+        name for name, v in (
+            ("show_progressbar", show_progressbar), ("trials_save_file", trials_save_file),
+            ("resume_from", resume_from), ("trial_timeout", trial_timeout),
+            ("catch", catch), ("compiled", compiled), ("engine", engine),
+            ("ask_ahead", ask_ahead),
+        ) if v
+    ]
+    if unported:
+        raise NotImplementedError(f"fmin: {unported} not ported yet")
+    _validate_stopping(timeout, loss_threshold)
     if algo is None:
         from . import tpe
 
@@ -185,7 +307,9 @@ def fmin(
     domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl,
                     device=device)
     rval = FMinIter(algo, domain, trials, rstate=rstate,
-                    max_queue_len=max_queue_len, max_evals=max_evals)
+                    max_queue_len=max_queue_len, max_evals=max_evals,
+                    timeout=timeout, loss_threshold=loss_threshold,
+                    early_stop_fn=early_stop_fn)
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()
     return _fmin_result(trials, return_argmin)

@@ -222,10 +222,11 @@ class PackedSpace:
             bounded = torch.isfinite(low)
             u = R.uniform(ku, (Dc, n))
             z = R.normal(kz, (Dc, n))
+            # the multiply-adds contracted as XLA contracts them
             lat = torch.where(
                 bounded,
-                low + u * (high - low),
-                c["prior_mu"][:, None] + c["prior_sigma"][:, None] * z,
+                R._fma(u, high - low, low),
+                R._fma(c["prior_sigma"][:, None], z, c["prior_mu"][:, None]),
             )
             logspace = c["logspace"][:, None]
             nat = torch.where(logspace, torch.exp(lat), lat)

@@ -1,7 +1,9 @@
 """TPE math of the PyTorch port, as batched tensor ops.
 
-The counterpart of :mod:`hyperopt_tpu.ops.kernels` for the factorized
-suggest path.  Names and argument order are the reference's; where the
+The counterpart of :mod:`hyperopt_tpu.ops.kernels`: the O(D) delta tells
+of the resident history, the fits, the draws and the EI sweeps of the
+factorized and the joint suggest paths.  Names and argument order are
+the reference's; where the
 reference maps a per-dimension function with ``vmap``, the port's
 function takes explicit leading batch dimensions instead (``[..., N]``
 buffers with one row per dimension, ``[...]`` per-row scalars).
@@ -35,13 +37,19 @@ from .gmm_scores import gmm_llr, gmm_logpdf_cont_pre
 __all__ = [
     "DEFAULT_ABOVE_CAP",
     "HistoryState",
+    "apply_delta",
+    "apply_delta_masked",
     "categorical_fit",
     "check_prior_weight",
     "compact_below",
     "compact_gmm",
     "ei_best_cat",
+    "ei_scores_cat",
     "ei_sweep_cat",
+    "ei_sweep_cat_scores",
     "ei_sweep_cont",
+    "ei_sweep_cont_candidates",
+    "ei_sweep_cont_scores",
     "fit_all_dims",
     "forgetting_weights",
     "gmm_logpdf_cont_pre",
@@ -69,6 +77,51 @@ class HistoryState(NamedTuple):
     active: torch.Tensor  # [D, cap] per-dim activity mask
     losses: torch.Tensor  # [cap]
     valid: torch.Tensor  # [cap] slot occupancy
+
+
+def _on(x, like):
+    """A delta's host column (numpy or tensor) as ``like``'s dtype and device."""
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def apply_delta(values, active, losses, valid, vcol, acol, loss, idx):
+    """Stage one completed trial into the history: an O(D) delta tell.
+
+    Writes the value/active column ``vcol``/``acol`` ``[D]`` and the loss
+    into slot ``idx`` and marks the slot occupied, IN PLACE on the four
+    tensors (the reference donates them to an XLA update instead); returns
+    them as a :class:`HistoryState`.  ``idx`` is a host int (no device
+    sync) or an index tensor.  The write is pure data movement, so the
+    state is bitwise what a fresh upload of the same host arrays gives.
+    Only in-order appends come through here: ``valid`` is a prefix mask.
+    """
+    values[:, idx] = _on(vcol, values)
+    active[:, idx] = _on(acol, active)
+    losses[idx] = loss if torch.is_tensor(loss) else float(loss)  # a fill, no copy
+    valid[idx] = True
+    return HistoryState(values, active, losses, valid)
+
+
+def apply_delta_masked(values, active, losses, valid, vcol, acol, loss,
+                       idx, apply):
+    """:func:`apply_delta` gated by a device flag ``apply`` (bool, 0-dim):
+    where it is true the slot takes the delta, where false it keeps its
+    bits -- one launch sequence for every tell/no-tell mix, no sync."""
+    apply = torch.as_tensor(apply, dtype=torch.bool, device=values.device)
+    values[:, idx] = torch.where(apply, _on(vcol, values), values[:, idx])
+    active[:, idx] = torch.where(apply, _on(acol, active), active[:, idx])
+    losses[idx] = torch.where(apply, _on(loss, losses), losses[idx])
+    valid[idx] = valid[idx] | apply
+    return HistoryState(values, active, losses, valid)
+
+
+def _per_row(x, n, device):
+    """A per-step scalar as an ``[n]`` float32 vector: a Python number
+    fills, a 0-dim tensor (a traced adaptive setting) is expanded as is,
+    so no device->host sync is forced."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.float32).expand(n)
+    return torch.full((n,), x, dtype=torch.float32, device=device)
 
 
 def check_prior_weight(prior_weight):
@@ -289,7 +342,7 @@ def fit_all_dims(ps_consts, values, active, losses, valid, gamma, lf,
         obs_c = values[cont_idx]
         lat = torch.where(ps_consts["logspace"][:, None], _safe_log(obs_c), obs_c)
         act_c = active[cont_idx]
-        pw_v = torch.full((dc,), prior_weight, dtype=torch.float32, device=dev)
+        pw_v = _per_row(prior_weight, dc, dev)
         lf_v = torch.full((dc,), lf, dtype=torch.float32, device=dev)
         lat_b, mask_b = compact_below(lat, act_c & below[None, :], lf_pad)
         wb, mb, sb = parzen_fit(
@@ -311,7 +364,7 @@ def fit_all_dims(ps_consts, values, active, losses, valid, gamma, lf,
     if dk:
         obs_k = values[cat_idx] - ps_consts["int_low"][:, None]
         act_k = active[cat_idx]
-        pw_v = torch.full((dk,), prior_weight, dtype=torch.float32, device=dev)
+        pw_v = _per_row(prior_weight, dk, dev)
         lf_v = torch.full((dk,), lf, dtype=torch.float32, device=dev)
         obs_kb, mask_kb = compact_below(obs_k, act_k & below[None, :], lf_pad)
         pb = categorical_fit(obs_kb, mask_kb, ps_consts["prior_p"], pw_v, lf_v)
@@ -454,6 +507,30 @@ def ei_sweep_cat(cat_keys, pb, pa, n_cand):
     return ei_best_cat(cat_keys, pb, pa, n_cand)
 
 
+def ei_scores_cat(key, p_below, p_above, n_cand):
+    """Categorical dims, per-candidate form for the joint-EI path: draw
+    ``n_cand`` categories per key from the below posteriors and return
+    (category indices ``[..., S]`` as floats, llr ``[..., S]``).  The
+    reference contracts the one-hot pick against an (index, llr) table;
+    the pick is one-hot, so a gather gives the same bits."""
+    u = R.uniform(key, (n_cand,))
+    onehot = _inverse_cdf_onehot(u, torch.cumsum(torch.clamp(p_below, min=0.0), dim=-1))
+    comp = torch.argmax(onehot, dim=-1)  # exactly one hit per sample
+    # zero-weight options are never drawn; 0 keeps the table finite.  The
+    # logs are XLA's (R._log), so the joint score's categorical terms are
+    # the reference's bits
+    log = lambda p: R._log(torch.clamp(p, min=F32_TINY))  # noqa: E731
+    llr_k = torch.where(p_below > 0, log(p_below) - log(p_above), 0.0)
+    llr = torch.gather(llr_k.expand(comp.shape[:-1] + llr_k.shape[-1:]), -1, comp)
+    return comp.to(torch.float32), llr
+
+
+def ei_sweep_cat_scores(cat_keys, pb, pa, n_cand):
+    """Per-candidate form of :func:`ei_sweep_cat` for the joint-EI path:
+    (vals, llrs) each ``[B, Dk, S]``."""
+    return ei_scores_cat(cat_keys, pb, pa, n_cand)
+
+
 def ei_sweep_cont_candidates(q_np, consts, cont_keys, fit_arrays, n_cand):
     """Every continuous candidate and its EI log-likelihood ratio.
 
@@ -487,6 +564,11 @@ def ei_sweep_cont_candidates(q_np, consts, cont_keys, fit_arrays, n_cand):
         else:
             llr[:, idx] = gmm_llr(x.contiguous(), logspace[idx], grp_b, grp_a)
     return samples, llr
+
+
+#: the reference's name for the per-candidate continuous sweep of the
+#: joint-EI path: (vals, llrs) each ``[B, Dc, S]``
+ei_sweep_cont_scores = ei_sweep_cont_candidates
 
 
 def ei_sweep_cont(q_np, consts, cont_keys, fit_arrays, n_cand):

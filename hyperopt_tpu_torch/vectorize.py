@@ -1,11 +1,50 @@
-"""Dense -> sparse ``idxs/vals`` bridge at the API boundary (the port's
-copy of :func:`hyperopt_tpu.vectorize.dense_to_idxs_vals`)."""
+"""Host sampling of one space and the dense -> sparse ``idxs/vals``
+bridge at the API boundary: the port's copy of
+:class:`hyperopt_tpu.vectorize.VectorizeHelper` (the pyll sampler ATPE's
+restarts draw from) and :func:`hyperopt_tpu.vectorize.dense_to_idxs_vals`."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["dense_to_idxs_vals"]
+from .pyll.base import Literal, as_apply, clone, dfs, rec_eval
+from .pyll.stochastic import STOCHASTIC_NAMES, ensure_rng
+from .pyll_utils import expr_to_config
+
+__all__ = ["VectorizeHelper", "dense_to_idxs_vals"]
+
+
+class VectorizeHelper:
+    """Samples trials from an hp-annotated space on the host, one
+    ``rec_eval`` per trial with lazy ``switch``, so only the labels active
+    on a trial's ``hp.choice`` branch are drawn."""
+
+    def __init__(self, expr):
+        self.expr = as_apply(expr)
+        self.hps = expr_to_config(self.expr)
+        self.labels = sorted(self.hps)
+        # clone once; a trial's rng goes in by swapping one Literal's payload
+        self._rng_literal = Literal(None)
+        self._sampling_expr = clone(self.expr)
+        for node in dfs(self._sampling_expr):
+            if node.name in STOCHASTIC_NAMES:
+                named = dict(node.named_args)
+                if "rng" not in named:
+                    node.named_args.append(("rng", self._rng_literal))
+                    node.named_args.sort()
+
+    def sample_one(self, rng):
+        """Draw one trial's config: {label: raw value} for the active
+        labels only."""
+        self._rng_literal._obj = ensure_rng(rng)
+        vals = {}
+
+        def observer(node, value):
+            if node.name == "hyperopt_param":
+                vals[node.pos_args[0].obj] = value
+
+        rec_eval(self._sampling_expr, observer=observer)
+        return vals
 
 
 def dense_to_idxs_vals(new_ids, labels, values, active):

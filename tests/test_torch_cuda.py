@@ -149,3 +149,56 @@ def test_cuda_fmin_runs_through_the_kernel(cuda):
            trials=trials, rstate=np.random.default_rng(0))
     assert len(trials.trials) == 30
     assert G.KERNEL.launches == 10
+
+
+@pytest.mark.cuda
+def test_cuda_fused_stream_equals_plain(cuda):
+    """100 trials on the card: the fused ask-ahead driver over a resident
+    TorchTrials gives the plain driver's loss stream bit for bit, with
+    one more launch (the pre-dispatch after the last result)."""
+    runs = {}
+    for name, algo, trials in (("plain", tpe.suggest, H.Trials()),
+                               ("fused", H.partial(tpe.suggest, fused=True),
+                                H.TorchTrials(resident=True))):
+        G.KERNEL.launches = 0
+        H.fmin(mixed_space_fn, mixed_space(), algo=algo, max_evals=100, trials=trials,
+               rstate=np.random.default_rng(0))
+        runs[name] = (trials.losses(), G.KERNEL.launches)
+    assert runs["fused"][0] == runs["plain"][0]
+    assert (runs["plain"][1], runs["fused"][1]) == (80, 81)
+
+
+@pytest.mark.cuda
+def test_cuda_atpe_device_fn_matches_cpu(cuda):
+    """``build_atpe_device_fn`` at B=64 on a 500-obs history: the same
+    settings on the card and on the CPU, equal active masks, and every
+    differing pick a near-tie of the CPU's own sweep (chip_smoke.py's
+    rule, phase 6e)."""
+    import importlib.util
+    import os
+
+    from hyperopt_tpu_torch import atpe, random as R
+    from hyperopt_tpu_torch.torch_trials import obs_buffer_for, packed_space_for
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = {}
+    gpu = H.Domain(mixed_space_fn, mixed_space(), device="cuda")
+    trials = smoke.history_trials(gpu, 500, seed=11)
+    for name, d in (("cuda", gpu), ("cpu", H.Domain(mixed_space_fn, mixed_space(), device="cpu"))):
+        ps = packed_space_for(d)
+        state = obs_buffer_for(d, trials).device_arrays(pow2_cap=TK.DEFAULT_ABOVE_CAP)
+        fn = atpe.build_atpe_device_fn(ps, 25.0)
+        v, a = fn(R.key(9, device=ps.device), *state, 64)
+        g, pw, *_ = fn.settings(state.losses, state.valid)
+        out[name] = (v.cpu().numpy(), a.cpu().numpy(), float(g), float(pw), ps, state)
+    (gv, ga, gg, gpw, _, _), (cv, ca, cg, cpw, ps, state) = out["cuda"], out["cpu"]
+    assert (gg, gpw) == (cg, cpw) and np.array_equal(ga, ca)
+    margins = smoke.sweep_margins(ps, state, R.split(R.key(9), 3)[0], torch.tensor(cg),
+                                  torch.tensor(cpw), 256, 24, 64)
+    cat = np.zeros(ps.n_dims, bool)
+    cat[ps.cat_idx] = True
+    same = np.where(cat[:, None], gv == cv, np.isclose(gv, cv, rtol=1e-4, atol=1e-5))
+    assert np.all(same | (margins < smoke.NEAR_TIE))

@@ -15,6 +15,12 @@ seeds, once with ``tpe_jax.suggest`` and once with the port's
 ``tpe.suggest`` on the CPU, equal ``rstate``s.  The 20 startup trials
 are equal; the first trial at which the streams diverge is recorded and
 must be one where the reference's argmax was a near-tie.
+
+The other modes: joint EI teacher-forced the same way (a differing
+configuration column must be a near-tie of the reference's joint score),
+the per-candidate categorical sweep bitwise, a ``speculative=4`` stream
+held like the plain one, the saturated-categorical guard, and the seeds
+the fused ask-ahead driver hands the algo.
 """
 
 import math
@@ -37,6 +43,7 @@ from hyperopt_tpu_torch import random as R
 from hyperopt_tpu_torch.models.synthetic import mixed_space as t_mixed_space
 from hyperopt_tpu_torch.ops import kernels as TK
 from hyperopt_tpu_torch.ops.compile import compile_space as t_compile
+from hyperopt_tpu_torch.fmin import FMinIter as TFMinIter
 from hyperopt_tpu_torch.torch_trials import ObsBuffer as TObsBuffer
 
 # a few float32 roundings of the candidate draw, amplified by ndtri's
@@ -257,9 +264,202 @@ def test_obs_buffer_matches_reference():
     assert (jb.transfer_bytes_total, jb.full_uploads) == (tb.transfer_bytes_total, tb.full_uploads)
 
 
-@pytest.mark.parametrize("kw", [{"joint_ei": True}, {"speculative": 4}, {"fused": True},
-                                {"resident": True}, {"ask_ahead": True}])
+@pytest.mark.parametrize("kw", [{"show_progressbar": True}, {"trial_timeout": 1.0},
+                                {"compiled": True}, {"engine": True},
+                                {"trials_save_file": "fmin.ckpt"}])
 def test_unported_modes_raise(kw):
-    domain = H.Domain(lambda cfg: 0.0, t_mixed_space(), device="cpu")
+    """What the port's sequential driver does not serve yet raises, and
+    runs no trial (every mode of tpe.suggest is served:
+    test_every_suggest_mode_runs)."""
+    trials = H.Trials()
     with pytest.raises(NotImplementedError):
-        T.suggest([0], domain, H.Trials(), 1, **kw)
+        H.fmin(lambda cfg: 0.0, t_mixed_space(), algo=T.suggest, max_evals=2,
+               trials=trials, device="cpu", **kw)
+    assert len(trials.trials) == 0
+
+
+@pytest.mark.parametrize("kw", [{"joint_ei": True}, {"speculative": 4}, {"fused": True},
+                                {"resident": True}, {"ask_ahead": False, "fused": True},
+                                {"speculative": 2, "max_stale": 0}])
+def test_every_suggest_mode_runs(kw):
+    trials = H.Trials()
+    H.fmin(mixed_space_fn, t_mixed_space(), algo=H.partial(T.suggest, n_EI_candidates=16, **kw),
+           max_evals=24, trials=trials, rstate=np.random.default_rng(0), device="cpu")
+    assert len(trials.trials) == 24 and np.all(np.isfinite(trials.losses()))
+
+
+# -- joint EI -----------------------------------------------------------------
+
+JOINT_BATCH = 8
+
+
+def _ref_joint(jps, n_cand):
+    """Jitted reference: the joint score [B, S] of every configuration
+    column and its candidate values [B, D, S], on the reference's key
+    tree (``tpe_jax.build_suggest_fn(joint_ei=True)``'s body)."""
+    import jax.numpy as jnp
+
+    c = jps._consts
+    D, dc, dk = jps.n_dims, len(jps.cont_idx), len(jps.cat_idx)
+    batch = JOINT_BATCH
+
+    def fn(key, values, active, losses, valid):
+        fits = JK.fit_all_dims(c, values, active, losses, valid, 0.25, 25.0, 1.0,
+                               above_cap=JK.DEFAULT_ABOVE_CAP)
+        keys = jax.random.split(key, batch * (dc + dk))
+        cand = jnp.zeros((batch, D, n_cand), jnp.float32)
+        llrs = jnp.zeros((batch, D, n_cand), jnp.float32)
+        v, l = JK.ei_sweep_cont_scores(jps.q, c, keys[: batch * dc].reshape(batch, dc),
+                                       fits["cont"], n_cand)
+        cand, llrs = cand.at[:, c["cont_idx"]].set(v), llrs.at[:, c["cont_idx"]].set(l)
+        v, l = JK.ei_sweep_cat_scores(keys[batch * dc:].reshape(batch, dk), *fits["cat"], n_cand)
+        cand = cand.at[:, c["cat_idx"]].set(v + c["int_low"][None, :, None])
+        llrs = llrs.at[:, c["cat_idx"]].set(l)
+        flat = jnp.moveaxis(cand, 0, 1).reshape(D, batch * n_cand)
+        act = jnp.moveaxis(jps.active_fn(flat).reshape(D, batch, n_cand), 0, 1)
+        return jnp.sum(jnp.where(act, llrs, 0.0), axis=1), cand
+
+    return jax.jit(fn)
+
+
+@pytest.mark.parametrize("seed", [0, pytest.param(1, marks=pytest.mark.slow)])
+def test_joint_ei_teacher_forced(seed, spaces):
+    """B=8 on the 200-obs history: ``active`` equal, and every trial picks
+    the reference's configuration column unless the reference's own
+    margin between its best and its second-best column is a near-tie
+    (< NEAR_TIE); the two packages' joint scores at those two columns
+    agree 10x closer than that."""
+    jps, tps = spaces["jps"], spaces["tps"]
+    batch = JOINT_BATCH
+    arrays = _history(jps, 200, 256, seed)
+    key = jax.random.key(2000 + seed)
+    jfn = tpe_jax.build_suggest_fn(jps, N_CAND, 0.25, 25, 1.0, joint_ei=True, n_cand_cat=N_CAT)
+    jv, ja = (np.asarray(a) for a in jfn(key, *arrays, batch=batch))
+    state = convert.history_from_numpy(*arrays, device="cpu")
+    tkey = convert.key_from_numpy(jax.random.key_data(key), device="cpu")
+    tfn = T.build_suggest_fn(tps, N_CAND, 0.25, 25, 1.0, joint_ei=True, n_cand_cat=N_CAT)
+    tv, ta = (a.numpy() for a in tfn(tkey, *state, batch))
+
+    joint, cand = (np.asarray(a) for a in _ref_joint(jps, N_CAND)(key, *arrays))
+    order = np.argsort(-joint, axis=1, kind="stable")
+    best, second = order[:, 0], order[:, 1]
+    rows = np.arange(batch)
+    margin = joint[rows, best] - joint[rows, second]
+    np.testing.assert_array_equal(jv, cand[rows, :, best].T)  # the helper is the reference
+    same = np.all(np.isclose(tv, jv, rtol=CONT_RTOL, atol=CONT_ATOL), axis=0)
+    assert np.all(same | (margin < NEAR_TIE)), (same, margin)
+    assert np.array_equal(ja[:, same], ta[:, same])
+    assert same.sum() >= batch - 1
+
+    # the port's joint scores, from its own candidates, at the two columns
+    ps_c = tps.consts
+    fits = TK.fit_all_dims(ps_c, *state, 0.25, 25.0, 1.0, above_cap=TK.DEFAULT_ABOVE_CAP)
+    keys = R.split(tkey, batch * 20)
+    _, cl = TK.ei_sweep_cont_scores(tps.q, ps_c, keys[: batch * 14].reshape(batch, 14, 2),
+                                    fits["cont"], N_CAND)
+    _, kl = TK.ei_sweep_cat_scores(keys[batch * 14:].reshape(batch, 6, 2), *fits["cat"], N_CAND)
+    llrs = np.zeros((batch, jps.n_dims, N_CAND), np.float32)
+    llrs[:, jps.cont_idx], llrs[:, jps.cat_idx] = cl.numpy(), kl.numpy()
+    act = np.moveaxis(jps.active_fn(np.moveaxis(cand, 0, 1).reshape(jps.n_dims, -1)), 0, 1)
+    act = np.moveaxis(np.asarray(act).reshape(jps.n_dims, batch, N_CAND), 0, 1)
+    tjoint = np.where(act, llrs, 0.0).sum(1)
+    for col in (best, second):
+        assert np.abs(tjoint[rows, col] - joint[rows, col]).max() < NEAR_TIE / 10
+
+
+def test_ei_sweep_cat_scores_bitwise(spaces):
+    """The per-candidate categorical sweep: the same draws and llrs as
+    the reference's, bit for bit, on the same posteriors and keys."""
+    jps = spaces["jps"]
+    arrays = _history(jps, 200, 256, 4)
+    fits = jax.jit(lambda *a: JK.fit_all_dims(jps._consts, *a, 0.25, 25.0, 1.0)["cat"])(*arrays)
+    pb, pa = (np.asarray(a) for a in fits)
+    keys = jax.random.split(jax.random.key(77), 3 * pb.shape[0]).reshape(3, pb.shape[0])
+    jv, jl = (np.asarray(a) for a in JK.ei_sweep_cat_scores(keys, pb, pa, 40))
+    tkeys = convert.key_from_numpy(jax.random.key_data(keys), device="cpu")
+    tv, tl = TK.ei_sweep_cat_scores(tkeys, torch.tensor(pb), torch.tensor(pa), 40)
+    assert tv.shape == (3, pb.shape[0], 40)
+    np.testing.assert_array_equal(tv.numpy(), jv)
+    np.testing.assert_array_equal(tl.numpy(), jl)
+
+
+# -- speculative, fused ---------------------------------------------------------
+
+def _driven(jalgo, talgo, n, seed=0):
+    """The same FMinIter run through both packages, each with its own
+    Domain: (reference trials, domain), (port trials, domain)."""
+    from hyperopt_tpu.fmin import FMinIter as JFMinIter
+
+    jd, jt = J.Domain(mixed_space_fn, j_mixed_space()), J.Trials()
+    JFMinIter(jalgo, jd, jt, rstate=np.random.default_rng(seed), max_evals=n,
+              show_progressbar=False).exhaust()
+    td, tt = H.Domain(mixed_space_fn, t_mixed_space(), device="cpu"), H.Trials()
+    TFMinIter(talgo, td, tt, rstate=np.random.default_rng(seed), max_evals=n).exhaust()
+    return (jt, jd), (tt, td)
+
+
+def test_speculative_stream_matches_reference():
+    """40 trials with ``speculative=4``: startup equal, the first
+    divergence (if any) a near-tie of the reference's own k-wide draw,
+    and the same number of draws through each package's buffer."""
+    from hyperopt_tpu.fmin import partial as jpartial
+    from hyperopt_tpu.jax_trials import obs_buffer_for as j_buf
+    from hyperopt_tpu_torch.torch_trials import obs_buffer_for as t_buf
+
+    k, n, seed = 4, 40, 0
+    (jt, jd), (tt, td) = _driven(jpartial(tpe_jax.suggest, speculative=k),
+                                 H.partial(T.suggest, speculative=k), n, seed)
+    assert j_buf(jd, jt).dispatch_count == t_buf(td, tt).dispatch_count == n // k
+    jps = j_compile(j_mixed_space())
+    first, labels = _first_divergence(jps, jt, tt)
+    assert first is None or first >= 20, (first, labels)
+    if first is None:
+        return
+    j = 20 + k * ((first - 20) // k)  # the ask whose k-wide draw made `first`
+    buf = JObsBuffer(jps)
+    hist = J.Trials()
+    hist._insert_trial_docs(jt.trials[:j])
+    hist.refresh()
+    buf.sync(hist)
+    arrays = tuple(a[..., : buf._device_bucket(JK.DEFAULT_ABOVE_CAP)] for a in buf.arrays())
+    rng = np.random.default_rng(seed)
+    seeds = [int(rng.integers(2**31 - 1)) for _ in range(j + 1)]
+    margins = _ref_margins(jps, arrays, host_key(seeds[j] % (2**31 - 1)), k)[:, first - j]
+    for label in labels:
+        assert margins[jps.labels.index(label)] < NEAR_TIE, (first, label)
+
+
+def test_saturated_categorical_guard_warns_once():
+    """On a small pure-categorical space ``speculative=4`` degrades to one
+    draw per ask, warns once, and gives the plain stream."""
+    import warnings
+
+    space = {"r": H.hp.randint("r", 3), "s": H.hp.randint("s", 4)}
+    obj = lambda cfg: cfg["r"] * 0.1 + cfg["s"] * 0.01  # noqa: E731
+    streams = []
+    for kw in ({"speculative": 4}, {}):
+        trials = H.Trials()
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            H.fmin(obj, space, algo=H.partial(T.suggest, **kw), max_evals=30, trials=trials,
+                   rstate=np.random.default_rng(1), device="cpu")
+        assert sum("speculative=4 disabled" in str(x.message) for x in w) == len(kw)
+        streams.append([t["misc"]["vals"] for t in trials.trials])
+    assert streams[0] == streams[1]
+
+
+def test_fused_takes_the_plain_drivers_seeds():
+    """The ask-ahead hook pre-draws each seed from the same rstate stream:
+    the fused driver hands the algo the plain driver's seeds, in order."""
+    seen = {}
+    for name, kw in (("plain", {}), ("fused", {"fused": True})):
+        seeds = seen.setdefault(name, [])
+        algo = H.partial(T.suggest, n_EI_candidates=16, **kw)
+
+        def recording(new_ids, domain, trials, seed, algo=algo, seeds=seeds):
+            seeds.append(seed)
+            return algo(new_ids, domain, trials, seed)
+
+        H.fmin(mixed_space_fn, t_mixed_space(), algo=recording, max_evals=25,
+               trials=H.Trials(), rstate=np.random.default_rng(5), device="cpu")
+    assert len(seen["plain"]) == 25 and seen["plain"] == seen["fused"]

@@ -180,22 +180,48 @@ def device_trace(run):
                      for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def event_ms(fn, n):
+    """Median over ``n`` calls of the CUDA-event time of one call, each
+    call alone on an idle stream: it counts the launch gap between the
+    start event and the first kernel, so it overstates a small launch."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def device_ms(fn, n, tries=5):
     """Device time of one call of ``fn``: the summed duration of its
     device kernels and copies, over ``n`` calls after a warm-up.  Unlike
     CUDA events around a loop of calls, it does not count the host's
-    launch gaps, which dominate a small launch.  The profiler can drop an
-    event, so the trace is taken again (up to ``tries`` times) until its
-    events are a multiple of ``n`` and at least ``n`` times those of one
-    call traced alone."""
-    _, one = device_trace(fn)
-    assert one, "torch.profiler recorded no device events"
+    launch gaps, which dominate a small launch.  The profiler can drop
+    events, or a whole trace, so the trace is taken again (up to
+    ``tries`` times) until its events are a multiple of ``n`` and at
+    least ``n`` times those of one call traced alone.  Where every try
+    falls short, the time is :func:`event_ms`'s, and a line says so."""
+    one = []
     for _ in range(tries):
+        if not one:
+            _, one = device_trace(fn)
+            if not one:
+                continue
         _, spans = device_trace(lambda: [fn() for _ in range(n)])
         if len(spans) % n == 0 and len(spans) >= n * len(one):
             return sum(e - s for s, e, _ in spans) / n / 1e3
-    raise AssertionError(f"torch.profiler kept {len(spans)} device events of {n} calls "
-                         f"of {len(one)} each")
+    ms = event_ms(fn, n)
+    log(f"[profiler] {tries} traces of {n} calls fell short of {len(one)} device events "
+        f"per call; timed by CUDA events around each call instead: {ms:.4f} ms")
+    return ms
 
 
 def scoring_inputs(shape, seed, device):
@@ -270,13 +296,19 @@ def bound(shape, sfu_per_s):
     }
 
 
-def profile_asks(it, n):
+def profile_asks(it, n, tries=3):
     """Run ``n`` asks (and evaluations) of an FMinIter under
     ``torch.profiler``: the profiled host wall per ask, the device's busy
     time per ask (union of kernel and copy intervals), its launches per
-    ask, and the kernels taking the most device time."""
-    wall_us, spans = device_trace(lambda: it.run(n))
-    assert spans, "torch.profiler recorded no device events"
+    ask, and the kernels taking the most device time.  A window whose
+    trace holds no device event is run again (each window makes ``n``
+    more asks), up to ``tries`` windows; None if none was traced."""
+    for _ in range(tries):
+        wall_us, spans = device_trace(lambda: it.run(n))
+        if spans:
+            break
+    else:
+        return None
     by_name = {}
     busy, end = 0.0, float("-inf")
     for s, e, name in sorted(spans):
@@ -291,6 +323,18 @@ def profile_asks(it, n):
         "kernels_per_ask": len(spans) / n, "llr_ms": llr / n / 1e3,
         "top": [(name[:60], us / n / 1e3) for name, us in top],
     }
+
+
+def describe_profile(prof, ask_ms):
+    """One log clause for :func:`profile_asks`'s window, beside the
+    unprofiled ``ask_ms``."""
+    if prof is None:
+        return "20 more under torch.profiler: no device event traced, so not measured"
+    return (f"20 more under torch.profiler: {prof['wall_ms']:.3f} ms per ask, device busy "
+            f"{prof['busy_ms']:.3f} ms per ask (idle share {1.0 - prof['busy_ms'] / ask_ms:.4f} "
+            f"of the unprofiled ask), {prof['kernels_per_ask']:.1f} device kernels per ask, "
+            f"gmm_llr_kernel {prof['llr_ms']:.4f} ms per ask; top device time per ask: "
+            + ", ".join(f"{name} {ms:.4f} ms" for name, ms in prof["top"]))
 
 
 def count_ops(run):
@@ -506,12 +550,7 @@ def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
     ask_ms = median["fused"]
     prof = profile_asks(pit, 20)
     log(f"[6a] fused asks: the ask's work runs in the ask-ahead hook after the tell, "
-        f"tpe.suggest only fetches the draw; "
-        f"20 more under torch.profiler: {prof['wall_ms']:.3f} ms per ask, device busy "
-        f"{prof['busy_ms']:.3f} ms per ask (idle share {1.0 - prof['busy_ms'] / ask_ms:.4f} "
-        f"of the unprofiled ask), {prof['kernels_per_ask']:.1f} device kernels per ask, "
-        f"gmm_llr_kernel {prof['llr_ms']:.4f} ms per ask; top device time per ask: "
-        + ", ".join(f"{name} {ms:.4f} ms" for name, ms in prof["top"]))
+        f"tpe.suggest only fetches the draw; " + describe_profile(prof, ask_ms))
     ops = count_ops(lambda: pit.run(5))
     log(f"[6a] PyTorch operations per fused ask: {sum(ops.values()) / 5:.1f}; by module: "
         + ", ".join(f"{m} {c / 5:.1f}" for m, c in ops.most_common()))
@@ -779,13 +818,7 @@ def main():
     prof = profile_asks(it, 20)
     log(f"[4] 20 asks at {len(fmin_trials.trials) - 40} obs: {ask_ms:.3f} ms per ask "
         f"and evaluation, {suggest_ms:.3f} ms of it in tpe.suggest, "
-        f"{plain_bytes_per_ask:.1f} bytes moved per ask; "
-        f"20 more under torch.profiler: {prof['wall_ms']:.3f} ms per ask, "
-        f"device busy {prof['busy_ms']:.3f} ms per ask (idle share "
-        f"{1.0 - prof['busy_ms'] / ask_ms:.4f} of the unprofiled ask), "
-        f"{prof['kernels_per_ask']:.1f} device kernels per ask, "
-        f"gmm_llr_kernel {prof['llr_ms']:.4f} ms per ask; top device time per ask: "
-        + ", ".join(f"{n} {ms:.4f} ms" for n, ms in prof["top"]))
+        f"{plain_bytes_per_ask:.1f} bytes moved per ask; " + describe_profile(prof, ask_ms))
     ops = count_ops(lambda: it.run(5))
     log(f"[4] PyTorch operations per ask: {sum(ops.values()) / 5:.1f}; by module: "
         + ", ".join(f"{m} {c / 5:.1f}" for m, c in ops.most_common()))

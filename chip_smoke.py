@@ -39,7 +39,20 @@ network.  Every phase asserts, and a failure exits non-zero:
    redraw; (d) ``anneal.suggest``, resident and not, bitwise equal and
    launching nothing; (e) ``atpe.suggest``, one launch per warm ask, and
    ``build_atpe_device_fn`` at B=64, CUDA against CPU; (f)
-   ``rand.suggest(speculative=4)``, one prior draw per four asks.
+   ``rand.suggest(speculative=4)``, one prior draw per four asks;
+7. the study-batched serve engine (``serve.SuggestService``): (a)
+   ``gmm_llr_stacked`` at 64 studies of the serve shape, one launch
+   bitwise the 64 per-study launches and against the plain version,
+   timed at every compiled split beside the one forced from one study's
+   shape; (b) ``bench.py``'s serve protocol at 64 studies and at one:
+   asks/s, p50/p99 ask latency, occupancy, one ``gmm_llr`` launch per
+   round; (c) 64 studies told 500 trials each, 20 rounds: round time,
+   device busy time and idle share, device kernels and PyTorch
+   operations per round, which tensors of a stacked step differ from the
+   same study alone, and which reductions give a stacked slice other
+   bits; (d) the same operations per round at 4 studies; (e) every
+   study's stream against its solo fused stream on the card, any
+   divergence a near-tie.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``),
@@ -77,6 +90,9 @@ FP32_OPS_PER_TERM = 7
 FMIN_SHAPE = dict(B=1, Dg=12, S=128, Kb=17, Ka=512)
 MAIN_SHAPE = dict(B=64, Dg=12, S=128, Kb=9, Ka=512)
 STAGE_SHAPE = dict(B=4096, Dg=12, S=128, Kb=9, Ka=512)
+# the serve engine's round at 64 studies of 500 obs: one study's shape is
+# the sequential ask's, and the study axis folds into the dim axis
+SERVE_SHAPE = dict(N=64, B=1, Dg=12, S=128, Kb=9, Ka=512)
 NEAR_TIE = 1e-3
 
 
@@ -180,23 +196,26 @@ def device_trace(run):
                      for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def event_ms(fn, n):
-    """Median over ``n`` calls of the CUDA-event time of one call, each
-    call alone on an idle stream: it counts the launch gap between the
-    start event and the first kernel, so it overstates a small launch."""
+def queued_ms(fn, n):
+    """Device time of one call of ``fn``: ``n`` calls enqueued behind a
+    spin kernel that holds the stream while the host launches them, timed
+    by CUDA events -- so the host's launch gaps are not counted, as they
+    would be for a small launch on an idle stream.  Median of five."""
     import torch
 
     fn()
     times = []
-    for _ in range(n):
+    for _ in range(5):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # some 10 ms at the H100's clock
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -208,7 +227,7 @@ def device_ms(fn, n, tries=5):
     events, or a whole trace, so the trace is taken again (up to
     ``tries`` times) until its events are a multiple of ``n`` and at
     least ``n`` times those of one call traced alone.  Where every try
-    falls short, the time is :func:`event_ms`'s, and a line says so."""
+    falls short, the time is :func:`queued_ms`'s, and a line says so."""
     one = []
     for _ in range(tries):
         if not one:
@@ -218,9 +237,10 @@ def device_ms(fn, n, tries=5):
         _, spans = device_trace(lambda: [fn() for _ in range(n)])
         if len(spans) % n == 0 and len(spans) >= n * len(one):
             return sum(e - s for s, e, _ in spans) / n / 1e3
-    ms = event_ms(fn, n)
+    ms = queued_ms(fn, n)
     log(f"[profiler] {tries} traces of {n} calls fell short of {len(one)} device events "
-        f"per call; timed by CUDA events around each call instead: {ms:.4f} ms")
+        f"per call; timed by CUDA events around {n} calls queued behind a spin kernel "
+        f"instead: {ms:.4f} ms")
     return ms
 
 
@@ -298,13 +318,19 @@ def bound(shape, sfu_per_s):
 
 def profile_asks(it, n, tries=3):
     """Run ``n`` asks (and evaluations) of an FMinIter under
-    ``torch.profiler``: the profiled host wall per ask, the device's busy
-    time per ask (union of kernel and copy intervals), its launches per
-    ask, and the kernels taking the most device time.  A window whose
-    trace holds no device event is run again (each window makes ``n``
-    more asks), up to ``tries`` windows; None if none was traced."""
+    ``torch.profiler``: see :func:`profile_window`."""
+    return profile_window(lambda: it.run(n), n, tries)
+
+
+def profile_window(run, n, tries=3):
+    """Run ``run()`` (``n`` asks or rounds) under ``torch.profiler``: the
+    profiled host wall per unit, the device's busy time per unit (union
+    of kernel and copy intervals), its launches per unit, and the
+    kernels taking the most device time.  A window whose trace holds no
+    device event is run again (each window makes ``n`` more units), up to
+    ``tries`` windows; None if none was traced."""
     for _ in range(tries):
-        wall_us, spans = device_trace(lambda: it.run(n))
+        wall_us, spans = device_trace(run)
         if spans:
             break
     else:
@@ -397,16 +423,17 @@ def pick_margins(vals, llr):
     return np.take_along_axis(llr, best[..., None], -1)[..., 0] - other
 
 
-def sweep_margins(ps, state, key, gamma, prior_weight, n_cont, n_cat, batch):
+def sweep_margins(ps, state, key, gamma, prior_weight, n_cont, n_cat, batch, pad_gamma=0.35):
     """The port's own near-tie margin ``[D, B]`` of every factorized pick
     of one ask (TPE's key tree from ``key``), computed where ``state``
-    lies -- on the CPU, as the judge of a CUDA pick."""
+    lies -- on the CPU, as the judge of a CUDA pick.  ``pad_gamma`` is
+    ATPE's below-set padding (None: TPE's own gamma)."""
     import numpy as np
 
     from hyperopt_tpu_torch import random as R
     from hyperopt_tpu_torch.ops import kernels as TK
 
-    fits = TK.fit_all_dims(ps.consts, *state, gamma, 25.0, prior_weight, pad_gamma=0.35,
+    fits = TK.fit_all_dims(ps.consts, *state, gamma, 25.0, prior_weight, pad_gamma=pad_gamma,
                            above_cap=TK.DEFAULT_ABOVE_CAP)
     dc, dk = len(ps.cont_idx), len(ps.cat_idx)
     keys = R.split(key, batch * (dc + dk))
@@ -651,6 +678,340 @@ def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
     return launches
 
 
+SERVE_STUDIES = 64
+
+
+def serve_loss(vals):
+    """bench.py's serve loss: the sum of a configuration's values."""
+    return sum(float(v) for v in vals.values() if isinstance(v, (int, float)))
+
+
+def stacked_scoring_inputs(shape, seed, device):
+    """``shape["N"]`` studies' :func:`scoring_inputs` (seeds ``seed + i``),
+    stacked along a leading study axis; also each study's own inputs."""
+    import torch
+
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+
+    per = [scoring_inputs(shape, seed + i, device) for i in range(shape["N"])]
+    stack = lambda j: {k: torch.stack([p[j][k] for p in per]) for k in G._PRE_KEYS}  # noqa: E731
+    return torch.stack([p[0] for p in per]), per[0][1], stack(2), stack(3), per
+
+
+def serve_round(svc, handles, streams=None):
+    """One serve round: every study asks, one pump serves them all, every
+    study tells its loss."""
+    futs = [h.ask_async() for h in handles]
+    assert svc.pump() == len(handles)
+    for h, f in zip(handles, futs):
+        tid, vals = f.result(timeout=120)
+        if streams is not None:
+            streams.setdefault(h.name, []).append(vals)
+        h.tell(tid, serve_loss(vals))
+
+
+def serve_histories(ps, n_studies, n_obs, seed):
+    """``n_obs`` prior draws per study, as configurations to tell."""
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.serve.scheduler import dense_to_vals
+
+    out = []
+    for i in range(n_studies):
+        v, a = (t.cpu().numpy() for t in ps.sample_prior(R.key(seed + i, device=ps.device), n_obs))
+        out.append([dense_to_vals(ps, v[:, t], a[:, t]) for t in range(n_obs)])
+    return out
+
+
+def open_service(n_studies, histories=None):
+    """A service on the card at the bench's serve settings, ``n_studies``
+    studies (seeds 0..n-1), each first told its history, if any."""
+    from hyperopt_tpu_torch.models.synthetic import mixed_space
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    svc = SuggestService(mixed_space(), max_batch=max(n_studies, 4), background=False,
+                         n_startup_jobs=3, n_cand=128)
+    handles = [svc.create_study(f"bench{i:03d}", seed=i) for i in range(n_studies)]
+    for h, hist in zip(handles, histories or ()):
+        for tid, vals in enumerate(hist):
+            h.tell(tid, serve_loss(vals), vals=vals)
+    return svc, handles
+
+
+def stacked_vs_solo(ps, state, keys, n_cand):
+    """Which step of the TPE body gives a study of the stacked state other
+    bits than the same study alone: for each fit tensor and for the
+    candidates and their llrs, the number of studies that differ."""
+    import collections
+
+    import torch
+
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.ops import kernels as TK
+
+    c = ps.consts
+    dc = len(ps.cont_idx)
+    fit = lambda st: TK.fit_all_dims(c, *st, 0.25, 25.0, 1.0,  # noqa: E731
+                                     above_cap=TK.DEFAULT_ABOVE_CAP)
+    stacked = fit(state)
+    cont_keys = R.split(keys, dc + len(ps.cat_idx))[:, :dc].reshape(-1, 1, dc, 2)
+    cand = TK.ei_sweep_cont_candidates(ps.q, c, cont_keys, stacked["cont"], n_cand)
+    differ = collections.Counter()
+    for i in range(keys.shape[0]):
+        solo = fit(tuple(t[i] for t in state))
+        named = list(zip(("wb", "mb", "sb", "wa", "ma", "sa"), stacked["cont"], solo["cont"]))
+        named += list(zip(("pb", "pa"), stacked["cat"], solo["cat"]))
+        one = TK.ei_sweep_cont_candidates(ps.q, c, cont_keys[i], solo["cont"], n_cand)
+        named += [("samples", cand[0], one[0]), ("llr", cand[1], one[1])]
+        for name, a, b in named:
+            differ[name] += 0 if torch.equal(a[i], b) else 1
+    return dict(differ)
+
+
+def reduction_probe(n, seed=0):
+    """Which reductions and scans of the TPE body give one slice of a
+    stacked tensor other bits than the same slice alone, on the card: each
+    op on random data at the serve round's shapes (``n`` studies, 14
+    continuous and 6 categorical dims, a 512-wide history), with the
+    number of slices that differ."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cases = {
+        "sum dim -1 [n,14,513] (parzen_fit's normalisation)": (
+            lambda t: torch.sum(t, dim=-1, keepdim=True), (n, 14, 513)),
+        "cumsum dim -1 [n,14,512] (forgetting_weights)": (
+            lambda t: torch.cumsum(t, dim=-1), (n, 14, 512)),
+        "cumsum dim -2 [n,14,513,5] (compact_gmm)": (
+            lambda t: torch.cumsum(t, dim=-2), (n, 14, 513, 5)),
+        "sum dim -2 [n,6,512,8] (categorical_fit's counts)": (
+            lambda t: torch.sum(t, dim=-2), (n, 6, 512, 8)),
+        "sum dim -1 [n,6,8] (categorical_fit's normalisation)": (
+            lambda t: torch.sum(t, dim=-1, keepdim=True), (n, 6, 8)),
+        "sum dim -1 [n,1,2,128,512] (gmm_logpdf_quant_pre)": (
+            lambda t: torch.sum(t, dim=-1), (n, 1, 2, 128, 512)),
+        # the same work with the summed axis innermost
+        "cumsum dim -1 [n,14,5,513] (compact_gmm's, innermost)": (
+            lambda t: torch.cumsum(t, dim=-1), (n, 14, 5, 513)),
+        "sum dim -1 [n,6,8,512] (categorical_fit's counts, innermost)": (
+            lambda t: torch.sum(t, dim=-1), (n, 6, 8, 512)),
+    }
+    out = {}
+    for name, (fn, shape) in cases.items():
+        x = torch.rand(shape, device=dev, generator=g)
+        full = fn(x)
+        out[name] = sum(0 if torch.equal(full[i], fn(x[i])) else 1 for i in range(n))
+    return out
+
+
+def phase7(cpu_domain, sfu_per_s, n_sms):
+    """The study-batched serve engine on the card; returns the kernel
+    launches of its paths (each counted from 0 just before it) and the
+    kernel's record at the serve shape."""
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch import tpe as T
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.serve.scheduler import dense_to_vals
+    from hyperopt_tpu_torch.torch_trials import ObsBuffer, packed_space_for
+
+    dev = torch.device("cuda")
+    launches = {}
+
+    # -- 7a. the kernel at the stacked shape ------------------------------
+    shape = SERVE_SHAPE
+    n, dg, S = shape["N"], shape["Dg"], shape["S"]
+    x, ls, pb, pa, per = stacked_scoring_inputs(shape, seed=900, device=dev)
+    G.KERNEL.launches = 0
+    folded = G.gmm_llr_stacked(x, ls, pb, pa)
+    assert G.KERNEL.launches == 1, G.KERNEL.launches
+    solo = torch.stack([G.gmm_llr(*p) for p in per])
+    torch.cuda.synchronize()
+    n_bitwise = sum(bool(torch.equal(folded[i], solo[i])) for i in range(n))
+    fold = lambda pre: {k: pre[k].reshape((n * dg,) + tuple(pre[k].shape[2:]))  # noqa: E731
+                        for k in G._PRE_KEYS}
+    xf, lsf, pbf, paf = x.reshape(1, n * dg, S), ls.repeat(n), fold(pb), fold(pa)
+    want = G.gmm_llr_plain(xf, lsf, pbf, paf).reshape(folded.shape)
+    max_abs = float((folded - want).abs().max())
+    ok = torch.allclose(folded, want, rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL)
+    argmax_agree = float((folded.argmax(-1) == want.argmax(-1)).float().mean())
+    forced = G.launch_config(shape["B"] * S, dg, n_sms)
+    by_shape = G.launch_config(shape["B"] * S, n * dg, n_sms)
+    out = torch.empty_like(xf)
+    by_config = {c: device_ms(lambda c=c: G.launch(xf, lsf, pbf, paf, out, c), 10)
+                 for c in G.CONFIGS}
+    best = min(by_config, key=by_config.get)
+    plain_ms = device_ms(lambda: G.gmm_llr_plain(xf, lsf, pbf, paf), 5)
+    call_host_ms = host_ms(lambda: G.gmm_llr_stacked(x, ls, pb, pa), 200)
+    ms = by_config[forced]  # the wrapper's one kernel launch, at the split it forces
+    b = bound(dict(B=shape["B"], Dg=n * dg, S=S, Kb=shape["Kb"], Ka=shape["Ka"]), sfu_per_s)
+    log(f"[7a] gmm_llr_stacked {shape} (folded to [1, {n * dg}, {S}]): one launch; "
+        f"{n_bitwise} of {n} studies bitwise their own gmm_llr launch; max_abs_err "
+        f"{max_abs:.3e} against the plain version, argmax agreement {argmax_agree:.6f}; "
+        f"plain version {plain_ms:.4f} ms device time, wrapper host time per call "
+        f"{call_host_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']}; the split is forced from one study's "
+        f"shape to {forced} (the folded shape alone would pick {by_shape}); kernel device ms "
+        "by (k_lanes, rows): " + ", ".join(f"{c} {t:.4f}" for c, t in by_config.items())
+        + f"; forced {by_config[forced]:.4f} ms at {b['bound_ms'] / by_config[forced]:.3f} of "
+        f"the bound, best {best} {by_config[best]:.4f} ms at "
+        f"{b['bound_ms'] / by_config[best]:.3f}")
+    assert n_bitwise == n, "the folded launch is not bitwise the per-study launches"
+    assert ok and argmax_agree >= 0.999, (max_abs, argmax_agree)
+    result = dict(B=shape["B"], N=n, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                  config=forced, host_ms=call_host_ms, forced_ms=by_config[forced],
+                  best_config=best, best_ms=by_config[best], **b)
+    del x, ls, pb, pa, per, folded, solo, xf, lsf, pbf, paf, want, out
+    torch.cuda.empty_cache()
+
+    # -- 7b. bench.py's serve protocol at 64 studies, and one study -------
+    def bench(n_studies, rounds, streams=None):
+        svc, handles = open_service(n_studies)
+        G.KERNEL.launches = 0
+        serve_round(svc, handles, streams)  # warm-up: the first materialization
+        lat0 = len(svc.scheduler.ask_latencies)
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            serve_round(svc, handles, streams)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_launch = G.KERNEL.launches
+        lats = sorted(1e3 * t for t in list(svc.scheduler.ask_latencies)[lat0:])
+        occ = list(svc.scheduler.occupancy)[-rounds:]
+        counters = svc.counters
+        svc.shutdown()
+        return svc.ps, n_studies * rounds / dt, lats, occ, n_launch, counters
+
+    rounds = 6
+    streams = {}
+    ps, rate, lats, occ, n_launch, counters = bench(SERVE_STUDIES, rounds, streams)
+    launches["serve_64"] = n_launch
+    _, solo_rate, _, _, solo_launch, _ = bench(1, 24)
+    pct = lambda p: lats[min(len(lats) - 1, int(p * len(lats)))]  # noqa: E731
+    log(f"[7b] serve {SERVE_STUDIES} studies of mixed_space(), n_cand 128, 3 startup asks, "
+        f"1 warm-up and {rounds} timed rounds: {rate:.1f} asks/s across studies, ask latency "
+        f"p50 {pct(0.5):.3f} ms p99 {pct(0.99):.3f} ms, occupancy {float(np.mean(occ)):.4f}; "
+        f"the same engine at one study: {solo_rate:.1f} asks/s (speedup "
+        f"{rate / solo_rate:.2f}x); gmm_llr launches {n_launch} in {rounds + 1} rounds "
+        f"(one study: {solo_launch} in 25); counters {counters}")
+    assert n_launch == rounds + 1 and solo_launch == 25, (n_launch, solo_launch)
+    assert counters["dispatch_count"] == rounds + 1 and counters["upload_events"] == 1
+    assert occ == [1.0] * rounds
+    serve = dict(asks_per_s=rate, p50_ms=pct(0.5), p99_ms=pct(0.99),
+                 occupancy=float(np.mean(occ)), solo_asks_per_s=solo_rate)
+
+    # -- 7c. 64 studies at 500 observations each: where a round's time goes
+    histories = serve_histories(ps, SERVE_STUDIES, 500, seed=7000)
+    svc, handles = open_service(SERVE_STUDIES, histories)
+    warm_streams = {}
+    for _ in range(3):  # the first: the materialization at the 512 bucket
+        serve_round(svc, handles, warm_streams)
+    assert svc.scheduler._bucket == 512, svc.scheduler._bucket
+    G.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(20):
+        serve_round(svc, handles)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) / 20 * 1e3
+    llr_per_round = G.KERNEL.launches / 20
+    prof = profile_window(lambda: [serve_round(svc, handles) for _ in range(20)], 20)
+    ops64 = count_ops(lambda: [serve_round(svc, handles) for _ in range(2)])
+    per_round_64 = sum(ops64.values()) / 2
+    state = svc.scheduler._state
+    keys = torch.stack([R.key(11 + i, device=dev) for i in range(SERVE_STUDIES)])
+    differ = stacked_vs_solo(svc.ps, state, keys, 128)
+    probe = reduction_probe(SERVE_STUDIES)
+    log(f"[7c] {SERVE_STUDIES} studies at about 520 observations (bucket 512, K_below 9, "
+        f"K_above 512): {round_ms:.3f} ms per round ({SERVE_STUDIES / round_ms * 1e3:.1f} asks/s); "
+        + ("20 rounds under torch.profiler: no device event traced, so not measured"
+           if prof is None else
+           f"20 rounds under torch.profiler: {prof['wall_ms']:.3f} ms per round, device busy "
+           f"{prof['busy_ms']:.3f} ms per round (idle share "
+           f"{1.0 - prof['busy_ms'] / round_ms:.4f} of the unprofiled round), "
+           f"{prof['kernels_per_ask']:.1f} device kernels per round, gmm_llr_kernel "
+           f"{prof['llr_ms']:.4f} ms per round; top device time per round: "
+           + ", ".join(f"{nm} {t:.4f} ms" for nm, t in prof["top"]))
+        + f"; gmm_llr launches per round {llr_per_round:.2f}; PyTorch operations per round "
+        f"{per_round_64:.1f}; by module: "
+        + ", ".join(f"{m} {c / 2:.1f}" for m, c in ops64.most_common())
+        + f"; studies whose stacked TPE step differs from the same study alone, by tensor: "
+        f"{differ}; slices of a stacked reduction that differ from the slice alone, by op: "
+        f"{probe}")
+    assert llr_per_round == 1.0, llr_per_round
+    svc.shutdown()
+    serve.update(round_ms=round_ms, ops_per_round=per_round_64,
+                 busy_ms=None if prof is None else prof["busy_ms"],
+                 kernels_per_round=None if prof is None else prof["kernels_per_ask"])
+
+    # -- 7d. the same round at 4 studies: the same operations -------------
+    svc, handles = open_service(4, histories[:4])
+    serve_round(svc, handles)
+    G.KERNEL.launches = 0
+    ops4 = count_ops(lambda: [serve_round(svc, handles) for _ in range(2)])
+    launches["serve_4"] = G.KERNEL.launches
+    svc.shutdown()
+    per_round_4 = sum(ops4.values()) / 2
+    log(f"[7d] PyTorch operations per round: {per_round_4:.1f} at 4 studies, "
+        f"{per_round_64:.1f} at {SERVE_STUDIES}; gmm_llr launches {launches['serve_4']} in 2 "
+        "rounds at 4 studies")
+    assert per_round_4 == per_round_64, (ops4, ops64)
+    assert launches["serve_4"] == 2
+
+    # -- 7e. every study's stream against its solo fused stream -----------
+    plain = T.build_suggest_fn(ps, 128, 0.25, 25.0, 1.0)
+    fused = T.build_suggest_fn(ps, 128, 0.25, 25.0, 1.0, state_io=True)
+    cpu_ps = packed_space_for(cpu_domain)
+
+    def against_solo(streams, histories):
+        """Each study's served stream against its solo fused stream (the
+        same seeds, the same history first): the studies bitwise equal,
+        and each first divergence with the CPU's llr margin of every
+        differing dim."""
+        n_equal, diverged = 0, []
+        for i in range(SERVE_STUDIES):
+            told = [(v, serve_loss(v)) for v in (histories[i] if histories else ())]
+            buf = ObsBuffer(ps, resident=True)
+            for v, loss in told:
+                buf.add(dict(v), loss)
+            rstate = np.random.default_rng(i)
+            for k, vals in enumerate(streams[f"bench{i:03d}"]):
+                seed = int(rstate.integers(2**31 - 1)) % (2**31 - 1)
+                key = R.key(seed, device=dev)
+                out_ = (ps.sample_prior(key, 1) if buf.count < 3
+                        else T._state_dispatch(buf, key, 1, 512, plain, fused))
+                got = dense_to_vals(ps, out_[0][:, 0].cpu().numpy(), out_[1][:, 0].cpu().numpy())
+                if got != vals:
+                    labels = sorted(l for l in got if got[l] != vals.get(l))
+                    cbuf = ObsBuffer(cpu_ps)
+                    for v, loss in told:
+                        cbuf.add(dict(v), loss)
+                    margins = sweep_margins(cpu_ps, cbuf.device_arrays(pow2_cap=512),
+                                            R.key(seed), 0.25, 1.0, 128, 128, 1,
+                                            pad_gamma=None)[:, 0]
+                    diverged.append((i, k, {l: float(margins[cpu_ps.labels.index(l)])
+                                            for l in labels}))
+                    break
+                buf.add(dict(got), serve_loss(got))
+                told.append((got, serve_loss(got)))
+            else:
+                n_equal += 1
+        return n_equal, diverged
+
+    n_equal, diverged = against_solo(streams, None)
+    n_equal_500, diverged_500 = against_solo(warm_streams, histories)
+    bad = [d for d in diverged + diverged_500 if any(m >= NEAR_TIE for m in d[2].values())]
+    log(f"[7e] streams bitwise their solo fused streams on the card: {n_equal} of "
+        f"{SERVE_STUDIES} studies over 7b's {rounds + 1} asks from an empty history, "
+        f"{n_equal_500} of {SERVE_STUDIES} over 7c's first 3 asks after 500 told trials; "
+        f"divergences (study, ask, CPU llr margin of each differing dim): {diverged} and "
+        f"{diverged_500}; not near-ties: {bad}")
+    assert not bad, bad
+    serve.update(n_bitwise_streams=n_equal, n_bitwise_streams_500=n_equal_500)
+    return launches, result, serve
+
+
 def main():
     import torch
 
@@ -868,6 +1229,11 @@ def main():
     launches_by_path = {"fmin": main_launches}
     launches_by_path.update(phase6(domain, cpu_domain, trials, losses,
                                    lambda: ask_window(it, 20, in_suggest, plain_buf)))
+
+    # -- 7. the study-batched serve engine ---------------------------------
+    serve_launches, results["serve"], serve = phase7(cpu_domain, sfu_per_s,
+                                                     props.multi_processor_count)
+    launches_by_path.update(serve_launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     main = results["fmin"]  # the shape of the main path's asks
@@ -889,8 +1255,12 @@ def main():
         "shapes": {name: {"B": r["B"], "k_lanes": r["config"][0], "rows": r["config"][1],
                           "ms": r["ms"], "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"],
                           "host_ms": r["host_ms"], "max_abs_err": r["max_abs_err"],
-                          "sass_per_term": sass_per_term.get(r["config"])}
+                          "sass_per_term": sass_per_term.get(r["config"]),
+                          **({"studies": r["N"], "forced_ms": r["forced_ms"],
+                              "best_split": list(r["best_config"]), "best_ms": r["best_ms"]}
+                             if name == "serve" else {})}
                    for name, r in results.items()},
+        "serve": serve,
     }]}
     print(json.dumps(kernels))
     print(smi("name,power.limit"))

@@ -10,8 +10,10 @@ Ported: the sequential driver ``fmin`` with its stopping rules and its
 ask-ahead seam, and the device algorithms at its plugin seam --
 ``tpe.suggest`` (every mode: joint EI, speculative draws, the resident
 history with O(D) delta tells, fused tell+ask with ask-ahead),
-``rand.suggest``, ``anneal.suggest`` and ``atpe.suggest``.  The EI
-scoring of continuous candidates runs in a hand-written Hopper kernel
+``rand.suggest``, ``anneal.suggest`` and ``atpe.suggest``; and the
+study-batched suggestion service (:mod:`hyperopt_tpu_torch.serve`), where
+one round serves every open study.  The EI scoring of continuous
+candidates runs in a hand-written Hopper kernel
 (:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
 """
 

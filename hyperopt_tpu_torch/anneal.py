@@ -44,6 +44,10 @@ def build_anneal_fn(ps, avg_best_idx, shrink_coef, state_io=False):
     * categorical dims: redraw from the prior with probability ``frac``,
       else keep the anchor's category;
     * a dim inactive on the anchor, or an empty history, draws the prior.
+
+    Keys ``[N, 2]`` with a state of the same leading axis anneal N
+    studies at once (the study-batched engine's body), study ``i``'s
+    slice bitwise a solo call on its own state.
     """
     c = ps.consts
     D = ps.n_dims
@@ -56,36 +60,38 @@ def build_anneal_fn(ps, avg_best_idx, shrink_coef, state_io=False):
     sc_t = torch.tensor(sc, dtype=torch.float32, device=ps.device)
 
     def fn(key, values, active, losses, valid, batch):
-        kr, ku, kz, kcoin, kp = R.split(key, 5)
+        kr, ku, kz, kcoin, kp = R.split(key, 5).unbind(-2)
         dev = values.device
+        lead = key.shape[:-1]  # () for one study, (N,) for a stack
 
         ok = valid & torch.isfinite(losses)
-        n_ok = torch.sum(ok.to(torch.int64))
-        order = torch.argsort(torch.where(ok, losses, torch.inf), stable=True)
+        n_ok = torch.sum(ok.to(torch.int64), dim=-1)
+        order = torch.argsort(torch.where(ok, losses, torch.inf), dim=-1, stable=True)
 
         # geometric(p) - 1 ranks by inverse transform
         u = R.uniform(kr, (batch,), 1e-12, 1.0)
         rank = torch.floor(R._log(u) / log1m_p).to(torch.int64)
-        rank = torch.minimum(torch.clamp(rank, min=0), torch.clamp(n_ok - 1, min=0))
-        cols = order[rank]  # [B] anchor slots
+        rank = torch.minimum(torch.clamp(rank, min=0), torch.clamp(n_ok - 1, min=0)[..., None])
+        cols = torch.gather(order, -1, rank)  # [..., B] anchor slots
 
-        anchor_vals = values[:, cols]  # [D, B]
-        anchor_act = active[:, cols] & (n_ok > 0)
+        at = cols[..., None, :].expand(lead + (D, batch))
+        anchor_vals = torch.gather(values, -1, at)  # [..., D, B]
+        anchor_act = torch.gather(active, -1, at) & (n_ok > 0)[..., None, None]
 
         # per-dim observation counts -> neighborhood shrink fraction
-        n_obs = torch.sum((active & ok[None, :]).to(torch.float32), dim=1)
+        n_obs = torch.sum((active & ok[..., None, :]).to(torch.float32), dim=-1)
         frac = 1.0 / R._fma(n_obs, sc_t, 1.0)
 
         prior_vals, _ = ps.sample_prior_fn(kp, batch)
-        new_values = torch.zeros((D, batch), dtype=torch.float32, device=dev)
+        new_values = torch.zeros(lead + (D, batch), dtype=torch.float32, device=dev)
 
         if Dc:
             ci = c["cont_idx"]
-            a_nat = anchor_vals[ci]
+            a_nat = anchor_vals[..., ci, :]
             logspace = c["logspace"][:, None]
             lat_a = torch.where(logspace, torch.log(torch.clamp(a_nat, min=1e-30)), a_nat)
             low, high = c["low"][:, None], c["high"][:, None]
-            fr = frac[ci][:, None]
+            fr = frac[..., ci][..., None]
             bounded = torch.isfinite(low)
 
             uu = R.uniform(ku, (Dc, batch))
@@ -100,14 +106,15 @@ def build_anneal_fn(ps, avg_best_idx, shrink_coef, state_io=False):
 
             nat = torch.where(logspace, torch.exp(lat), lat)
             nat = quantize_nat(nat, c["q"][:, None], low, high, logspace)
-            new_values[ci] = torch.where(anchor_act[ci], nat, prior_vals[ci])
+            new_values[..., ci, :] = torch.where(anchor_act[..., ci, :], nat,
+                                                 prior_vals[..., ci, :])
 
         if Dk:
             ki = c["cat_idx"]
             coin = R.uniform(kcoin, (Dk, batch))
-            redraw = coin < frac[ki][:, None]
-            new_values[ki] = torch.where(redraw | ~anchor_act[ki], prior_vals[ki],
-                                         anchor_vals[ki])
+            redraw = coin < frac[..., ki][..., None]
+            new_values[..., ki, :] = torch.where(redraw | ~anchor_act[..., ki, :],
+                                                 prior_vals[..., ki, :], anchor_vals[..., ki, :])
 
         return new_values, ps.active_fn(new_values)
 

@@ -14,7 +14,8 @@ from .ops.compile import CONST_FIELDS
 from .ops.kernels import HistoryState
 from .utils import resolve_device
 
-__all__ = ["history_from_numpy", "key_from_numpy", "space_consts_from_numpy"]
+__all__ = ["history_from_numpy", "key_from_numpy", "space_consts_from_numpy",
+           "study_batch_from_numpy"]
 
 
 def history_from_numpy(values, active, losses, valid, device=None):
@@ -48,3 +49,13 @@ def space_consts_from_numpy(ps, device=None):
             a = a.astype(np.int64)
         out[k] = torch.from_numpy(a).to(dev)
     return out
+
+
+def study_batch_from_numpy(values, active, losses, valid, device=None):
+    """The reference's stacked serve state (its ``StudyBatchState``'s
+    four arrays, ``[S, D, cap]`` / ``[S, cap]``) -> the port's
+    :class:`~hyperopt_tpu_torch.serve.batched.StudyBatchState` on
+    ``device``, in new tensors."""
+    from .serve.batched import StudyBatchState
+
+    return StudyBatchState(*history_from_numpy(values, active, losses, valid, device))

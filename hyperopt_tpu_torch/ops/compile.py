@@ -189,18 +189,21 @@ class PackedSpace:
         return out
 
     def active_fn(self, values):
-        """[D, n] dense values -> [D, n] active mask."""
+        """[..., D, n] dense values -> [..., D, n] active mask (leading
+        dims: a stack of studies)."""
         if self.unconditional:
             return torch.ones(values.shape, dtype=torch.bool, device=values.device)
         c = self.consts
-        gathered = values[c["cond_dim"]]  # [D, A, C, n]
+        gathered = values[..., c["cond_dim"], :]  # [..., D, A, C, n]
         eq = torch.abs(gathered - c["cond_val"][..., None]) < 0.5
         term_ok = eq | ~c["term_mask"][..., None]
-        conj = torch.all(term_ok, dim=2) & c["alt_mask"][..., None]
-        return torch.any(conj, dim=1)
+        conj = torch.all(term_ok, dim=-2) & c["alt_mask"][..., None]
+        return torch.any(conj, dim=-2)
 
     def sample_prior_fn(self, key, n):
-        """Draw n prior configs -> (values [D, n], active [D, n]).
+        """Draw n prior configs -> (values [D, n], active [D, n]); keys
+        ``[..., 2]`` with leading dims (one key per study) draw ``[..., D,
+        n]``, each study's slice bitwise its own key's draw.
 
         Continuous dims: bounded dims draw uniform in latent space, normal
         dims draw mu + sigma*z; log-space dims exponentiate; quantized dims
@@ -214,8 +217,8 @@ class PackedSpace:
         D = self.n_dims
         Dc = len(self.cont_idx)
         Dk = len(self.cat_idx)
-        ku, kz, kc = R.split(key, 3)
-        values = torch.zeros((D, n), dtype=torch.float32, device=self.device)
+        ku, kz, kc = R.split(key, 3).unbind(-2)
+        values = torch.zeros(key.shape[:-1] + (D, n), dtype=torch.float32, device=self.device)
 
         if Dc:
             low, high = c["low"][:, None], c["high"][:, None]
@@ -231,7 +234,7 @@ class PackedSpace:
             logspace = c["logspace"][:, None]
             nat = torch.where(logspace, torch.exp(lat), lat)
             nat = quantize_nat(nat, c["q"][:, None], low, high, logspace)
-            values[c["cont_idx"]] = nat
+            values[..., c["cont_idx"], :] = nat
 
         if Dk:
             logits = torch.where(
@@ -240,7 +243,7 @@ class PackedSpace:
                 -torch.inf,
             )
             draws = R.categorical(kc, logits[:, None, :], (Dk, n))
-            values[c["cat_idx"]] = draws.to(torch.float32) + c["int_low"][:, None]
+            values[..., c["cat_idx"], :] = draws.to(torch.float32) + c["int_low"][:, None]
 
         return values, self.active_fn(values)
 

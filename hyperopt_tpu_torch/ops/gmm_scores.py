@@ -63,7 +63,7 @@ import torch
 from .cuda_build import CudaKernel
 
 __all__ = ["CONFIGS", "KERNEL", "KERNEL_ATOL", "KERNEL_RTOL", "gmm_llr", "gmm_llr_plain",
-           "gmm_logpdf_cont_pre", "launch", "launch_config"]
+           "gmm_llr_stacked", "gmm_logpdf_cont_pre", "launch", "launch_config"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -165,6 +165,45 @@ def gmm_llr(x, logspace, pre_b, pre_a):
         return gmm_llr_plain(x, logspace, pre_b, pre_a)
     if x.dim() != 3:
         raise ValueError(f"gmm_llr: x must be [B, Dg, S], got {tuple(x.shape)}")
+    return _launch_checked(x, logspace, pre_b, pre_a, x.shape[1])
+
+
+def gmm_llr_stacked(x, logspace, pre_b, pre_a):
+    """:func:`gmm_llr` for N studies in ONE launch: candidates ``x [N, B,
+    Dg, S]``, one mixture per study and dim (``c1``, ``inv_s``,
+    ``mu_inv_s`` ``[N, Dg, K]``, ``c1max`` ``[N, Dg]``; every study has
+    the same K), and ``logspace [Dg]`` shared by the studies.  Returns
+    ``[N, B, Dg, S]``.
+
+    The study axis folds into the kernel's dim axis: ``x`` becomes ``[B,
+    N * Dg, S]`` (a reshape at ``B = 1``), the mixtures ``[N * Dg, K]``
+    and ``logspace`` is tiled to ``[N * Dg]``.  The launch's
+    ``(k_lanes, rows)`` split comes from ONE study's shape (``B * S``
+    candidates over ``Dg`` dims), not from the folded one: the split fixes
+    the order in which a candidate's components are summed, so each
+    study's scores are bitwise those of its own :func:`gmm_llr` launch,
+    whatever the number of studies beside it.  CPU tensors run the plain
+    version on the folded shapes."""
+    if x.dim() != 4:
+        raise ValueError(f"gmm_llr_stacked: x must be [N, B, Dg, S], got {tuple(x.shape)}")
+    N, B, Dg, S = x.shape
+    folded = x.transpose(0, 1).reshape(B, N * Dg, S)
+    ls = logspace.repeat(N)
+
+    def fold(pre):
+        return {k: pre[k].reshape((N * Dg,) + tuple(pre[k].shape[2:])) for k in _PRE_KEYS}
+
+    if x.device.type != "cuda":
+        out = gmm_llr_plain(folded, ls, fold(pre_b), fold(pre_a))
+    else:
+        out = _launch_checked(folded.contiguous(), ls, fold(pre_b), fold(pre_a), Dg)
+    return out.reshape(B, N, Dg, S).transpose(0, 1)
+
+
+def _launch_checked(x, logspace, pre_b, pre_a, split_dims):
+    """Check the CUDA inputs, launch the kernel once at the split that
+    :func:`launch_config` picks for ``B * S`` candidates over
+    ``split_dims`` dims, count the launch."""
     B, Dg, S = x.shape
     dev = x.device
     _check("x", x, (B, Dg, S), torch.float32, dev)
@@ -179,8 +218,8 @@ def gmm_llr(x, logspace, pre_b, pre_a):
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    config = launch_config(B * S, Dg, _sm_count(dev.index if dev.index is not None
-                                                 else torch.cuda.current_device()))
+    config = launch_config(B * S, split_dims, _sm_count(dev.index if dev.index is not None
+                                                        else torch.cuda.current_device()))
     err = launch(x, logspace, pre_b, pre_a, out, config)
     if err != 0:
         raise RuntimeError(f"gmm_llr: kernel launch failed with CUDA error {err}")

@@ -32,13 +32,14 @@ import torch
 from torch.special import ndtr, ndtri
 
 from .. import random as R
-from .gmm_scores import gmm_llr, gmm_logpdf_cont_pre
+from .gmm_scores import gmm_llr, gmm_llr_stacked, gmm_logpdf_cont_pre
 
 __all__ = [
     "DEFAULT_ABOVE_CAP",
     "HistoryState",
     "apply_delta",
     "apply_delta_masked",
+    "apply_delta_stacked",
     "categorical_fit",
     "check_prior_weight",
     "compact_below",
@@ -112,6 +113,27 @@ def apply_delta_masked(values, active, losses, valid, vcol, acol, loss,
     active[:, idx] = torch.where(apply, _on(acol, active), active[:, idx])
     losses[idx] = torch.where(apply, _on(loss, losses), losses[idx])
     valid[idx] = valid[idx] | apply
+    return HistoryState(values, active, losses, valid)
+
+
+def apply_delta_stacked(values, active, losses, valid, vcol, acol, loss, idx, apply):
+    """:func:`apply_delta_masked` for N stacked studies in one launch
+    sequence: slot ``i`` takes its column ``vcol[i]``/``acol[i]`` ``[N,
+    D]`` and ``loss[i]`` at its own index ``idx[i]`` where ``apply[i]``
+    is set, and keeps its bits elsewhere (``idx`` ``[N]`` int, ``apply``
+    ``[N]`` bool; host arrays or tensors).  One gather and one scatter
+    per state tensor, IN PLACE; returns the four as a
+    :class:`HistoryState`.  Slot ``i`` of the result is bitwise
+    :func:`apply_delta` on study ``i`` where ``apply[i]`` holds."""
+    dev = values.device
+    slots = torch.arange(values.shape[0], device=dev)
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    apply = torch.as_tensor(apply, dtype=torch.bool, device=dev)
+    col = apply[:, None]
+    values[slots, :, idx] = torch.where(col, _on(vcol, values), values[slots, :, idx])
+    active[slots, :, idx] = torch.where(col, _on(acol, active), active[slots, :, idx])
+    losses[slots, idx] = torch.where(apply, _on(loss, losses), losses[slots, idx])
+    valid[slots, idx] = valid[slots, idx] | apply
     return HistoryState(values, active, losses, valid)
 
 
@@ -288,18 +310,19 @@ def compact_gmm(weights, mus, sigmas, out_width):
 
 
 def split_below_above(losses, valid, gamma, lf):
-    """Good/bad split over the masked loss buffer: ``n_below =
-    min(ceil(gamma * sqrt(n_ok)), lf)``, ties broken by slot order (a
-    stable argsort).  Returns (below_mask, above_mask, n_below)."""
+    """Good/bad split over masked loss rows ``[..., cap]``: ``n_below =
+    min(ceil(gamma * sqrt(n_ok)), lf)`` per row, ties broken by slot
+    order (a stable argsort).  Returns (below_mask, above_mask, n_below
+    ``[...]``)."""
     valid = valid & torch.isfinite(losses)
-    n_ok = torch.sum(valid.to(torch.float32))
+    n_ok = torch.sum(valid.to(torch.float32), dim=-1)
     n_below = torch.clamp(torch.ceil(gamma * torch.sqrt(n_ok)), max=lf)
 
     keyed = torch.where(valid, losses, torch.inf)
-    order = torch.argsort(keyed, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(order.shape[0], dtype=order.dtype, device=order.device)
-    below = valid & (rank < n_below)
+    order = torch.argsort(keyed, dim=-1, stable=True)
+    ramp = torch.arange(order.shape[-1], dtype=order.dtype, device=order.device)
+    rank = torch.empty_like(order).scatter_(-1, order, ramp.expand_as(order))
+    below = valid & (rank < n_below[..., None])
     above = valid & ~below
     return below, above, n_below
 
@@ -326,50 +349,56 @@ def fit_all_dims(ps_consts, values, active, losses, valid, gamma, lf,
     continuous fits ``(wb, mb, sb, wa, ma, sa)`` (below compacted to
     ``[Dc, lf_pad + 1]``, above ``[Dc, cap + 1]`` or compacted to the
     above cap) and the categorical posteriors ``(pb, pa)`` ``[Dk, k_max]``;
-    entries are None for absent families.
+    entries are None for absent families.  A history with leading study
+    dims (``values [..., D, cap]``, ``losses [..., cap]``) fits every
+    study at once: each output gains the same leading dims.
     """
     below, above, _ = split_below_above(losses, valid, gamma, lf)
     out = {"cont": None, "cat": None}
     lf_pad = _below_pad(
-        lf, cap=losses.shape[0],
+        lf, cap=losses.shape[-1],
         gamma=gamma if pad_gamma is None else pad_gamma,
     )
     dev = values.device
+    lead = values.shape[:-2]
+
+    def rows(*per_dim):
+        # per-dimension settings spread over the leading study dims
+        return [t.expand(lead + t.shape) for t in per_dim] if lead else list(per_dim)
 
     cont_idx = ps_consts["cont_idx"]
     dc = cont_idx.shape[0]
     if dc:
-        obs_c = values[cont_idx]
+        obs_c = values[..., cont_idx, :]
         lat = torch.where(ps_consts["logspace"][:, None], _safe_log(obs_c), obs_c)
-        act_c = active[cont_idx]
-        pw_v = _per_row(prior_weight, dc, dev)
-        lf_v = torch.full((dc,), lf, dtype=torch.float32, device=dev)
-        lat_b, mask_b = compact_below(lat, act_c & below[None, :], lf_pad)
-        wb, mb, sb = parzen_fit(
-            lat_b, mask_b, ps_consts["prior_mu"], ps_consts["prior_sigma"],
-            pw_v, lf_v,
+        act_c = active[..., cont_idx, :]
+        pw_v, lf_v, mu, sigma = rows(
+            _per_row(prior_weight, dc, dev),
+            torch.full((dc,), lf, dtype=torch.float32, device=dev),
+            ps_consts["prior_mu"], ps_consts["prior_sigma"],
         )
-        wa, ma, sa = parzen_fit(
-            lat, act_c & above[None, :], ps_consts["prior_mu"],
-            ps_consts["prior_sigma"], pw_v, lf_v,
-        )
+        lat_b, mask_b = compact_below(lat, act_c & below[..., None, :], lf_pad)
+        wb, mb, sb = parzen_fit(lat_b, mask_b, mu, sigma, pw_v, lf_v)
+        wa, ma, sa = parzen_fit(lat, act_c & above[..., None, :], mu, sigma, pw_v, lf_v)
         if above_cap is not None:
             a_pad = _above_pad(above_cap)
-            if wa.shape[1] > a_pad:
+            if wa.shape[-1] > a_pad:
                 wa, ma, sa = compact_gmm(wa, ma, sa, a_pad)
         out["cont"] = (wb, mb, sb, wa, ma, sa)
 
     cat_idx = ps_consts["cat_idx"]
     dk = cat_idx.shape[0]
     if dk:
-        obs_k = values[cat_idx] - ps_consts["int_low"][:, None]
-        act_k = active[cat_idx]
-        pw_v = _per_row(prior_weight, dk, dev)
-        lf_v = torch.full((dk,), lf, dtype=torch.float32, device=dev)
-        obs_kb, mask_kb = compact_below(obs_k, act_k & below[None, :], lf_pad)
+        obs_k = values[..., cat_idx, :] - ps_consts["int_low"][:, None]
+        act_k = active[..., cat_idx, :]
+        pw_v, lf_v = rows(
+            _per_row(prior_weight, dk, dev),
+            torch.full((dk,), lf, dtype=torch.float32, device=dev),
+        )
+        obs_kb, mask_kb = compact_below(obs_k, act_k & below[..., None, :], lf_pad)
         pb = categorical_fit(obs_kb, mask_kb, ps_consts["prior_p"], pw_v, lf_v)
         pa = categorical_fit(
-            obs_k, act_k & above[None, :], ps_consts["prior_p"], pw_v, lf_v
+            obs_k, act_k & above[..., None, :], ps_consts["prior_p"], pw_v, lf_v
         )
         out["cat"] = (pb, pa)
 
@@ -541,12 +570,25 @@ def ei_sweep_cont_candidates(q_np, consts, cont_keys, fit_arrays, n_cand):
     bin mass (:func:`gmm_logpdf_quant_pre`), unquantized dims through
     :func:`hyperopt_tpu_torch.ops.gmm_scores.gmm_llr` -- the CUDA kernel
     on the card.  Returns (samples, llr), each ``[B, Dc, n_cand]``.
+
+    Fits with a leading study axis (``[N, Dc, K]``, keys ``[N, B, Dc,
+    2]``) score every study's unquantized candidates in ONE kernel launch
+    (:func:`~hyperopt_tpu_torch.ops.gmm_scores.gmm_llr_stacked`); the
+    outputs are ``[N, B, Dc, n_cand]``.
     """
     wb, mb, sb, wa, ma, sa = fit_arrays
     low, high, logspace, q = (consts[k] for k in ("low", "high", "logspace", "q"))
     pre_b = gmm_precompute(wb, mb, sb, low, high)
     pre_a = gmm_precompute(wa, ma, sa, low, high)
-    samples = trunc_gmm_sample_pre(cont_keys, pre_b, low, high, logspace, q, n_cand)
+    n_lead = wb.dim() - 2
+    sel = (slice(None),) * n_lead  # the study axis, if any
+
+    def per_trial(pre):
+        # a study's mixtures broadcast against its keys' trial axis
+        return {k: v.unsqueeze(n_lead) for k, v in pre.items()} if n_lead else pre
+
+    samples = trunc_gmm_sample_pre(cont_keys, per_trial(pre_b), low, high, logspace, q,
+                                   n_cand)
     llr = torch.empty_like(samples)
     q_np = np.asarray(q_np)
     dev = samples.device
@@ -554,15 +596,18 @@ def ei_sweep_cont_candidates(q_np, consts, cont_keys, fit_arrays, n_cand):
         if pos.size == 0:
             continue
         idx = torch.as_tensor(pos, dtype=torch.int64, device=dev)
-        x = samples[:, idx]
-        grp_b = {k: v[idx] for k, v in pre_b.items()}
-        grp_a = {k: v[idx] for k, v in pre_a.items()}
+        at = sel + (slice(None), idx)  # [..., B, group, S]
+        x = samples[at]
+        grp_b = {k: v[sel + (idx,)] for k, v in pre_b.items()}
+        grp_a = {k: v[sel + (idx,)] for k, v in pre_a.items()}
         if has_q:
             args = (low[idx], high[idx], logspace[idx], q[idx])
-            llr[:, idx] = (gmm_logpdf_quant_pre(x, grp_b, *args)
-                           - gmm_logpdf_quant_pre(x, grp_a, *args))
+            llr[at] = (gmm_logpdf_quant_pre(x, per_trial(grp_b), *args)
+                       - gmm_logpdf_quant_pre(x, per_trial(grp_a), *args))
+        elif n_lead:
+            llr[at] = gmm_llr_stacked(x, logspace[idx], grp_b, grp_a)
         else:
-            llr[:, idx] = gmm_llr(x.contiguous(), logspace[idx], grp_b, grp_a)
+            llr[at] = gmm_llr(x.contiguous(), logspace[idx], grp_b, grp_a)
     return samples, llr
 
 

@@ -78,6 +78,13 @@ def build_suggest_fn(ps, n_cand, gamma, lf, prior_weight, joint_ei=False,
     first ``B * Dc`` keys ``[B, Dc]`` for the continuous dims and the next
     ``B * Dk`` ``[B, Dk]`` for the categorical ones.
 
+    The factorized step also serves a stack of studies, the body of the
+    study-batched engine (:mod:`hyperopt_tpu_torch.serve.batched`): keys
+    ``[N, 2]`` and a state with the same leading axis (``values [N, D,
+    cap]``, ``losses [N, cap]``) give ``[N, D, B]``, study ``i``'s slice
+    computed by the same operations as a solo call on its own state, and
+    all studies' unquantized candidates scored in one kernel launch.
+
     ``joint_ei=True`` scores whole configurations: candidate s of a trial
     is the s-th draw of every dim, its score the sum of the llrs of the
     dims active in it, and the trial takes the best column.  Every dim
@@ -99,17 +106,20 @@ def build_suggest_fn(ps, n_cand, gamma, lf, prior_weight, joint_ei=False,
     def fn_factorized(key, values, active, losses, valid, batch):
         fits = K.fit_all_dims(c, values, active, losses, valid, gamma, lf_f,
                               pw, above_cap=a_cap)
-        new_values = torch.zeros((D, batch), dtype=torch.float32, device=ps.device)
+        lead = key.shape[:-1]  # () for one study, (N,) for a stack
+        new_values = torch.zeros(lead + (D, batch), dtype=torch.float32, device=ps.device)
         keys = R.split(key, max(batch * (Dc + Dk), 1))
         if fits["cont"] is not None:
-            cont_keys = keys[: batch * Dc].reshape(batch, Dc, 2)
+            cont_keys = keys[..., : batch * Dc, :].reshape(lead + (batch, Dc, 2))
             cont_vals, _ = K.ei_sweep_cont(ps.q, c, cont_keys, fits["cont"], n_cand)
-            new_values[c["cont_idx"]] = cont_vals.T
+            new_values[..., c["cont_idx"], :] = cont_vals.transpose(-1, -2)
         if fits["cat"] is not None:
             pb, pa = fits["cat"]
-            cat_keys = keys[batch * Dc: batch * (Dc + Dk)].reshape(batch, Dk, 2)
+            if lead:  # a study's posteriors broadcast against its trial axis
+                pb, pa = pb.unsqueeze(len(lead)), pa.unsqueeze(len(lead))
+            cat_keys = keys[..., batch * Dc: batch * (Dc + Dk), :].reshape(lead + (batch, Dk, 2))
             cat_vals, _ = K.ei_sweep_cat(cat_keys, pb, pa, n_cat)
-            new_values[c["cat_idx"]] = cat_vals.T + c["int_low"][:, None]
+            new_values[..., c["cat_idx"], :] = cat_vals.transpose(-1, -2) + c["int_low"][:, None]
         return new_values, ps.active_fn(new_values)
 
     def fn_joint(key, values, active, losses, valid, batch):

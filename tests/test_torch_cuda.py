@@ -202,3 +202,62 @@ def test_cuda_atpe_device_fn_matches_cpu(cuda):
     cat[ps.cat_idx] = True
     same = np.where(cat[:, None], gv == cv, np.isclose(gv, cv, rtol=1e-4, atol=1e-5))
     assert np.all(same | (margins < smoke.NEAR_TIE))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_studies,B", [(64, 1), (5, 3)])
+def test_cuda_stacked_launch_is_bitwise_per_study_launches(cuda, n_studies, B):
+    """gmm_llr_stacked folds N studies into one launch at the split of
+    one study's shape: each study's scores are bitwise its own gmm_llr
+    launch, and within the kernel's tolerance of the plain version."""
+    per = [_inputs(cuda, B=B, seed=100 + i) for i in range(n_studies)]
+    x = torch.stack([p[0] for p in per])
+    stack = lambda j: {k: torch.stack([p[j][k] for p in per]) for k in G._PRE_KEYS}  # noqa: E731
+    G.KERNEL.launches = 0
+    got = G.gmm_llr_stacked(x, per[0][1], stack(2), stack(3))
+    assert G.KERNEL.launches == 1
+    for i, p in enumerate(per):
+        one = G.gmm_llr(*p)
+        assert torch.equal(got[i], one), i
+        _assert_close(got[i], G.gmm_llr_plain(*p))
+
+
+@pytest.mark.cuda
+def test_cuda_service_serves_four_studies_through_one_launch_per_round(cuda):
+    """A 4-study SuggestService on the card (device=None): one gmm_llr
+    launch per round from the first (every slot runs the TPE body), the
+    state on the card, finite suggestions inside the space."""
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    svc = SuggestService(mixed_space(), max_batch=4, background=False, n_startup_jobs=3,
+                         n_cand=128)
+    assert svc.device.type == "cuda"
+    handles = [svc.create_study(f"c{i}", seed=i) for i in range(4)]
+    G.KERNEL.launches = 0
+    for r in range(6):
+        futs = [h.ask_async() for h in handles]
+        assert svc.pump() == 4
+        assert G.KERNEL.launches == r + 1
+        for h, f in zip(handles, futs):
+            tid, vals = f.result(timeout=60)
+            assert len(vals) == 20 and all(np.isfinite(v) for v in vals.values())
+            assert all(-5 <= vals[f"u{j}"] <= 5 for j in range(8))
+            h.tell(tid, mixed_space_fn(vals))
+    assert svc.scheduler._state.values.device.type == "cuda"
+    assert svc.counters["dispatch_count"] == 6 and svc.counters["quarantine_count"] == 0
+    svc.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_background_service_runs_rounds_on_its_device(cuda):
+    """The background loop's thread drives CUDA rounds on the service's
+    device."""
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    svc = SuggestService(mixed_space(), max_batch=4, n_startup_jobs=3, device="cuda:0")
+    h = svc.create_study("bg", seed=1)
+    for _ in range(5):
+        tid, vals = h.ask(timeout=60)
+        h.tell(tid, mixed_space_fn(vals))
+    assert h.n_tells == 5 and svc.counters["dispatch_count"] == 5
+    svc.shutdown()

@@ -44,6 +44,38 @@ def test_fmin_in_a_fresh_process_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_serve_in_a_fresh_process_loads_no_jax():
+    """(a') a 4-study SuggestService on the CPU, three rounds; afterwards
+    neither jax nor the JAX package is in sys.modules."""
+    code = textwrap.dedent("""
+        import sys
+        from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+        from hyperopt_tpu_torch.serve import SuggestService
+        svc = SuggestService(mixed_space(), max_batch=4, background=False,
+                             n_startup_jobs=2, n_cand=16, device="cpu")
+        hs = [svc.create_study(f"s{i}", seed=i) for i in range(4)]
+        for _ in range(3):
+            futs = [h.ask_async() for h in hs]
+            svc.pump()
+            for h, f in zip(hs, futs):
+                tid, vals = f.result(timeout=60)
+                h.tell(tid, mixed_space_fn(vals))
+        assert svc.counters["dispatch_count"] == 3
+        svc.shutdown()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:

@@ -48,14 +48,36 @@ network.  Every phase asserts, and a failure exits non-zero:
    asks/s, p50/p99 ask latency, occupancy, one ``gmm_llr`` launch per
    round; (c) 64 studies told 500 trials each, 20 rounds: round time,
    device busy time and idle share, device kernels and PyTorch
-   operations per round, which tensors of a stacked step differ from the
-   same study alone, and which reductions give a stacked slice other
-   bits; (d) the same operations per round at 4 studies; (e) every
-   study's stream against its solo fused stream on the card, any
-   divergence a near-tie.
+   operations per round; no tensor of a study's slice of the stacked
+   step differs from the same study alone, and no fixed-order reduction
+   of the fits gives a stacked slice other bits (PyTorch's own
+   reductions are counted beside them); (d) the same operations per
+   round at 4 studies; (e) every study's stream bitwise its solo fused
+   stream on the card;
+8. (run right after phase 1, before any profiler has traced: once one has
+   run in the process, each graph replay holds the host until the card
+   has run it) the compiled loop (``device_loop.compile_fmin``, each
+   step a CUDA-graph replay), each path's ``gmm_llr`` launches counted
+   as the launches captured in a step times its replays (the wrapper
+   counts at capture): (a) ``bench.py``'s ``bench_compiled_at_1k``, a
+   warm runner and a timed 1000-trial ``fmin(compiled=True)``: seconds,
+   best loss, replays, 980 launches, host time per replay, the time to
+   rebuild the ``Trials`` store, and the first 64 replayed steps
+   bitwise the same steps run eagerly; (b) a sweep of 8 seeds x 256
+   trials, each seed bitwise its solo run; (c) ``chunk_size=250`` with
+   progress rows and checkpoints, killed at a chunk boundary through
+   ``FaultyFS`` and resumed: bitwise the flat run, the same rows; (d) a
+   ``loss_threshold`` the flat run reaches: fewer evaluations, the
+   history a bitwise prefix of the flat run's; (e) ``bench_mlp_tune``,
+   512 trials of an 8-epoch MLP at batch 32: trials/s, best loss, and
+   the kernel at its shape against the plain version and its bound;
+   (f) 8a's last 20 model steps under ``torch.profiler``: device kernels
+   per step, device busy time and idle share; then 8a's bare replays
+   again, after that profiler trace.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
-with each path's launches under ``launches_by_path``),
+with each path's launches under ``launches_by_path`` and the compiled
+loop's numbers under ``compiled``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -768,40 +790,45 @@ def stacked_vs_solo(ps, state, keys, n_cand):
 
 
 def reduction_probe(n, seed=0):
-    """Which reductions and scans of the TPE body give one slice of a
-    stacked tensor other bits than the same slice alone, on the card: each
-    op on random data at the serve round's shapes (``n`` studies, 14
-    continuous and 6 categorical dims, a 512-wide history), with the
-    number of slices that differ."""
+    """Which reductions and scans over a history or component axis give
+    one slice of a stacked tensor other bits than the same slice alone,
+    on the card: each op on random data at the serve round's shapes
+    (``n`` studies, 14 continuous and 6 categorical dims, a 512-wide
+    history), with the number of slices that differ -- PyTorch's own ops,
+    and the fixed-order ones the port's fits use in their place
+    (``sum_rows``/``cumsum_rows``)."""
     import torch
+
+    from hyperopt_tpu_torch.ops import kernels as TK
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     cases = {
         "sum dim -1 [n,14,513] (parzen_fit's normalisation)": (
-            lambda t: torch.sum(t, dim=-1, keepdim=True), (n, 14, 513)),
-        "cumsum dim -1 [n,14,512] (forgetting_weights)": (
-            lambda t: torch.cumsum(t, dim=-1), (n, 14, 512)),
+            lambda t: torch.sum(t, dim=-1, keepdim=True),
+            lambda t: TK.sum_rows(t, dim=-1, keepdim=True), (n, 14, 513)),
+        "cumsum dim -1 [n,14,512] (gmm_precompute)": (
+            lambda t: torch.cumsum(t, dim=-1), lambda t: TK.cumsum_rows(t, dim=-1),
+            (n, 14, 512)),
         "cumsum dim -2 [n,14,513,5] (compact_gmm)": (
-            lambda t: torch.cumsum(t, dim=-2), (n, 14, 513, 5)),
+            lambda t: torch.cumsum(t, dim=-2), lambda t: TK.cumsum_rows(t, dim=-2),
+            (n, 14, 513, 5)),
         "sum dim -2 [n,6,512,8] (categorical_fit's counts)": (
-            lambda t: torch.sum(t, dim=-2), (n, 6, 512, 8)),
+            lambda t: torch.sum(t, dim=-2), lambda t: TK.sum_rows(t, dim=-2), (n, 6, 512, 8)),
         "sum dim -1 [n,6,8] (categorical_fit's normalisation)": (
-            lambda t: torch.sum(t, dim=-1, keepdim=True), (n, 6, 8)),
+            lambda t: torch.sum(t, dim=-1, keepdim=True),
+            lambda t: TK.sum_rows(t, dim=-1, keepdim=True), (n, 6, 8)),
         "sum dim -1 [n,1,2,128,512] (gmm_logpdf_quant_pre)": (
-            lambda t: torch.sum(t, dim=-1), (n, 1, 2, 128, 512)),
-        # the same work with the summed axis innermost
-        "cumsum dim -1 [n,14,5,513] (compact_gmm's, innermost)": (
-            lambda t: torch.cumsum(t, dim=-1), (n, 14, 5, 513)),
-        "sum dim -1 [n,6,8,512] (categorical_fit's counts, innermost)": (
-            lambda t: torch.sum(t, dim=-1), (n, 6, 8, 512)),
+            lambda t: torch.sum(t, dim=-1), lambda t: TK.sum_rows(t, dim=-1),
+            (n, 1, 2, 128, 512)),
     }
-    out = {}
-    for name, (fn, shape) in cases.items():
+    torch_ops, port_ops = {}, {}
+    for name, (torch_fn, port_fn, shape) in cases.items():
         x = torch.rand(shape, device=dev, generator=g)
-        full = fn(x)
-        out[name] = sum(0 if torch.equal(full[i], fn(x[i])) else 1 for i in range(n))
-    return out
+        for out, fn in ((torch_ops, torch_fn), (port_ops, port_fn)):
+            full = fn(x)
+            out[name] = sum(0 if torch.equal(full[i], fn(x[i])) else 1 for i in range(n))
+    return torch_ops, port_ops
 
 
 def phase7(cpu_domain, sfu_per_s, n_sms):
@@ -909,6 +936,11 @@ def phase7(cpu_domain, sfu_per_s, n_sms):
     for _ in range(3):  # the first: the materialization at the 512 bucket
         serve_round(svc, handles, warm_streams)
     assert svc.scheduler._bucket == 512, svc.scheduler._bucket
+    # counted at the 512 bucket, as 7d's 4 studies are: the fixed-order sums
+    # take one add per halving of the history axis, so the operations per
+    # round follow the bucket (the timed rounds below grow past it)
+    ops64 = count_ops(lambda: [serve_round(svc, handles) for _ in range(2)])
+    per_round_64 = sum(ops64.values()) / 2
     G.KERNEL.launches = 0
     t0 = time.perf_counter()
     for _ in range(20):
@@ -917,12 +949,11 @@ def phase7(cpu_domain, sfu_per_s, n_sms):
     round_ms = (time.perf_counter() - t0) / 20 * 1e3
     llr_per_round = G.KERNEL.launches / 20
     prof = profile_window(lambda: [serve_round(svc, handles) for _ in range(20)], 20)
-    ops64 = count_ops(lambda: [serve_round(svc, handles) for _ in range(2)])
-    per_round_64 = sum(ops64.values()) / 2
+    bucket_after = svc.scheduler._bucket
     state = svc.scheduler._state
     keys = torch.stack([R.key(11 + i, device=dev) for i in range(SERVE_STUDIES)])
     differ = stacked_vs_solo(svc.ps, state, keys, 128)
-    probe = reduction_probe(SERVE_STUDIES)
+    torch_probe, probe = reduction_probe(SERVE_STUDIES)
     log(f"[7c] {SERVE_STUDIES} studies at about 520 observations (bucket 512, K_below 9, "
         f"K_above 512): {round_ms:.3f} ms per round ({SERVE_STUDIES / round_ms * 1e3:.1f} asks/s); "
         + ("20 rounds under torch.profiler: no device event traced, so not measured"
@@ -933,13 +964,16 @@ def phase7(cpu_domain, sfu_per_s, n_sms):
            f"{prof['kernels_per_ask']:.1f} device kernels per round, gmm_llr_kernel "
            f"{prof['llr_ms']:.4f} ms per round; top device time per round: "
            + ", ".join(f"{nm} {t:.4f} ms" for nm, t in prof["top"]))
-        + f"; gmm_llr launches per round {llr_per_round:.2f}; PyTorch operations per round "
+        + f"; bucket after the timed rounds {bucket_after}; gmm_llr launches per round "
+        f"{llr_per_round:.2f}; PyTorch operations per round at the 512 bucket "
         f"{per_round_64:.1f}; by module: "
         + ", ".join(f"{m} {c / 2:.1f}" for m, c in ops64.most_common())
         + f"; studies whose stacked TPE step differs from the same study alone, by tensor: "
         f"{differ}; slices of a stacked reduction that differ from the slice alone, by op: "
-        f"{probe}")
+        f"the port's fixed-order ones {probe}, PyTorch's own {torch_probe}")
     assert llr_per_round == 1.0, llr_per_round
+    assert not any(differ.values()), f"stacked slices differ from the study alone: {differ}"
+    assert not any(probe.values()), f"a fixed-order reduction depends on the rows: {probe}"
     svc.shutdown()
     serve.update(round_ms=round_ms, ops_per_round=per_round_64,
                  busy_ms=None if prof is None else prof["busy_ms"],
@@ -1008,8 +1042,250 @@ def phase7(cpu_domain, sfu_per_s, n_sms):
         f"divergences (study, ask, CPU llr margin of each differing dim): {diverged} and "
         f"{diverged_500}; not near-ties: {bad}")
     assert not bad, bad
+    assert n_equal == n_equal_500 == SERVE_STUDIES, (n_equal, n_equal_500)
     serve.update(n_bitwise_streams=n_equal, n_bitwise_streams_500=n_equal_500)
     return launches, result, serve
+
+
+# the compiled loop's experiments: bench.py's bench_compiled_at_1k (the
+# sequential 1000-trial run, whose model steps score phase 2's fmin shape
+# at a 1024-slot carry) and bench_mlp_tune (512 trials of an 8-epoch MLP,
+# batch 32; its model steps score 4 dims x 24 candidates at a 512-slot
+# carry: below padded to 8 + prior, above compacted to 512)
+COMPILED_TRIALS = 1000
+SWEEP_SEEDS, SWEEP_TRIALS = 8, 256
+MLP_SHAPE = dict(B=32, Dg=4, S=24, Kb=9, Ka=512)
+
+
+def compiled_launches(prog):
+    """``gmm_llr`` launches of a compiled run: the kernel's wrapper counts
+    once per launch it records while a step is captured, so a run's
+    launches are each regime's captured count times its replays."""
+    return sum(prog.launches_per_replay.get(r, 0) * n for r, n in prog.replays.items())
+
+
+def phase8(sfu_per_s):
+    """The compiled loop on the card; returns the kernel launches of its
+    paths (counted from their replays), the kernel's record at the mlp
+    shape, and the loop's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch.device_loop import _to_trials, compile_fmin
+    from hyperopt_tpu_torch.distributed.faults import FaultPlan, SimulatedCrash
+    from hyperopt_tpu_torch.models.synthetic import (mixed_space, mixed_space_fn_torch,
+                                                     mlp_tune_objective, mlp_tune_space)
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.ops import kernels as TK
+
+    t_phase = time.perf_counter()
+    launches, loop = {}, {}
+    n, n_startup = COMPILED_TRIALS, 20
+    kw = dict(batch_size=1, n_EI_candidates=128, n_EI_candidates_cat=24)
+
+    # -- 8a. bench_compiled_at_1k: a warm runner, then fmin(compiled=True)
+    t0 = time.perf_counter()
+    runner = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=n, **kw)
+    runner(seed=7)  # the warm call: two steps warmed up and captured, one run
+    warm_s = time.perf_counter() - t0
+    prog = runner._program()
+    G.KERNEL.launches = 0
+    trials = H.Trials()
+    t0 = time.perf_counter()
+    H.fmin(mixed_space_fn_torch, mixed_space(), compiled=True, max_evals=n, trials=trials,
+           return_argmin=False, rstate=np.random.default_rng(7),
+           compiled_options={"runner": runner, "seed": 7})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted_at_replay = G.KERNEL.launches
+    launches["compiled_1k"] = compiled_launches(prog)
+    replays = dict(prog.replays)
+    losses = trials.losses()
+    best = min(losses)
+    # the same run replayed bare: host time to enqueue a replay, wall per step
+    prog.reset(7, None, 0, float("inf"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(n):
+        prog.run(prog.loop.regime(j, 0))
+    enqueue_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    rv, ra, rl, _ = prog.host_state()
+    assert rl[:n].tolist() == losses, "the bare replays are not the fmin run"
+    # the host's share of fmin(compiled=True) outside the replays: the
+    # standard Trials store rebuilt from the history
+    t0 = time.perf_counter()
+    _to_trials(runner._packed_space, rv[:, :n], ra[:, :n], rl[:n])
+    rebuild_s = time.perf_counter() - t0
+    # the first 64 steps run eagerly: the replayed stream's bits
+    prog.reset(7, None, 0, float("inf"))
+    for j in range(64):
+        prog.step(prog.loop.regime(j, 0))
+    ev, ea, el, _ = prog.host_state()
+    eager_equal = (np.array_equal(ev[:, :64], rv[:, :64]) and np.array_equal(ea[:, :64], ra[:, :64])
+                   and np.array_equal(el[:64], rl[:64]))
+    log(f"[8a] compile_fmin(mixed_space_fn_torch, mixed_space(), {n} trials, B=1, n_cand 128, "
+        f"cat 24): warm call {warm_s:.2f} s (two steps warmed up and captured, one run); "
+        f"fmin(compiled=True) with the warm runner {seconds:.3f} s, best loss {best:.6f} (best "
+        f"of the {n_startup} startup trials {min(losses[:n_startup]):.6f}); graph replays "
+        f"{replays}; gmm_llr launches {launches['compiled_1k']} (captured per replay "
+        f"{prog.launches_per_replay} times replays; the wrapper's counter read "
+        f"{counted_at_replay} over the run, since it counts at capture); bare replays: "
+        f"{enqueue_us:.1f} us of host time per replay enqueued, {step_ms:.4f} ms per step "
+        f"with the card; the Trials store rebuilt from the history in {rebuild_s:.3f} s; "
+        f"first 64 replayed steps bitwise the eager step: {eager_equal}")
+    assert launches["compiled_1k"] == n - n_startup, launches
+    assert replays == {"prior": n_startup, "model": n - n_startup}, replays
+    assert prog.launches_per_replay == {"prior": 0, "model": 1}, prog.launches_per_replay
+    assert counted_at_replay == 0, counted_at_replay
+    assert len(losses) == n and np.all(np.isfinite(losses))
+    assert best < min(losses[:n_startup]), "the compiled TPE did not improve on its startup draws"
+    assert eager_equal, "the replayed steps are not the eager steps' bits"
+    loop.update(seconds=seconds, best_loss=best, replays=sum(replays.values()),
+                host_us_per_replay=enqueue_us, step_ms=step_ms, warm_s=warm_s,
+                rebuild_s=rebuild_s)
+    flat = {"values": rv[:, :n], "active": ra[:, :n], "losses": rl[:n]}
+
+    # -- 8b. the seed sweep: 8 seeds in lockstep, each bitwise its solo run
+    sweep_runner = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=SWEEP_TRIALS, **kw)
+    seeds = list(range(SWEEP_SEEDS))
+    t0 = time.perf_counter()
+    swept = sweep_runner(seed=seeds)
+    sweep_s = time.perf_counter() - t0
+    launches["compiled_sweep"] = compiled_launches(sweep_runner._program(SWEEP_SEEDS))
+    t0 = time.perf_counter()
+    solo = [sweep_runner(seed=s) for s in seeds]
+    solo_s = time.perf_counter() - t0
+    n_bitwise = sum(all(np.array_equal(a[f], b[f]) for f in ("values", "active", "losses"))
+                    for a, b in zip(swept, solo))
+    log(f"[8b] seed sweep of {SWEEP_SEEDS} seeds x {SWEEP_TRIALS} trials in one program: "
+        f"{sweep_s:.2f} s (first call, capture included), the solo runs {solo_s:.2f} s; "
+        f"{n_bitwise} of {SWEEP_SEEDS} seeds bitwise their solo runs; gmm_llr launches "
+        f"{launches['compiled_sweep']} (one per model step for all seeds)")
+    assert n_bitwise == SWEEP_SEEDS, n_bitwise
+    assert launches["compiled_sweep"] == SWEEP_TRIALS - n_startup
+    loop.update(sweep_bitwise=n_bitwise, sweep_s=sweep_s)
+
+    # -- 8c. chunks, progress rows, a kill at a chunk boundary, resume ------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chunk.ckpt")
+        plan = FaultPlan(seed=0)
+        rows = []
+        chunked = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=n, chunk_size=n // 4,
+                               progress_callback=rows.append, checkpoint_path=path,
+                               fs=plan.fs(), **kw)
+        whole = chunked(seed=7)
+        whole_rows = list(rows)
+        rows.clear()
+        plan.arm("device_loop_after_ckpt_before_next_chunk", at=2)
+        try:
+            chunked(seed=7)
+            raise AssertionError("the armed crash point did not fire")
+        except SimulatedCrash:
+            pass
+        resumed = chunked(seed=7, resume=True)
+        launches["compiled_chunked"] = compiled_launches(chunked._program())
+    same = lambda a, b: all(np.array_equal(a[f], b[f]) for f in ("values", "active", "losses"))  # noqa: E731
+    log(f"[8c] chunk_size={n // 4} (4 chunks): the chunked run bitwise the flat run: "
+        f"{same(whole, flat)}; killed after chunk 2's checkpoint, resumed: bitwise the flat run "
+        f"{same(resumed, flat)}; progress rows {whole_rows}, across the kill {rows}; gmm_llr "
+        f"launches of the resumed leg {launches['compiled_chunked']}")
+    assert same(whole, flat) and same(resumed, flat)
+    assert rows == whole_rows and [r["trials_done"] for r in rows] == [n // 4 * k for k in (1, 2, 3, 4)]
+    assert launches["compiled_chunked"] == n // 2
+
+    # -- 8d. early stop: a threshold the flat run reaches --------------------
+    thr = float(np.min(flat["losses"][:n * 3 // 5]))
+    first_hit = int(np.argmax(flat["losses"] <= thr))
+    early_runner = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=n,
+                                loss_threshold=thr, **kw)
+    early = early_runner(seed=7)
+    launches["compiled_early_stop"] = compiled_launches(early_runner._program())
+    n_ev = early["n_evals"]
+    prefix = all(np.array_equal(early[f], flat[f][..., :n_ev]) for f in ("values", "active", "losses"))
+    log(f"[8d] loss_threshold {thr:.6f} (the flat run's best of its first {n * 3 // 5}, hit at trial "
+        f"{first_hit}): n_evals {n_ev}, replays {early_runner._program().replays} (the stop "
+        f"flag read every 16), the history a bitwise prefix of the flat run: {prefix}")
+    assert n_ev == first_hit + 1 and n_ev < n, (n_ev, first_hit)
+    assert prefix, "the early-stopped history is not a prefix of the flat run"
+
+    # -- 8e. bench_mlp_tune: 512 trials, batch 32, 8 epochs -----------------
+    mlp = compile_fmin(mlp_tune_objective(n_epochs=8), mlp_tune_space(), max_evals=512,
+                       batch_size=32)
+    t0 = time.perf_counter()
+    mlp(seed=0)  # warm-up and capture
+    mlp_warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = mlp(seed=1)
+    torch.cuda.synchronize()
+    mlp_s = time.perf_counter() - t0
+    launches["mlp_tune"] = compiled_launches(mlp._program())
+    assert TK._below_pad(25, cap=512, gamma=0.25) + 1 == MLP_SHAPE["Kb"]
+    x, ls, pb, pa = scoring_inputs(MLP_SHAPE, seed=8, device=torch.device("cuda"))
+    got = G.gmm_llr(x, ls, pb, pa)
+    want = G.gmm_llr_plain(x, ls, pb, pa)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL)
+    ms = device_ms(lambda: G.gmm_llr(x, ls, pb, pa), 20)
+    plain_ms = device_ms(lambda: G.gmm_llr_plain(x, ls, pb, pa), 10)
+    call_host_ms = host_ms(lambda: G.gmm_llr(x, ls, pb, pa), 200)
+    b = bound(MLP_SHAPE, sfu_per_s)
+    cfg = G.launch_config(MLP_SHAPE["B"] * MLP_SHAPE["S"], MLP_SHAPE["Dg"],
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"[8e] mlp_tune (512 trials, batch 32, 8 epochs): warm call {mlp_warm_s:.2f} s, timed "
+        f"run {mlp_s:.3f} s: {512 / mlp_s:.1f} trials/s, best loss {out['best_loss']:.6f}; "
+        f"replays {mlp._program().replays}, gmm_llr launches {launches['mlp_tune']}; the kernel "
+        f"at {MLP_SHAPE}: max_abs_err {max_abs:.3e} against the plain version, device time "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms), wrapper host time {call_host_ms:.4f} ms, split "
+        f"{cfg}, bound {b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_ms'] / ms:.3f} of it)")
+    assert ok, f"the kernel disagrees with the plain version at {MLP_SHAPE}: {max_abs}"
+    assert launches["mlp_tune"] == 512 // 32 - 1, launches
+    assert np.isfinite(out["losses"]).all() and out["n_evals"] == 512
+    loop.update(mlp_trials_per_s=512 / mlp_s, mlp_best_loss=out["best_loss"])
+    result = dict(B=MLP_SHAPE["B"], max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, config=cfg,
+                  host_ms=call_host_ms, **b)
+
+    # -- 8f. where a compiled step's time goes: 8a's last 20 model steps
+    # under torch.profiler, the phase's last act, since once a profiler
+    # trace has run in the process every replay holds the host until
+    # the card has run it (milliseconds where it took microseconds; PERF.md)
+    prog.reset(7, (rv, ra, rl, np.arange(rl.shape[0]) < n), 0, float("inf"), start_step=n - 20)
+    # each window (retaken if its trace is empty) replays steps n-20 .. n-1
+    prof = profile_window(lambda: (prog.i.fill_(n - 20), [prog.run("model") for _ in range(20)]),
+                          20)
+    log("[8f] 8a's last 20 model steps "
+        + ("under torch.profiler: no device event traced, so not measured"
+           if prof is None else
+           f"under torch.profiler: {prof['wall_ms']:.4f} ms per step, device busy "
+           f"{prof['busy_ms']:.4f} ms per step (idle share {1.0 - prof['busy_ms'] / prof['wall_ms']:.4f} "
+           f"of the profiled window; busy over 8a's bare step {prof['busy_ms'] / step_ms:.4f}), "
+           f"{prof['kernels_per_ask']:.1f} device kernels per step, gmm_llr_kernel "
+           f"{prof['llr_ms']:.4f} ms per step; top device time per step: "
+           + ", ".join(f"{nm} {t:.4f} ms" for nm, t in prof["top"])))
+    # 8a's bare replays once more, now that a profiler trace has run
+    prog.reset(7, None, 0, float("inf"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(n):
+        prog.run(prog.loop.regime(j, 0))
+    enqueue_after_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    step_after_ms = (time.perf_counter() - t0) / n * 1e3
+    assert np.array_equal(prog.host_state()[2], rl), "the replays changed after the profiler"
+    log(f"[8f] 8a's bare replays after that profiler trace: {enqueue_after_us:.1f} us of host "
+        f"time per replay enqueued (before it: {enqueue_us:.1f}), {step_after_ms:.4f} ms per step "
+        f"with the card (before it: {step_ms:.4f}); the same losses")
+    loop.update(busy_ms=None if prof is None else prof["busy_ms"],
+                idle_share=None if prof is None else 1.0 - prof["busy_ms"] / prof["wall_ms"],
+                kernels_per_step=None if prof is None else prof["kernels_per_ask"],
+                host_us_per_replay_after_profiler=enqueue_after_us)
+    log(f"[8] {time.perf_counter() - t_phase:.1f} s")
+    return launches, result, loop
 
 
 def main():
@@ -1063,6 +1339,11 @@ def main():
             log(f"[1] SASS inner loop of gmm_llr_kernel<k_lanes={config[0]}, rows={config[1]}>: "
                 f"{n_ins} instructions, {n_ex2} MUFU.EX2: {n_ins / n_ex2:.3f} per term")
         assert set(sass_per_term) == set(G.CONFIGS), sorted(sass_per_term)
+
+    # -- 8. the compiled loop, before any profiler has traced: once one has
+    # run in the process, every graph replay holds the host until the card
+    # has run it, which would hide the replays' host cost ----------------
+    compiled_launches_by_path, mlp_result, compiled = phase8(sfu_per_s)
 
     # -- 2. kernel against its plain version -----------------------------
     results = {}
@@ -1234,6 +1515,8 @@ def main():
     serve_launches, results["serve"], serve = phase7(cpu_domain, sfu_per_s,
                                                      props.multi_processor_count)
     launches_by_path.update(serve_launches)
+    launches_by_path.update(compiled_launches_by_path)
+    results["mlp"] = mlp_result
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     main = results["fmin"]  # the shape of the main path's asks
@@ -1261,6 +1544,7 @@ def main():
                              if name == "serve" else {})}
                    for name, r in results.items()},
         "serve": serve,
+        "compiled": compiled,
     }]}
     print(json.dumps(kernels))
     print(smi("name,power.limit"))

@@ -264,7 +264,9 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
 
         def at_ok(k):  # best-so-far after the k-th ok trial (1-indexed)
             slot = torch.clamp(torch.searchsorted(cnt, k.reshape(1)), 0, losses.shape[0] - 1)
-            return best_first[slot[0]]
+            # a gather, not best_first[slot[0]]: indexing by a tensor
+            # element reads it on the host, which a captured step cannot
+            return torch.gather(best_first, 0, slot)[0]
 
         w = torch.clamp(torch.clamp(n // 2, min=2), max=15)
         # best_first[-w] of the host is the best after the (n-w+1)-th ok
@@ -282,8 +284,7 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
     def lock_set(values, active, losses, ok, n):
         """(lock_mask [D], lock_vals [D]) over the elite set."""
         order = torch.argsort(torch.where(ok, losses, torch.inf), stable=True)
-        elite = torch.zeros_like(ok)
-        elite[order[:E]] = True
+        elite = torch.zeros_like(ok).index_fill_(0, order[:E], True)
         elite = elite & ok
 
         scores = torch.full((D,), -torch.inf, dtype=torch.float32, device=dev)

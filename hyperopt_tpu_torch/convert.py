@@ -14,8 +14,8 @@ from .ops.compile import CONST_FIELDS
 from .ops.kernels import HistoryState
 from .utils import resolve_device
 
-__all__ = ["history_from_numpy", "key_from_numpy", "space_consts_from_numpy",
-           "study_batch_from_numpy"]
+__all__ = ["device_loop_result_from_numpy", "history_from_numpy", "key_from_numpy",
+           "space_consts_from_numpy", "study_batch_from_numpy", "trainable_state_from_numpy"]
 
 
 def history_from_numpy(values, active, losses, valid, device=None):
@@ -59,3 +59,30 @@ def study_batch_from_numpy(values, active, losses, valid, device=None):
     from .serve.batched import StudyBatchState
 
     return StudyBatchState(*history_from_numpy(values, active, losses, valid, device))
+
+
+def trainable_state_from_numpy(state, device=None):
+    """A reference ``TrainableObjective`` state -- a pytree (dicts, tuples,
+    lists) of numpy arrays, such as ``(params, momentum)`` -- as the same
+    pytree of float32 tensors on ``device``, in new memory."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(conv(v) for v in x)
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    return conv(state)
+
+
+def device_loop_result_from_numpy(out):
+    """A reference ``compile_fmin`` result dict -> the ``values``/``active``/
+    ``losses`` host arrays the port's runner takes as ``init=`` (copies,
+    in the port's dtypes)."""
+    return {
+        "values": np.array(out["values"], dtype=np.float32),
+        "active": np.array(out["active"], dtype=bool),
+        "losses": np.array(out["losses"], dtype=np.float32),
+    }

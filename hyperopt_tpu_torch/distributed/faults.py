@@ -1,18 +1,21 @@
-"""Deterministic fault injection for the PyTorch port's serve stack.
+"""Deterministic fault injection for the PyTorch port's serve stack and
+compiled loop.
 
-A subset of :mod:`hyperopt_tpu.distributed.faults`: the default
-filesystem seam (:class:`RealFS`, whose crash points do nothing), the
-simulated process death (:class:`SimulatedCrash`), the device-fault
-schedule the scheduler's guard is tested with (:class:`DeviceFaultPlan`:
-NaN outputs, dispatch hangs, transient and fatal raises), and a
-:class:`FaultPlan` that carries it and arms the serve crash points.
-Faulty files and network faults wait for the durability and transport
-slices (``ROADMAP.md`` Queue A, items 12b and 12c).
+A subset of :mod:`hyperopt_tpu.distributed.faults`: the filesystem seam
+(:class:`RealFS`, the ``os`` primitives the durable checkpoint saver uses
+and crash points that do nothing), the simulated process death
+(:class:`SimulatedCrash`), the device-fault schedule the scheduler's
+guard is tested with (:class:`DeviceFaultPlan`: NaN outputs, dispatch
+hangs, transient and fatal raises), and a :class:`FaultPlan` that carries
+it and arms the serve, compiled-loop and checkpoint crash points.
+Injected file errors and network faults wait for the durability and
+transport slices (``ROADMAP.md`` Queue A, items 12b and 12c).
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import random
 import threading
 import time
@@ -20,6 +23,7 @@ import time
 from ..exceptions import TransientBackendError
 
 __all__ = [
+    "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "DEVICE_LOOP_CRASH_POINTS",
     "SERVE_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "REAL_FS",
     "RealFS", "SimulatedCrash",
 ]
@@ -34,6 +38,24 @@ SERVE_CRASH_POINTS = (
     "serve_mid_batch",
     "serve_after_dispatch_before_ack",
 )
+
+#: crash points of the chunked compiled loop
+#: (:func:`hyperopt_tpu_torch.device_loop.compile_fmin` with ``chunk_size``):
+#:     device_loop_after_chunk_before_ckpt       chunk replayed, carry not
+#:                                                yet checkpointed
+#:     device_loop_after_ckpt_before_next_chunk  bundle published, next
+#:                                                chunk not yet replayed
+DEVICE_LOOP_CRASH_POINTS = (
+    "device_loop_after_chunk_before_ckpt",
+    "device_loop_after_ckpt_before_next_chunk",
+)
+
+#: the durable saver's torn-publish window
+#: (:func:`hyperopt_tpu_torch.utils.checkpoint.save_device_chunk`):
+#:     after_ckpt_tmp_before_rename  bundle tmp fsynced, not yet published
+CHECKPOINT_CRASH_POINTS = ("after_ckpt_tmp_before_rename",)
+
+ALL_CRASH_POINTS = SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + CHECKPOINT_CRASH_POINTS
 
 
 class SimulatedCrash(BaseException):
@@ -50,9 +72,22 @@ class SimulatedCrash(BaseException):
 
 
 class RealFS:
-    """The default seam: no-op crash points.  (The reference's seam also
-    passes the filesystem primitives through to ``os``; they come with
-    the write-ahead log.)"""
+    """The default seam: ``os`` passthrough, no-op crash points.  (The
+    reference's seam has more primitives; they come with the write-ahead
+    log.)"""
+
+    def open(self, path, mode="r"):
+        return open(path, mode)
+
+    def rename(self, src, dst):
+        os.rename(src, dst)
+
+    def exists(self, path):
+        return os.path.exists(path)
+
+    def fsync(self, f):
+        f.flush()
+        os.fsync(f.fileno())
 
     def crashpoint(self, name):
         pass
@@ -171,7 +206,7 @@ class DeviceFaultPlan:
 
 class FaultPlan:
     """A seeded, deterministic schedule of faults: one-shot crashes at
-    named serve crash points (:meth:`arm`), and an optional
+    named crash points (:meth:`arm`, :data:`ALL_CRASH_POINTS`), and an optional
     :class:`DeviceFaultPlan` riding along (``device=``), which the serve
     scheduler finds through its ``fs=`` seam (``fs.plan.device``)."""
 
@@ -189,7 +224,7 @@ class FaultPlan:
 
     def arm(self, point, at=1):
         """Arm a one-shot crash at the ``at``-th hit of ``point``."""
-        if point not in SERVE_CRASH_POINTS:
+        if point not in ALL_CRASH_POINTS:
             raise ValueError(f"unknown crash point {point!r}")
         with self._lock:
             self._crash[point] = int(at)
@@ -209,8 +244,9 @@ class FaultPlan:
 
 
 class FaultyFS(RealFS):
-    """The injectable seam: crash points that consult the plan (and raise
-    :class:`SimulatedCrash` when armed)."""
+    """The injectable seam: the ``os`` primitives of :class:`RealFS` and
+    crash points that consult the plan (and raise :class:`SimulatedCrash`
+    when armed)."""
 
     def __init__(self, plan):
         self.plan = plan

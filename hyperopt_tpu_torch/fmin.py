@@ -9,8 +9,10 @@ so equal ``rstate``s hand the algo equal seeds, with or without the
 ask-ahead hook (``_notify_result``/``_take_seed``) that
 ``tpe.suggest(fused=True)`` installs.  The progress bar, per-trial
 containment (``trial_timeout``, ``catch``), checkpoints and the WAL,
-the engine and the compiled loop are later work and raise
-``NotImplementedError``.
+and the engine are later work and raise ``NotImplementedError``.
+``compiled=True`` routes the whole experiment through the compiled loop
+(:func:`hyperopt_tpu_torch.device_loop.compile_fmin`) and rebuilds a
+standard ``Trials`` store from its history.
 
 One addition: ``device`` (None = the card) is stored on the ``Domain``,
 where the port's suggest path reads it.
@@ -224,6 +226,73 @@ def _fmin_result(trials, return_argmin):
     return None
 
 
+def _compiled_algo_name(algo):
+    """The compiled loop's algo name for ``fmin(compiled=True)``: strings
+    pass through, the port's suggest callables (``partial``-wrapped too)
+    map by their module."""
+    if algo is None:
+        return "tpe"
+    if isinstance(algo, str):
+        if algo not in ("tpe", "anneal", "rand", "atpe"):
+            raise ValueError(f"unknown compiled algo {algo!r}: expected tpe|anneal|rand|atpe")
+        return algo
+    a = algo
+    while isinstance(a, functools.partial):
+        a = a.func
+    short = (getattr(a, "__module__", "") or "").rsplit(".", 1)[-1]
+    if short in ("tpe", "anneal", "rand", "atpe"):
+        return short
+    raise ValueError(
+        f"compiled=True cannot map algo {algo!r} onto a compiled-loop algo; pass "
+        "algo='tpe'|'anneal'|'rand'|'atpe'"
+    )
+
+
+def _run_compiled(fn, space, algo, max_evals, loss_threshold, trials, rstate, return_argmin,
+                  options, device):
+    """The ``fmin(compiled=True)`` body: the experiment runs in the compiled
+    loop (suggest, evaluation and tell of every trial on the device), then
+    a standard ``Trials`` store is rebuilt from the history.  ``options``
+    are ``compile_fmin`` arguments, or ``runner=`` (a prebuilt runner) and
+    ``seed=`` (else one draw from ``rstate``)."""
+    from .device_loop import _to_trials, compile_fmin
+
+    opts = dict(options or {})
+    runner = opts.pop("runner", None)
+    seed = opts.pop("seed", None)
+    if seed is None:
+        # one draw from the caller's stream, like every host-driver seed
+        if hasattr(rstate, "integers"):
+            seed = int(rstate.integers(2**31 - 1))
+        else:
+            seed = int(rstate.randint(2**31 - 1))
+    if trials is not None and len(trials):
+        raise ValueError(
+            "compiled=True starts a fresh experiment; warm-start via "
+            "device_loop.history_from_trials + compile_fmin(warm_capacity=...) instead"
+        )
+    if runner is None:
+        if not isinstance(max_evals, (int, np.integer)):
+            raise ValueError(
+                "compiled=True requires an integer max_evals (the step count is part of "
+                "the compiled loop)"
+            )
+        opts.setdefault("device", device)
+        runner = compile_fmin(fn, space, int(max_evals), algo=_compiled_algo_name(algo),
+                              loss_threshold=loss_threshold, **opts)
+    elif opts:
+        raise ValueError(
+            "compiled_options: pass either a prebuilt runner= (from compile_fmin) or "
+            "compile_fmin options, not both"
+        )
+    out = runner(seed=seed)
+    if trials is None:
+        trials = Trials()
+    _to_trials(runner._packed_space, out["values"], out["active"], out["losses"],
+               trials=trials)
+    return _fmin_result(trials, return_argmin)
+
+
 def _validate_stopping(timeout, loss_threshold):
     if timeout is not None and (not isinstance(timeout, (int, float)) or timeout <= 0):
         raise ValueError(
@@ -259,6 +328,7 @@ def fmin(
     compiled=False,
     engine=None,
     ask_ahead=None,
+    compiled_options=None,
 ):
     """Minimize ``fn`` over ``space`` with ``algo`` (default: the port's
     ``tpe.suggest``), sequentially.
@@ -271,17 +341,43 @@ def fmin(
     :func:`hyperopt_tpu_torch.early_stop.no_progress_loss`).
     ``device`` (None = the card, ``"cpu"`` to opt in to the CPU) is where
     the suggest path computes; without CUDA and without ``device="cpu"``
-    this raises rather than falling back.  The reference's progress bar,
-    ``trial_timeout``/``catch``, checkpoints (``trials_save_file``,
-    ``resume_from``), ``compiled`` and ``engine``/``ask_ahead`` are not
-    ported: setting one raises ``NotImplementedError``.
+    this raises rather than falling back.
+
+    ``compiled=True`` runs the whole experiment in the compiled loop on
+    ``device`` (:func:`hyperopt_tpu_torch.device_loop.compile_fmin`, ``fn``
+    a batch objective over tensors or a ``TrainableObjective``):
+    ``algo`` maps by name, ``loss_threshold`` stops on the device,
+    ``compiled_options`` holds ``compile_fmin`` arguments (or ``runner=``
+    and ``seed=``), and ``trials`` is filled from the history.  The
+    reference's progress bar, ``trial_timeout``/``catch``, checkpoints
+    (``trials_save_file``, ``resume_from``) and ``engine``/``ask_ahead``
+    are not ported: setting one raises ``NotImplementedError``.
     """
+    if compiled:
+        if trials_save_file or resume_from is not None:
+            raise ValueError(
+                "compiled=True durability rides compiled_options (chunk_size/"
+                "checkpoint_path/resume -- the chunked compiled loop), not "
+                "trials_save_file/resume_from"
+            )
+        host_only = [
+            name for name, v in (
+                ("timeout", timeout), ("early_stop_fn", early_stop_fn),
+                ("trial_timeout", trial_timeout), ("catch", catch or None),
+            ) if v is not None
+        ]
+        if host_only:
+            raise ValueError(
+                f"compiled=True runs the experiment as one compiled loop; host-driver "
+                f"feature(s) {host_only} do not apply (loss_threshold compiles to the "
+                "on-device stopping rule; use compiled_options for chunked "
+                "progress/checkpointing)"
+            )
     unported = [
         name for name, v in (
             ("show_progressbar", show_progressbar), ("trials_save_file", trials_save_file),
             ("resume_from", resume_from), ("trial_timeout", trial_timeout),
-            ("catch", catch), ("compiled", compiled), ("engine", engine),
-            ("ask_ahead", ask_ahead),
+            ("catch", catch), ("engine", engine), ("ask_ahead", ask_ahead),
         ) if v
     ]
     if unported:
@@ -297,6 +393,9 @@ def fmin(
         rstate = np.random.default_rng()
     elif isinstance(rstate, (int, np.integer)):
         rstate = np.random.default_rng(int(rstate))
+    if compiled:
+        return _run_compiled(fn, space, algo, max_evals, loss_threshold, trials, rstate,
+                             return_argmin, compiled_options, device)
     if trials is None:
         trials = Trials()
     elif type(trials).fmin is not Trials.fmin or trials.asynchronous:

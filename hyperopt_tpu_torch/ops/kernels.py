@@ -13,7 +13,12 @@ buffers with one row per dimension, ``[...]`` per-row scalars).
 * sorts are stable (``torch.sort(stable=True)``), so tie order -- and
   with it every mask and index -- matches the reference's exactly;
 * the component pick of the sampler is a gather, which is exact where
-  the reference contracts a one-hot against the parameters.
+  the reference contracts a one-hot against the parameters;
+* on the card, the float sums and scans along a history or component
+  axis add in a fixed order (:func:`sum_rows`, :func:`cumsum_rows`), so
+  a study's slice of a stacked state carries the bits of the same study
+  alone; PyTorch's own CUDA reductions pick their order from the whole
+  tensor's shape.
 
 Floats agree with the reference to a few ulp, not bit for bit: XLA
 contracts multiply-adds into FMAs and its ``exp``/``log``/``ndtr``/
@@ -56,9 +61,14 @@ __all__ = [
     "gmm_logpdf_cont_pre",
     "gmm_logpdf_quant_pre",
     "gmm_precompute",
+    "history_summary",
+    "ladder_cumsum",
     "parzen_fit",
     "quantize_nat",
     "split_below_above",
+    "cumsum_rows",
+    "sum_rows",
+    "tree_sum",
     "trunc_gmm_sample_pre",
 ]
 
@@ -78,6 +88,66 @@ class HistoryState(NamedTuple):
     active: torch.Tensor  # [D, cap] per-dim activity mask
     losses: torch.Tensor  # [cap]
     valid: torch.Tensor  # [cap] slot occupancy
+
+
+def history_summary(state):
+    """(best finite loss, occupied slots) of a :class:`HistoryState`, as
+    tensors over its leading dims: the chunk-boundary progress row of
+    the compiled loop (:func:`hyperopt_tpu_torch.device_loop.compile_fmin`
+    with ``chunk_size``).  ``best`` is ``inf`` while no finite loss
+    exists."""
+    ok = state.valid & torch.isfinite(state.losses)
+    best = torch.amin(torch.where(ok, state.losses, torch.inf), dim=-1)
+    done = torch.sum(state.valid.to(torch.int64), dim=-1)
+    return best, done
+
+
+def tree_sum(x, dim=-1, keepdim=False):
+    """Sum along ``dim`` by a fixed pairwise tree of elementwise adds: the
+    axis is zero-padded to a power of two and halved (``x[:h] + x[h:]``)
+    until one element is left.  Every add is elementwise, so a row's bits
+    depend on its own length only, never on the rows beside it."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    width = 1 << (max(n, 1) - 1).bit_length()
+    if width > n:
+        pad = list(x.shape)
+        pad[dim] = width - n
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    while width > 1:
+        width //= 2
+        x = x.narrow(dim, 0, width) + x.narrow(dim, width, width)
+    return x if keepdim else x.squeeze(dim)
+
+
+def ladder_cumsum(x, dim=-1):
+    """Inclusive prefix sum along ``dim`` by a Hillis-Steele ladder of
+    elementwise adds (step ``d`` adds the element ``d`` places back, ``d
+    = 1, 2, 4, ...``): like :func:`tree_sum`, a row's bits depend on its
+    own length only."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    d = 1
+    while d < n:
+        x = torch.cat([x.narrow(dim, 0, d), x.narrow(dim, d, n - d) + x.narrow(dim, 0, n - d)],
+                      dim=dim)
+        d *= 2
+    return x
+
+
+def sum_rows(x, dim=-1, keepdim=False):
+    """``torch.sum`` on CPU tensors (whose order is already per row);
+    :func:`tree_sum` on the card."""
+    if x.device.type == "cpu":
+        return torch.sum(x, dim=dim, keepdim=keepdim)
+    return tree_sum(x, dim=dim, keepdim=keepdim)
+
+
+def cumsum_rows(x, dim=-1):
+    """``torch.cumsum`` on CPU tensors; :func:`ladder_cumsum` on the card."""
+    if x.device.type == "cpu":
+        return torch.cumsum(x, dim=dim)
+    return ladder_cumsum(x, dim=dim)
 
 
 def _on(x, like):
@@ -245,7 +315,7 @@ def parzen_fit(obs, mask, prior_mu, prior_sigma, prior_weight, lf):
     sigma = torch.where(svalid, sigma, 1.0)
 
     sw = torch.where(svalid, sw, 0.0)
-    sw = sw / torch.clamp(torch.sum(sw, dim=-1, keepdim=True), min=F32_TINY)
+    sw = sw / torch.clamp(sum_rows(sw, dim=-1, keepdim=True), min=F32_TINY)
     sv = torch.where(svalid, sv, 0.0)  # keep padded mus finite downstream
     return sw, sv, sigma
 
@@ -284,7 +354,7 @@ def compact_gmm(weights, mus, sigmas, out_width):
         dim=-1,
     )  # [..., K, 5]
     zero = torch.zeros(cols.shape[:-2] + (1, 5), dtype=cols.dtype, device=dev)
-    p = torch.cat([zero, torch.cumsum(cols, dim=-2)], dim=-2)  # [..., K+1, 5]
+    p = torch.cat([zero, cumsum_rows(cols, dim=-2)], dim=-2)  # [..., K+1, 5]
 
     def rows(t, idx):
         return torch.gather(t, -2, idx[..., None].expand(idx.shape + (t.shape[-1],)))
@@ -334,11 +404,11 @@ def categorical_fit(obs, mask, prior_p, prior_weight, lf):
     k = prior_p.shape[-1]
     cats = torch.arange(k, dtype=obs.dtype, device=obs.device)
     onehot = (obs[..., :, None] == cats).to(tw.dtype)  # [..., N, K]
-    counts = torch.sum(onehot * tw[..., None], dim=-2)
+    counts = sum_rows(onehot * tw[..., None], dim=-2)
     has = prior_p > 0
     n_options = torch.sum(has, dim=-1, keepdim=True).to(counts.dtype)
     pseudo = counts * has + _col(prior_weight) * prior_p * n_options
-    return pseudo / torch.clamp(torch.sum(pseudo, dim=-1, keepdim=True), min=F32_TINY)
+    return pseudo / torch.clamp(sum_rows(pseudo, dim=-1, keepdim=True), min=F32_TINY)
 
 
 def fit_all_dims(ps_consts, values, active, losses, valid, gamma, lf,
@@ -438,7 +508,7 @@ def gmm_precompute(weights, mus, sigmas, low, high):
     c1 = torch.where(pos, logw - log_mass - torch.log(sig) - _LOG_SQRT_2PI, -torch.inf)
     c1max = torch.amax(c1, dim=-1)
     c1max = torch.where(torch.isfinite(c1max), c1max, 0.0)
-    cdf = torch.cumsum(torch.clamp(weights, min=0.0), dim=-1)
+    cdf = cumsum_rows(torch.clamp(weights, min=0.0), dim=-1)
     cdf_lo = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1]], dim=-1)
     return {
         "mus": mus,
@@ -507,7 +577,7 @@ def gmm_logpdf_quant_pre(x, pre, low, high, logspace, q):
     inv_s = pre["inv_s"][..., None, :]
     mu_inv_s = pre["mu_inv_s"][..., None, :]
     bin_mass = ndtr(ub_lat * inv_s - mu_inv_s) - ndtr(lb_lat * inv_s - mu_inv_s)
-    p = torch.sum(pre["wmass"][..., None, :] * bin_mass, dim=-1)
+    p = sum_rows(pre["wmass"][..., None, :] * bin_mass, dim=-1)
     return torch.log(torch.clamp(p, min=1e-38))
 
 
@@ -518,7 +588,7 @@ def ei_best_cat(key, p_below, p_above, n_cand):
     ``[..., K]``.  The winner is the highest-llr category hit by any draw.
     """
     u = R.uniform(key, (n_cand,))
-    onehot = _inverse_cdf_onehot(u, torch.cumsum(torch.clamp(p_below, min=0.0), dim=-1))
+    onehot = _inverse_cdf_onehot(u, cumsum_rows(torch.clamp(p_below, min=0.0), dim=-1))
     hit = torch.sum(onehot, dim=-2) > 0  # [..., K]
     llr = torch.where(
         p_below > 0, _safe_log(p_below) - _safe_log(p_above), -torch.inf
@@ -543,7 +613,7 @@ def ei_scores_cat(key, p_below, p_above, n_cand):
     reference contracts the one-hot pick against an (index, llr) table;
     the pick is one-hot, so a gather gives the same bits."""
     u = R.uniform(key, (n_cand,))
-    onehot = _inverse_cdf_onehot(u, torch.cumsum(torch.clamp(p_below, min=0.0), dim=-1))
+    onehot = _inverse_cdf_onehot(u, cumsum_rows(torch.clamp(p_below, min=0.0), dim=-1))
     comp = torch.argmax(onehot, dim=-1)  # exactly one hit per sample
     # zero-weight options are never drawn; 0 keeps the table finite.  The
     # logs are XLA's (R._log), so the joint score's categorical terms are
@@ -558,6 +628,19 @@ def ei_sweep_cat_scores(cat_keys, pb, pa, n_cand):
     """Per-candidate form of :func:`ei_sweep_cat` for the joint-EI path:
     (vals, llrs) each ``[B, Dk, S]``."""
     return ei_scores_cat(cat_keys, pb, pa, n_cand)
+
+
+# the q-group index tensors, one per (dims, device): made at the first
+# sweep, so that a captured sweep copies nothing from the host
+_GROUP_INDEX = {}
+
+
+def _group_index(pos, device):
+    k = (pos.tobytes(), device)
+    t = _GROUP_INDEX.get(k)
+    if t is None:
+        t = _GROUP_INDEX[k] = torch.as_tensor(pos, dtype=torch.int64, device=device)
+    return t
 
 
 def ei_sweep_cont_candidates(q_np, consts, cont_keys, fit_arrays, n_cand):
@@ -595,7 +678,7 @@ def ei_sweep_cont_candidates(q_np, consts, cont_keys, fit_arrays, n_cand):
     for has_q, pos in ((False, np.flatnonzero(q_np <= 0)), (True, np.flatnonzero(q_np > 0))):
         if pos.size == 0:
             continue
-        idx = torch.as_tensor(pos, dtype=torch.int64, device=dev)
+        idx = _group_index(pos, dev)
         at = sel + (slice(None), idx)  # [..., B, group, S]
         x = samples[at]
         grp_b = {k: v[sel + (idx,)] for k, v in pre_b.items()}

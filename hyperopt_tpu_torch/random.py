@@ -11,6 +11,8 @@ streams can be held against each other.  It reproduces JAX's default
   default, and the reference's);
 * ``split(key, n)`` hashes the counters ``(0, i)``, ``i < n``, and the
   two output words of counter ``i`` are the ``i``-th new key;
+* ``fold_in(key, data)`` hashes the one counter ``(0, data mod 2**32)``
+  (``threefry_seed`` of a 32-bit word) into a new key;
 * ``n`` random 32-bit words hash the counters ``(i >> 32, i & 0xffffffff)``
   of a row-major iota over the requested shape and keep ``bits1 ^ bits2``;
 * ``uniform`` sets the 23 high bits as the mantissa of a float in
@@ -34,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["key", "split", "random_bits", "uniform", "normal", "categorical"]
+__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "normal", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -88,6 +90,29 @@ def split(key, num=2):
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(key, data):
+    """``[..., 2]`` keys with ``data`` folded in (``jax.random.fold_in``
+    with x64 off): ``data`` is an int or an integer tensor that broadcasts
+    against the key batch (a device counter folds in without a host
+    read), taken modulo 2**32."""
+    k1, k2 = _words(key, 0)
+    b1, b2 = threefry2x32(k1, k2, 0, data & _MASK)
+    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+
+
+# float32 constants of the draws, one tensor per (value, device): made
+# at the first call, so that a step captured into a CUDA graph after a
+# warm-up copies nothing from the host
+_CONSTS = {}
+
+
+def _const(value, device):
+    t = _CONSTS.get((value, device))
+    if t is None:
+        t = _CONSTS[(value, device)] = torch.tensor(value, dtype=torch.float32, device=device)
+    return t
+
+
 def random_bits(key, shape):
     """32 random bits per element, int64 ``[..., *shape]`` in [0, 2**32)."""
     shape = tuple(int(s) for s in shape)
@@ -101,10 +126,12 @@ def uniform(key, shape, minval=0.0, maxval=1.0):
     """float32 uniforms in [minval, maxval), ``[..., *shape]``
     (``jax.random.uniform``, bit for bit)."""
     bits = random_bits(key, shape)
-    mant = (bits >> 9) | 0x3F800000  # < 2**31: exact in int32
-    floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # JAX views (bits >> 9) | 0x3F800000 as a float in [1, 2) and subtracts
+    # 1: that is (bits >> 9) * 2**-23 exactly, which needs no dtype view
+    # (a view that torch.func.vmap cannot batch in every release)
+    floats = (bits >> 9).to(torch.float32) * 2.0**-23
+    lo = _const(float(minval), key.device)
+    hi = _const(float(maxval), key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
@@ -163,9 +190,9 @@ def _log(x):
     """float32 log of positive normal ``x`` as XLA evaluates it (within
     1 ulp, almost always bitwise; PyTorch's log differs in ~7% of last
     bits)."""
-    bits = x.view(torch.int32)
-    e = ((bits >> 23) & 0xFF) - 0x7E
-    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    # x = m * 2**e with m in [0.5, 1): for a positive normal x, the bit
+    # split of the exponent field, without a dtype view (see uniform)
+    m, e = torch.frexp(x)
     small = m < _SQRT_HALF  # shift to [sqrt(1/2), sqrt(2)) and by -1
     m = (m - 1.0) + torch.where(small, m, 0.0)
     e = (e - small.to(torch.int32)).to(torch.float32)

@@ -261,3 +261,125 @@ def test_cuda_background_service_runs_rounds_on_its_device(cuda):
         h.tell(tid, mixed_space_fn(vals))
     assert h.n_tells == 5 and svc.counters["dispatch_count"] == 5
     svc.shutdown()
+
+
+def _stacked_histories(ps, n_studies, n_obs, cap, seed):
+    """``n_studies`` histories of ``n_obs`` prior draws each, stacked to
+    ``[N, D, cap]``, scored by ``mixed_space_fn``."""
+    from hyperopt_tpu_torch import random as R
+
+    vs, acts, ls = [], [], []
+    for i in range(n_studies):
+        v, a = ps.sample_prior(R.key(seed + i, device=ps.device), cap)
+        vs.append(v)
+        acts.append(a)
+        ls.append(torch.rand(cap, generator=torch.Generator().manual_seed(seed + i)).to(ps.device))
+    valid = (torch.arange(cap, device=ps.device) < n_obs).expand(n_studies, cap).contiguous()
+    return torch.stack(vs), torch.stack(acts), torch.stack(ls), valid
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_tpe_step_is_bitwise_per_study(cuda):
+    """The repair of the per-study bits: at 64 studies of 500 observations,
+    every fit tensor, every candidate and llr, and every suggestion of a
+    study's slice of the stacked TPE step is bitwise the same study
+    computed alone (the fits' sums and scans add in a fixed order)."""
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.ops.compile import compile_space
+
+    ps = compile_space(mixed_space(), device=cuda)
+    n = 64
+    state = _stacked_histories(ps, n, 500, 512, seed=40)
+    keys = torch.stack([R.key(7 + i, device=cuda) for i in range(n)])
+    fit = lambda st: TK.fit_all_dims(ps.consts, *st, 0.25, 25.0, 1.0,  # noqa: E731
+                                     above_cap=TK.DEFAULT_ABOVE_CAP)
+    stacked = fit(state)
+    dc = len(ps.cont_idx)
+    cont_keys = R.split(keys, dc + len(ps.cat_idx))[:, :dc].reshape(n, 1, dc, 2)
+    cand = TK.ei_sweep_cont_candidates(ps.q, ps.consts, cont_keys, stacked["cont"], 128)
+    step = tpe.build_suggest_fn(ps, 128, 0.25, 25.0, 1.0, n_cand_cat=24)
+    new_v, _ = step(keys, *state, 1)
+    for i in range(n):
+        one = tuple(t[i] for t in state)
+        solo = fit(one)
+        for a, b in zip(stacked["cont"] + stacked["cat"], solo["cont"] + solo["cat"]):
+            assert torch.equal(a[i], b), i
+        c = TK.ei_sweep_cont_candidates(ps.q, ps.consts, cont_keys[i], solo["cont"], 128)
+        assert torch.equal(cand[0][i], c[0]) and torch.equal(cand[1][i], c[1]), i
+        assert torch.equal(new_v[i], step(keys[i], *one, 1)[0]), i
+
+
+@pytest.mark.cuda
+def test_cuda_steps_copy_nothing_from_the_host(cuda):
+    """The eager TPE (factorized and joint), anneal, ATPE and prior steps,
+    once warm, run under ``set_sync_debug_mode("error")``: no blocking
+    host-to-device copy is left in a step that a graph captures."""
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.anneal import build_anneal_fn
+    from hyperopt_tpu_torch.atpe import build_atpe_device_fn
+    from hyperopt_tpu_torch.ops.compile import compile_space
+
+    ps = compile_space(mixed_space(), device=cuda)
+    state = tuple(t[0] for t in _stacked_histories(ps, 1, 200, 256, seed=3))
+    key = R.key(5, device=cuda)
+    steps = [tpe.build_suggest_fn(ps, 128, 0.25, 25.0, 1.0, n_cand_cat=24),
+             tpe.build_suggest_fn(ps, 32, 0.25, 25.0, 1.0, joint_ei=True),
+             build_anneal_fn(ps, 2.0, 0.1), build_atpe_device_fn(ps, 25.0)]
+    for fn in steps:
+        fn(key, *state, 2)
+    ps.sample_prior(key, 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in steps:
+            fn(key, *state, 2)
+        ps.sample_prior(key, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_loop_replays_its_eager_step(cuda):
+    """compile_fmin on the card: each step one graph replay holding one
+    gmm_llr launch in the model regime; the replayed stream is bitwise
+    the same steps run eagerly; a seed sweep is bitwise each solo run."""
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models.synthetic import mixed_space_fn_torch
+
+    runner = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=60,
+                          n_startup_jobs=20, n_EI_candidates=128, n_EI_candidates_cat=24)
+    out = runner(seed=3)
+    prog = runner._program()
+    assert set(prog.graphs) == {"prior", "model"}
+    assert prog.launches_per_replay == {"prior": 0, "model": 1}
+    assert prog.replays == {"prior": 20, "model": 40}
+    prog.reset(3, None, 0, float("inf"))
+    for j in range(60):
+        prog.step(runner._program().loop.regime(j, 0))
+    values, active, losses, _ = prog.host_state()
+    assert np.array_equal(values[:, :60], out["values"])
+    assert np.array_equal(losses[:60], out["losses"])
+    swept = runner(seed=[3, 4])
+    assert np.array_equal(swept[0]["values"], out["values"])
+    assert np.array_equal(swept[1]["losses"], runner(seed=4)["losses"])
+
+
+@pytest.mark.cuda
+def test_cuda_gmm_llr_launch_is_recorded_in_a_capture(cuda):
+    """The ctypes launch of the kernel lands in a CUDA graph: a replay on
+    new inputs (written into the captured tensors) gives the eager
+    launch's bits on them."""
+    x, ls, pb, pa = _inputs(cuda, B=1, Kb=17)
+    G.gmm_llr(x, ls, pb, pa)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = G.gmm_llr(x, ls, pb, pa)
+    x2, _, pb2, pa2 = _inputs(cuda, B=1, Kb=17, seed=11)
+    x.copy_(x2)
+    for pre, new in ((pb, pb2), (pa, pa2)):
+        for k in G._PRE_KEYS:
+            pre[k].copy_(new[k])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, G.gmm_llr(x2, ls, pb2, pa2))

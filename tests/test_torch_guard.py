@@ -76,6 +76,37 @@ def test_serve_in_a_fresh_process_loads_no_jax():
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_compiled_loop_in_a_fresh_process_loads_no_jax(tmp_path):
+    """(a'') the compiled loop on the CPU -- a chunked, checkpointed
+    ``compile_fmin`` of the tensor objective and a trainable run -- and
+    afterwards neither jax nor the JAX package is in sys.modules."""
+    code = textwrap.dedent(f"""
+        import sys
+        from hyperopt_tpu_torch.device_loop import compile_fmin
+        from hyperopt_tpu_torch.models.synthetic import (
+            mixed_space, mixed_space_fn_torch, mlp_tune_objective, mlp_tune_space)
+        out = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=12,
+                           n_startup_jobs=4, n_EI_candidates=8, chunk_size=4,
+                           checkpoint_path={str(tmp_path / "c.ckpt")!r}, device="cpu")(seed=0)
+        assert out["n_evals"] == 12
+        obj = mlp_tune_objective(n_epochs=2, n_train=16, in_dim=2, hidden=4)
+        out = compile_fmin(obj, mlp_tune_space(), max_evals=8, batch_size=4,
+                           n_startup_jobs=4, n_EI_candidates=4, device="cpu")(seed=0)
+        assert out["n_evals"] == 8
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def _sources():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -109,3 +140,21 @@ def test_no_cuda_means_no_silent_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         H.fmin(mixed_space_fn, mixed_space(), max_evals=3, trials=trials)
     assert len(trials.trials) == 0
+
+
+def test_no_cuda_means_no_silent_cpu_compiled_loop(monkeypatch):
+    """(c') without CUDA, compile_fmin and fmin(compiled=True) raise unless
+    the caller passes device="cpu"."""
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models.synthetic import mixed_space_fn_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=4)
+    trials = H.Trials()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.fmin(mixed_space_fn_torch, mixed_space(), max_evals=4, trials=trials, compiled=True)
+    assert len(trials.trials) == 0
+    out = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=4, n_startup_jobs=2,
+                       n_EI_candidates=4, device="cpu")(seed=0)
+    assert out["n_evals"] == 4

@@ -71,13 +71,34 @@ network.  Every phase asserts, and a failure exits non-zero:
    history a bitwise prefix of the flat run's; (e) ``bench_mlp_tune``,
    512 trials of an 8-epoch MLP at batch 32: trials/s, best loss, and
    the kernel at its shape against the plain version and its bound;
-   (f) 8a's last 20 model steps under ``torch.profiler``: device kernels
-   per step, device busy time and idle share; then 8a's bare replays
-   again, after that profiler trace.
+   8b also sweeps 8 seeds of ``algo="atpe"`` and of ``joint_ei=True``,
+   each seed bitwise its solo run; (f), run after phase 9: 8a's last 20
+   model steps under ``torch.profiler``: device kernels per step, device
+   busy time and idle share; then 8a's bare replays again, after that
+   profiler trace;
+9. (run right after phase 8, before any profiler too) the multi-fidelity
+   schedulers: (a) ``bench.py``'s ``bench_compiled_asha`` on
+   ``mlp_tune`` at its full width: 256 trials in brackets of 16 with
+   ``asha={"eta": 2, "rung_epochs": 1, "n_rungs": 3}`` against the flat
+   compiled sweep of 128 trials of 7 epochs, both with one bracket per
+   chunk and progress rows: both walls, brackets/s, ASHA's time to the
+   flat sweep's best, the replays and one ``gmm_llr`` launch per model
+   bracket; the first brackets replayed bitwise the eager brackets, the
+   chunked run bitwise the unchunked one, one artifact row per bracket,
+   and a kill at a chunk boundary resumed bitwise; (b) ``compile_pbt``
+   (pop 32, ``exploit_every`` 10, 20 rounds: ``bench.py``'s
+   ``PBT_STUDY_CONFIG``) and ``compile_sha`` (16 configs x 2 replicas)
+   on a population of ``mlp_tune``'s MLP: member-steps/s, ms per round
+   and per rung, captured runs bitwise the eager runs, a rung-checkpoint
+   resume bitwise; (c) ``successive_halving(max_budget=27, eta=3)`` and
+   ``asha(workers=4, max_jobs=40)`` over ``budgeted_quadratic_fn`` with
+   the port's ``tpe.suggest`` on the card: walls and launches; (d), last
+   of all (after it the card's traces came back empty): 9a's model
+   brackets under ``torch.profiler``.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
-with each path's launches under ``launches_by_path`` and the compiled
-loop's numbers under ``compiled``),
+with each path's launches under ``launches_by_path``, the compiled
+loop's numbers under ``compiled`` and phase 9's under ``schedulers``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -1064,6 +1085,38 @@ def compiled_launches(prog):
     return sum(prog.launches_per_replay.get(r, 0) * n for r, n in prog.replays.items())
 
 
+def kernel_at(shape, seed, sfu_per_s):
+    """The kernel against its plain version at ``shape`` on the card, now
+    (no profiler); returns its record and a function that times it
+    later (``device_ms`` traces with ``torch.profiler``, so the timing
+    waits for the profiler-free phases to end) and fills the record."""
+    import torch
+
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+
+    x, ls, pb, pa = scoring_inputs(shape, seed=seed, device=torch.device("cuda"))
+    got = G.gmm_llr(x, ls, pb, pa)
+    want = G.gmm_llr_plain(x, ls, pb, pa)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    assert torch.allclose(got, want, rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL), \
+        f"the kernel disagrees with the plain version at {shape}: {max_abs}"
+    cfg = G.launch_config(shape["B"] * shape["S"], shape["Dg"],
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    record = dict(B=shape["B"], max_abs_err=max_abs, config=cfg, **bound(shape, sfu_per_s))
+
+    def time_it(tag):
+        record["ms"] = ms = device_ms(lambda: G.gmm_llr(x, ls, pb, pa), 20)
+        record["plain_ms"] = device_ms(lambda: G.gmm_llr_plain(x, ls, pb, pa), 10)
+        record["host_ms"] = host_ms(lambda: G.gmm_llr(x, ls, pb, pa), 200)
+        log(f"[{tag}] the kernel at {shape}: device time {ms:.4f} ms (plain "
+            f"{record['plain_ms']:.4f} ms), wrapper host time {record['host_ms']:.4f} ms, split "
+            f"{cfg}, bound {record['bound_ms']:.5f} ms by {record['bound_by']} "
+            f"({record['bound_ms'] / ms:.3f} of it), max_abs_err {max_abs:.3e}")
+
+    return record, time_it
+
+
 def phase8(sfu_per_s):
     """The compiled loop on the card; returns the kernel launches of its
     paths (counted from their replays), the kernel's record at the mlp
@@ -1169,6 +1222,23 @@ def phase8(sfu_per_s):
     assert n_bitwise == SWEEP_SEEDS, n_bitwise
     assert launches["compiled_sweep"] == SWEEP_TRIALS - n_startup
     loop.update(sweep_bitwise=n_bitwise, sweep_s=sweep_s)
+    # the two bodies that gained their seed axis last: ATPE and joint EI
+    for path, extra in (("sweep_atpe", {"algo": "atpe"}), ("sweep_joint", {"joint_ei": True})):
+        body = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=SWEEP_TRIALS,
+                            **kw, **extra)
+        t0 = time.perf_counter()
+        swept = body(seed=seeds)
+        path_s = time.perf_counter() - t0
+        launches[path] = compiled_launches(body._program(SWEEP_SEEDS))
+        solo = [body(seed=s) for s in seeds]
+        n_same = sum(all(np.array_equal(a[f], b[f]) for f in ("values", "active", "losses"))
+                     for a, b in zip(swept, solo))
+        log(f"[8b] {extra}: {SWEEP_SEEDS} seeds x {SWEEP_TRIALS} trials in one program "
+            f"{path_s:.2f} s (capture included); {n_same} of {SWEEP_SEEDS} seeds bitwise their "
+            f"solo runs; gmm_llr launches {launches[path]}")
+        assert n_same == SWEEP_SEEDS, (extra, n_same)
+        assert launches[path] == SWEEP_TRIALS - n_startup, (extra, launches[path])
+        loop[f"{path}_bitwise"] = n_same
 
     # -- 8c. chunks, progress rows, a kill at a chunk boundary, resume ------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1225,35 +1295,35 @@ def phase8(sfu_per_s):
     mlp_s = time.perf_counter() - t0
     launches["mlp_tune"] = compiled_launches(mlp._program())
     assert TK._below_pad(25, cap=512, gamma=0.25) + 1 == MLP_SHAPE["Kb"]
-    x, ls, pb, pa = scoring_inputs(MLP_SHAPE, seed=8, device=torch.device("cuda"))
-    got = G.gmm_llr(x, ls, pb, pa)
-    want = G.gmm_llr_plain(x, ls, pb, pa)
-    torch.cuda.synchronize()
-    max_abs = float((got - want).abs().max())
-    ok = torch.allclose(got, want, rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL)
-    ms = device_ms(lambda: G.gmm_llr(x, ls, pb, pa), 20)
-    plain_ms = device_ms(lambda: G.gmm_llr_plain(x, ls, pb, pa), 10)
-    call_host_ms = host_ms(lambda: G.gmm_llr(x, ls, pb, pa), 200)
-    b = bound(MLP_SHAPE, sfu_per_s)
-    cfg = G.launch_config(MLP_SHAPE["B"] * MLP_SHAPE["S"], MLP_SHAPE["Dg"],
-                          torch.cuda.get_device_properties(0).multi_processor_count)
+    result, time_mlp_kernel = kernel_at(MLP_SHAPE, 8, sfu_per_s)
     log(f"[8e] mlp_tune (512 trials, batch 32, 8 epochs): warm call {mlp_warm_s:.2f} s, timed "
         f"run {mlp_s:.3f} s: {512 / mlp_s:.1f} trials/s, best loss {out['best_loss']:.6f}; "
         f"replays {mlp._program().replays}, gmm_llr launches {launches['mlp_tune']}; the kernel "
-        f"at {MLP_SHAPE}: max_abs_err {max_abs:.3e} against the plain version, device time "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms), wrapper host time {call_host_ms:.4f} ms, split "
-        f"{cfg}, bound {b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bound_ms'] / ms:.3f} of it)")
-    assert ok, f"the kernel disagrees with the plain version at {MLP_SHAPE}: {max_abs}"
+        f"at {MLP_SHAPE}: max_abs_err {result['max_abs_err']:.3e} against the plain version "
+        f"(timed after phase 9)")
     assert launches["mlp_tune"] == 512 // 32 - 1, launches
     assert np.isfinite(out["losses"]).all() and out["n_evals"] == 512
     loop.update(mlp_trials_per_s=512 / mlp_s, mlp_best_loss=out["best_loss"])
-    result = dict(B=MLP_SHAPE["B"], max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, config=cfg,
-                  host_ms=call_host_ms, **b)
 
+    log(f"[8] {time.perf_counter() - t_phase:.1f} s")
+
+    def profiled():
+        time_mlp_kernel("8e")
+        phase8f(prog, (rv, ra, rl), n, step_ms, enqueue_us, loop)
+
+    return launches, result, loop, profiled
+
+
+def phase8f(prog, history, n, step_ms, enqueue_us, loop):
+    """8f, run after phase 9, the last of the profiler-free phases."""
+    import numpy as np
+    import torch
+
+    rv, ra, rl = history
     # -- 8f. where a compiled step's time goes: 8a's last 20 model steps
-    # under torch.profiler, the phase's last act, since once a profiler
-    # trace has run in the process every replay holds the host until
-    # the card has run it (milliseconds where it took microseconds; PERF.md)
+    # under torch.profiler, after every profiler-free phase, since once a
+    # profiler trace has run in the process every replay holds the host
+    # until the card has run it (milliseconds where it took microseconds)
     prog.reset(7, (rv, ra, rl, np.arange(rl.shape[0]) < n), 0, float("inf"), start_step=n - 20)
     # each window (retaken if its trace is empty) replays steps n-20 .. n-1
     prof = profile_window(lambda: (prog.i.fill_(n - 20), [prog.run("model") for _ in range(20)]),
@@ -1284,8 +1354,329 @@ def phase8(sfu_per_s):
                 idle_share=None if prof is None else 1.0 - prof["busy_ms"] / prof["wall_ms"],
                 kernels_per_step=None if prof is None else prof["kernels_per_ask"],
                 host_us_per_replay_after_profiler=enqueue_after_us)
-    log(f"[8] {time.perf_counter() - t_phase:.1f} s")
-    return launches, result, loop
+
+
+# the fused ASHA protocol of bench.py:1650 (bench_compiled_asha)
+ASHA_BATCH, ASHA_TRIALS, FLAT_TRIALS = 16, 256, 128
+# the kernel in a model bracket: mlp_tune's 4 unquantized dims, 24
+# candidates, the below pad at a 256-slot carry, the whole history above
+ASHA_SHAPE = dict(B=16, Dg=4, S=24, Kb=9, Ka=257)
+ASHA = {"eta": 2, "rung_epochs": 1, "n_rungs": 3}
+# PBT_STUDY_CONFIG of bench.py:1199, on the population MLP
+PBT_POP, PBT_EXPLOIT_EVERY, PBT_ROUNDS = 32, 10, 20
+SHA_CONFIGS, SHA_REPLICAS, SHA_STEPS = 16, 2, 10
+
+
+def population_mlp(n_members, seed=0):
+    """``mlp_tune``'s 2-layer regressor at its full width (n_train 256,
+    in_dim 8, hidden 32) as a population ``train_fn`` for ``compile_pbt``
+    and ``compile_sha``: one full-batch SGD+momentum step of every member
+    (``torch.func.vmap`` over the members), the members' MSE after it;
+    hypers lr, momentum and weight decay; initial weights at scale 0.3."""
+    import torch
+
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.models.synthetic import _mlp_pieces
+
+    init, step, loss = _mlp_pieces(256, 8, 32, seed)
+
+    def train_fn(state, hypers, key):
+        state = torch.func.vmap(step)(state, hypers["lr"], hypers["momentum"], hypers["wd"])
+        return state, torch.func.vmap(loss)(state)
+
+    keys = R.split(R.key(seed + 1, device="cuda"), n_members)
+    state0 = torch.func.vmap(lambda k: init(k, 0.3))(keys)
+    bounds = {"lr": (1e-3, 1.0), "momentum": (0.05, 0.99), "wd": (1e-6, 1e-2)}
+    return train_fn, state0, bounds
+
+
+def phase9(sfu_per_s):
+    """The multi-fidelity schedulers on the card; returns the kernel
+    launches of their paths, their numbers, the kernel's record at the
+    bracket's shape, and what runs after the profiler-free phases (the
+    kernel's timing and a profiled ASHA run)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch import hyperband as HB
+    from hyperopt_tpu_torch import tpe
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.distributed.faults import FaultPlan, SimulatedCrash
+    from hyperopt_tpu_torch.models.synthetic import (budgeted_quadratic_fn,
+                                                     budgeted_quadratic_space,
+                                                     mlp_tune_objective, mlp_tune_space)
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.pbt import compile_pbt
+
+    t_phase = time.perf_counter()
+    launches, sched = {}, {}
+    B = ASHA_BATCH
+    total_ep = ASHA["rung_epochs"] * (ASHA["eta"] ** ASHA["n_rungs"] - 1) // (ASHA["eta"] - 1)
+    n_brackets = ASHA_TRIALS // B
+    n_prior = -(-20 // B)  # n_startup_jobs=20: brackets drawn from the prior
+
+    # -- 9a. bench_compiled_asha: fused ASHA against the flat sweep ---------
+    def build(n_evals, rows, **kw):
+        return compile_fmin(mlp_tune_objective(n_epochs=total_ep), mlp_tune_space(),
+                            max_evals=n_evals, batch_size=B, chunk_size=B, progress_every=1,
+                            progress_callback=lambda row: rows.append(
+                                (time.perf_counter(), row["best_loss"])), **kw)
+
+    rows_flat, rows_asha = [], []
+    flat = build(FLAT_TRIALS, rows_flat)
+    asha = build(ASHA_TRIALS, rows_asha, asha=ASHA)
+    t0 = time.perf_counter()
+    flat(seed=0)
+    asha(seed=0)  # warm-up and capture of both
+    warm_s = time.perf_counter() - t0
+    rows_flat.clear()
+    t0f = time.perf_counter()
+    out_f = flat(seed=1)
+    flat_s = time.perf_counter() - t0f
+    rows_asha.clear()
+    t0a = time.perf_counter()
+    out_a = asha(seed=1)
+    asha_s = time.perf_counter() - t0a
+    prog = asha._program()
+    launches["asha_compiled"] = compiled_launches(prog)
+    replays = dict(prog.replays)
+    q = max(out_f["best_loss"], out_a["best_loss"])
+    first = lambda rows, t_0: next((t - t_0 for t, b in rows if b <= q), None)  # noqa: E731
+    t_f, t_a = first(rows_flat, t0f), first(rows_asha, t0a)
+    rung_counts = np.bincount(out_a["rung_of"] + 1, minlength=ASHA["n_rungs"] + 1).tolist()
+    log(f"[9a] bench_compiled_asha on mlp_tune (n_train 256, in_dim 8, hidden 32), batch {B}, "
+        f"asha {ASHA}: warm calls {warm_s:.2f} s; flat {FLAT_TRIALS} trials x {total_ep} "
+        f"epochs {flat_s:.3f} s, best {out_f['best_loss']:.6f}; asha {ASHA_TRIALS} trials "
+        f"{asha_s:.3f} s ({n_brackets / asha_s:.1f} brackets/s), full-fidelity best "
+        f"{out_a['best_loss']:.6f}; quality target {q:.6f} reached by flat at "
+        f"{t_f} s, by asha at {t_a} s; rung_of counts (-1, 0, 1, 2) {rung_counts}; "
+        f"replays {replays}, gmm_llr launches {launches['asha_compiled']} (captured per "
+        f"replay {prog.launches_per_replay})")
+    assert replays == {"prior": n_prior, "model": n_brackets - n_prior}, replays
+    assert prog.launches_per_replay == {"prior": 0, "model": 1}, prog.launches_per_replay
+    assert launches["asha_compiled"] == n_brackets - n_prior, launches
+    assert rung_counts == [0, ASHA_TRIALS // 2, ASHA_TRIALS // 4, ASHA_TRIALS // 4]
+    from hyperopt_tpu_torch.ops import kernels as TK
+
+    assert TK._below_pad(25, cap=ASHA_TRIALS, gamma=0.25) + 1 == ASHA_SHAPE["Kb"]
+    assert prog.loop.cap + 1 == ASHA_SHAPE["Ka"]
+    record, time_kernel = kernel_at(ASHA_SHAPE, 9, sfu_per_s)
+    log(f"[9a] the kernel at the bracket's shape {ASHA_SHAPE}: max_abs_err "
+        f"{record['max_abs_err']:.3e} against the plain version (timed after 8f)")
+    assert np.isfinite(out_a["losses"]).all() and np.isfinite(out_f["losses"]).all()
+    # the first brackets replayed are the eager brackets' bits
+    n_eager = 4
+    prog.reset(1, None, 0, float("inf"))
+    for j in range(n_eager):
+        prog.step(prog.loop.regime(j, 0))
+    ev, ea, el, _, er = prog.host_state()
+    m = n_eager * B
+    eager_equal = (np.array_equal(ev[:, :m], out_a["values"][:, :m])
+                   and np.array_equal(el[:m], out_a["losses"][:m])
+                   and np.array_equal(er[:m], out_a["rung_of"][:m]))
+    # chunked against flat, the artifact stream, a kill and a resume
+    keys = ("values", "active", "losses", "rung_of")
+    same = lambda a, b: all(np.array_equal(a[k], b[k]) for k in keys)  # noqa: E731
+    flat_asha = compile_fmin(mlp_tune_objective(n_epochs=total_ep), mlp_tune_space(),
+                             max_evals=ASHA_TRIALS, batch_size=B, asha=ASHA)
+    flat_equal = same(flat_asha(seed=1), out_a)
+    arts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = FaultPlan(seed=0)
+        durable = compile_fmin(mlp_tune_objective(n_epochs=total_ep), mlp_tune_space(),
+                               max_evals=ASHA_TRIALS, batch_size=B, asha=ASHA,
+                               chunk_size=ASHA_TRIALS // 4,
+                               checkpoint_path=os.path.join(tmp, "a.ckpt"),
+                               fs=plan.fs(), artifact_callback=arts.append)
+        whole = durable(seed=1)
+        n_arts = len(arts)
+        arts_ok = all(a["loss"] == out_a["losses"][a["slot"]]
+                      and out_a["rung_of"][a["slot"]] == ASHA["n_rungs"] - 1
+                      and a["slot"] // B == a["bracket"] for a in arts)
+        plan.arm("device_loop_after_ckpt_before_next_chunk", at=2)
+        try:
+            durable(seed=1)
+            raise AssertionError("the armed crash point did not fire")
+        except SimulatedCrash:
+            pass
+        resumed = durable(seed=1, resume=True)
+    log(f"[9a] the first {n_eager} replayed brackets bitwise the eager brackets: {eager_equal}; "
+        f"chunked (chunk_size={B}) bitwise the unchunked ASHA run: {flat_equal}; "
+        f"chunk_size={ASHA_TRIALS // 4} with artifacts: bitwise {same(whole, out_a)}, {n_arts} artifact "
+        f"rows for {n_brackets} brackets, each its bracket's full-fidelity winner: {arts_ok}; "
+        f"killed after chunk 2's checkpoint and resumed: bitwise {same(resumed, out_a)}")
+    assert eager_equal, "the replayed brackets are not the eager brackets' bits"
+    assert flat_equal and same(whole, out_a) and same(resumed, out_a)
+    assert n_arts == n_brackets and arts_ok, (n_arts, arts_ok)
+    sched.update(asha_seconds=asha_s, flat_seconds=flat_s, brackets_per_s=n_brackets / asha_s,
+                 asha_seconds_to_flat_best=t_a, flat_seconds_to_flat_best=t_f,
+                 asha_best_loss=out_a["best_loss"], flat_best_loss=out_f["best_loss"],
+                 asha_replays=sum(replays.values()))
+
+    # -- 9b. compile_pbt and compile_sha on the population MLP --------------
+    train_fn, state0, bounds = population_mlp(PBT_POP)
+    pbt = compile_pbt(train_fn, state0, bounds, pop_size=PBT_POP,
+                      exploit_every=PBT_EXPLOIT_EVERY, n_rounds=PBT_ROUNDS)
+    pbt(seed=0)  # warm-up and capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_out = pbt(seed=1)
+    torch.cuda.synchronize()
+    pbt_s = time.perf_counter() - t0
+    p_eager = pbt._run(1, None, eager=True)
+    pbt_equal = (np.array_equal(p_eager["loss_history"], p_out["loss_history"])
+                 and np.array_equal(p_eager["log_hypers"], p_out["log_hypers"]))
+    member_steps = PBT_POP * PBT_EXPLOIT_EVERY * PBT_ROUNDS
+    log(f"[9b] compile_pbt pop {PBT_POP}, exploit_every {PBT_EXPLOIT_EVERY}, {PBT_ROUNDS} "
+        f"rounds on the population MLP: {pbt_s:.3f} s, {member_steps / pbt_s:.1f} member-steps/s,"
+        f" {pbt_s / PBT_ROUNDS * 1e3:.3f} ms per round (one replay each); best loss "
+        f"{p_out['best_loss']:.6f}, median of the last round "
+        f"{float(np.median(p_out['loss_history'][-1])):.6f} (first round "
+        f"{float(np.median(p_out['loss_history'][0])):.6f}); captured bitwise eager: {pbt_equal}")
+    assert pbt_equal, "the replayed PBT rounds are not the eager rounds' bits"
+    assert np.isfinite(p_out["best_loss"])
+    sched.update(pbt_seconds=pbt_s, pbt_member_steps_per_s=member_steps / pbt_s,
+                 pbt_ms_per_round=pbt_s / PBT_ROUNDS * 1e3, pbt_best_loss=p_out["best_loss"])
+
+    train_fn, state0, bounds = population_mlp(SHA_REPLICAS * SHA_CONFIGS, seed=2)
+    sha = HB.compile_sha(train_fn, state0, bounds, n_configs=SHA_CONFIGS, eta=2,
+                         steps_per_rung=SHA_STEPS, replicas=SHA_REPLICAS)
+    sha(seed=0)  # warm-up and capture of every rung
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_out = sha(seed=1)
+    sha_s = time.perf_counter() - t0
+    # each rung's replay alone, by CUDA events
+    rung_ms = []
+    for r, graph in enumerate(sha._graphs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        rung_ms.append(start.elapsed_time(end))
+    s_eager = sha._run(1, None, eager=True)
+    sha_equal = (s_eager["rungs"] == s_out["rungs"]
+                 and all(torch.equal(a, b) for a, b in zip(
+                     [s_eager["state"][0][k] for k in sorted(s_eager["state"][0])],
+                     [s_out["state"][0][k] for k in sorted(s_out["state"][0])])))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sha.npz")
+        from hyperopt_tpu_torch.utils import checkpoint as CK
+
+        real_save, n_saved = CK.save_pytree, []
+
+        def killing_save(tree, p):
+            real_save(tree, p)
+            n_saved.append(p)
+            if len(n_saved) == 2:
+                raise KeyboardInterrupt  # a kill right after rung 2's snapshot
+
+        CK.save_pytree = killing_save
+        try:
+            sha(seed=1, checkpoint=path)
+            raise AssertionError("the kill did not fire")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            CK.save_pytree = real_save
+        s_resumed = sha(seed=1, checkpoint=path)
+    resume_equal = (s_resumed["rungs"] == s_out["rungs"]
+                    and s_resumed["best_hypers"] == s_out["best_hypers"])
+    sha_steps = sum(SHA_REPLICAS * p * n for p, n, _ in sha._ladder)
+    log(f"[9b] compile_sha {SHA_CONFIGS} configs x {SHA_REPLICAS} replicas, eta 2, "
+        f"{SHA_STEPS} steps per rung on the population MLP: ladder {sha._ladder}, "
+        f"{sha_s:.3f} s ({sha_steps} member-steps, {sha_steps / sha_s:.1f} member-steps/s); ms "
+        f"per rung replay {[round(t, 4) for t in rung_ms]}; best loss {s_out['best_loss']:.6f}; "
+        f"captured bitwise eager: {sha_equal}; killed after rung 2's snapshot and resumed: "
+        f"bitwise {resume_equal}")
+    assert sha_equal and resume_equal, (sha_equal, resume_equal)
+    sched.update(sha_seconds=sha_s, sha_member_steps_per_s=sha_steps / sha_s,
+                 sha_ms_per_rung=rung_ms)
+
+    # -- 9c. the host drivers, rung 0 asked through the port's TPE on the card
+    G.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    sh = HB.successive_halving(budgeted_quadratic_fn, budgeted_quadratic_space(),
+                               max_budget=27, eta=3, algo=tpe.suggest,
+                               rstate=np.random.default_rng(0))
+    sha_host_s = time.perf_counter() - t0
+    launches["sha_host"] = G.KERNEL.launches
+    expected = []
+
+    def counted_tpe(new_ids, domain, trials, seed):
+        # the model runs (one launch) once 20 completed trials exist
+        expected.append(int(len(trials.trials) >= 20))
+        return tpe.suggest(new_ids, domain, trials, seed)
+
+    G.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    ah = HB.asha(budgeted_quadratic_fn, budgeted_quadratic_space(), max_budget=27, eta=3,
+                 max_jobs=40, workers=4, algo=counted_tpe, rstate=np.random.default_rng(0))
+    asha_host_s = time.perf_counter() - t0
+    launches["asha_host"] = G.KERNEL.launches
+    log(f"[9c] successive_halving(max_budget=27, eta=3) with tpe.suggest on the card: "
+        f"{sha_host_s:.3f} s, {len(sh['trials'])} evaluations, best {sh['best_loss']:.6f}, "
+        f"gmm_llr launches {launches['sha_host']} (rung 0 is one ask on an empty history: "
+        f"prior draws); asha(workers=4, max_jobs=40): {asha_host_s:.3f} s, "
+        f"{len(ah['trials'])} evaluations, rungs {ah['rungs']}, best {ah['best_loss']:.6f}, "
+        f"{len(expected)} rung-0 asks, gmm_llr launches {launches['asha_host']} (one per ask "
+        f"on 20 or more completed trials: {sum(expected)})")
+    assert len(sh["trials"]) == 27 + 9 + 3 + 1 and launches["sha_host"] == 0
+    assert len(ah["trials"]) == 40 and launches["asha_host"] == sum(expected)
+    sched.update(sha_host_seconds=sha_host_s, asha_host_seconds=asha_host_s)
+    log(f"[9] {time.perf_counter() - t_phase:.1f} s")
+
+    def profiled():
+        time_kernel("9a")
+
+    def profiled_last():
+        sched.update(phase9d(asha, out_a))
+
+    return launches, sched, record, profiled, profiled_last
+
+
+def phase9d(asha, out):
+    """Where a model bracket's time goes, run last of all (after this
+    profiler session the card's traces came back empty for the rest of
+    the process): 9a's 14 model brackets under ``torch.profiler``, from
+    9a's history after its 2 prior brackets."""
+    import numpy as np
+
+    prog = asha._program()
+    n = ASHA_TRIALS // ASHA_BATCH
+    n_prior = -(-20 // ASHA_BATCH)
+    m, cap = n_prior * ASHA_BATCH, prog.loop.cap
+    values = np.zeros((out["values"].shape[0], cap), np.float32)
+    active = np.zeros(values.shape, bool)
+    losses = np.zeros(cap, np.float32)
+    rung_of = np.full(cap, -1, np.int32)
+    values[:, :m], active[:, :m] = out["values"][:, :m], out["active"][:, :m]
+    losses[:m], rung_of[:m] = out["losses"][:m], out["rung_of"][:m]
+    state = (values, active, losses, np.arange(cap) < m)
+
+    def run():
+        prog.reset(1, state, 0, float("inf"), start_step=n_prior, rung_of=rung_of)
+        for _ in range(n - n_prior):
+            prog.run("model")
+
+    prof = profile_window(run, n - n_prior)
+    assert np.array_equal(prog.host_state()[2][:n * ASHA_BATCH], out["losses"]), \
+        "the profiled brackets are not 9a's"
+    log(f"[9d] 9a's {n - n_prior} model brackets "
+        + ("under torch.profiler: no device event traced, so not measured" if prof is None else
+           f"under torch.profiler: {prof['wall_ms']:.4f} ms per bracket, device busy "
+           f"{prof['busy_ms']:.4f} ms per bracket (idle share "
+           f"{1.0 - prof['busy_ms'] / prof['wall_ms']:.4f} of the profiled window), "
+           f"{prof['kernels_per_ask']:.1f} device kernels per bracket, gmm_llr_kernel "
+           f"{prof['llr_ms']:.4f} ms per bracket; top device time per bracket: "
+           + ", ".join(f"{nm} {t:.4f} ms" for nm, t in prof["top"])))
+    return {} if prof is None else {
+        "bracket_busy_ms": prof["busy_ms"], "bracket_wall_ms": prof["wall_ms"],
+        "bracket_idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
+        "kernels_per_bracket": prof["kernels_per_ask"]}
 
 
 def main():
@@ -1343,7 +1734,14 @@ def main():
     # -- 8. the compiled loop, before any profiler has traced: once one has
     # run in the process, every graph replay holds the host until the card
     # has run it, which would hide the replays' host cost ----------------
-    compiled_launches_by_path, mlp_result, compiled = phase8(sfu_per_s)
+    compiled_launches_by_path, mlp_result, compiled, profile_8f = phase8(sfu_per_s)
+    # -- 9. the multi-fidelity schedulers, before any profiler too ---------
+    sched_launches, schedulers, asha_result, profile_9, profile_9d = phase9(sfu_per_s)
+    compiled_launches_by_path.update(sched_launches)
+    # then the kernel's timings at both shapes and the profiled window of
+    # the compiled loop (the ASHA brackets' window runs last of all)
+    profile_8f()
+    profile_9()
 
     # -- 2. kernel against its plain version -----------------------------
     results = {}
@@ -1517,6 +1915,8 @@ def main():
     launches_by_path.update(serve_launches)
     launches_by_path.update(compiled_launches_by_path)
     results["mlp"] = mlp_result
+    results["asha"] = asha_result
+    profile_9d()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     main = results["fmin"]  # the shape of the main path's asks
@@ -1545,6 +1945,7 @@ def main():
                    for name, r in results.items()},
         "serve": serve,
         "compiled": compiled,
+        "schedulers": schedulers,
     }]}
     print(json.dumps(kernels))
     print(smi("name,power.limit"))

@@ -12,7 +12,10 @@ ask-ahead seam, and the device algorithms at its plugin seam --
 history with O(D) delta tells, fused tell+ask with ask-ahead),
 ``rand.suggest``, ``anneal.suggest`` and ``atpe.suggest``; and the
 study-batched suggestion service (:mod:`hyperopt_tpu_torch.serve`), where
-one round serves every open study.  The EI scoring of continuous
+one round serves every open study; the compiled loop
+(:mod:`hyperopt_tpu_torch.device_loop`, with its fused ASHA brackets) and
+the multi-fidelity schedulers (:mod:`hyperopt_tpu_torch.hyperband`,
+:mod:`hyperopt_tpu_torch.pbt`).  The EI scoring of continuous
 candidates runs in a hand-written Hopper kernel
 (:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
 """
@@ -26,8 +29,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 from . import anneal, atpe, hp, rand, tpe  # noqa: E402
 from .base import STATUS_OK, Domain, Trials  # noqa: E402
-from .fmin import fmin, partial  # noqa: E402
+from .fmin import fmin, partial, space_eval  # noqa: E402
 from .torch_trials import TorchTrials  # noqa: E402
 
 __all__ = ["Domain", "STATUS_OK", "TorchTrials", "Trials", "anneal", "atpe", "fmin", "hp",
-           "partial", "rand", "tpe"]
+           "partial", "rand", "space_eval", "tpe"]

@@ -211,7 +211,11 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
 
     The key tree is the reference's: ``split(key, 3)`` into the sweep,
     prior and roll keys, then ``split(k_roll)`` into the restart and
-    lock rolls.  ``mesh``/``cand_axis`` (sharding) are not ported.
+    lock rolls.  Keys ``[S, 2]`` with a history of the same leading axis
+    (``values [S, D, cap]``) run S experiments at once, the seed sweep of
+    the compiled loop: seed ``s``'s slice is computed by the same
+    operations as its solo call.  ``mesh``/``cand_axis`` (sharding) are
+    not ported.
     """
     if mesh is not None or cand_axis is not None:
         raise NotImplementedError(_NO_MESH)
@@ -256,17 +260,19 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
     arange_d = torch.arange(D, dtype=torch.int64, device=dev)
 
     def settings(losses, valid):
-        """(gamma, prior_weight, explore_fraction, ok, n) as tensors."""
+        """(gamma, prior_weight, explore_fraction, ok, n) as tensors over
+        the history's leading dims (none, or a seed axis)."""
         ok = valid & torch.isfinite(losses)
-        n = torch.sum(ok.to(torch.int64))
-        best_first = torch.cummin(torch.where(ok, losses, torch.inf), dim=0).values
-        cnt = torch.cumsum(ok.to(torch.int64), dim=0)
+        # integer counts: exact in any order, in the fixed order all the same
+        n = K.sum_rows(ok.to(torch.int64), dim=-1)
+        best_first = torch.cummin(torch.where(ok, losses, torch.inf), dim=-1).values
+        cnt = K.cumsum_rows(ok.to(torch.int64), dim=-1)
 
         def at_ok(k):  # best-so-far after the k-th ok trial (1-indexed)
-            slot = torch.clamp(torch.searchsorted(cnt, k.reshape(1)), 0, losses.shape[0] - 1)
+            slot = torch.clamp(torch.searchsorted(cnt, k[..., None]), 0, losses.shape[-1] - 1)
             # a gather, not best_first[slot[0]]: indexing by a tensor
             # element reads it on the host, which a captured step cannot
-            return torch.gather(best_first, 0, slot)[0]
+            return torch.gather(best_first, -1, slot)[..., 0]
 
         w = torch.clamp(torch.clamp(n // 2, min=2), max=15)
         # best_first[-w] of the host is the best after the (n-w+1)-th ok
@@ -282,64 +288,70 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
         return gamma, pw, explore, ok, n
 
     def lock_set(values, active, losses, ok, n):
-        """(lock_mask [D], lock_vals [D]) over the elite set."""
-        order = torch.argsort(torch.where(ok, losses, torch.inf), stable=True)
-        elite = torch.zeros_like(ok).index_fill_(0, order[:E], True)
+        """(lock_mask [..., D], lock_vals [..., D]) over the elite set.
+        The float sums along the history go through
+        :func:`~hyperopt_tpu_torch.ops.kernels.sum_rows`, so on the card a
+        seed's slice of a stacked history carries its solo bits."""
+        lead = losses.shape[:-1]
+        order = torch.argsort(torch.where(ok, losses, torch.inf), dim=-1, stable=True)
+        elite = torch.zeros_like(ok).scatter_(-1, order[..., :E], True)
         elite = elite & ok
+        judged = (n >= 20)[..., None]
 
-        scores = torch.full((D,), -torch.inf, dtype=torch.float32, device=dev)
-        lock_vals = torch.zeros((D,), dtype=torch.float32, device=dev)
+        scores = torch.full(lead + (D,), -torch.inf, dtype=torch.float32, device=dev)
+        lock_vals = torch.zeros(lead + (D,), dtype=torch.float32, device=dev)
 
         if Dc:
             cont_idx = c["cont_idx"]
             logspace = c["logspace"]
-            obs = values[cont_idx]
+            obs = values[..., cont_idx, :]
             lat = torch.where(logspace[:, None], K._safe_log(obs), obs)
-            elig = active[cont_idx] & elite[None, :]
+            elig = active[..., cont_idx, :] & elite[..., None, :]
             w = elig.to(torch.float32)
-            m = torch.sum(w, dim=1)
+            m = K.sum_rows(w, dim=-1)
             m_safe = torch.clamp(m, min=1.0)
-            mean = torch.sum(lat * w, dim=1) / m_safe
-            var = torch.sum((lat - mean[:, None]) ** 2 * w, dim=1) / m_safe
+            mean = K.sum_rows(lat * w, dim=-1) / m_safe
+            var = K.sum_rows((lat - mean[..., None]) ** 2 * w, dim=-1) / m_safe
             std = torch.sqrt(torch.clamp(var, min=0.0))
             thr = 0.05 * width
             # masked median, as np.median (mean of the middle two)
-            svals, _ = torch.sort(torch.where(elig, lat, torch.inf), dim=1)
+            svals, _ = torch.sort(torch.where(elig, lat, torch.inf), dim=-1)
             mi = torch.clamp(m.to(torch.int64) - 1, min=0)
-            lo = torch.gather(svals, 1, (mi // 2)[:, None])[:, 0]
-            hi = torch.gather(svals, 1, ((mi + 1) // 2)[:, None])[:, 0]
+            lo = torch.gather(svals, -1, (mi // 2)[..., None])[..., 0]
+            hi = torch.gather(svals, -1, ((mi + 1) // 2)[..., None])[..., 0]
             med_lat = 0.5 * (lo + hi)
             nat = torch.where(logspace, torch.exp(med_lat), med_lat)
             nat = K.quantize_nat(nat, c["q"], c["low"], c["high"], logspace)
-            locked = (m >= m_min) & (width > 0) & (std < thr) & (n >= 20)
-            scores[cont_idx] = torch.where(
+            locked = (m >= m_min) & (width > 0) & (std < thr) & judged
+            scores[..., cont_idx] = torch.where(
                 locked, 1.0 - std / torch.clamp(thr, min=1e-30), -torch.inf)
-            lock_vals[cont_idx] = nat
+            lock_vals[..., cont_idx] = nat
 
         if Dk:
             cat_idx = c["cat_idx"]
-            obs_k = values[cat_idx] - c["int_low"][:, None]
-            elig = active[cat_idx] & elite[None, :]
+            obs_k = values[..., cat_idx, :] - c["int_low"][:, None]
+            elig = active[..., cat_idx, :] & elite[..., None, :]
             w = elig.to(torch.float32)
-            m = torch.sum(w, dim=1)
+            m = K.sum_rows(w, dim=-1)
             cats = torch.arange(int(ps.k_max), dtype=obs_k.dtype, device=dev)
-            onehot = (obs_k[:, :, None] == cats).to(torch.float32)
-            counts = torch.sum(onehot * w[:, :, None], dim=1)  # [Dk, K]
-            share = torch.amax(counts, dim=1) / torch.clamp(m, min=1.0)
-            mode = torch.argmax(counts, dim=1).to(torch.float32)
-            locked = (m >= m_min) & (share >= 0.8) & (n >= 20)
-            scores[cat_idx] = torch.where(locked, (share - 0.8) / 0.2, -torch.inf)
-            lock_vals[cat_idx] = mode + c["int_low"].to(torch.float32)
+            onehot = (obs_k[..., None] == cats).to(torch.float32)
+            counts = K.sum_rows(onehot * w[..., None], dim=-2)  # [..., Dk, K]
+            share = torch.amax(counts, dim=-1) / torch.clamp(m, min=1.0)
+            mode = torch.argmax(counts, dim=-1).to(torch.float32)
+            locked = (m >= m_min) & (share >= 0.8) & judged
+            scores[..., cat_idx] = torch.where(locked, (share - 0.8) / 0.2, -torch.inf)
+            lock_vals[..., cat_idx] = mode + c["int_low"].to(torch.float32)
 
         if max_lock == 0:  # 1-dim spaces never lock
-            return torch.zeros((D,), dtype=torch.bool, device=dev), lock_vals
+            return torch.zeros(lead + (D,), dtype=torch.bool, device=dev), lock_vals
         # cap at D//2, keeping the most converged (stable order among ties)
-        rank = torch.empty((D,), dtype=torch.int64, device=dev)
-        rank[torch.argsort(-scores, stable=True)] = arange_d
+        order_s = torch.argsort(-scores, dim=-1, stable=True)
+        rank = torch.empty_like(order_s).scatter_(-1, order_s, arange_d.expand_as(order_s))
         return torch.isfinite(scores) & (rank < max_lock), lock_vals
 
     def fn(key, values, active, losses, valid, batch):
-        k_tpe, k_prior, k_roll = R.split(key, 3)
+        lead = key.shape[:-1]  # () for one history, (S,) for a seed sweep
+        k_tpe, k_prior, k_roll = R.split(key, 3).unbind(-2)
         if pure_categorical:
             # plain TPE settings: a boosted prior would flatten the
             # posterior that is the exploitation mechanism there
@@ -349,32 +361,34 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
         fits = K.fit_all_dims(c, values, active, losses, valid, gamma, lf_f, pw,
                               pad_gamma=_MAX_ADAPTIVE_GAMMA, above_cap=a_cap)
 
-        new_values = torch.zeros((D, batch), dtype=torch.float32, device=dev)
+        new_values = torch.zeros(lead + (D, batch), dtype=torch.float32, device=dev)
         keys = R.split(k_tpe, max(batch * (Dc + Dk), 1))
         if fits["cont"] is not None:
-            cont_keys = keys[: batch * Dc].reshape(batch, Dc, 2)
+            cont_keys = keys[..., : batch * Dc, :].reshape(lead + (batch, Dc, 2))
             cont_vals, _ = K.ei_sweep_cont(ps.q, c, cont_keys, fits["cont"], n_ei)
-            new_values[c["cont_idx"]] = cont_vals.T
+            new_values[..., c["cont_idx"], :] = cont_vals.transpose(-1, -2)
         if fits["cat"] is not None:
             pb, pa = fits["cat"]
-            cat_keys = keys[batch * Dc: batch * (Dc + Dk)].reshape(batch, Dk, 2)
+            if lead:  # a seed's posteriors broadcast against its trial axis
+                pb, pa = pb.unsqueeze(len(lead)), pa.unsqueeze(len(lead))
+            cat_keys = keys[..., batch * Dc: batch * (Dc + Dk), :].reshape(lead + (batch, Dk, 2))
             cat_vals, _ = K.ei_sweep_cat(cat_keys, pb, pa, n_cat)
-            new_values[c["cat_idx"]] = cat_vals.T + c["int_low"][:, None]
+            new_values[..., c["cat_idx"], :] = cat_vals.transpose(-1, -2) + c["int_low"][:, None]
 
         if pure_categorical:
             return new_values, ps.active_fn(new_values)
 
         # stall-triggered restarts: whole columns become prior draws
         prior_vals, _ = ps.sample_prior_fn(k_prior, batch)
-        k_explore, k_lock = R.split(k_roll)
-        explore_col = R.uniform(k_explore, (batch,)) < explore_frac
-        new_values = torch.where(explore_col[None, :], prior_vals, new_values)
+        k_explore, k_lock = R.split(k_roll).unbind(-2)
+        explore_col = R.uniform(k_explore, (batch,)) < explore_frac[..., None]
+        new_values = torch.where(explore_col[..., None, :], prior_vals, new_values)
 
         # converged-parameter locks, rolled per column; restarts skip them
         lock_mask, lock_vals = lock_set(values, active, losses, ok, n)
         lock_col = (R.uniform(k_lock, (batch,)) < lock_fraction) & ~explore_col
-        apply = lock_mask[:, None] & lock_col[None, :]
-        new_values = torch.where(apply, lock_vals[:, None], new_values)
+        apply = lock_mask[..., :, None] & lock_col[..., None, :]
+        new_values = torch.where(apply, lock_vals[..., :, None], new_values)
         return new_values, ps.active_fn(new_values)
 
     # the two decision stages, for inspection: settings(losses, valid) and

@@ -15,6 +15,7 @@ from .ops.kernels import HistoryState
 from .utils import resolve_device
 
 __all__ = ["device_loop_result_from_numpy", "history_from_numpy", "key_from_numpy",
+           "pbt_result_from_numpy", "population_state_from_numpy", "sha_result_from_numpy",
            "space_consts_from_numpy", "study_batch_from_numpy", "trainable_state_from_numpy"]
 
 
@@ -86,3 +87,33 @@ def device_loop_result_from_numpy(out):
         "active": np.array(out["active"], dtype=bool),
         "losses": np.array(out["losses"], dtype=np.float32),
     }
+
+
+def population_state_from_numpy(state, device=None):
+    """A reference scheduler population -- a pytree (dicts, tuples, lists)
+    of numpy arrays with the members on the leading axis, as
+    ``compile_pbt``/``compile_sha`` take and return it -- as the same
+    pytree of tensors on ``device``, in new memory and in each leaf's own
+    dtype."""
+    from .utils import tree_map
+
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(dev), state)
+
+
+def pbt_result_from_numpy(out, device=None):
+    """A reference ``compile_pbt`` result -> the port's form: ``state`` as
+    tensors on ``device``, ``hypers`` and ``loss_history`` as float32
+    numpy copies; ``runner(init=...)`` of the port takes it."""
+    return {
+        **{k: v for k, v in out.items() if k not in ("state", "hypers", "loss_history")},
+        "state": population_state_from_numpy(out["state"], device),
+        "hypers": {n: np.array(v, dtype=np.float32) for n, v in out["hypers"].items()},
+        "loss_history": np.array(out["loss_history"], dtype=np.float32),
+    }
+
+
+def sha_result_from_numpy(out, device=None):
+    """A reference ``compile_sha`` result -> the port's form: the surviving
+    ``state`` as tensors on ``device``, the bookkeeping as is."""
+    return {**out, "state": population_state_from_numpy(out["state"], device)}

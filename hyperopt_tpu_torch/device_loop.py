@@ -33,6 +33,18 @@ of the prior draw -- so every seed's stream is bitwise its solo run.  On
 the CPU the same step function runs eagerly; on the card there is no
 eager path in the public API, and a failed capture raises.
 
+With ``asha=`` one step is one ASHA bracket: B fresh configs, then the
+unrolled ladder of :func:`~hyperopt_tpu_torch.hyperband.rung_schedule`
+-- each rung trains its survivors through the
+:class:`TrainableObjective`'s ``step_fn``, writes their losses and the
+rung record ``rung_of`` in place, ranks them with
+:func:`~hyperopt_tpu_torch.hyperband.rung_rank` and gathers the best
+``1/eta`` into the next rung's narrower width -- still one graph per
+regime, since every width inside a bracket is static.  With
+``artifact_callback`` the bracket also writes its full-fidelity winner
+(slot, loss, trained state) into a per-chunk static buffer that the host
+reads at the chunk boundary.
+
 ``fn`` is a batch objective over a dict of ``[B]`` value tensors
 (natural space; categorical dims as float indices), optionally taking
 the ``active`` masks by keyword, returning ``[B]`` losses; or a
@@ -53,6 +65,7 @@ from .exceptions import AllTrialsFailed, CheckpointError
 from .ops import gmm_scores as G
 from .ops.compile import PackedSpace, compile_space
 from .ops.kernels import HistoryState, history_summary
+from .utils import capture_graph, tree_map
 
 __all__ = [
     "STOP_POLL",
@@ -166,6 +179,12 @@ class _Program:
             self.best = torch.full(lead, math.inf, dtype=torch.float32, device=dev)
             self.stale = torch.zeros(lead, dtype=torch.int64, device=dev)
             self.n_done = torch.zeros(lead, dtype=torch.int64, device=dev)
+        self.rung_of = self.win = None
+        if lp.asha is not None:
+            # the highest rung each slot reached; -1: warm or untouched
+            self.rung_of = torch.full((lp.cap,), -1, dtype=torch.int32, device=dev)
+            if lp.asha.collect:
+                self.win = lp.asha.winner_buffers(dev)
         self.graphs = {}
         self.launches_per_replay = {}
         self.replays = {r: 0 for r in lp.regimes}
@@ -186,16 +205,21 @@ class _Program:
         return torch.stack([lp.evaluate(key[s], values[s], active[s])
                             for s in range(self.lead[0])])
 
+    def _suggest(self, regime, key):
+        lp = self.loop
+        if regime == "prior":
+            return lp.ps.sample_prior_fn(key, lp.B)
+        return lp.model(key, self.values, self.active, self.losses, self.valid, lp.B)
+
     def step(self, regime):
         """One step, eagerly: fold the key, draw ``B`` suggestions, evaluate
-        them, write them into the carry, advance the counter."""
+        them, write them into the carry, advance the counter (with
+        ``asha=``: one bracket, :meth:`bracket`)."""
         lp = self.loop
+        if lp.asha is not None:
+            return self.bracket(regime)
         key = R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
-        if regime == "prior":
-            new_v, new_a = lp.ps.sample_prior_fn(key, lp.B)
-        else:
-            new_v, new_a = lp.model(key, self.values, self.active, self.losses, self.valid,
-                                    lp.B)
+        new_v, new_a = self._suggest(regime, key)
         new_l = self._evaluate(key, new_v, new_a)
         idx = self.c0 + self.i * lp.B + self.slots
         if lp.early:
@@ -223,24 +247,60 @@ class _Program:
         self.losses.index_copy_(-1, idx, new_l)
         self.i.add_(1)
 
+    def bracket(self, regime):
+        """One ASHA bracket, eagerly: suggest ``B`` configs, give each its
+        history slot, then the compacting rung ladder -- rung ``r`` trains
+        its survivors, writes their losses and ``rung_of`` in place, and
+        :func:`~hyperopt_tpu_torch.hyperband.rung_rank` keeps the best
+        ``width/eta``, whose states, configs and slots are gathered to the
+        next static width.  With an artifact buffer the full-fidelity
+        winner's slot, loss and state land in row ``i % chunk_steps``."""
+        from .hyperband import rung_rank
+
+        lp = self.loop
+        a = lp.asha
+        key = R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
+        new_v, new_a = self._suggest(regime, key)
+        states = a.init_states(R.split(R.fold_in(key, _TRAIN_TAG), lp.B), new_v, new_a)
+        idx = self.c0 + self.i * lp.B + self.slots
+        self.values.index_copy_(-1, idx, new_v)
+        self.active.index_copy_(-1, idx, new_a)
+        self.valid.index_fill_(-1, idx, True)
+        slots, vals, act = idx, new_v, new_a
+        for r, (width, _, _) in enumerate(a.ladder):
+            states, losses = a.rung_train[r](states, vals, act)
+            self.losses.index_copy_(-1, slots, losses)
+            self.rung_of.index_fill_(-1, slots, r)
+            order = rung_rank(losses, 1, width)[0]
+            if r + 1 < len(a.ladder):
+                keep = order[: a.ladder[r + 1][0]]
+                states = tree_map(lambda x: x.index_select(0, keep), states)
+                vals = vals.index_select(1, keep)
+                act = act.index_select(1, keep)
+                slots = slots.index_select(0, keep)
+            elif self.win is not None:
+                w = order[:1]
+                row = (self.i % a.chunk_steps).reshape(1)
+                self.win["slot"].index_copy_(0, row, slots.index_select(0, w).to(torch.int32))
+                self.win["loss"].index_copy_(0, row, losses.index_select(0, w))
+                tree_map(lambda dst, x: dst.index_copy_(0, row, x.index_select(0, w)),
+                         self.win["params"], states)
+        self.i.add_(1)
+
     def _capture(self, regime):
         """Warm the step up once on a side stream (the kernel's build, the
-        launch-config cache, the cached constants), then capture it.  The
+        launch-config cache, the cached constants), then capture it; the
+        kernel's launches of the captured call are the replay's.  The
         warm-up writes the zero carry; :meth:`reset` refills it."""
-        dev = self.values.device
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        launches = []
+
+        def counted_step():
+            before = G.KERNEL.launches
             self.step(regime)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = G.KERNEL.launches
-        # thread_local: another thread's work on the card (a serve loop)
-        # does not void this capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.step(regime)
-        self.launches_per_replay[regime] = G.KERNEL.launches - before
-        self.graphs[regime] = graph
+            launches.append(G.KERNEL.launches - before)
+
+        self.graphs[regime] = capture_graph(counted_step, self.values.device)
+        self.launches_per_replay[regime] = launches[-1]
 
     def run(self, regime):
         """One step: a graph replay on the card, the eager step on the CPU."""
@@ -251,11 +311,11 @@ class _Program:
             self.step(regime)
         self.replays[regime] += 1
 
-    def reset(self, seeds, state, c0, best0, start_step=0):
+    def reset(self, seeds, state, c0, best0, start_step=0, rung_of=None):
         """Fill the carry for a run: ``seeds`` an int (or one per seed of
         the axis), ``state`` the four host arrays (None: empty), the warm
-        offset ``c0``, the warm best ``best0`` (early stop) and the first
-        step index."""
+        offset ``c0``, the warm best ``best0`` (early stop), the first
+        step index and, with ``asha=``, the rung record (None: all -1)."""
         lp = self.loop
         keys = [R.key(int(s) % (2**32)) for s in np.atleast_1d(seeds)]
         self.base_key.copy_(keys[0] if not self.lead else torch.stack(keys))
@@ -265,6 +325,11 @@ class _Program:
         else:
             for t, a in zip(self.state(), state):
                 t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        if self.rung_of is not None:
+            if rung_of is None:
+                self.rung_of.fill_(-1)
+            else:
+                self.rung_of.copy_(torch.from_numpy(np.ascontiguousarray(rung_of)))
         self.c0.fill_(int(c0))
         self.i.fill_(int(start_step))
         if lp.early:
@@ -276,8 +341,21 @@ class _Program:
 
     def host_state(self):
         """The carry as host numpy, one copy per tensor (a copy on the CPU
-        too: a result must not alias the carry the next run writes)."""
-        return [t.to("cpu", copy=True).numpy() for t in self.state()]
+        too: a result must not alias the carry the next run writes); with
+        ``asha=`` the rung record follows the four."""
+        ts = list(self.state()) + ([] if self.rung_of is None else [self.rung_of])
+        return [t.to("cpu", copy=True).numpy() for t in ts]
+
+    def summary(self):
+        """The chunk boundary's progress row as tensors: (best finite loss,
+        written slots); with ``asha=`` the best counts full-fidelity
+        trials only (a rung-0 loss is not comparable to a survivor's)."""
+        if self.rung_of is None:
+            return history_summary(self.state())
+        full = self.rung_of == len(self.loop.asha.ladder) - 1
+        ok = self.valid & torch.isfinite(self.losses) & full
+        best = torch.amin(torch.where(ok, self.losses, torch.inf), dim=-1)
+        return best, torch.sum(self.valid.to(torch.int64), dim=-1)
 
     def stopped(self):
         """Whether every experiment of the program has stopped (one host
@@ -285,12 +363,47 @@ class _Program:
         return bool(self.stop.all())
 
 
+class _Asha:
+    """The bracket of ``compile_fmin(asha=...)``: the rung ladder, the
+    vmapped per-trial init and one trainer per rung width, and (with an
+    artifact stream) the winner buffers' geometry."""
+
+    def __init__(self, eta, rung_epochs, ladder, init_states, rung_train, collect,
+                 chunk_steps, n_dims):
+        self.eta, self.rung_epochs = eta, rung_epochs
+        self.n_dims = n_dims
+        self.ladder = ladder
+        self.init_states = init_states
+        self.rung_train = rung_train
+        self.collect = collect
+        self.chunk_steps = chunk_steps
+
+    def winner_buffers(self, device):
+        """One row per bracket of a chunk: the full-fidelity winner's slot,
+        loss and trained state (its template from one trial's init)."""
+        D = self.n_dims
+        one = self.init_states(R.split(R.key(0, device=device), 1),
+                               torch.zeros((D, 1), dtype=torch.float32, device=device),
+                               torch.ones((D, 1), dtype=torch.bool, device=device))
+        n = self.chunk_steps
+        return {
+            "slot": torch.zeros((n,), dtype=torch.int32, device=device),
+            "loss": torch.zeros((n,), dtype=torch.float32, device=device),
+            "params": tree_map(lambda x: torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                                     device=device), one),
+        }
+
+    def metadata(self):
+        return {"eta": self.eta, "rung_epochs": self.rung_epochs,
+                "n_rungs": len(self.ladder), "ladder": [tuple(row) for row in self.ladder]}
+
+
 class _Loop:
     """What every program of one ``compile_fmin`` shares: the space, the
     geometry, the model step and the objective."""
 
     def __init__(self, ps, D, B, cap, n_startup_jobs, algo, model, evaluate, early, thr,
-                 stale_cap):
+                 stale_cap, asha=None):
         self.ps, self.D, self.B, self.cap = ps, D, B, cap
         self.n_startup_jobs = n_startup_jobs
         self.algo = algo
@@ -299,6 +412,7 @@ class _Loop:
         self.early = early
         self.thr = thr
         self.stale_cap = stale_cap
+        self.asha = asha
         self.regimes = ("prior",) if algo == "rand" else ("prior", "model")
 
     def regime(self, step, c0):
@@ -357,20 +471,55 @@ def compile_fmin(
     ``checkpoint_path``/``checkpoint_every``/``resume`` and ``fs`` (the
     crash-point seam of :mod:`hyperopt_tpu_torch.distributed.faults`)
     make every chunk boundary a progress, checkpoint and resume point,
-    bitwise the flat run.  ``asha=``/``artifact_callback=``,
-    ``mesh=``/``cand_axis=`` and ``metrics_registry=`` are not ported
-    yet and raise ``NotImplementedError``.
+    bitwise the flat run.  ``asha={"eta", "rung_epochs", "n_rungs"}``
+    (a :class:`TrainableObjective` only) makes each step one ASHA bracket
+    of ``batch_size`` configs (a power of ``eta``): rung ``r`` trains the
+    survivors ``rung_epochs * eta**r`` further epochs, the ladder taking
+    the place of ``n_epochs``; ``artifact_callback`` (with ``asha=`` and
+    ``chunk_size``) receives one ``{"bracket", "slot", "loss",
+    "params"}`` dict per bracket, the full-fidelity winner with its
+    trained state as host numpy.  ``mesh=``/``cand_axis=`` and
+    ``metrics_registry=`` are not ported yet and raise
+    ``NotImplementedError``.
 
     The result dict has ``best`` (``{label: value}``, the index form
     ``fmin`` returns), ``best_loss``, ``best_index``, ``losses [N]``,
     ``values [D, N]``, ``active [D, N]`` (the warm prefix included),
     ``n_evals``, ``n_total`` and, with ``return_trials=True``, a rebuilt
-    host ``Trials`` store.
+    host ``Trials`` store; with ``asha=`` also ``rung_of [N]`` (the
+    highest rung each trial reached, -1 for warm slots) and the ``asha``
+    ladder, and ``best`` ranks full-fidelity trials only.
     """
+    trainable = isinstance(fn, TrainableObjective)
     if asha is not None:
-        raise _not_ported("asha", 14, "fused ASHA rung promotion")
+        if not isinstance(asha, dict):
+            raise ValueError(
+                'asha= takes a dict of rung options ({"eta", "rung_epochs", "n_rungs"})')
+        unknown = set(asha) - {"eta", "rung_epochs", "n_rungs"}
+        if unknown:
+            raise ValueError(
+                f"unknown asha option(s) {sorted(unknown)}; expected eta|rung_epochs|n_rungs")
+        if not trainable:
+            raise ValueError(
+                "asha= fuses rung-based early stopping into the per-trial training loop; fn "
+                "must be a TrainableObjective"
+            )
+        if loss_threshold is not None or no_progress_steps is not None:
+            raise ValueError(
+                "asha= does not compose with loss_threshold/no_progress_steps (rung promotion "
+                "IS the early stopping); drop one"
+            )
+        if cand_axis is not None:
+            raise ValueError(
+                "asha= does not compose with cand_axis (bracket populations shard over "
+                "trial_axis; there is no sequential candidate sweep to shard)"
+            )
     if artifact_callback is not None:
-        raise _not_ported("artifact_callback", 14, "streaming rung winners")
+        if asha is None:
+            raise ValueError("artifact_callback streams rung-winner params; it requires asha=")
+        if chunk_size is None:
+            raise ValueError(
+                "artifact_callback rides the chunked scan path; pass chunk_size= to enable it")
     if mesh is not None or cand_axis is not None:
         raise _not_ported("mesh" if mesh is not None else "cand_axis", 15,
                           "sharding the loop over several cards")
@@ -440,7 +589,6 @@ def compile_fmin(
     else:
         model = None
 
-    trainable = isinstance(fn, TrainableObjective)
     accepts_active = not trainable and "active" in inspect.signature(fn).parameters
     init_accepts_active = trainable and "active" in inspect.signature(fn.init_fn).parameters
     labels = ps.labels
@@ -476,11 +624,59 @@ def compile_fmin(
 
         return torch.func.vmap(one, in_dims=(1, 1, 0))(values, active, ekeys).to(torch.float32)
 
+    chunk_steps = n_chunks = None
+    if chunked:
+        chunk_steps = -(-int(chunk_size) // B)
+        n_chunks = -(-n_steps // chunk_steps)
+    a_spec = None
+    if asha is not None:
+        from .hyperband import rung_schedule
+
+        a_eta = int(asha.get("eta", 2))
+        a_rung_epochs = int(asha.get("rung_epochs", 1))
+        try:
+            ladder = rung_schedule(B, a_eta, asha.get("n_rungs"), a_rung_epochs)
+        except ValueError as e:
+            raise ValueError(
+                f"asha bracket geometry: {e} (batch_size is the bracket population)") from None
+
+        def init_one(k, vcol, acol):
+            cfg = _trial_cfg(vcol, acol)
+            if init_accepts_active:
+                return fn.init_fn(k, cfg, active={label: acol[d]
+                                                  for d, label in enumerate(labels)})
+            return fn.init_fn(k, cfg)
+
+        def init_states(keys, values, active):
+            return torch.func.vmap(init_one, in_dims=(0, 1, 1))(keys, values, active)
+
+        def rung_trainer(n_ep, e0):
+            """Rung training at a static width: every survivor advances
+            ``n_ep`` epochs from the cumulative offset ``e0`` (its epoch
+            counter runs on across rungs), then reports its loss."""
+
+            def one(state, vcol, acol):
+                cfg = _trial_cfg(vcol, acol)
+                for epoch in range(e0, e0 + n_ep):
+                    state = fn.step_fn(state, cfg, epoch)
+                return state, fn.loss_fn(state, cfg)
+
+            def train(states, values, active):
+                states, losses = torch.func.vmap(one, in_dims=(0, 1, 1))(states, values, active)
+                return states, losses.to(torch.float32)
+
+            return train
+
+        a_spec = _Asha(a_eta, a_rung_epochs, ladder, init_states,
+                       [rung_trainer(n_ep, e0) for _, n_ep, e0 in ladder],
+                       artifact_callback is not None, chunk_steps, D)
+
     loop = _Loop(
         ps, D, B, cap, int(n_startup_jobs), algo, model,
         eval_trainable if trainable else eval_plain, early,
         -math.inf if loss_threshold is None else float(loss_threshold),
         n_steps + 1 if no_progress_steps is None else int(no_progress_steps),
+        asha=a_spec,
     )
     programs = {}
 
@@ -516,10 +712,23 @@ def compile_fmin(
         best0 = float(fin.min()) if fin.size else math.inf  # early stop sees the warm best
         return (values0, active0, losses0, valid0), c0, best0
 
-    def _package_result(values_np, active_np, losses_np, n_ran, total, return_trials):
+    def _asha_best(losses_np, rung_np):
+        """The best full-fidelity trial; if every one failed, the best
+        finite loss at any rung (so a config can still be named)."""
+        fin = np.isfinite(losses_np)
+        keyed = np.where(fin & (rung_np == len(a_spec.ladder) - 1), losses_np, np.inf)
+        if not np.isfinite(keyed).any():
+            keyed = np.where(fin, losses_np, np.inf)
+        return int(np.argmin(keyed))
+
+    def _package_result(values_np, active_np, losses_np, n_ran, total, return_trials,
+                        rung_of_np=None):
         if not np.isfinite(losses_np).any():
             raise AllTrialsFailed("every on-device trial returned a non-finite loss")
-        bi = int(np.argmin(np.where(np.isfinite(losses_np), losses_np, np.inf)))
+        if rung_of_np is not None:
+            bi = _asha_best(losses_np, rung_of_np)
+        else:
+            bi = int(np.argmin(np.where(np.isfinite(losses_np), losses_np, np.inf)))
         best = {}
         for d, label in enumerate(labels):
             if not active_np[d, bi]:
@@ -537,6 +746,9 @@ def compile_fmin(
             "n_evals": n_ran,
             "n_total": total,
         }
+        if rung_of_np is not None:
+            out["rung_of"] = rung_of_np
+            out["asha"] = a_spec.metadata()
         if return_trials:
             out["trials"] = _to_trials(ps, values_np, active_np, losses_np)
         return out
@@ -548,25 +760,24 @@ def compile_fmin(
             if early and (j + 1) % STOP_POLL == 0 and prog.stopped():
                 break
 
+    def _finish(prog, c0, return_trials):
+        host = prog.host_state()
+        values, active, losses = host[:3]
+        n_ran = (int(prog.n_done) if early else n_steps) * B
+        total = c0 + n_ran
+        return _package_result(values[:, :total], active[:, :total], losses[:total], n_ran,
+                               total, return_trials,
+                               rung_of_np=host[4][:total] if a_spec is not None else None)
+
     def _runner_flat(seed, return_trials, init):
         prog = program()
         state, c0, best0 = (None, 0, math.inf) if init is None else _unpack_init(init)
         prog.reset(seed, state, c0, best0)
         _replay_steps(prog, c0)
-        values, active, losses, _ = prog.host_state()
-        n_ran = (int(prog.n_done) if early else n_steps) * B
-        total = c0 + n_ran
-        return _package_result(values[:, :total], active[:, :total], losses[:total], n_ran,
-                               total, return_trials)
+        return _finish(prog, c0, return_trials)
 
     def _runner_seeds(seeds, return_trials):
         """The seed sweep: S experiments in lockstep over a seed axis."""
-        if algo == "atpe" or joint_ei:
-            raise NotImplementedError(
-                "seed sweeps of algo='atpe' and of joint_ei=True are not ported yet: their "
-                "device bodies have no seed axis (ROADMAP.md Queue A, item 13a); run the "
-                "seeds one by one"
-            )
         prog = program(len(seeds))
         prog.reset(seeds, None, 0, math.inf)
         _replay_steps(prog, 0)
@@ -579,18 +790,19 @@ def compile_fmin(
                                         losses[s][:n_ran], n_ran, n_ran, return_trials))
         return outs
 
-    chunk_steps = n_chunks = ck_guard = None
-    if chunked:
-        chunk_steps = -(-int(chunk_size) // B)
-        n_chunks = -(-n_steps // chunk_steps)
-        if checkpoint_path is not None:
-            from .hyperband import _algo_identity, _space_fingerprint
-            from .pyll.base import as_apply
+    ck_guard = None
+    if chunked and checkpoint_path is not None:
+        from .hyperband import _algo_identity, _space_fingerprint
+        from .pyll.base import as_apply
 
-            ck_guard = [
-                "device-loop-chunk", 1, str(algo), _space_fingerprint(as_apply(space)),
-                _algo_identity(fn), int(n_steps), int(B), int(chunk_steps), int(cap),
-            ]
+        ck_guard = [
+            "device-loop-chunk", 1, str(algo), _space_fingerprint(as_apply(space)),
+            _algo_identity(fn), int(n_steps), int(B), int(chunk_steps), int(cap),
+        ]
+        if a_spec is not None:
+            # the rung geometry is part of the experiment: a bundle from
+            # another ladder is refused
+            ck_guard += ["asha", a_spec.eta, a_spec.rung_epochs, len(a_spec.ladder)]
 
     def _runner_chunked(seed, return_trials, init, resume_now):
         from .distributed.faults import REAL_FS
@@ -598,7 +810,7 @@ def compile_fmin(
 
         fs_ = REAL_FS if fs is None else fs
         seed_u = int(seed) % (2**32)
-        state, c0, start_chunk = None, 0, 0
+        state, c0, start_chunk, rung_of = None, 0, 0, None
         init_state = init_c0 = None
         if init is not None:
             init_state, init_c0, _ = _unpack_init(init)
@@ -621,18 +833,32 @@ def compile_fmin(
                 c0 = int(bundle["c0"])
                 start_chunk = int(bundle["chunk_next"])
                 state = (bundle["values"], bundle["active"], bundle["losses"], bundle["valid"])
+                rung_of = bundle.get("rung_of")
         if state is None and init_state is not None:
             state, c0 = init_state, init_c0
         prog = program()
-        prog.reset(seed_u, state, c0, math.inf, start_step=start_chunk * chunk_steps)
+        prog.reset(seed_u, state, c0, math.inf, start_step=start_chunk * chunk_steps,
+                   rung_of=rung_of)
         for ci in range(start_chunk, n_chunks):
             # a padded tail chunk's steps past n_steps are not replayed
-            for j in range(ci * chunk_steps, min((ci + 1) * chunk_steps, n_steps)):
+            last = min((ci + 1) * chunk_steps, n_steps)
+            for j in range(ci * chunk_steps, last):
                 prog.run(loop.regime(j, c0))
+            if artifact_callback is not None:
+                # the chunk's winner rows, read where the progress row is
+                # (copies: the next chunk writes the same buffer)
+                win = tree_map(lambda t: t.to("cpu", copy=True).numpy(), prog.win)
+                for j in range(last - ci * chunk_steps):
+                    artifact_callback({
+                        "bracket": ci * chunk_steps + j,
+                        "slot": int(win["slot"][j]),
+                        "loss": float(win["loss"][j]),
+                        "params": tree_map(lambda x, j=j: x[j], win["params"]),
+                    })
             if progress_callback is not None and (
                 (ci + 1) % int(progress_every) == 0 or ci == n_chunks - 1
             ):
-                best, done = history_summary(prog.state())
+                best, done = prog.summary()
                 progress_callback({"chunk": ci, "trials_done": int(done),
                                    "best_loss": float(best)})
             fs_.crashpoint("device_loop_after_chunk_before_ckpt")
@@ -640,17 +866,16 @@ def compile_fmin(
                 (ci + 1) % int(checkpoint_every) == 0 or ci == n_chunks - 1
             ):
                 host = prog.host_state()
-                save_device_chunk(checkpoint_path, {
+                bundle = {
                     "guard": ck_guard, "seed": seed_u, "c0": int(c0), "chunk_next": ci + 1,
                     "n_chunks": int(n_chunks), "values": host[0], "active": host[1],
                     "losses": host[2], "valid": host[3],
-                }, fs=fs_)
+                }
+                if a_spec is not None:
+                    bundle["rung_of"] = host[4]
+                save_device_chunk(checkpoint_path, bundle, fs=fs_)
                 fs_.crashpoint("device_loop_after_ckpt_before_next_chunk")
-        values, active, losses, _ = prog.host_state()
-        n_ran = n_steps * B
-        total = c0 + n_ran
-        return _package_result(values[:, :total], active[:, :total], losses[:total], n_ran,
-                               total, return_trials)
+        return _finish(prog, c0, return_trials)
 
     resume_default = bool(resume)
 
@@ -669,6 +894,9 @@ def compile_fmin(
                 "compile_fmin"
             )
         if _is_seed_list(seed):
+            if a_spec is not None:
+                raise ValueError(
+                    "asha= does not compose with vectorized seed sweeps; run seeds individually")
             if init is not None:
                 raise ValueError(
                     "init= resume is single-seed; run the seed sweep fresh or resume seeds "
@@ -681,6 +909,8 @@ def compile_fmin(
     # one experiment, or of a seed sweep: program(n_seeds)
     runner._program = program
     runner._packed_space = ps
+    if a_spec is not None:
+        runner._asha_ladder = list(a_spec.ladder)
     if chunked:
         runner._chunk_geometry = {
             "chunk_steps": chunk_steps,

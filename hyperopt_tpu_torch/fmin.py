@@ -39,11 +39,14 @@ from .base import (
     spec_from_misc,
 )
 from .exceptions import AllTrialsFailed, InvalidAnnotatedParameter
+from .pyll.base import as_apply, rec_eval
+from .pyll_utils import expr_to_config
 from .utils import coarse_utcnow
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["fmin", "FMinIter", "StopExperiment", "partial"]
+__all__ = ["fmin", "FMinIter", "StopExperiment", "generate_trials_to_calculate", "partial",
+           "space_eval"]
 
 
 class StopExperiment:
@@ -57,6 +60,41 @@ def partial(fn, **kwargs):
     return rval
 
 
+def space_eval(space, hp_assignment):
+    """Substitute ``{label: value}`` into a space: the concrete config
+    the objective would receive (choices resolve to their chosen
+    option)."""
+    space = as_apply(space)
+    memo = {}
+    for label, info in expr_to_config(space).items():
+        if label in hp_assignment:
+            memo[info.node] = hp_assignment[label]
+    return rec_eval(space, memo=memo)
+
+
+def generate_trials_to_calculate(points):
+    """A ``Trials`` store seeded with explicit configs to evaluate first:
+    ``points`` is a list of ``{label: value}`` dicts (choice values are
+    indices)."""
+    trials = Trials()
+    new_ids = trials.new_trial_ids(len(points))
+    miscs = [
+        {
+            "tid": tid,
+            "cmd": None,
+            "workdir": None,
+            "idxs": {key: [tid] for key in point},
+            "vals": {key: [point[key]] for key in point},
+        }
+        for tid, point in zip(new_ids, points)
+    ]
+    results = [{"status": base.STATUS_NEW} for _ in points]
+    docs = trials.new_trial_docs(new_ids, [None] * len(points), results, miscs)
+    trials.insert_trial_docs(docs)
+    trials.refresh()
+    return trials
+
+
 class FMinIter:
     """Object-based sequential fmin: step the ask/evaluate loop explicitly."""
 
@@ -64,7 +102,7 @@ class FMinIter:
 
     def __init__(self, algo, domain, trials, rstate, max_queue_len=1,
                  max_evals=float("inf"), timeout=None, loss_threshold=None,
-                 early_stop_fn=None):
+                 early_stop_fn=None, verbose=False):
         if trials.asynchronous:
             raise NotImplementedError(
                 "the port's fmin drives sequential Trials stores only"
@@ -79,6 +117,7 @@ class FMinIter:
         self.loss_threshold = loss_threshold
         self.early_stop_fn = early_stop_fn
         self.early_stop_args = []
+        self.verbose = verbose
         self.start_time = timeit.default_timer()
         # ask-ahead seam: the seed pre-drawn for the NEXT ask, so that an
         # algo's result hook can pre-dispatch it (see _notify_result)
@@ -314,9 +353,12 @@ def fmin(
     loss_threshold=None,
     trials=None,
     rstate=None,
+    allow_trials_fmin=True,
     pass_expr_memo_ctrl=None,
     catch_eval_exceptions=False,
+    verbose=False,
     return_argmin=True,
+    points_to_evaluate=None,
     max_queue_len=1,
     early_stop_fn=None,
     device=None,
@@ -329,6 +371,7 @@ def fmin(
     engine=None,
     ask_ahead=None,
     compiled_options=None,
+    recorder=None,
 ):
     """Minimize ``fn`` over ``space`` with ``algo`` (default: the port's
     ``tpe.suggest``), sequentially.
@@ -341,7 +384,11 @@ def fmin(
     :func:`hyperopt_tpu_torch.early_stop.no_progress_loss`).
     ``device`` (None = the card, ``"cpu"`` to opt in to the CPU) is where
     the suggest path computes; without CUDA and without ``device="cpu"``
-    this raises rather than falling back.
+    this raises rather than falling back.  ``points_to_evaluate`` (a list
+    of ``{label: value}`` dicts) is evaluated first when the store is
+    empty; ``verbose`` is kept on the driver, as the reference keeps it;
+    ``allow_trials_fmin`` lets a ``Trials`` subclass with its own ``fmin``
+    take the call (the port's stores are all sequential, so none does).
 
     ``compiled=True`` runs the whole experiment in the compiled loop on
     ``device`` (:func:`hyperopt_tpu_torch.device_loop.compile_fmin`, ``fn``
@@ -350,9 +397,15 @@ def fmin(
     ``compiled_options`` holds ``compile_fmin`` arguments (or ``runner=``
     and ``seed=``), and ``trials`` is filled from the history.  The
     reference's progress bar, ``trial_timeout``/``catch``, checkpoints
-    (``trials_save_file``, ``resume_from``) and ``engine``/``ask_ahead``
-    are not ported: setting one raises ``NotImplementedError``.
+    (``trials_save_file``, ``resume_from``), the flight recorder
+    (``recorder``) and ``engine``/``ask_ahead`` are not ported: setting
+    one raises ``NotImplementedError``.
     """
+    if recorder is not None:
+        raise NotImplementedError(
+            "fmin(recorder=...): the flight recorder's driver spans are not ported yet "
+            "(ROADMAP.md Queue A, item 12b)"
+        )
     if compiled:
         if trials_save_file or resume_from is not None:
             raise ValueError(
@@ -363,6 +416,7 @@ def fmin(
         host_only = [
             name for name, v in (
                 ("timeout", timeout), ("early_stop_fn", early_stop_fn),
+                ("points_to_evaluate", points_to_evaluate),
                 ("trial_timeout", trial_timeout), ("catch", catch or None),
             ) if v is not None
         ]
@@ -397,8 +451,27 @@ def fmin(
         return _run_compiled(fn, space, algo, max_evals, loss_threshold, trials, rstate,
                              return_argmin, compiled_options, device)
     if trials is None:
-        trials = Trials()
-    elif type(trials).fmin is not Trials.fmin or trials.asynchronous:
+        if points_to_evaluate is None:
+            trials = Trials()
+        else:
+            assert isinstance(points_to_evaluate, list)
+            trials = generate_trials_to_calculate(points_to_evaluate)
+    elif points_to_evaluate is not None and len(trials) == 0:
+        assert isinstance(points_to_evaluate, list)
+        seeded = generate_trials_to_calculate(points_to_evaluate)
+        trials._ids.update(t["tid"] for t in seeded._dynamic_trials)
+        trials._insert_trial_docs(seeded._dynamic_trials)
+        trials.refresh()
+    if allow_trials_fmin and type(trials).fmin is not Trials.fmin:
+        return trials.fmin(
+            fn, space, algo=algo, max_evals=max_evals, timeout=timeout,
+            loss_threshold=loss_threshold, max_queue_len=max_queue_len, rstate=rstate,
+            pass_expr_memo_ctrl=pass_expr_memo_ctrl, verbose=verbose,
+            catch_eval_exceptions=catch_eval_exceptions, return_argmin=return_argmin,
+            show_progressbar=show_progressbar, early_stop_fn=early_stop_fn,
+            trials_save_file=trials_save_file, device=device,
+        )
+    if trials.asynchronous:
         raise NotImplementedError(
             "the port's fmin drives sequential Trials stores only"
         )
@@ -408,7 +481,7 @@ def fmin(
     rval = FMinIter(algo, domain, trials, rstate=rstate,
                     max_queue_len=max_queue_len, max_evals=max_evals,
                     timeout=timeout, loss_threshold=loss_threshold,
-                    early_stop_fn=early_stop_fn)
+                    early_stop_fn=early_stop_fn, verbose=verbose)
     rval.catch_eval_exceptions = catch_eval_exceptions
     rval.exhaust()
     return _fmin_result(trials, return_argmin)

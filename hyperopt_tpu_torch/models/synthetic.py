@@ -6,19 +6,24 @@ and host objective; ``mixed_space_fn_torch`` is the same objective over
 tensors, for the compiled loop; ``mlp_tune_*`` and ``cond_tune_*`` are
 its trainable objectives (:class:`~hyperopt_tpu_torch.device_loop.
 TrainableObjective`), whose data come from the port's threefry, so they
-are the reference's up to float rounding.
+are the reference's up to float rounding.  ``budgeted_quadratic_*`` is
+the multi-fidelity objective of the host schedulers
+(:mod:`hyperopt_tpu_torch.hyperband`).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import hp
 from .. import random as R
 
 __all__ = [
+    "budgeted_quadratic_fn",
+    "budgeted_quadratic_space",
     "cond_tune_objective",
     "cond_tune_space",
     "mixed_space",
@@ -60,6 +65,19 @@ def mixed_space_fn(cfg):
         elif k.startswith("ri") or k.startswith("ch"):
             t += 0.02 * (v % 3)
     return t
+
+
+def budgeted_quadratic_fn(cfg, budget):
+    """The schedulers' multi-fidelity objective: a quadratic whose
+    observation noise shrinks with the budget, so promotion must pick
+    good configs through rung-0 noise.  Deterministic per ``(config,
+    budget)``: the noise comes from a numpy generator seeded by ``x``."""
+    rng = np.random.default_rng(int(1e6 * (cfg["x"] % 1)) % 2**31)
+    return (cfg["x"] - 3.0) ** 2 + float(rng.normal(0.0, 1.0 / budget))
+
+
+def budgeted_quadratic_space():
+    return {"x": hp.uniform("x", -10.0, 10.0)}
 
 
 def mixed_space_fn_torch(cfg):

@@ -208,11 +208,12 @@ def apply_delta_stacked(values, active, losses, valid, vcol, acol, loss, idx, ap
 
 
 def _per_row(x, n, device):
-    """A per-step scalar as an ``[n]`` float32 vector: a Python number
-    fills, a 0-dim tensor (a traced adaptive setting) is expanded as is,
-    so no device->host sync is forced."""
+    """A per-step scalar as an ``[..., n]`` float32 vector: a Python
+    number fills, a tensor (a traced adaptive setting, one per study of a
+    leading axis) is expanded as is, so no device->host sync is forced."""
     if torch.is_tensor(x):
-        return x.to(device=device, dtype=torch.float32).expand(n)
+        x = x.to(device=device, dtype=torch.float32)
+        return x[..., None].expand(x.shape + (n,))
     return torch.full((n,), x, dtype=torch.float32, device=device)
 
 
@@ -433,8 +434,9 @@ def fit_all_dims(ps_consts, values, active, losses, valid, gamma, lf,
     lead = values.shape[:-2]
 
     def rows(*per_dim):
-        # per-dimension settings spread over the leading study dims
-        return [t.expand(lead + t.shape) for t in per_dim] if lead else list(per_dim)
+        # per-dimension settings spread over the leading study dims (a
+        # per-study setting already carries them)
+        return [t.expand(lead + t.shape[-1:]) for t in per_dim] if lead else list(per_dim)
 
     cont_idx = ps_consts["cont_idx"]
     dc = cont_idx.shape[0]

@@ -83,7 +83,9 @@ def build_suggest_fn(ps, n_cand, gamma, lf, prior_weight, joint_ei=False,
     ``[N, 2]`` and a state with the same leading axis (``values [N, D,
     cap]``, ``losses [N, cap]``) give ``[N, D, B]``, study ``i``'s slice
     computed by the same operations as a solo call on its own state, and
-    all studies' unquantized candidates scored in one kernel launch.
+    all studies' unquantized candidates scored in one kernel launch.  The
+    joint step takes the same leading axis (the compiled loop's seed
+    sweeps).
 
     ``joint_ei=True`` scores whole configurations: candidate s of a trial
     is the s-th draw of every dim, its score the sum of the llrs of the
@@ -125,29 +127,34 @@ def build_suggest_fn(ps, n_cand, gamma, lf, prior_weight, joint_ei=False,
     def fn_joint(key, values, active, losses, valid, batch):
         fits = K.fit_all_dims(c, values, active, losses, valid, gamma, lf_f,
                               pw, above_cap=a_cap)
+        lead = key.shape[:-1]  # () for one history, (S,) for a seed sweep
         keys = R.split(key, max(batch * (Dc + Dk), 1))
-        shape = (batch, D, n_cand)
+        shape = lead + (batch, D, n_cand)
         cand_values = torch.zeros(shape, dtype=torch.float32, device=ps.device)
         llrs = torch.zeros(shape, dtype=torch.float32, device=ps.device)
         if fits["cont"] is not None:
-            cont_keys = keys[: batch * Dc].reshape(batch, Dc, 2)
+            cont_keys = keys[..., : batch * Dc, :].reshape(lead + (batch, Dc, 2))
             v, l = K.ei_sweep_cont_scores(ps.q, c, cont_keys, fits["cont"], n_cand)
-            cand_values[:, c["cont_idx"]] = v
-            llrs[:, c["cont_idx"]] = l
+            cand_values[..., c["cont_idx"], :] = v
+            llrs[..., c["cont_idx"], :] = l
         if fits["cat"] is not None:
             pb, pa = fits["cat"]
-            cat_keys = keys[batch * Dc: batch * (Dc + Dk)].reshape(batch, Dk, 2)
+            if lead:  # a seed's posteriors broadcast against its trial axis
+                pb, pa = pb.unsqueeze(len(lead)), pa.unsqueeze(len(lead))
+            cat_keys = keys[..., batch * Dc: batch * (Dc + Dk), :].reshape(lead + (batch, Dk, 2))
             v, l = K.ei_sweep_cat_scores(cat_keys, pb, pa, n_cand)
-            cand_values[:, c["cat_idx"]] = v + c["int_low"][None, :, None]
-            llrs[:, c["cat_idx"]] = l
+            cand_values[..., c["cat_idx"], :] = v + c["int_low"][:, None]
+            llrs[..., c["cat_idx"], :] = l
         # configuration s = column s of every dim; only the dims active
-        # in that configuration add to its joint score
-        flat = cand_values.transpose(0, 1).reshape(D, batch * n_cand)
-        cand_active = ps.active_fn(flat).reshape(D, batch, n_cand).transpose(0, 1)
-        joint = torch.sum(torch.where(cand_active, llrs, 0.0), dim=1)  # [B, S]
-        best = torch.argmax(joint, dim=1)
+        # in that configuration add to its joint score (summed in a fixed
+        # order on the card, so a seed's slice keeps its solo bits)
+        flat = cand_values.transpose(-3, -2).reshape(lead + (D, batch * n_cand))
+        cand_active = ps.active_fn(flat).reshape(lead + (D, batch, n_cand)).transpose(-3, -2)
+        joint = K.sum_rows(torch.where(cand_active, llrs, 0.0), dim=-2)  # [..., B, S]
+        best = torch.argmax(joint, dim=-1)
         new_values = torch.gather(
-            cand_values, 2, best[:, None, None].expand(batch, D, 1))[..., 0].T
+            cand_values, -1, best[..., None, None].expand(lead + (batch, D, 1)))[..., 0]
+        new_values = new_values.transpose(-1, -2)
         return new_values, ps.active_fn(new_values)
 
     fn = fn_joint if joint_ei else fn_factorized

@@ -6,7 +6,7 @@ import datetime
 
 import torch
 
-__all__ = ["coarse_utcnow", "resolve_device"]
+__all__ = ["capture_graph", "coarse_utcnow", "resolve_device", "tree_leaves", "tree_map"]
 
 
 def coarse_utcnow():
@@ -29,3 +29,43 @@ def resolve_device(device=None):
             "is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a pytree of dicts, lists and tuples
+    (named tuples keep their type), with ``rest`` trees of the same
+    structure passed leaf by leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*items)
+        return type(tree)(items)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of a pytree, in :func:`tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def capture_graph(step, device):
+    """Run ``step()`` once on a side stream (lazy builds, cuBLAS handles,
+    the caching allocator's pools, cached constants), then capture a
+    second call into a ``torch.cuda.CUDAGraph`` and return it.  The
+    warm-up writes whatever static tensors ``step`` writes; callers fill
+    them again before the first replay."""
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # thread_local: another thread's work on the card (a serve loop)
+    # does not void this capture
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        step()
+    return graph

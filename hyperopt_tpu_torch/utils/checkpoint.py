@@ -1,12 +1,16 @@
 """Durable checkpoints of the PyTorch port: the chunk-boundary bundles of
-the compiled loop.
+the compiled loop, the schedulers' snapshots and population pytrees.
 
 The port's copy of the parts of :mod:`hyperopt_tpu.utils.checkpoint` that
-:func:`hyperopt_tpu_torch.device_loop.compile_fmin` uses: the durable
-pickle saver (tmp + fsync + atomic rename), the guarded loader that turns
-a truncated or corrupt file into a
-:class:`~hyperopt_tpu_torch.exceptions.CheckpointError`, and the chunk
-bundle format on top of them.  Every file operation goes through the
+:func:`hyperopt_tpu_torch.device_loop.compile_fmin` and the schedulers
+of :mod:`hyperopt_tpu_torch.hyperband` use: the durable pickle saver
+(tmp + fsync + atomic rename), the guarded loader that turns a truncated
+or corrupt file into a
+:class:`~hyperopt_tpu_torch.exceptions.CheckpointError`, the chunk
+bundle format on top of them, the host schedulers' guarded snapshots
+(:func:`save_trials`, :func:`load_guarded`) and the ``.npz`` pytree
+pair (:func:`save_pytree`, :func:`load_pytree`) with the reference's
+key layout.  Every file operation goes through the
 ``fs=`` seam of :mod:`hyperopt_tpu_torch.distributed.faults`, so the
 crash tests kill a run inside the torn-publish window.  Bundles hold
 host numpy arrays only: a checkpoint never pickles a device tensor.
@@ -17,6 +21,8 @@ from __future__ import annotations
 import os
 import pickle
 
+import numpy as np
+
 from ..distributed.faults import REAL_FS
 from ..exceptions import CheckpointError
 
@@ -24,8 +30,13 @@ __all__ = [
     "DEVICE_CHUNK_FORMAT",
     "durable_pickle",
     "load_device_chunk",
+    "load_guarded",
     "load_pickle_guarded",
+    "load_pytree",
+    "load_trials",
     "save_device_chunk",
+    "save_pytree",
+    "save_trials",
 ]
 
 
@@ -93,3 +104,105 @@ def load_device_chunk(path, guard=None, fs=None):
             f"experiment (guard {bundle['guard']!r} != {list(guard)!r}); refusing to resume"
         )
     return bundle
+
+
+def save_trials(obj, path, fs=None):
+    """Durably pickle a ``Trials`` store or a host scheduler's snapshot."""
+    return durable_pickle(obj, path, fs=fs)
+
+
+def load_trials(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def load_guarded(path, guard):
+    """Load a pickled scheduler snapshot and refuse one whose recorded
+    ``guard`` differs: a snapshot from another schedule, space, algo or
+    seed is refused (``ValueError``), never reinterpreted."""
+    snap = load_trials(path)
+    if snap.get("guard") != guard:
+        raise ValueError(
+            f"checkpoint {path!r} was written by schedule {snap.get('guard')}; refusing to "
+            f"resume {guard}"
+        )
+    return snap
+
+
+def _leaves_with_keys(tree, prefix=""):
+    """``(key, leaf)`` pairs of a pytree of dicts, lists and tuples, each
+    key in ``jax.tree_util.keystr``'s form (``['meta']``, ``[0]``), so
+    the port's files and the reference's share their layout."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves_with_keys(tree[k], f"{prefix}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves_with_keys(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _host(x):
+    """A leaf as host numpy (a tensor is copied off its device)."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def save_pytree(tree, path):
+    """Checkpoint a pytree of arrays or tensors (``compile_pbt``'s or
+    ``compile_sha``'s ``out["state"]``, model params) to one ``.npz``,
+    keyed by tree path; tmp + fsync + atomic rename.  Pairs with
+    :func:`load_pytree`."""
+    arrays = {k: _host(v) for k, v in _leaves_with_keys(tree)}
+    tmp = f"{path}.tmp.{os.getpid()}.npz"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    return path
+
+
+def load_pytree(target, path):
+    """Rebuild a pytree with ``target``'s structure from a saved ``.npz``,
+    as host numpy; each leaf's shape and dtype are checked against the
+    target's (a live pytree or one of zeros)."""
+    with np.load(path) as data:
+        pairs = list(_leaves_with_keys(target))
+        loaded = []
+        for key, leaf in pairs:
+            if key not in data:
+                raise ValueError(f"checkpoint is missing leaf {key!r}")
+            arr = data[key]
+            want_shape = tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
+            want_dtype = _dtype_of(leaf)
+            if arr.shape != tuple(want_shape) or arr.dtype != want_dtype:
+                raise ValueError(
+                    f"leaf {key!r}: checkpoint {arr.shape}/{arr.dtype} does not match target "
+                    f"{tuple(want_shape)}/{want_dtype}"
+                )
+            loaded.append(arr)
+    return _rebuild(target, iter(loaded))
+
+
+def _dtype_of(leaf):
+    dt = getattr(leaf, "dtype", None)
+    if dt is None:
+        return np.dtype(type(leaf))
+    if hasattr(leaf, "detach"):  # a tensor: its numpy twin
+        return np.dtype(str(dt).replace("torch.", ""))
+    return np.dtype(dt)
+
+
+def _rebuild(tree, it):
+    """``tree``'s structure filled from ``it``, in
+    :func:`_leaves_with_keys`' order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        out = {k: _rebuild(tree[k], it) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        items = [_rebuild(v, it) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return next(it)

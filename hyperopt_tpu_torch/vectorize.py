@@ -1,7 +1,8 @@
 """Host sampling of one space and the dense -> sparse ``idxs/vals``
 bridge at the API boundary: the port's copy of
 :class:`hyperopt_tpu.vectorize.VectorizeHelper` (the pyll sampler ATPE's
-restarts draw from) and :func:`hyperopt_tpu.vectorize.dense_to_idxs_vals`."""
+restarts and the host random search of :mod:`hyperopt_tpu_torch.rand_host`
+draw from) and :func:`hyperopt_tpu.vectorize.dense_to_idxs_vals`."""
 
 from __future__ import annotations
 
@@ -45,6 +46,18 @@ class VectorizeHelper:
 
         rec_eval(self._sampling_expr, observer=observer)
         return vals
+
+    def sample_batch(self, new_ids, rng):
+        """One config per trial id, as sparse ``(idxs, vals)`` dicts over
+        every label (a label inactive on a trial has no entry for it)."""
+        rng = ensure_rng(rng)
+        idxs = {label: [] for label in self.labels}
+        vals = {label: [] for label in self.labels}
+        for tid in new_ids:
+            for label, value in self.sample_one(rng).items():
+                idxs[label].append(tid)
+                vals[label].append(value)
+        return idxs, vals
 
 
 def dense_to_idxs_vals(new_ids, labels, values, active):

@@ -383,3 +383,101 @@ def test_cuda_gmm_llr_launch_is_recorded_in_a_capture(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, G.gmm_llr(x2, ls, pb2, pa2))
+
+
+def _sync_checked(run):
+    """``run()`` under ``set_sync_debug_mode("error")``: a host read or a
+    blocking copy inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_cuda_asha_bracket_replays_its_eager_bracket(cuda):
+    """compile_fmin(asha=) on the card: one graph per regime, each bracket
+    one replay holding one gmm_llr launch in the model regime; the
+    replayed stream (history, rung record, artifact rows) is bitwise the
+    same brackets run eagerly, and an eager bracket copies nothing from
+    the host."""
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models.synthetic import mlp_tune_objective, mlp_tune_space
+
+    rows = []
+    runner = compile_fmin(mlp_tune_objective(n_epochs=1, n_train=32, in_dim=4, hidden=8),
+                          mlp_tune_space(), max_evals=48, batch_size=8, n_startup_jobs=8,
+                          n_EI_candidates=16, asha={"eta": 2, "rung_epochs": 1, "n_rungs": 3},
+                          chunk_size=16, artifact_callback=rows.append)
+    out = runner(seed=3)
+    prog = runner._program()
+    assert set(prog.graphs) == {"prior", "model"}
+    assert prog.launches_per_replay == {"prior": 0, "model": 1}
+    assert prog.replays == {"prior": 1, "model": 5}
+    assert len(rows) == 6 and [r["bracket"] for r in rows] == list(range(6))
+    prog.reset(3, None, 0, float("inf"))
+    prog.step("prior")
+    _sync_checked(lambda: [prog.step("model") for _ in range(5)])
+    values, active, losses, valid, rung_of = prog.host_state()
+    assert np.array_equal(values[:, :48], out["values"])
+    assert np.array_equal(losses[:48], out["losses"])
+    assert np.array_equal(rung_of[:48], out["rung_of"])
+    # the last chunk's winner rows: the eager brackets wrote the same bits
+    for j, row in enumerate(rows[4:]):
+        assert int(prog.win["slot"][j]) == row["slot"]
+        assert float(prog.win["loss"][j]) == row["loss"]
+        assert np.array_equal(prog.win["params"][0]["w1"][j].cpu().numpy(),
+                              row["params"][0]["w1"])
+
+
+def _quad_train_fn(state, hypers, key):
+    theta = state["theta"] - hypers["lr"] * 2.0 * (state["theta"] - 0.7)
+    return {"theta": theta}, (theta - 0.7) ** 2
+
+
+@pytest.mark.cuda
+def test_cuda_sha_rungs_replay_their_eager_rungs(cuda, tmp_path):
+    """compile_sha on the card (replicas=2): one captured graph per rung;
+    the replayed chain is bitwise the eager rungs, a warm rung copies
+    nothing from the host, and a finished snapshot resumes bitwise."""
+    from hyperopt_tpu_torch.hyperband import compile_sha
+
+    init = {"theta": torch.linspace(-2.0, 3.0, 16, device=cuda)}
+    runner = compile_sha(_quad_train_fn, init, {"lr": (1e-3, 1.2)}, n_configs=8, eta=2,
+                         steps_per_rung=2, replicas=2)
+    out = runner(seed=4)
+    assert len(runner._graphs) == 4
+    eager = runner._run(4, None, eager=True)
+    assert eager["rungs"] == out["rungs"] and eager["best_index"] == out["best_index"]
+    _sync_checked(lambda: [runner._rung_step(r) for r in range(len(runner._ladder))])
+    assert torch.equal(eager["state"]["theta"], out["state"]["theta"])
+    path = str(tmp_path / "sha.npz")
+    durable = runner(seed=4, checkpoint=path)  # one host read per rung
+    assert durable["rungs"] == out["rungs"]
+    resumed = runner(seed=4, checkpoint=path)  # a finished snapshot: no device work
+    assert resumed["rungs"] == out["rungs"]
+    assert torch.equal(resumed["state"]["theta"], out["state"]["theta"])
+
+
+@pytest.mark.cuda
+def test_cuda_pbt_round_replays_its_eager_round(cuda):
+    """compile_pbt on the card: one round captured, replayed n_rounds
+    times, bitwise the eager rounds; a warm round copies nothing from the
+    host; a resume replays as its eager run."""
+    from hyperopt_tpu_torch.pbt import compile_pbt
+
+    init = {"theta": torch.full((8,), 5.0, device=cuda)}
+    runner = compile_pbt(_quad_train_fn, init, {"lr": (1e-4, 1.5)}, pop_size=8,
+                         exploit_every=4, n_rounds=6)
+    out = runner(seed=0)
+    assert len(runner._graph) == 1
+    eager = runner._run(0, None, eager=True)
+    runner._round_index.zero_()
+    _sync_checked(runner._round)
+    assert np.array_equal(eager["loss_history"], out["loss_history"])
+    assert np.array_equal(eager["log_hypers"], out["log_hypers"])
+    resumed = runner(seed=0, init=out)
+    assert np.array_equal(resumed["loss_history"],
+                          runner._run(0, out, eager=True)["loss_history"])

@@ -61,3 +61,78 @@ def test_bad_stopping_arguments_raise(bad):
     with pytest.raises(ValueError):
         H.fmin(mixed_space_fn, t_mixed_space(), algo=H.rand.suggest, max_evals=2,
                trials=H.Trials(), device="cpu", **bad)
+
+
+# -- the reference's fmin arguments (points_to_evaluate, verbose, ...) --------
+
+POINTS = [{"u0": 1.0, "lu0": 0.5, "qu0": 10.0, "ri0": 2, "ch0": 4},
+          {"u0": -3.0, "lu0": 2.0, "qu0": 3.0, "ri0": 0, "ch0": 1}]
+
+
+def _partial_space(hp):
+    return {"u0": hp.uniform("u0", -5, 5), "lu0": hp.loguniform("lu0", -5, 2),
+            "qu0": hp.quniform("qu0", 0, 20, 1), "ri0": hp.randint("ri0", 8),
+            "ch0": hp.choice("ch0", list(range(5)))}
+
+
+@pytest.mark.parametrize("seeded_store", [False, True])
+def test_points_to_evaluate_run_first_as_in_the_reference(seeded_store):
+    """The given points are the first trials, then the algo's; with an
+    empty store passed in, the points go into it."""
+    jt = J.Trials() if seeded_store else None
+    tt = H.Trials() if seeded_store else None
+    jb = J.fmin(mixed_space_fn, _partial_space(J.hp), algo=rand_jax.suggest, max_evals=6,
+                trials=jt, points_to_evaluate=POINTS, rstate=np.random.default_rng(1),
+                show_progressbar=False, verbose=True, return_argmin=False)
+    tb = H.fmin(mixed_space_fn, _partial_space(H.hp), algo=H.rand.suggest, max_evals=6,
+                trials=tt, points_to_evaluate=POINTS, rstate=np.random.default_rng(1),
+                device="cpu", verbose=True, return_argmin=False)
+    np.testing.assert_allclose(tb, jb, rtol=1e-6)
+    if seeded_store:
+        assert [t["misc"]["vals"] for t in tt.trials[:2]] == [
+            t["misc"]["vals"] for t in jt.trials[:2]]
+        assert tt.losses()[:2] == jt.losses()[:2]
+        assert len(tt.trials) == len(jt.trials) == 6
+
+
+def test_allow_trials_fmin_hands_the_call_to_the_store():
+    """A store with its own ``fmin`` takes the call, as the reference's
+    backends do; ``allow_trials_fmin=False`` keeps it in the driver."""
+    calls = []
+
+    class OwnFmin(H.Trials):
+        def fmin(self, fn, space, **kw):
+            calls.append(kw["algo"])
+            return "store"
+
+    store = OwnFmin()
+    assert H.fmin(mixed_space_fn, t_mixed_space(), algo=H.rand.suggest, max_evals=2,
+                  trials=store, device="cpu") == "store"
+    assert calls == [H.rand.suggest]
+    H.fmin(mixed_space_fn, t_mixed_space(), algo=H.rand.suggest, max_evals=2, trials=store,
+           allow_trials_fmin=False, rstate=np.random.default_rng(0), device="cpu")
+    assert len(store.trials) == 2 and len(calls) == 1
+
+
+def test_recorder_raises_naming_its_item():
+    trials = H.Trials()
+    with pytest.raises(NotImplementedError, match="12b"):
+        H.fmin(mixed_space_fn, t_mixed_space(), max_evals=2, trials=trials,
+               recorder=object(), device="cpu")
+    assert len(trials.trials) == 0
+
+
+def test_space_eval_and_generate_trials_match_the_reference():
+    from hyperopt_tpu.fmin import generate_trials_to_calculate as j_gen
+    from hyperopt_tpu.fmin import space_eval as j_space_eval
+    from hyperopt_tpu_torch.fmin import generate_trials_to_calculate as t_gen
+
+    def nested(hp):
+        return {"a": hp.choice("a", [{"k": 0, "w": hp.uniform("w", 0, 1)}, "flat"]),
+                "b": hp.quniform("b", 0, 10, 2)}
+
+    for assignment in ({"a": 0, "w": 0.25, "b": 4.0}, {"a": 1, "b": 6.0}):
+        assert H.space_eval(nested(H.hp), assignment) == j_space_eval(nested(J.hp), assignment)
+    jt, tt = j_gen(POINTS), t_gen(POINTS)
+    assert [(t["tid"], t["misc"]["vals"], t["result"]) for t in tt.trials] == [
+        (t["tid"], t["misc"]["vals"], t["result"]) for t in jt.trials]

@@ -158,3 +158,82 @@ def test_no_cuda_means_no_silent_cpu_compiled_loop(monkeypatch):
     out = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=4, n_startup_jobs=2,
                        n_EI_candidates=4, device="cpu")(seed=0)
     assert out["n_evals"] == 4
+
+
+def test_schedulers_in_a_fresh_process_load_no_jax():
+    """(a''') the schedulers on the CPU -- compile_sha with two replicas,
+    compile_pbt, compile_fmin(asha=) and the host successive halving --
+    and afterwards neither jax nor the JAX package is in sys.modules."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from hyperopt_tpu_torch.device_loop import compile_fmin
+        from hyperopt_tpu_torch.hyperband import compile_sha, successive_halving
+        from hyperopt_tpu_torch.models.synthetic import (
+            budgeted_quadratic_fn, budgeted_quadratic_space, mlp_tune_objective,
+            mlp_tune_space)
+        from hyperopt_tpu_torch.pbt import compile_pbt
+
+        def train_fn(state, hypers, key):
+            theta = state["theta"] - hypers["lr"] * 2.0 * (state["theta"] - 0.7)
+            return {"theta": theta}, (theta - 0.7) ** 2
+
+        sha = compile_sha(train_fn, {"theta": np.zeros(8, np.float32)}, {"lr": (1e-3, 1.0)},
+                          n_configs=4, replicas=2, steps_per_rung=1, device="cpu")(seed=0)
+        assert len(sha["rungs"]) == 3
+        pbt = compile_pbt(train_fn, {"theta": np.zeros(4, np.float32)}, {"lr": (1e-3, 1.0)},
+                          pop_size=4, exploit_every=2, n_rounds=2, device="cpu")(seed=0)
+        assert pbt["loss_history"].shape == (2, 4)
+        obj = mlp_tune_objective(n_epochs=1, n_train=16, in_dim=2, hidden=4)
+        out = compile_fmin(obj, mlp_tune_space(), max_evals=8, batch_size=4,
+                           asha={"eta": 2, "n_rungs": 2}, device="cpu")(seed=0)
+        assert out["rung_of"].tolist().count(1) == 4
+        sh = successive_halving(budgeted_quadratic_fn, budgeted_quadratic_space(),
+                                max_budget=9, eta=3, rstate=np.random.default_rng(0),
+                                device="cpu")
+        assert len(sh["trials"]) == 13
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_no_cuda_means_no_silent_cpu_schedulers(monkeypatch):
+    """(c'') without CUDA, compile_sha, compile_hyperband, compile_pbt,
+    compile_fmin(asha=) and the host drivers raise unless the caller
+    passes device="cpu"."""
+    import numpy as np
+
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.hyperband import (asha, compile_hyperband, compile_sha, hyperband,
+                                              successive_halving)
+    from hyperopt_tpu_torch.models.synthetic import (budgeted_quadratic_fn,
+                                                     budgeted_quadratic_space,
+                                                     mlp_tune_objective, mlp_tune_space)
+    from hyperopt_tpu_torch.pbt import compile_pbt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    init = {"theta": np.zeros(4, np.float32)}
+    bounds = {"lr": (1e-3, 1.0)}
+    calls = [
+        lambda: compile_sha(lambda s, h, k: (s, s["theta"]), init, bounds, 4),
+        lambda: compile_hyperband(lambda s, h, k: (s, s["theta"]), lambda k, n: init, bounds, 1),
+        lambda: compile_pbt(lambda s, h, k: (s, s["theta"]), init, bounds, 4),
+        lambda: compile_fmin(mlp_tune_objective(n_epochs=1), mlp_tune_space(), 8, batch_size=4,
+                             asha={"eta": 2}),
+        lambda: successive_halving(budgeted_quadratic_fn, budgeted_quadratic_space(), 9),
+        lambda: hyperband(budgeted_quadratic_fn, budgeted_quadratic_space(), 9),
+        lambda: asha(budgeted_quadratic_fn, budgeted_quadratic_space(), 9, max_jobs=4),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

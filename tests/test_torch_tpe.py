@@ -265,12 +265,12 @@ def test_obs_buffer_matches_reference():
 
 
 @pytest.mark.parametrize("kw", [{"show_progressbar": True}, {"trial_timeout": 1.0},
-                                {"compiled": True, "compiled_options": {"asha": {"eta": 2}}},
+                                {"recorder": object()},
                                 {"engine": True}, {"trials_save_file": "fmin.ckpt"}])
 def test_unported_modes_raise(kw):
     """What the port's drivers do not serve yet raises, and runs no trial
     (every mode of tpe.suggest is served: test_every_suggest_mode_runs;
-    the compiled loop runs, but not with its ASHA rungs)."""
+    the flight recorder is item 12b)."""
     trials = H.Trials()
     with pytest.raises(NotImplementedError):
         H.fmin(lambda cfg: 0.0, t_mixed_space(), algo=T.suggest, max_evals=2,

@@ -72,7 +72,9 @@ network.  Every phase asserts, and a failure exits non-zero:
    512 trials of an 8-epoch MLP at batch 32: trials/s, best loss, and
    the kernel at its shape against the plain version and its bound;
    8b also sweeps 8 seeds of ``algo="atpe"`` and of ``joint_ei=True``,
-   each seed bitwise its solo run; (f), run after phase 9: 8a's last 20
+   each seed bitwise its solo run, and holds the kernel against its
+   plain version at every launch shape those sweeps and solo runs gave
+   it (8 seeds folded into the dim axis at a 256-slot carry); (f), run after phase 9: 8a's last 20
    model steps under ``torch.profiler``: device kernels per step, device
    busy time and idle share; then 8a's bare replays again, after that
    profiler trace;
@@ -92,18 +94,23 @@ network.  Every phase asserts, and a failure exits non-zero:
    and per rung, captured runs bitwise the eager runs, a rung-checkpoint
    resume bitwise; (c) ``successive_halving(max_budget=27, eta=3)`` and
    ``asha(workers=4, max_jobs=40)`` over ``budgeted_quadratic_fn`` with
-   the port's ``tpe.suggest`` on the card: walls and launches; (d), last
+   the port's ``tpe.suggest`` on the card: walls and launches, and the
+   kernel against its plain version at every launch shape of the asks
+   (one dim: B=1, Dg=1); 9a's launches are checked to be all at the
+   shape 9a holds against the plain version; (d), last
    of all (after it the card's traces came back empty): 9a's model
    brackets under ``torch.profiler``.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
-loop's numbers under ``compiled`` and phase 9's under ``schedulers``),
+loop's numbers under ``compiled``, phase 9's under ``schedulers`` and
+each new path's launch shapes with their errors under ``checked_shapes``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -1075,6 +1082,9 @@ def phase7(cpu_domain, sfu_per_s, n_sms):
 # carry: below padded to 8 + prior, above compacted to 512)
 COMPILED_TRIALS = 1000
 SWEEP_SEEDS, SWEEP_TRIALS = 8, 256
+# each new path's launch shapes, held against the plain version by
+# check_shapes: {path: [{shape..., "max_abs_err"}]}
+CHECKED_SHAPES = {}
 MLP_SHAPE = dict(B=32, Dg=4, S=24, Kb=9, Ka=512)
 
 
@@ -1115,6 +1125,67 @@ def kernel_at(shape, seed, sfu_per_s):
             f"({record['bound_ms'] / ms:.3f} of it), max_abs_err {max_abs:.3e}")
 
     return record, time_it
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Record the shape of every ``gmm_llr`` launch made inside the block
+    into the set it yields: ``(B, Dg, S, K_below, K_above, split_dims)``
+    of the launch as the wrapper makes it (a stacked launch folds its
+    studies into ``Dg`` and splits over one study's ``split_dims``).  A
+    compiled program records at capture, where its launches are made.
+    The launches and their count are unchanged."""
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+
+    seen, real = set(), G._launch_checked
+
+    def recording(x, logspace, pre_b, pre_a, split_dims):
+        B, Dg, S = x.shape
+        seen.add((B, Dg, S, pre_b["c1"].shape[-1], pre_a["c1"].shape[-1], split_dims))
+        return real(x, logspace, pre_b, pre_a, split_dims)
+
+    G._launch_checked = recording
+    try:
+        yield seen
+    finally:
+        G._launch_checked = real
+
+
+def check_shapes(path, shapes, seed):
+    """The kernel against its plain version on the card at each launch
+    shape that :func:`launch_shapes` recorded on ``path``, on fresh
+    inputs of that shape: a stacked launch through ``gmm_llr_stacked``,
+    its studies folded as the wrapper folds them.  Returns the shapes
+    with their max errors; fails on a disagreement."""
+    import torch
+
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+
+    dev = torch.device("cuda")
+    checked = []
+    assert shapes, f"{path}: no launch shape was recorded"
+    for B, dg_all, S, kb, ka, dg in sorted(shapes):
+        n = dg_all // dg
+        shape = dict(N=n, B=B, Dg=dg, S=S, Kb=kb, Ka=ka)
+        if n == 1:
+            x, ls, pb, pa = scoring_inputs(shape, seed, dev)
+            got, want = G.gmm_llr(x, ls, pb, pa), G.gmm_llr_plain(x, ls, pb, pa)
+        else:
+            x, ls, pb, pa, _ = stacked_scoring_inputs(shape, seed, dev)
+            got = G.gmm_llr_stacked(x, ls, pb, pa)
+            fold = lambda pre: {k: pre[k].reshape((n * dg,) + tuple(pre[k].shape[2:]))  # noqa: E731
+                                for k in G._PRE_KEYS}
+            want = G.gmm_llr_plain(x.transpose(0, 1).reshape(B, n * dg, S), ls.repeat(n),
+                                   fold(pb), fold(pa)).reshape(B, n, dg, S).transpose(0, 1)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL)
+        log(f"[{path}] the kernel at the path's launch shape {shape}: max_abs_err "
+            f"{max_abs:.3e} against the plain version")
+        assert ok, f"{path}: the kernel disagrees with the plain version at {shape}: {max_abs}"
+        checked.append(dict(shape, max_abs_err=max_abs))
+    return checked
 
 
 def phase8(sfu_per_s):
@@ -1226,11 +1297,13 @@ def phase8(sfu_per_s):
     for path, extra in (("sweep_atpe", {"algo": "atpe"}), ("sweep_joint", {"joint_ei": True})):
         body = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=SWEEP_TRIALS,
                             **kw, **extra)
-        t0 = time.perf_counter()
-        swept = body(seed=seeds)
-        path_s = time.perf_counter() - t0
+        with launch_shapes() as swept_shapes:
+            t0 = time.perf_counter()
+            swept = body(seed=seeds)
+            path_s = time.perf_counter() - t0
         launches[path] = compiled_launches(body._program(SWEEP_SEEDS))
-        solo = [body(seed=s) for s in seeds]
+        with launch_shapes() as solo_shapes:
+            solo = [body(seed=s) for s in seeds]
         n_same = sum(all(np.array_equal(a[f], b[f]) for f in ("values", "active", "losses"))
                      for a, b in zip(swept, solo))
         log(f"[8b] {extra}: {SWEEP_SEEDS} seeds x {SWEEP_TRIALS} trials in one program "
@@ -1238,7 +1311,10 @@ def phase8(sfu_per_s):
             f"solo runs; gmm_llr launches {launches[path]}")
         assert n_same == SWEEP_SEEDS, (extra, n_same)
         assert launches[path] == SWEEP_TRIALS - n_startup, (extra, launches[path])
+        assert all(d // split == SWEEP_SEEDS for _, d, _, _, _, split in swept_shapes), \
+            swept_shapes
         loop[f"{path}_bitwise"] = n_same
+        CHECKED_SHAPES[path] = check_shapes(path, swept_shapes | solo_shapes, seed=81)
 
     # -- 8c. chunks, progress rows, a kill at a chunk boundary, resume ------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1429,7 +1505,8 @@ def phase9(sfu_per_s):
     asha = build(ASHA_TRIALS, rows_asha, asha=ASHA)
     t0 = time.perf_counter()
     flat(seed=0)
-    asha(seed=0)  # warm-up and capture of both
+    with launch_shapes() as asha_shapes:
+        asha(seed=0)  # warm-up and capture of both
     warm_s = time.perf_counter() - t0
     rows_flat.clear()
     t0f = time.perf_counter()
@@ -1462,6 +1539,9 @@ def phase9(sfu_per_s):
 
     assert TK._below_pad(25, cap=ASHA_TRIALS, gamma=0.25) + 1 == ASHA_SHAPE["Kb"]
     assert prog.loop.cap + 1 == ASHA_SHAPE["Ka"]
+    # every launch the bracket captured is at the shape held below
+    assert asha_shapes == {(B, ASHA_SHAPE["Dg"], ASHA_SHAPE["S"], ASHA_SHAPE["Kb"],
+                            ASHA_SHAPE["Ka"], ASHA_SHAPE["Dg"])}, asha_shapes
     record, time_kernel = kernel_at(ASHA_SHAPE, 9, sfu_per_s)
     log(f"[9a] the kernel at the bracket's shape {ASHA_SHAPE}: max_abs_err "
         f"{record['max_abs_err']:.3e} against the plain version (timed after 8f)")
@@ -1541,8 +1621,9 @@ def phase9(sfu_per_s):
                  pbt_ms_per_round=pbt_s / PBT_ROUNDS * 1e3, pbt_best_loss=p_out["best_loss"])
 
     train_fn, state0, bounds = population_mlp(SHA_REPLICAS * SHA_CONFIGS, seed=2)
+    sha_faults = FaultPlan(seed=0)
     sha = HB.compile_sha(train_fn, state0, bounds, n_configs=SHA_CONFIGS, eta=2,
-                         steps_per_rung=SHA_STEPS, replicas=SHA_REPLICAS)
+                         steps_per_rung=SHA_STEPS, replicas=SHA_REPLICAS, fs=sha_faults.fs())
     sha(seed=0)  # warm-up and capture of every rung
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1564,24 +1645,13 @@ def phase9(sfu_per_s):
                      [s_out["state"][0][k] for k in sorted(s_out["state"][0])])))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sha.npz")
-        from hyperopt_tpu_torch.utils import checkpoint as CK
-
-        real_save, n_saved = CK.save_pytree, []
-
-        def killing_save(tree, p):
-            real_save(tree, p)
-            n_saved.append(p)
-            if len(n_saved) == 2:
-                raise KeyboardInterrupt  # a kill right after rung 2's snapshot
-
-        CK.save_pytree = killing_save
+        # a crash right after the second rung's snapshot is published
+        sha_faults.arm("sha_after_snapshot_before_next_rung", at=2)
         try:
             sha(seed=1, checkpoint=path)
-            raise AssertionError("the kill did not fire")
-        except KeyboardInterrupt:
+            raise AssertionError("the armed crash point did not fire")
+        except SimulatedCrash:
             pass
-        finally:
-            CK.save_pytree = real_save
         s_resumed = sha(seed=1, checkpoint=path)
     resume_equal = (s_resumed["rungs"] == s_out["rungs"]
                     and s_resumed["best_hypers"] == s_out["best_hypers"])
@@ -1612,10 +1682,11 @@ def phase9(sfu_per_s):
         return tpe.suggest(new_ids, domain, trials, seed)
 
     G.KERNEL.launches = 0
-    t0 = time.perf_counter()
-    ah = HB.asha(budgeted_quadratic_fn, budgeted_quadratic_space(), max_budget=27, eta=3,
-                 max_jobs=40, workers=4, algo=counted_tpe, rstate=np.random.default_rng(0))
-    asha_host_s = time.perf_counter() - t0
+    with launch_shapes() as host_shapes:
+        t0 = time.perf_counter()
+        ah = HB.asha(budgeted_quadratic_fn, budgeted_quadratic_space(), max_budget=27, eta=3,
+                     max_jobs=40, workers=4, algo=counted_tpe, rstate=np.random.default_rng(0))
+        asha_host_s = time.perf_counter() - t0
     launches["asha_host"] = G.KERNEL.launches
     log(f"[9c] successive_halving(max_budget=27, eta=3) with tpe.suggest on the card: "
         f"{sha_host_s:.3f} s, {len(sh['trials'])} evaluations, best {sh['best_loss']:.6f}, "
@@ -1626,6 +1697,7 @@ def phase9(sfu_per_s):
         f"on 20 or more completed trials: {sum(expected)})")
     assert len(sh["trials"]) == 27 + 9 + 3 + 1 and launches["sha_host"] == 0
     assert len(ah["trials"]) == 40 and launches["asha_host"] == sum(expected)
+    CHECKED_SHAPES["asha_host"] = check_shapes("asha_host", host_shapes, seed=91)
     sched.update(sha_host_seconds=sha_host_s, asha_host_seconds=asha_host_s)
     log(f"[9] {time.perf_counter() - t_phase:.1f} s")
 
@@ -1946,6 +2018,7 @@ def main():
         "serve": serve,
         "compiled": compiled,
         "schedulers": schedulers,
+        "checked_shapes": CHECKED_SHAPES,
     }]}
     print(json.dumps(kernels))
     print(smi("name,power.limit"))

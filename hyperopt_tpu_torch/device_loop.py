@@ -65,7 +65,7 @@ from .exceptions import AllTrialsFailed, CheckpointError
 from .ops import gmm_scores as G
 from .ops.compile import PackedSpace, compile_space
 from .ops.kernels import HistoryState, history_summary
-from .utils import capture_graph, tree_map
+from .utils import capture_graph, host_copy, tree_map
 
 __all__ = [
     "STOP_POLL",
@@ -344,18 +344,14 @@ class _Program:
         too: a result must not alias the carry the next run writes); with
         ``asha=`` the rung record follows the four."""
         ts = list(self.state()) + ([] if self.rung_of is None else [self.rung_of])
-        return [t.to("cpu", copy=True).numpy() for t in ts]
+        return [host_copy(t) for t in ts]
 
     def summary(self):
         """The chunk boundary's progress row as tensors: (best finite loss,
         written slots); with ``asha=`` the best counts full-fidelity
         trials only (a rung-0 loss is not comparable to a survivor's)."""
-        if self.rung_of is None:
-            return history_summary(self.state())
-        full = self.rung_of == len(self.loop.asha.ladder) - 1
-        ok = self.valid & torch.isfinite(self.losses) & full
-        best = torch.amin(torch.where(ok, self.losses, torch.inf), dim=-1)
-        return best, torch.sum(self.valid.to(torch.int64), dim=-1)
+        full = None if self.rung_of is None else self.rung_of == len(self.loop.asha.ladder) - 1
+        return history_summary(self.state(), best_of=full)
 
     def stopped(self):
         """Whether every experiment of the program has stopped (one host
@@ -847,7 +843,7 @@ def compile_fmin(
             if artifact_callback is not None:
                 # the chunk's winner rows, read where the progress row is
                 # (copies: the next chunk writes the same buffer)
-                win = tree_map(lambda t: t.to("cpu", copy=True).numpy(), prog.win)
+                win = tree_map(host_copy, prog.win)
                 for j in range(last - ci * chunk_steps):
                     artifact_callback({
                         "bracket": ci * chunk_steps + j,

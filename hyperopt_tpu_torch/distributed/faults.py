@@ -24,7 +24,7 @@ from ..exceptions import TransientBackendError
 
 __all__ = [
     "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "DEVICE_LOOP_CRASH_POINTS",
-    "SERVE_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "REAL_FS",
+    "SERVE_CRASH_POINTS", "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "REAL_FS",
     "RealFS", "SimulatedCrash",
 ]
 
@@ -50,12 +50,24 @@ DEVICE_LOOP_CRASH_POINTS = (
     "device_loop_after_ckpt_before_next_chunk",
 )
 
+#: crash points of the rung chain of
+#: (:func:`hyperopt_tpu_torch.hyperband.compile_sha` with ``checkpoint=``):
+#:     sha_after_rung_before_snapshot       rung trained and ranked, its
+#:                                          snapshot not yet written
+#:     sha_after_snapshot_before_next_rung  snapshot published, next rung
+#:                                          not yet run
+SHA_CRASH_POINTS = (
+    "sha_after_rung_before_snapshot",
+    "sha_after_snapshot_before_next_rung",
+)
+
 #: the durable saver's torn-publish window
-#: (:func:`hyperopt_tpu_torch.utils.checkpoint.save_device_chunk`):
+#: (:func:`hyperopt_tpu_torch.utils.checkpoint.durable_write`):
 #:     after_ckpt_tmp_before_rename  bundle tmp fsynced, not yet published
 CHECKPOINT_CRASH_POINTS = ("after_ckpt_tmp_before_rename",)
 
-ALL_CRASH_POINTS = SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + CHECKPOINT_CRASH_POINTS
+ALL_CRASH_POINTS = (SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + SHA_CRASH_POINTS
+                    + CHECKPOINT_CRASH_POINTS)
 
 
 class SimulatedCrash(BaseException):

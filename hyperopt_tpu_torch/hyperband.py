@@ -40,8 +40,11 @@ import numpy as np
 import torch
 
 from . import random as R
+from .distributed.faults import REAL_FS
 from .pyll.base import Literal, dfs
-from .utils import capture_graph, resolve_device, tree_leaves, tree_map
+from .utils import capture_graph, host_copy, resolve_device, tree_leaves, tree_map
+from .utils.population import (copy_into, hypers_dict, log_bounds, log_uniform_start,
+                               refuse_sharding, to_device)
 
 logger = logging.getLogger(__name__)
 
@@ -494,6 +497,7 @@ def compile_sha(
     replicas=1,
     shard_mode=None,
     device=None,
+    fs=None,
 ):
     """Successive halving over training on ``device`` (None = the card;
     ``"cpu"`` runs the same rungs eagerly), the reference's
@@ -520,12 +524,13 @@ def compile_sha(
     ``checkpoint=path`` writes an ``.npz`` snapshot at every rung boundary
     (one host read per rung) and a later call with the same seed resumes
     from the last finished rung, bitwise; another seed or schedule is
-    refused.
+    refused.  ``fs`` is the file seam of
+    :mod:`hyperopt_tpu_torch.distributed.faults` the snapshots go through
+    (its crash points: ``SHA_CRASH_POINTS`` and the writer's torn-publish
+    window).
     """
-    from .pbt import (_copy_into, _host, _hypers_dict, _log_bounds, _log_uniform_start,
-                      _refuse_sharding, _to_device)
-
-    _refuse_sharding(mesh, shard_mode, "compile_sha")
+    refuse_sharding(mesh, shard_mode, "compile_sha")
+    fs = REAL_FS if fs is None else fs
     dev = resolve_device(device)
     P0 = int(n_configs)
     Rn = int(replicas)
@@ -547,7 +552,7 @@ def compile_sha(
     takes_seed = callable(init_state) and _init_takes_seed(init_state)
     if not callable(init_state):
         _validate_leading(init_state)
-    names, log_lo, log_hi = _log_bounds(hyper_bounds, dev)
+    names, log_lo, log_hi = log_bounds(hyper_bounds, dev)
     H = len(names)
     sched_guard = (P0, Rn, eta, int(n_rungs), int(steps_per_rung))
 
@@ -584,7 +589,7 @@ def compile_sha(
         p, n_steps_r, _ = ladder[r]
         lh = bufs["lh"][r]
         keys = R.split(bufs["key"][r], n_steps_r)
-        hypers = _hypers_dict(lh, names)
+        hypers = hypers_dict(lh, names)
         st = bufs["st"][r]
         for j in range(n_steps_r):
             st, losses = train_fn(st, hypers, keys[j])
@@ -594,10 +599,10 @@ def compile_sha(
         bufs["order"][r].copy_(order)
         if r < n_rungs - 1:
             keep = order[:, : p // eta].reshape(-1)
-            _copy_into(bufs["st"][r + 1], tree_map(lambda x: x.index_select(0, keep), st))
+            copy_into(bufs["st"][r + 1], tree_map(lambda x: x.index_select(0, keep), st))
             bufs["lh"][r + 1].copy_(lh.index_select(0, keep))
         else:
-            _copy_into(bufs["st"][r], st)
+            copy_into(bufs["st"][r], st)
 
     def _ensure(template, eager):
         if not bufs:
@@ -612,7 +617,7 @@ def compile_sha(
 
     def _member_template():
         if "member" not in bufs:
-            _build(_to_device(_materialize(0), "cpu"))
+            _build(to_device(_materialize(0), "cpu"))
         return bufs["member"]
 
     def _snapshot_target(rung):
@@ -640,13 +645,12 @@ def compile_sha(
             "log_h": log_h_np,
             "state": state_np,
             "rungs": {"losses": [l for l, _ in per_rung], "order": [o for _, o in per_rung]},
-        }, path)
+        }, path, fs=fs)
 
     def _read_snapshot(path, seed):
-        from .utils.checkpoint import load_pytree
+        from .utils.checkpoint import load_pytree, read_npz
 
-        with np.load(path) as d:
-            meta = np.asarray(d["['meta']"])
+        meta = read_npz(path, fs=fs)["['meta']"]
         rung = int(meta[0])
         if int(meta[1]) != int(seed) or tuple(int(x) for x in meta[2:]) != sched_guard:
             raise ValueError(
@@ -654,28 +658,28 @@ def compile_sha(
                 f"schedule={tuple(int(x) for x in meta[2:])}; refusing to resume "
                 f"seed={int(seed)}, schedule={sched_guard}"
             )
-        snap = load_pytree(_snapshot_target(rung), path)
+        snap = load_pytree(_snapshot_target(rung), path, fs=fs)
         return rung, snap["log_h"], snap["state"], list(
             zip(snap["rungs"]["losses"], snap["rungs"]["order"]))
 
     def _host_rung(r):
-        return (_host(bufs["losses"][r]),
-                _host(bufs["order"][r].to(torch.int32)))
+        return (host_copy(bufs["losses"][r]),
+                host_copy(bufs["order"][r].to(torch.int32)))
 
     def _run(seed, checkpoint, eager):
         keys = R.split(R.key(int(seed) % 2**32, device=dev), n_rungs + 1)
         start = 0
         per_rung_host = []
-        if checkpoint is not None and os.path.exists(checkpoint):
+        if checkpoint is not None and fs.exists(checkpoint):
             start, log_h0, state0, per_rung_host = _read_snapshot(checkpoint, seed)
-            state0 = _to_device(state0, dev)
+            state0 = to_device(state0, dev)
             log_h0 = torch.from_numpy(log_h0).to(dev)
         else:
-            log_h0 = _log_uniform_start(keys[0], (Rn * P0, H), log_lo, log_hi)
-            state0 = _to_device(_materialize(seed), dev)
+            log_h0 = log_uniform_start(keys[0], (Rn * P0, H), log_lo, log_hi)
+            state0 = to_device(_materialize(seed), dev)
         if start < n_rungs:
             _ensure(state0, eager)
-            _copy_into(bufs["st"][start], state0)
+            copy_into(bufs["st"][start], state0)
             bufs["lh"][start].copy_(log_h0)
             for r in range(n_rungs):
                 bufs["key"][r].copy_(keys[r + 1])
@@ -688,17 +692,19 @@ def compile_sha(
                     # durable mode: one host read and one snapshot per rung
                     nxt = min(r + 1, n_rungs - 1)
                     per_rung_host.append(_host_rung(r))
-                    _write_snapshot(checkpoint, r + 1, seed, _host(bufs["lh"][nxt]),
-                                    tree_map(_host, bufs["st"][nxt]),
+                    fs.crashpoint("sha_after_rung_before_snapshot")
+                    _write_snapshot(checkpoint, r + 1, seed, host_copy(bufs["lh"][nxt]),
+                                    tree_map(host_copy, bufs["st"][nxt]),
                                     per_rung_host)
+                    fs.crashpoint("sha_after_snapshot_before_next_rung")
             fetched = per_rung_host if checkpoint is not None else per_rung_host + [
                 _host_rung(r) for r in range(start, n_rungs)]
             state = tree_map(torch.clone, bufs["st"][n_rungs - 1])
-            log_h_np = _host(bufs["lh"][n_rungs - 1])
+            log_h_np = host_copy(bufs["lh"][n_rungs - 1])
         else:  # a finished snapshot: the result with no device work
             fetched = per_rung_host
             state = state0
-            log_h_np = _host(log_h0)
+            log_h_np = host_copy(log_h0)
         sched = [{"n": P0 // eta**r, "steps": int(steps_per_rung) * eta**r}
                  for r in range(n_rungs)]
 
@@ -744,6 +750,7 @@ def compile_hyperband(
     mesh=None,
     trial_axis="trial",
     device=None,
+    fs=None,
 ):
     """Hyperband over training on ``device``: every bracket from the most
     exploratory (``eta**s_max`` configs) to a single full-budget one, as
@@ -757,13 +764,12 @@ def compile_hyperband(
     Returns ``runner(seed=0, checkpoint=None) -> {"best_loss",
     "best_hypers", "brackets": [...], "best_bracket"}``; ``checkpoint`` (a
     directory) holds one rung-boundary snapshot per bracket
-    (``bracket_<s>.npz``), so a killed spread resumes bitwise."""
+    (``bracket_<s>.npz``, through the file seam ``fs``), so a killed
+    spread resumes bitwise."""
     if s_max < 0:
         raise ValueError(f"s_max={s_max} must be >= 0")
     if mesh is not None:
-        from .pbt import _refuse_sharding
-
-        _refuse_sharding(mesh, None, "compile_hyperband")
+        refuse_sharding(mesh, None, "compile_hyperband")
     dev = resolve_device(device)
     bracket_runners = []
     for s in range(int(s_max), -1, -1):
@@ -780,6 +786,7 @@ def compile_hyperband(
             steps_per_rung=int(steps_per_rung) * eta ** (int(s_max) - s),
             replicas=replicas,
             device=dev,
+            fs=fs,
         )))
 
     def runner(seed=0, checkpoint=None):

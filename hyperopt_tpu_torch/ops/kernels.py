@@ -90,13 +90,16 @@ class HistoryState(NamedTuple):
     valid: torch.Tensor  # [cap] slot occupancy
 
 
-def history_summary(state):
+def history_summary(state, best_of=None):
     """(best finite loss, occupied slots) of a :class:`HistoryState`, as
     tensors over its leading dims: the chunk-boundary progress row of
     the compiled loop (:func:`hyperopt_tpu_torch.device_loop.compile_fmin`
     with ``chunk_size``).  ``best`` is ``inf`` while no finite loss
-    exists."""
+    exists; a bool mask ``best_of`` (the slots of full-fidelity trials
+    under ``asha=``) narrows the slots it is taken over."""
     ok = state.valid & torch.isfinite(state.losses)
+    if best_of is not None:
+        ok = ok & best_of
     best = torch.amin(torch.where(ok, state.losses, torch.inf), dim=-1)
     done = torch.sum(state.valid.to(torch.int64), dim=-1)
     return best, done

@@ -30,35 +30,11 @@ import numpy as np
 import torch
 
 from . import random as R
-from .utils import capture_graph, resolve_device, tree_map
+from .utils import capture_graph, host_copy, resolve_device, tree_map
+from .utils.population import (copy_into, hypers_dict, log_bounds, log_uniform_start,
+                               refuse_sharding, to_device)
 
 __all__ = ["compile_pbt"]
-
-
-def _log_bounds(hyper_bounds, device):
-    """Validate ``{name: (low, high)}``; (sorted names, log low, log high),
-    the bounds as float32 tensors on ``device``."""
-    names = sorted(hyper_bounds)
-    lo = np.array([float(hyper_bounds[n][0]) for n in names])
-    hi = np.array([float(hyper_bounds[n][1]) for n in names])
-    if not (lo > 0).all() or not (hi > lo).all():
-        raise ValueError("hyper_bounds must satisfy 0 < low < high")
-    return (
-        names,
-        torch.tensor(np.log(lo), dtype=torch.float32, device=device),
-        torch.tensor(np.log(hi), dtype=torch.float32, device=device),
-    )
-
-
-def _hypers_dict(log_h, names):
-    return {n: torch.exp(log_h[:, i]) for i, n in enumerate(names)}
-
-
-def _log_uniform_start(key, shape, log_lo, log_hi):
-    """Log-space hypers drawn uniform in ``[log_lo, log_hi)``: ``log_lo +
-    u * (log_hi - log_lo)`` rounded once, as XLA contracts it to an FMA."""
-    u = R.uniform(key, shape)
-    return R._fma(u, log_hi - log_lo, log_lo)
 
 
 def _perturb_factors(key, shape, lo, hi):
@@ -69,38 +45,6 @@ def _perturb_factors(key, shape, lo, hi):
     lo_t = R._const(float(lo), key.device)
     hi_t = R._const(float(hi), key.device)
     return torch.maximum(lo_t, R._fma(floats, hi_t - lo_t, lo_t))
-
-
-def _refuse_sharding(mesh, shard_mode, what):
-    if mesh is not None or shard_mode is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=/shard_mode=): sharding the population over several cards is not "
-            "ported yet (ROADMAP.md Queue A, item 15)"
-        )
-
-
-def _to_device(tree, device):
-    """A population pytree as tensors on ``device``, in new memory (host
-    numpy and tensors alike); float64 leaves become float32, as JAX
-    stores them without x64."""
-
-    def leaf(x):
-        t = x if torch.is_tensor(x) else torch.from_numpy(np.array(x))
-        if t.dtype == torch.float64:
-            t = t.to(torch.float32)
-        return t.to(device).clone()
-
-    return tree_map(leaf, tree)
-
-
-def _host(t):
-    """A tensor as host numpy in new memory (on the CPU ``.numpy()`` would
-    alias the static tensor the next run writes)."""
-    return t.to("cpu", copy=True).numpy()
-
-
-def _copy_into(dst, src):
-    tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
 def _stable_order(losses):
@@ -140,10 +84,10 @@ def compile_pbt(
     ``runner(init=prev_out)`` resumes a previous result's population for
     another ``n_rounds``.
     """
-    _refuse_sharding(mesh, shard_mode, "compile_pbt")
+    refuse_sharding(mesh, shard_mode, "compile_pbt")
     dev = resolve_device(device)
     P = int(pop_size)
-    names, log_lo, log_hi = _log_bounds(hyper_bounds, dev)
+    names, log_lo, log_hi = log_bounds(hyper_bounds, dev)
     H = len(names)
     n_replace = max(1, int(round(P * float(exploit_quantile))))
     if 2 * n_replace > P:
@@ -158,7 +102,7 @@ def compile_pbt(
     # the schedule's static tensors: the population, its hypers, the round
     # keys, the round counter and the loss history; one round reads and
     # writes them in place, so one captured graph serves every round
-    state = _to_device(init_state, dev)
+    state = to_device(init_state, dev)
     log_h = torch.zeros((P, H), dtype=torch.float32, device=dev)
     round_keys = torch.zeros((n_rounds, 2), dtype=torch.int64, device=dev)
     r = torch.zeros((), dtype=torch.int64, device=dev)
@@ -171,7 +115,7 @@ def compile_pbt(
         key = round_keys.index_select(0, r.reshape(1))[0]
         k_steps, k_perturb = R.split(key).unbind(0)
         step_keys = R.split(k_steps, exploit_every)
-        hypers = _hypers_dict(log_h, names)
+        hypers = hypers_dict(log_h, names)
         st = state
         for j in range(exploit_every):
             st, losses = train_fn(st, hypers, step_keys[j])
@@ -182,7 +126,7 @@ def compile_pbt(
         top = order[:n_replace]
         bottom = order[P - n_replace:]
         src = members.index_copy(0, bottom, top)  # identity elsewhere
-        _copy_into(state, tree_map(lambda x: x.index_select(0, src), st))
+        copy_into(state, tree_map(lambda x: x.index_select(0, src), st))
         factors = _perturb_factors(k_perturb, (n_replace, H), log_pf[0], log_pf[1])
         new_rows = torch.minimum(torch.maximum(log_h.index_select(0, top) + factors, log_lo),
                                  log_hi)
@@ -198,8 +142,8 @@ def compile_pbt(
         if init is None:
             base = R.key(int(seed) % 2**32, device=dev)
             k_init, k_rounds = R.split(base).unbind(0)
-            _copy_into(state, _to_device(init_state, dev))
-            log_h.copy_(_log_uniform_start(k_init, (P, H), log_lo, log_hi))
+            copy_into(state, to_device(init_state, dev))
+            log_h.copy_(log_uniform_start(k_init, (P, H), log_lo, log_hi))
         else:
             missing = [n for n in names if n not in init["hypers"]]
             if missing:
@@ -213,7 +157,7 @@ def compile_pbt(
             # the first segment's perturbation keys
             base = R.fold_in(R.key(int(seed) % 2**32, device=dev), 1)
             _, k_rounds = R.split(base).unbind(0)
-            _copy_into(state, _to_device(init["state"], dev))
+            copy_into(state, to_device(init["state"], dev))
             h0 = np.stack([np.asarray(init["hypers"][n], np.float32) for n in names], axis=1)
             # XLA's log, so a resumed population starts from the reference's bits
             log_h.copy_(R._log(torch.from_numpy(h0).to(dev)))
@@ -227,8 +171,8 @@ def compile_pbt(
         return _package()
 
     def _package():
-        loss_np = _host(loss_hist)
-        log_h_np = _host(log_h)
+        loss_np = host_copy(loss_hist)
+        log_h_np = host_copy(log_h)
         final = loss_np[-1]
         # NaN-safe: a member perturbed into divergence in the last round
         # must not win

@@ -4,9 +4,12 @@ from __future__ import annotations
 
 import datetime
 
+import numpy as np
 import torch
 
-__all__ = ["capture_graph", "coarse_utcnow", "resolve_device", "tree_leaves", "tree_map"]
+__all__ = [
+    "capture_graph", "coarse_utcnow", "host_copy", "resolve_device", "tree_leaves", "tree_map",
+]
 
 
 def coarse_utcnow():
@@ -50,6 +53,15 @@ def tree_leaves(tree):
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def host_copy(x):
+    """A tensor as host numpy in new memory (on the CPU ``.numpy()`` alone
+    would alias the tensor, which the next run writes again); any other
+    leaf through ``np.asarray``."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.asarray(x)
 
 
 def capture_graph(step, device):

@@ -3,14 +3,15 @@ the compiled loop, the schedulers' snapshots and population pytrees.
 
 The port's copy of the parts of :mod:`hyperopt_tpu.utils.checkpoint` that
 :func:`hyperopt_tpu_torch.device_loop.compile_fmin` and the schedulers
-of :mod:`hyperopt_tpu_torch.hyperband` use: the durable pickle saver
-(tmp + fsync + atomic rename), the guarded loader that turns a truncated
+of :mod:`hyperopt_tpu_torch.hyperband` use: the durable writer
+(:func:`durable_write`: tmp + fsync + atomic rename) under the pickle
+saver and the ``.npz`` one, the guarded loader that turns a truncated
 or corrupt file into a
 :class:`~hyperopt_tpu_torch.exceptions.CheckpointError`, the chunk
 bundle format on top of them, the host schedulers' guarded snapshots
 (:func:`save_trials`, :func:`load_guarded`) and the ``.npz`` pytree
 pair (:func:`save_pytree`, :func:`load_pytree`) with the reference's
-key layout.  Every file operation goes through the
+key layout.  Every save, and the chunk and pytree loads, go through the
 ``fs=`` seam of :mod:`hyperopt_tpu_torch.distributed.faults`, so the
 crash tests kill a run inside the torn-publish window.  Bundles hold
 host numpy arrays only: a checkpoint never pickles a device tensor.
@@ -18,6 +19,7 @@ host numpy arrays only: a checkpoint never pickles a device tensor.
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
 
@@ -25,34 +27,44 @@ import numpy as np
 
 from ..distributed.faults import REAL_FS
 from ..exceptions import CheckpointError
+from . import host_copy
 
 __all__ = [
     "DEVICE_CHUNK_FORMAT",
     "durable_pickle",
+    "durable_write",
     "load_device_chunk",
     "load_guarded",
     "load_pickle_guarded",
     "load_pytree",
     "load_trials",
+    "read_npz",
     "save_device_chunk",
     "save_pytree",
     "save_trials",
 ]
 
 
-def durable_pickle(obj, path, fs=None, crash_between=None):
-    """Pickle ``obj`` to ``path`` durably: write a tmp file, fsync it, then
-    publish it by an atomic rename.  ``crash_between`` names a crash point
-    fired between the fsync and the rename (the torn-publish window)."""
+def durable_write(data, path, fs=None, crash_between=None):
+    """Publish the bytes ``data`` at ``path`` durably: write a tmp file,
+    fsync it, then publish it by an atomic rename.  ``crash_between`` names
+    a crash point fired between the fsync and the rename (the torn-publish
+    window)."""
     fs = REAL_FS if fs is None else fs
     tmp = f"{path}.tmp.{os.getpid()}"
     with fs.open(tmp, "wb") as f:
-        f.write(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+        f.write(data)
         fs.fsync(f)
         if crash_between:
             fs.crashpoint(crash_between)
     fs.rename(tmp, path)
     return path
+
+
+def durable_pickle(obj, path, fs=None, crash_between=None):
+    """Pickle ``obj`` to ``path`` through :func:`durable_write`."""
+    return durable_write(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL), path, fs=fs,
+                         crash_between=crash_between)
 
 
 def load_pickle_guarded(path, fs=None, what="checkpoint"):
@@ -143,47 +155,46 @@ def _leaves_with_keys(tree, prefix=""):
         yield prefix, tree
 
 
-def _host(x):
-    """A leaf as host numpy (a tensor is copied off its device)."""
-    if hasattr(x, "detach"):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
-def save_pytree(tree, path):
+def save_pytree(tree, path, fs=None):
     """Checkpoint a pytree of arrays or tensors (``compile_pbt``'s or
     ``compile_sha``'s ``out["state"]``, model params) to one ``.npz``,
-    keyed by tree path; tmp + fsync + atomic rename.  Pairs with
-    :func:`load_pytree`."""
-    arrays = {k: _host(v) for k, v in _leaves_with_keys(tree)}
-    tmp = f"{path}.tmp.{os.getpid()}.npz"
-    with open(tmp, "wb") as f:
-        np.savez_compressed(f, **arrays)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    return path
+    keyed by tree path, published through :func:`durable_write` (the
+    ``after_ckpt_tmp_before_rename`` crash point sits in its torn-publish
+    window).  Pairs with :func:`load_pytree`."""
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **{k: host_copy(v) for k, v in _leaves_with_keys(tree)})
+    return durable_write(buf.getvalue(), path, fs=fs,
+                         crash_between="after_ckpt_tmp_before_rename")
 
 
-def load_pytree(target, path):
+def read_npz(path, fs=None):
+    """The arrays of an ``.npz`` file, read whole through the ``fs`` seam,
+    as ``{key: array}``."""
+    fs = REAL_FS if fs is None else fs
+    with fs.open(path, "rb") as f:
+        data = f.read()
+    with np.load(io.BytesIO(data)) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def load_pytree(target, path, fs=None):
     """Rebuild a pytree with ``target``'s structure from a saved ``.npz``,
     as host numpy; each leaf's shape and dtype are checked against the
     target's (a live pytree or one of zeros)."""
-    with np.load(path) as data:
-        pairs = list(_leaves_with_keys(target))
-        loaded = []
-        for key, leaf in pairs:
-            if key not in data:
-                raise ValueError(f"checkpoint is missing leaf {key!r}")
-            arr = data[key]
-            want_shape = tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
-            want_dtype = _dtype_of(leaf)
-            if arr.shape != tuple(want_shape) or arr.dtype != want_dtype:
-                raise ValueError(
-                    f"leaf {key!r}: checkpoint {arr.shape}/{arr.dtype} does not match target "
-                    f"{tuple(want_shape)}/{want_dtype}"
-                )
-            loaded.append(arr)
+    data = read_npz(path, fs=fs)
+    loaded = []
+    for key, leaf in _leaves_with_keys(target):
+        if key not in data:
+            raise ValueError(f"checkpoint is missing leaf {key!r}")
+        arr = data[key]
+        want_shape = tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
+        want_dtype = _dtype_of(leaf)
+        if arr.shape != tuple(want_shape) or arr.dtype != want_dtype:
+            raise ValueError(
+                f"leaf {key!r}: checkpoint {arr.shape}/{arr.dtype} does not match target "
+                f"{tuple(want_shape)}/{want_dtype}"
+            )
+        loaded.append(arr)
     return _rebuild(target, iter(loaded))
 
 

@@ -7,7 +7,8 @@ reference's ``hyperopt_tpu.hyperband`` on the CPU.
   packages: the rung orders and the log-space hypers bitwise (read from
   both packages' rung snapshots), the losses within LOSS_RTOL (XLA's and
   PyTorch's ``exp`` of a hyper differ in the last bit); a kill between
-  rungs resumes bitwise;
+  rungs, and a crash at every rung-boundary crash point of the file
+  seam, resumes bitwise;
 * the host drivers with the default host random search: the trial docs
   and the best bitwise; resume at every kill point bitwise; with the
   port's ``tpe.suggest`` against ``tpe_jax.suggest`` the streams agree
@@ -31,6 +32,8 @@ import hyperopt_tpu_torch as H
 from hyperopt_tpu_torch import convert, hyperband as TH
 from hyperopt_tpu_torch import rand_host, random as R, tpe as t_tpe
 from hyperopt_tpu_torch.base import Domain as TDomain
+from hyperopt_tpu_torch.distributed.faults import (CHECKPOINT_CRASH_POINTS, SHA_CRASH_POINTS,
+                                                   FaultPlan, SimulatedCrash)
 from hyperopt_tpu_torch.models.synthetic import budgeted_quadratic_fn
 from hyperopt_tpu_torch.models.synthetic import budgeted_quadratic_space as t_space
 
@@ -152,6 +155,27 @@ def test_compile_sha_kill_between_rungs_resumes_bitwise(tmp_path):
         assert torch.equal(out["state"]["theta"], ref["state"]["theta"])
         with pytest.raises(ValueError, match="refusing to resume"):
             runner(seed=2, checkpoint=path)
+
+
+@pytest.mark.parametrize("at", [1, 2, 3, 4])
+@pytest.mark.parametrize("point", SHA_CRASH_POINTS + CHECKPOINT_CRASH_POINTS)
+def test_compile_sha_crash_at_every_rung_boundary_resumes_bitwise(point, at, tmp_path):
+    """The 4-rung ladder's snapshots go through the ``fs=`` seam: a crash
+    before a rung's snapshot, inside its torn-publish window or after it
+    resumes from the last published snapshot to the uncrashed run's bits."""
+    init = {"theta": np.linspace(-1.0, 2.0, 8).astype(np.float32)}
+    plan = FaultPlan(seed=0)
+    runner = TH.compile_sha(quad_train_fn, init, {"lr": (1e-3, 1.0)}, n_configs=8, eta=2,
+                            steps_per_rung=1, device="cpu", fs=plan.fs())
+    ref = runner(seed=1)
+    path = str(tmp_path / "sha.npz")
+    plan.arm(point, at=at)
+    with pytest.raises(SimulatedCrash):
+        runner(seed=1, checkpoint=path)
+    out = runner(seed=1, checkpoint=path)
+    assert out["rungs"] == ref["rungs"] and out["best_hypers"] == ref["best_hypers"]
+    assert out["best_index"] == ref["best_index"]
+    assert torch.equal(out["state"]["theta"], ref["state"]["theta"])
 
 
 def test_compile_hyperband_matches_the_reference(tmp_path):

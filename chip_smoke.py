@@ -99,18 +99,37 @@ network.  Every phase asserts, and a failure exits non-zero:
    (one dim: B=1, Dg=1); 9a's launches are checked to be all at the
    shape 9a holds against the plain version; (d), last
    of all (after it the card's traces came back empty): 9a's model
-   brackets under ``torch.profiler``.
+   brackets under ``torch.profiler``;
+10. (after phase 7) durable fmin on the card, ``mixed_space()`` at
+   ``tpe.suggest``'s defaults, 300 trials: (a) ``fmin(engine=True)`` at
+   ``ask_ahead`` 1 and 4 bitwise the solo fused stream from the same
+   rstate, one ``gmm_llr`` launch per ask, ms per trial in pairs with the
+   solo fused driver; (b) the same run on a ``SuggestService`` over a
+   study root with a ``FaultPlan`` seam, killed once at each
+   ``SERVE_CRASH_POINTS`` point and resumed: bitwise, every tell logged
+   once, the resumed asks launching the kernel; (c) the solo durable
+   driver (``DriverRecovery``) killed once at each ``DRIVER_CRASH_POINTS``
+   point and resumed, the same asserts; (d) ATPE through its
+   ``host_algo`` hook on a background service, bitwise the solo ATPE,
+   every launch from the loop thread; (e) ``catch=`` and
+   ``trial_timeout=0.2`` failures durable across a kill and not run
+   again; (f) an armed ``FlightRecorder`` on (a)'s run, bitwise the
+   unarmed stream, its export auditing clean; the kernel is then held
+   against its plain version at every launch shape these paths gave it.
+   Every fmin of the script passes ``show_progressbar=False`` (phase 1
+   says whether ``tqdm`` is importable).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
-loop's numbers under ``compiled``, phase 9's under ``schedulers`` and
-each new path's launch shapes with their errors under ``checked_shapes``),
+loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
+10's under ``durable`` and each new path's launch shapes with their errors under ``checked_shapes``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
 """
 
 import contextlib
+import importlib.util
 import json
 import os
 import re
@@ -556,7 +575,7 @@ def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
         launches it made, its iterator and its trials."""
         trials = H.Trials() if trials is None else trials
         it = FMinIter(algo, H.Domain(mixed_space_fn, mixed_space(), device="cuda"), trials,
-                      rstate=np.random.default_rng(seed), max_evals=n)
+                      rstate=np.random.default_rng(seed), max_evals=n, show_progressbar=False)
         G.KERNEL.launches = 0
         t0 = time.perf_counter()
         it.exhaust()
@@ -601,7 +620,7 @@ def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
         return docs
 
     pit = FMinIter(timed_fused, H.Domain(mixed_space_fn, mixed_space(), device="cuda"),
-                   ftrials, rstate=np.random.default_rng(1))
+                   ftrials, rstate=np.random.default_rng(1), show_progressbar=False)
     pit.run(3)
     (pbuf,) = [b for b in ftrials._buffers.values() if b is not buf]  # pit's own space
     hook, in_hook = pit.domain._ask_ahead_hook, []
@@ -1220,7 +1239,7 @@ def phase8(sfu_per_s):
     trials = H.Trials()
     t0 = time.perf_counter()
     H.fmin(mixed_space_fn_torch, mixed_space(), compiled=True, max_evals=n, trials=trials,
-           return_argmin=False, rstate=np.random.default_rng(7),
+           return_argmin=False, rstate=np.random.default_rng(7), show_progressbar=False,
            compiled_options={"runner": runner, "seed": 7})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1751,6 +1770,244 @@ def phase9d(asha, out):
         "kernels_per_bracket": prof["kernels_per_ask"]}
 
 
+PHASE10_TRIALS = 300
+# the hit of each crash point to kill at, past startup: per tell or round
+# for the serve points, per append (an ask and a tell per trial) or per
+# bundle (every 25 tells; the trials pickle and the bundle each fire the
+# tmp point) for the driver's
+SERVE_KILL_AT = 150
+DRIVER_KILL_AT = {"before_wal_append": 300, "after_wal_append_before_tell": 300,
+                  "after_tell_before_ask_ahead": 150, "after_ckpt_tmp_before_rename": 9,
+                  "after_ckpt_publish_before_wal_reset": 5}
+PHASE10_CONTAINMENT_TRIALS = 100
+
+
+def phase10(card):
+    """Durable fmin on the card (``mixed_space()``, ``mixed_space_fn``,
+    ``tpe.suggest`` at its defaults, PHASE10_TRIALS trials): (a) the
+    engine-routed ``fmin(engine=True)`` at ``ask_ahead`` 1 and 4, bitwise
+    the solo fused stream, one ``gmm_llr`` launch per ask, timed in pairs
+    with the solo fused driver; (b) the same run on a caller-built
+    ``SuggestService`` over a study root, killed once at each
+    ``SERVE_CRASH_POINTS`` point and resumed; (c) the solo durable driver
+    (``DriverRecovery``) killed once at each ``DRIVER_CRASH_POINTS`` point
+    and resumed; (d) ATPE through its ``host_algo`` hook on a background
+    service, bitwise the solo ATPE, launched from the loop thread; (e)
+    ``catch``/``trial_timeout`` failures durable and not run again after a
+    kill; (f) an armed ``FlightRecorder`` on (a)'s run.  Returns each
+    path's launches and the kernel checked at every launch shape the
+    paths gave it (``CHECKED_SHAPES``)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch.base import STATUS_FAIL
+    from hyperopt_tpu_torch.client import resolve_engine_algo
+    from hyperopt_tpu_torch.distributed.faults import (DRIVER_CRASH_POINTS, SERVE_CRASH_POINTS,
+                                                       FaultPlan, SimulatedCrash)
+    from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+    from hyperopt_tpu_torch.obs import FlightRecorder, audit_flight_log, read_flight_log
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.serve import SuggestService
+    from hyperopt_tpu_torch.utils.checkpoint import DriverRecovery, load_trials
+    from hyperopt_tpu_torch.utils.wal import TellWAL
+
+    n = PHASE10_TRIALS
+    launches, shapes = {}, {}
+    fused = H.partial(H.tpe.suggest, fused=True)
+
+    def stream(trials):
+        return [(t["misc"]["vals"], t["result"]) for t in trials.trials]
+
+    def fmin(algo, trials, seed=0, n_trials=n, **kw):
+        H.fmin(mixed_space_fn, mixed_space(), algo=algo, max_evals=n_trials, trials=trials,
+               rstate=np.random.default_rng(seed), show_progressbar=False, **kw)
+        torch.cuda.synchronize()
+        return trials
+
+    def counted(path, run):
+        """``run()`` with the launch counter at 0 just before it and each
+        launch's shape recorded; the launches are added to ``path``."""
+        G.KERNEL.launches = 0
+        with launch_shapes() as seen:
+            t0 = time.perf_counter()
+            out = run()
+            dt = time.perf_counter() - t0
+        launches[path] = launches.get(path, 0) + G.KERNEL.launches
+        shapes.setdefault(path, set()).update(seen)
+        return out, dt, G.KERNEL.launches
+
+    # -- 10a. engine-routed fmin, in pairs with the solo fused driver ------
+    walls = {"solo_fused": [], "engine_k1": [], "engine_k4": []}
+    ref = None
+    for rep in range(2):
+        order = ("solo_fused", "engine_k1", "engine_k4")
+        for name in (order if rep == 0 else order[::-1]):
+            if name == "solo_fused":
+                trials, dt, _ = counted("fmin_fused_300", lambda: fmin(
+                    fused, H.TorchTrials(resident=True)))
+                ref = ref or stream(trials)
+                assert stream(trials) == ref
+            else:
+                k = 1 if name == "engine_k1" else 4
+                trials, dt, nl = counted("engine_fmin", lambda k=k: fmin(
+                    H.tpe.suggest, H.Trials(), engine=True, ask_ahead=k))
+                assert stream(trials) == ref, f"engine at ask_ahead={k} is not the solo stream"
+                assert nl == n, f"engine ask_ahead={k}: {nl} launches for {n} asks"
+            walls[name].append(dt)
+    launches["fmin_fused_300"] //= 2
+    launches["engine_fmin"] //= 4
+    ms = {k: [1e3 * w / n for w in v] for k, v in walls.items()}
+    log(f"[10a] {card}: engine-routed fmin, {n} trials of mixed_space: bitwise the solo fused "
+        f"stream at ask_ahead 1 and 4, {launches['engine_fmin']} gmm_llr launches per run (one "
+        "per ask: the stacked step runs the TPE body every round); ms per trial in pairs "
+        "(solo fused, engine k1, engine k4, then reversed): "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.3f}" for x in v) for k, v in ms.items()))
+    results = {"ms_per_trial": ms}
+
+    kw = resolve_engine_algo(H.tpe.suggest).algo_kw
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 10b. kill and resume through a study root --------------------
+        def service(root, fs, **extra):
+            return SuggestService(mixed_space(), root=root, fs=fs, background=False,
+                                  max_batch=1, n_startup_jobs=20, snapshot_cadence=25,
+                                  finite_check=False, **extra, **kw)
+
+        resumed_rounds = 0
+        for point in SERVE_CRASH_POINTS:
+            root = os.path.join(tmp, point)
+            plan = FaultPlan(seed=0).arm(point, at=SERVE_KILL_AT)
+            try:
+                fmin(H.tpe.suggest, H.Trials(), engine=service(root, plan.fs()))
+                raise AssertionError(f"{point} never fired")
+            except SimulatedCrash:
+                pass
+            svc = service(root, FaultPlan(seed=1).fs())
+            trials, dt, nl = counted("engine_resume", lambda svc=svc: fmin(
+                H.tpe.suggest, H.Trials(), engine=svc))
+            total = TellWAL(os.path.join(root, "fmin.wal")).total_tells
+            assert stream(trials) == ref, f"resume after {point} is not the uninterrupted run"
+            assert [t["tid"] for t in trials.trials] == list(range(n)), point
+            assert total == n, f"{point}: the WAL logged {total} tells for {n} trials"
+            assert 0 < nl == svc.counters["dispatch_count"], (point, nl)
+            resumed_rounds += nl
+            log(f"[10b] {card}: killed at {point} (hit {SERVE_KILL_AT}) and resumed: bitwise, "
+                f"{total} tells logged for {n} trials, {nl} launches in the resumed run "
+                f"({1e3 * dt / max(nl, 1):.3f} ms per resumed trial)")
+
+        # -- 10c. the solo durable driver ---------------------------------
+        for point in DRIVER_CRASH_POINTS:
+            path = os.path.join(tmp, f"{point}.pkl")
+            plan = FaultPlan(seed=0).arm(point, at=DRIVER_KILL_AT[point])
+            try:
+                fmin(fused, H.TorchTrials(resident=True),
+                     resume_from=DriverRecovery(path, fs=plan.fs(), cadence=25))
+                raise AssertionError(f"{point} never fired")
+            except SimulatedCrash:
+                pass
+            rec = DriverRecovery(path, cadence=25)
+            _, dt, nl = counted("durable_fmin", lambda rec=rec: fmin(
+                fused, H.TorchTrials(resident=True), resume_from=rec))
+            final = load_trials(path)
+            assert stream(final) == ref, f"resume after {point} is not the uninterrupted run"
+            assert [t["tid"] for t in final.trials] == list(range(n)), point
+            assert rec.wal.total_tells == n, (point, rec.wal.total_tells)
+            assert 0 < nl <= n - 20 + 1, (point, nl)
+            log(f"[10c] {card}: killed at {point} (hit {DRIVER_KILL_AT[point]}) and resumed: "
+                f"bitwise, {rec.wal.total_tells} tells logged for {n} trials, {nl} launches in "
+                f"the resumed run, {1e3 * rec.seconds_spent / n:.3f} ms of durability per trial")
+
+        # -- 10d. ATPE through its host_algo hook --------------------------
+        solo, solo_dt, solo_nl = counted("atpe_300", lambda: fmin(H.atpe.suggest, H.Trials(),
+                                                                  seed=2))
+        bg = SuggestService(mixed_space(), algo="atpe", max_batch=1, n_startup_jobs=20,
+                            finite_check=False)
+        names, real = [], G._launch_checked
+
+        def recording(*args):
+            names.append(threading.current_thread().name)
+            return real(*args)
+
+        G._launch_checked = recording
+        try:
+            hooked, dt, nl = counted("engine_atpe", lambda: fmin(H.atpe.suggest, H.Trials(),
+                                                                 seed=2, engine=bg))
+        finally:
+            G._launch_checked = real
+        served = bg.counters["host_algo_served"]
+        bg.shutdown()
+        assert stream(hooked) == stream(solo), "ATPE through the hook is not the solo ATPE"
+        assert nl == solo_nl == n - 20, (nl, solo_nl)
+        assert set(names) == {"serve-batcher"} and served == n, (set(names), served)
+        log(f"[10d] {card}: ATPE through the host_algo hook of a background service: bitwise "
+            f"the solo ATPE, {nl} launches (solo {solo_nl}), all from the serve-batcher thread; "
+            f"ms per trial {1e3 * dt / n:.3f} (solo {1e3 * solo_dt / n:.3f})")
+
+        # -- 10e. containment, durable across a kill ------------------------
+        calls = []
+
+        def flaky(cfg):
+            calls.append(1)
+            if len(calls) % 7 == 0:
+                raise ValueError(f"boom at call {len(calls)}")
+            if len(calls) == 30:
+                time.sleep(0.5)
+            return mixed_space_fn(cfg)
+
+        m = PHASE10_CONTAINMENT_TRIALS
+        root = os.path.join(tmp, "containment")
+
+        def contained(fs, trials):
+            H.fmin(flaky, mixed_space(), algo=H.tpe.suggest, max_evals=m, trials=trials,
+                   rstate=np.random.default_rng(3), show_progressbar=False,
+                   engine=service(root, fs), catch=(ValueError,), trial_timeout=0.2)
+            return trials
+
+        plan = FaultPlan(seed=0).arm("serve_after_wal_before_dispatch", at=m // 2)
+        try:
+            contained(plan.fs(), H.Trials())
+            raise AssertionError("the containment kill never fired")
+        except SimulatedCrash:
+            pass
+        before = len(calls)
+        docs, _, nl = counted("engine_containment",
+                              lambda: contained(FaultPlan(seed=1).fs(), H.Trials()))
+        fails = {d["tid"]: d["result"]["failure"] for d in docs.trials
+                 if d["result"]["status"] == STATUS_FAIL}
+        assert [d["tid"] for d in docs.trials] == list(range(m))
+        assert len(calls) == m, f"{len(calls)} evaluations for {m} trials: a failure ran again"
+        assert all(f.startswith(("ValueError: boom", "TrialTimeout")) for f in fails.values())
+        assert sum(f.startswith("TrialTimeout") for f in fails.values()) == 1, fails
+        assert sum(f.startswith("ValueError") for f in fails.values()) == m // 7, fails
+        log(f"[10e] {card}: {m} trials with catch= and trial_timeout=0.2, killed after "
+            f"{before} evaluations and resumed: STATUS_FAIL docs with their reasons at tids "
+            f"{sorted(fails)}, {len(calls)} evaluations in all (none ran again), {nl} launches "
+            "in the resumed run")
+
+        # -- 10f. the recorder on (a)'s run ----------------------------------
+        fpath = os.path.join(tmp, "flight.wal")
+        rec = FlightRecorder(path=fpath)
+        armed, dt, nl = counted("engine_recorder", lambda: fmin(
+            H.tpe.suggest, H.Trials(), engine=True, recorder=rec))
+        rec.close()
+        spans = read_flight_log(fpath)
+        assert stream(armed) == ref, "arming the recorder changed the stream"
+        assert audit_flight_log(fpath) == [], audit_flight_log(fpath)
+        assert sum(s["name"] == "driver.trial" for s in spans) == n and nl == n
+        log(f"[10f] {card}: FlightRecorder armed on the engine run: bitwise the unarmed "
+            f"stream, {len(spans)} spans exported, the log audits clean; "
+            f"{1e3 * dt / n:.3f} ms per trial")
+
+    for path, seen in shapes.items():
+        if seen:
+            CHECKED_SHAPES[path] = check_shapes(f"10 {path}", seen, seed=23)
+    results["resumed_rounds"] = resumed_rounds
+    return launches, results
+
+
 def main():
     import torch
 
@@ -1777,7 +2034,9 @@ def main():
     max_clock_mhz = float(smi("clocks.max.sm").split()[0])
     sfu_per_s = props.multi_processor_count * SFU_PER_SM_PER_CLOCK * max_clock_mhz * 1e6
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"{props.multi_processor_count} SMs, max SM clock {max_clock_mhz} MHz")
+        f"{props.multi_processor_count} SMs, max SM clock {max_clock_mhz} MHz; tqdm "
+        f"{'importable' if importlib.util.find_spec('tqdm') else 'not importable'} (every "
+        "fmin here passes show_progressbar=False)")
     t0 = time.perf_counter()
     G.KERNEL.fn()
     log(f"[1] {G.KERNEL.source} built and loaded in {time.perf_counter() - t0:.2f} s "
@@ -1901,7 +2160,8 @@ def main():
     G.KERNEL.launches = 0
     t0 = time.perf_counter()
     H.fmin(mixed_space_fn, mixed_space(), algo=H.tpe.suggest, max_evals=n_trials,
-           trials=fmin_trials, rstate=np.random.default_rng(0), device="cuda")
+           trials=fmin_trials, rstate=np.random.default_rng(0), device="cuda",
+           show_progressbar=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     main_launches = G.KERNEL.launches
@@ -1923,7 +2183,7 @@ def main():
         return docs
 
     it = FMinIter(timed_suggest, H.Domain(mixed_space_fn, mixed_space(), device="cuda"),
-                  fmin_trials, rstate=np.random.default_rng(1))
+                  fmin_trials, rstate=np.random.default_rng(1), show_progressbar=False)
     it.run(3)  # warm-up: compile the space, sync the buffer
     plain_buf = it.domain._torch_obs_buffer[1]
     ask_ms, suggest_ms, plain_bytes_per_ask = ask_window(it, 20, in_suggest, plain_buf)
@@ -1986,6 +2246,10 @@ def main():
                                                      props.multi_processor_count)
     launches_by_path.update(serve_launches)
     launches_by_path.update(compiled_launches_by_path)
+
+    # -- 10. durable fmin: the engine client, the WALs, containment --------
+    durable_launches, durable = phase10(card)
+    launches_by_path.update(durable_launches)
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
@@ -2018,6 +2282,7 @@ def main():
         "serve": serve,
         "compiled": compiled,
         "schedulers": schedulers,
+        "durable": durable,
         "checked_shapes": CHECKED_SHAPES,
     }]}
     print(json.dumps(kernels))

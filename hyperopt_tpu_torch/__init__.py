@@ -15,9 +15,13 @@ study-batched suggestion service (:mod:`hyperopt_tpu_torch.serve`), where
 one round serves every open study; the compiled loop
 (:mod:`hyperopt_tpu_torch.device_loop`, with its fused ASHA brackets) and
 the multi-fidelity schedulers (:mod:`hyperopt_tpu_torch.hyperband`,
-:mod:`hyperopt_tpu_torch.pbt`).  The EI scoring of continuous
-candidates runs in a hand-written Hopper kernel
-(:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
+:mod:`hyperopt_tpu_torch.pbt`); and durable ``fmin``: the write-ahead log
+and crash-exact resume (``trials_save_file``/``resume_from``),
+``trial_timeout``/``catch``, the progress bar, the flight recorder
+(:mod:`hyperopt_tpu_torch.obs`) and the engine client
+(``fmin(engine=True, ask_ahead=k)``, :mod:`hyperopt_tpu_torch.client`).
+The EI scoring of continuous candidates runs in a hand-written Hopper
+kernel (:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
 """
 
 import torch
@@ -27,10 +31,28 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import anneal, atpe, hp, rand, tpe  # noqa: E402
-from .base import STATUS_OK, Domain, Trials  # noqa: E402
-from .fmin import fmin, partial, space_eval  # noqa: E402
+from . import anneal, atpe, client, early_stop, exceptions, hp, progress, rand, tpe  # noqa: E402
+from .base import (  # noqa: E402
+    JOB_STATE_DONE,
+    JOB_STATE_ERROR,
+    JOB_STATE_NEW,
+    JOB_STATE_RUNNING,
+    STATUS_FAIL,
+    STATUS_NEW,
+    STATUS_OK,
+    Ctrl,
+    Domain,
+    Trials,
+    trials_from_docs,
+)
+from .early_stop import no_progress_loss  # noqa: E402
+from .exceptions import AllTrialsFailed, CheckpointError, TrialTimeout  # noqa: E402
+from .fmin import FMinIter, fmin, generate_trials_to_calculate, partial, space_eval  # noqa: E402
 from .torch_trials import TorchTrials  # noqa: E402
 
-__all__ = ["Domain", "STATUS_OK", "TorchTrials", "Trials", "anneal", "atpe", "fmin", "hp",
-           "partial", "rand", "space_eval", "tpe"]
+__all__ = ["AllTrialsFailed", "CheckpointError", "Ctrl", "Domain", "FMinIter", "JOB_STATE_DONE",
+           "JOB_STATE_ERROR", "JOB_STATE_NEW", "JOB_STATE_RUNNING", "STATUS_FAIL", "STATUS_NEW",
+           "STATUS_OK", "TorchTrials", "TrialTimeout", "Trials", "anneal", "atpe", "client",
+           "early_stop", "exceptions", "fmin", "generate_trials_to_calculate", "hp",
+           "no_progress_loss", "partial", "progress", "rand", "space_eval", "tpe",
+           "trials_from_docs"]

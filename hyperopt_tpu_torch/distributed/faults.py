@@ -2,14 +2,15 @@
 compiled loop.
 
 A subset of :mod:`hyperopt_tpu.distributed.faults`: the filesystem seam
-(:class:`RealFS`, the ``os`` primitives the durable checkpoint saver uses
-and crash points that do nothing), the simulated process death
-(:class:`SimulatedCrash`), the device-fault schedule the scheduler's
-guard is tested with (:class:`DeviceFaultPlan`: NaN outputs, dispatch
-hangs, transient and fatal raises), and a :class:`FaultPlan` that carries
-it and arms the serve, compiled-loop and checkpoint crash points.
-Injected file errors and network faults wait for the durability and
-transport slices (``ROADMAP.md`` Queue A, items 12b and 12c).
+(:class:`RealFS`, the ``os`` primitives the write-ahead log and the
+durable savers use, and crash points that do nothing), the simulated
+process death (:class:`SimulatedCrash`), the device-fault schedule the
+scheduler's guard is tested with (:class:`DeviceFaultPlan`: NaN outputs,
+dispatch hangs, transient and fatal raises), and a :class:`FaultPlan`
+that carries it and arms the driver, serve, compiled-loop, checkpoint
+and flight-recorder crash points.  Injected file errors and partial
+writes, and network faults, wait for the transport slice (``ROADMAP.md``
+Queue A, item 12c).
 """
 
 from __future__ import annotations
@@ -24,19 +25,41 @@ from ..exceptions import TransientBackendError
 
 __all__ = [
     "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "DEVICE_LOOP_CRASH_POINTS",
-    "SERVE_CRASH_POINTS", "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "REAL_FS",
+    "DRIVER_CRASH_POINTS", "OBS_CRASH_POINTS", "SERVE_CRASH_POINTS", "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "REAL_FS",
     "RealFS", "SimulatedCrash",
 ]
 
+#: crash points of the sequential driver's recovery protocol (``fmin``'s
+#: write-ahead tell log and checkpoint bundles, ``utils/wal.py`` and
+#: :class:`~hyperopt_tpu_torch.utils.checkpoint.DriverRecovery`):
+#:     before_wal_append            evaluated or asked, record not yet durable
+#:     after_wal_append_before_tell record durable, tell not yet applied
+#:     after_tell_before_ask_ahead  tell applied, the pre-dispatch not yet made
+#:     after_ckpt_tmp_before_rename bundle tmp fsynced, not yet published
+#:     after_ckpt_publish_before_wal_reset  bundle live, WAL not compacted
+DRIVER_CRASH_POINTS = (
+    "before_wal_append",
+    "after_wal_append_before_tell",
+    "after_tell_before_ask_ahead",
+    "after_ckpt_tmp_before_rename",
+    "after_ckpt_publish_before_wal_reset",
+)
+
 #: crash points of the serve scheduler:
-#:     serve_after_wal_before_dispatch  tell absorbed, batch not yet dispatched
+#:     serve_after_wal_before_dispatch  tell durable in the study WAL, batch
+#:                                      not yet dispatched
 #:     serve_mid_batch                  batch assembled, device step not yet run
 #:     serve_after_dispatch_before_ack  device state committed, clients not
-#:                                      yet acked
+#:                                      yet acked, served records not logged
+#:     serve_group_commit_after_flush_before_barrier
+#:                                      the round's tells are flushed (a
+#:                                      process death loses none) but the
+#:                                      round's fsync barrier has not run
 SERVE_CRASH_POINTS = (
     "serve_after_wal_before_dispatch",
     "serve_mid_batch",
     "serve_after_dispatch_before_ack",
+    "serve_group_commit_after_flush_before_barrier",
 )
 
 #: crash points of the chunked compiled loop
@@ -66,8 +89,14 @@ SHA_CRASH_POINTS = (
 #:     after_ckpt_tmp_before_rename  bundle tmp fsynced, not yet published
 CHECKPOINT_CRASH_POINTS = ("after_ckpt_tmp_before_rename",)
 
-ALL_CRASH_POINTS = (SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + SHA_CRASH_POINTS
-                    + CHECKPOINT_CRASH_POINTS)
+#: the flight recorder's export (:mod:`hyperopt_tpu_torch.obs.flightrec`):
+#:     obs_flight_export_mid_append  half a span line written, a torn tail
+OBS_CRASH_POINTS = ("obs_flight_export_mid_append",)
+
+# the durable saver's window is also the driver's fourth point: listed once
+ALL_CRASH_POINTS = tuple(dict.fromkeys(
+    DRIVER_CRASH_POINTS + SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + SHA_CRASH_POINTS
+    + CHECKPOINT_CRASH_POINTS + OBS_CRASH_POINTS))
 
 
 class SimulatedCrash(BaseException):
@@ -84,9 +113,7 @@ class SimulatedCrash(BaseException):
 
 
 class RealFS:
-    """The default seam: ``os`` passthrough, no-op crash points.  (The
-    reference's seam has more primitives; they come with the write-ahead
-    log.)"""
+    """The default seam: ``os`` passthrough, no-op crash points."""
 
     def open(self, path, mode="r"):
         return open(path, mode)
@@ -96,6 +123,9 @@ class RealFS:
 
     def exists(self, path):
         return os.path.exists(path)
+
+    def makedirs(self, path, exist_ok=True):
+        os.makedirs(path, exist_ok=exist_ok)
 
     def fsync(self, f):
         f.flush()

@@ -1,18 +1,29 @@
 """The sequential optimization driver of the PyTorch port: ``fmin``.
 
-The counterpart of :mod:`hyperopt_tpu.fmin`, trimmed to the sequential
-path: ask the algo for new trial docs at the plugin seam, evaluate them
-in order (``serial_evaluate``), stop at ``max_evals``, ``timeout``,
+The counterpart of :mod:`hyperopt_tpu.fmin` for sequential stores: ask
+the algo for new trial docs at the plugin seam, evaluate them in order
+(``serial_evaluate``), stop at ``max_evals``, ``timeout``,
 ``loss_threshold`` or ``early_stop_fn``, and return the argmin config.
 The seed draw takes the same ``rstate`` draws as the reference's driver,
 so equal ``rstate``s hand the algo equal seeds, with or without the
 ask-ahead hook (``_notify_result``/``_take_seed``) that
-``tpe.suggest(fused=True)`` installs.  The progress bar, per-trial
-containment (``trial_timeout``, ``catch``), checkpoints and the WAL,
-and the engine are later work and raise ``NotImplementedError``.
-``compiled=True`` routes the whole experiment through the compiled loop
-(:func:`hyperopt_tpu_torch.device_loop.compile_fmin`) and rebuilds a
-standard ``Trials`` store from its history.
+``tpe.suggest(fused=True)`` installs.
+
+Durability and containment are the reference's: ``trials_save_file``/
+``resume_from`` route through
+:class:`~hyperopt_tpu_torch.utils.checkpoint.DriverRecovery` (a
+write-ahead tell log and durable bundles: a run killed anywhere resumes
+with zero lost and zero duplicated tells and a bitwise stream);
+``trial_timeout`` and ``catch`` record an overrunning or raising
+objective as a ``STATUS_FAIL`` trial, durably; ``show_progressbar``
+(default on) draws a ``tqdm`` bar or calls the caller's progress
+context; ``recorder`` (a :class:`~hyperopt_tpu_torch.obs.FlightRecorder`)
+records ``driver.trial``/``tell.wal_append`` spans.  ``engine=True`` (or
+``ask_ahead=k``) routes the loop through the serve engine as its client
+(:mod:`hyperopt_tpu_torch.client`); ``compiled=True`` routes the whole
+experiment through the compiled loop
+(:func:`hyperopt_tpu_torch.device_loop.compile_fmin`).  Asynchronous
+stores are not ported (``ROADMAP.md`` Queue A, item 20).
 
 One addition: ``device`` (None = the card) is stored on the ``Domain``,
 where the port's suggest path reads it.
@@ -22,12 +33,15 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
+import threading
 import timeit
 import traceback
 
 import numpy as np
 
 from . import base
+from . import progress as progress_mod
 from .base import (
     Ctrl,
     Domain,
@@ -35,10 +49,17 @@ from .base import (
     JOB_STATE_ERROR,
     JOB_STATE_NEW,
     JOB_STATE_RUNNING,
+    STATUS_FAIL,
     Trials,
     spec_from_misc,
 )
-from .exceptions import AllTrialsFailed, InvalidAnnotatedParameter
+from .exceptions import (
+    AllTrialsFailed,
+    CheckpointError,
+    InvalidAnnotatedParameter,
+    TrialTimeout,
+)
+from .obs.flightrec import NULL_RECORDER
 from .pyll.base import as_apply, rec_eval
 from .pyll_utils import expr_to_config
 from .utils import coarse_utcnow
@@ -47,6 +68,9 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["fmin", "FMinIter", "StopExperiment", "generate_trials_to_calculate", "partial",
            "space_eval"]
+
+_NO_ASYNC = ("the port's fmin drives sequential Trials stores only; asynchronous stores "
+             "are not ported yet (ROADMAP.md Queue A, item 20)")
 
 
 class StopExperiment:
@@ -96,17 +120,23 @@ def generate_trials_to_calculate(points):
 
 
 class FMinIter:
-    """Object-based sequential fmin: step the ask/evaluate loop explicitly."""
+    """Object-based sequential fmin: step the ask/evaluate loop explicitly.
+
+    ``recovery`` (a :class:`~hyperopt_tpu_torch.utils.checkpoint.
+    DriverRecovery`) makes every ask and tell durable before it is
+    applied; ``client`` (an :class:`~hyperopt_tpu_torch.client.
+    EngineClient`) routes the asks and tells through the serve engine
+    instead of ``algo``."""
 
     catch_eval_exceptions = False
 
     def __init__(self, algo, domain, trials, rstate, max_queue_len=1,
                  max_evals=float("inf"), timeout=None, loss_threshold=None,
-                 early_stop_fn=None, verbose=False):
+                 early_stop_fn=None, verbose=False, show_progressbar=True, recovery=None,
+                 trial_timeout=None, catch=(), recorder=None, client=None):
         if trials.asynchronous:
-            raise NotImplementedError(
-                "the port's fmin drives sequential Trials stores only"
-            )
+            raise NotImplementedError(_NO_ASYNC)
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.algo = algo
         self.domain = domain
         self.trials = trials
@@ -118,10 +148,20 @@ class FMinIter:
         self.early_stop_fn = early_stop_fn
         self.early_stop_args = []
         self.verbose = verbose
+        self.show_progressbar = show_progressbar
         self.start_time = timeit.default_timer()
+        self._recovery = recovery
+        # per-trial containment: a deadline in seconds, and the exception
+        # classes recorded as STATUS_FAIL trials instead of aborting
+        self.trial_timeout = trial_timeout
+        if catch and not isinstance(catch, tuple):
+            catch = (catch,)
+        self.catch = catch or ()
         # ask-ahead seam: the seed pre-drawn for the NEXT ask, so that an
         # algo's result hook can pre-dispatch it (see _notify_result)
         self._ask_ahead_seed = None
+        self._client = client
+        self._span_study = "driver" if client is None else client.study_name
 
     def _draw_seed(self):
         # works for both np.random.Generator and legacy RandomState
@@ -184,28 +224,121 @@ class FMinIter:
     def should_stop(self):
         return self._timed_out() or self._loss_reached() or self._early_stopped()
 
+    # -- write-ahead seams -------------------------------------------------
+    def _crashpoint(self, name):
+        if self._recovery is not None:
+            self._recovery.fs.crashpoint(name)
+
+    def _log_ask(self, docs):
+        """Write the new docs (and the rstate cursor after their seed
+        draw) ahead of inserting them: a logged ask is never drawn again
+        on resume; one that was not is asked again from the cursor."""
+        if self._recovery is not None:
+            self._recovery.log_ask(base.SONify(docs), self.rstate)
+
+    def _log_tell(self, trial, result=None):
+        """Write one outcome ahead of applying it: a logged tell is never
+        evaluated again and never applied twice on resume."""
+        if self._recovery is None:
+            return
+        rec = self.recorder
+        t0 = timeit.default_timer() if rec.enabled else 0.0
+        if result is not None:
+            self._recovery.log_tell(trial["tid"], JOB_STATE_DONE, result=result)
+        else:
+            self._recovery.log_tell(trial["tid"], JOB_STATE_ERROR,
+                                    error=list(trial["misc"].get("error", ())),
+                                    tb=trial["misc"].get("traceback"))
+        if rec.enabled:
+            rec.record("tell.wal_append", t0, timeit.default_timer(), study="driver",
+                       tid=int(trial["tid"]))
+
+    def _record_tell(self, trial, result=None):
+        """The write-ahead seam of both regimes: the solo driver logs to
+        its ``DriverRecovery`` WAL, the engine client tells or fails
+        through the study's serve WAL; either way the outcome is durable
+        before the doc finalizes."""
+        if self._client is not None:
+            self._client.record_tell(trial, result)
+        else:
+            self._log_tell(trial, result=result)
+
+    # -- evaluation --------------------------------------------------------
+    def _evaluate_one(self, spec, ctrl):
+        """One objective call, under the per-trial deadline when
+        ``trial_timeout`` is set: the objective runs on a daemon thread,
+        and on expiry the trial is recorded as failed and the driver
+        moves on (the runaway thread cannot be killed, only abandoned)."""
+        if not self.trial_timeout:
+            return self.domain.evaluate(spec, ctrl)
+        box = {}
+
+        def _run():
+            try:
+                box["result"] = self.domain.evaluate(spec, ctrl)
+            except BaseException as e:
+                box["error"] = e
+
+        worker = threading.Thread(target=_run, daemon=True)
+        worker.start()
+        worker.join(self.trial_timeout)
+        if worker.is_alive():
+            raise TrialTimeout(
+                f"objective exceeded trial_timeout={self.trial_timeout}s; recording "
+                "STATUS_FAIL and continuing (the runaway thread is abandoned)"
+            )
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
     def _evaluate_trial(self, trial):
-        """Evaluate ONE queued trial doc in place."""
+        """Evaluate ONE queued trial doc in place: containment (``catch``,
+        ``trial_timeout``), the write-ahead record, the recorder span and
+        the ask-ahead notification, shared by :meth:`serial_evaluate` and
+        the engine-client loop."""
         trial["state"] = JOB_STATE_RUNNING
         trial["book_time"] = coarse_utcnow()
         trial["owner"] = "serial"
         spec = spec_from_misc(trial["misc"])
         ctrl = Ctrl(self.trials, current_trial=trial)
+        result = failure = None
+        t_eval = timeit.default_timer() if self.recorder.enabled else 0.0
         try:
-            result = self.domain.evaluate(spec, ctrl)
+            result = self._evaluate_one(spec, ctrl)
+        except TrialTimeout as e:
+            failure = ("TrialTimeout", str(e), None)
+        except self.catch as e:
+            failure = (type(e).__name__, str(e), traceback.format_exc())
         except Exception as e:
             logger.error("job exception: %s", e)
             trial["state"] = JOB_STATE_ERROR
             trial["misc"]["error"] = (str(type(e)), str(e))
             trial["misc"]["traceback"] = traceback.format_exc()
             trial["refresh_time"] = coarse_utcnow()
+            # durable before any raise: a resumed driver must not run a
+            # crashing objective again
+            self._record_tell(trial)
             if not self.catch_eval_exceptions:
                 self.trials.refresh()
                 raise
+        if result is None and failure is None:
             return
+        if failure is not None:
+            kind, msg, tb = failure
+            logger.warning("trial %s recorded as failed (%s): %s", trial["tid"], kind, msg)
+            result = {"status": STATUS_FAIL, "loss": None, "failure": f"{kind}: {msg}"}
+            if tb is not None:
+                result["traceback"] = tb
+        result = base.SONify(result)
+        self._record_tell(trial, result=result)  # on disk before it is applied
         trial["state"] = JOB_STATE_DONE
-        trial["result"] = base.SONify(result)
+        trial["result"] = result
         trial["refresh_time"] = coarse_utcnow()
+        if self.recorder.enabled:
+            self.recorder.record("driver.trial", t_eval, timeit.default_timer(),
+                                 study=self._span_study, tid=int(trial["tid"]),
+                                 status=result.get("status"))
+        self._crashpoint("after_tell_before_ask_ahead")
         self._notify_result()
 
     def serial_evaluate(self, N=-1):
@@ -218,35 +351,118 @@ class FMinIter:
                 break
         self.trials.refresh()
 
+    # -- checkpoints -------------------------------------------------------
+    def _checkpoint_round(self, force=False):
+        """Round-boundary durability: the recovery bundle at its tell
+        cadence (the WAL covers the gaps)."""
+        if self._recovery is not None:
+            self._recovery.maybe_checkpoint(self.trials, self.rstate,
+                                            ask_ahead_seed=self._ask_ahead_seed, force=force)
+
+    # -- main loop ---------------------------------------------------------
+    def _progress_ctx(self, initial, total):
+        if callable(self.show_progressbar) and not isinstance(self.show_progressbar, bool):
+            return self.show_progressbar(initial=initial, total=total)
+        if self.show_progressbar:
+            return progress_mod.tqdm_progress_callback(initial=initial, total=total)
+        return progress_mod.no_progress_callback(initial=initial, total=total)
+
+    def _report(self, progress, initial_n_done):
+        """Move the progress context to the trials finished so far."""
+        n_done = self.trials.count_by_state_unsynced(JOB_STATE_DONE)
+        n_new_done = n_done - initial_n_done
+        if n_new_done <= 0:
+            return
+        try:
+            best_loss = self.trials.best_trial["result"]["loss"]
+        except AllTrialsFailed:
+            best_loss = None
+        progress.update(n_done - (initial_n_done + progress_done(progress)), best_loss=best_loss)
+        set_progress_done(progress, n_new_done)
+
+    def _run_client(self, N):
+        """The engine-client loop: evaluate the docs already queued
+        (``points_to_evaluate``, restored NEW docs), then up to N trials
+        through the study's ask-ahead window: await the window's head,
+        insert its doc, evaluate it under the shared containment, tell.
+        Stopping rules, progress and containment are the solo loop's."""
+        trials = self.trials
+        client = self._client
+        n_new = 0
+        initial_n_done = trials.count_by_state_unsynced(JOB_STATE_DONE)
+        with self._progress_ctx(initial=0, total=N) as progress:
+            if trials.count_by_state_unsynced(JOB_STATE_NEW):
+                self.serial_evaluate()
+                client.maybe_snapshot()
+            while n_new < N:
+                trials.refresh()
+                if self.should_stop() or not client.budget_left():
+                    break
+                tid, vals = client.next_suggestion()
+                doc = client.insert_new_doc(tid, vals)
+                n_new += 1
+                self._evaluate_trial(doc)
+                client.maybe_snapshot()
+                self._report(progress, initial_n_done)
+        trials.refresh()
+
     def run(self, N):
         """Enqueue and evaluate up to N new trials."""
+        if self._client is not None:
+            return self._run_client(N)
         trials = self.trials
         n_queued = 0
         stopped = False
-        while n_queued < N and not stopped:
-            qlen = trials.count_by_state_unsynced(JOB_STATE_NEW)
-            while qlen < self.max_queue_len and n_queued < N:
-                n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
-                if self.should_stop():
-                    stopped = True
-                    break
-                new_ids = trials.new_trial_ids(n_to_enqueue)
-                trials.refresh()
-                new_trials = self.algo(new_ids, self.domain, trials, self._take_seed())
-                if new_trials is StopExperiment or not new_trials:
-                    stopped = True
-                    break
-                assert len(new_ids) >= len(new_trials)
-                trials.insert_trial_docs(new_trials)
-                trials.refresh()
-                n_queued += len(new_trials)
+        initial_n_done = trials.count_by_state_unsynced(JOB_STATE_DONE)
+        with self._progress_ctx(initial=0, total=N) as progress:
+            while n_queued < N:
                 qlen = trials.count_by_state_unsynced(JOB_STATE_NEW)
-            self.serial_evaluate()
+                while qlen < self.max_queue_len and n_queued < N and not stopped:
+                    n_to_enqueue = min(self.max_queue_len - qlen, N - n_queued)
+                    if self.should_stop():
+                        stopped = True
+                        break
+                    new_ids = trials.new_trial_ids(n_to_enqueue)
+                    trials.refresh()
+                    new_trials = self.algo(new_ids, self.domain, trials, self._take_seed())
+                    if new_trials is StopExperiment or not new_trials:
+                        stopped = True
+                        break
+                    assert len(new_ids) >= len(new_trials)
+                    self._log_ask(new_trials)
+                    trials.insert_trial_docs(new_trials)
+                    trials.refresh()
+                    n_queued += len(new_trials)
+                    qlen = trials.count_by_state_unsynced(JOB_STATE_NEW)
+                self.serial_evaluate()
+                self._report(progress, initial_n_done)
+                self._checkpoint_round()
+                if stopped:
+                    break
+        self._checkpoint_round(force=True)
 
     def exhaust(self):
         self.run(self.max_evals - len(self.trials))
         self.trials.refresh()
         return self
+
+
+def progress_done(progress):
+    return getattr(progress, "_n_done", 0)
+
+
+def set_progress_done(progress, n):
+    progress._n_done = n
+
+
+def _driver_guard(algo, fn, space):
+    """The study fingerprint stamped into every recovery artifact:
+    resuming under another algo, objective or space would change the
+    experiment, so it is refused."""
+    from .hyperband import _algo_identity, _space_fingerprint
+
+    return ["fmin-driver", 1, _algo_identity(algo), _algo_identity(fn),
+            _space_fingerprint(as_apply(space))]
 
 
 def _fmin_result(trials, return_argmin):
@@ -344,6 +560,85 @@ def _validate_stopping(timeout, loss_threshold):
         )
 
 
+def _run_engine_client(fn, space, algo, max_evals, timeout, loss_threshold, trials, rstate,
+                       pass_expr_memo_ctrl, catch_eval_exceptions, verbose, return_argmin,
+                       points_to_evaluate, max_queue_len, show_progressbar, early_stop_fn,
+                       trials_save_file, resume_from, trial_timeout, catch, recorder, engine,
+                       ask_ahead, device):
+    """The ``fmin(engine=...)`` body: open a study on an in-process
+    :class:`~hyperopt_tpu_torch.serve.SuggestService` and drive the
+    sequential loop through its asks and tells with an ask-ahead window
+    of depth ``ask_ahead``.  ``engine=True`` goes through the client
+    module's shared-service registry, so concurrent calls of one study
+    family share one scheduler's rounds, each stream bitwise its solo
+    run; the last client out shuts the shared service down."""
+    from .client import connect
+
+    if max_queue_len != 1:
+        raise ValueError(
+            "engine routing drives one ask at a time -- use ask_ahead=k for pipelining "
+            "(max_queue_len applies to the solo driver)"
+        )
+    if trials is not None and (type(trials).fmin is not Trials.fmin
+                               or getattr(trials, "asynchronous", False)):
+        raise ValueError("engine routing supports sequential Trials stores only")
+    domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl, device=device)
+
+    root = None
+    require_existing = False
+    eng = True if engine is None or isinstance(engine, bool) else engine
+    if eng is True:
+        if resume_from is not None:
+            root = str(resume_from)
+            require_existing = True
+        elif trials_save_file:
+            root = str(trials_save_file)
+        if root is not None and os.path.isfile(root):
+            raise CheckpointError(
+                f"{root!r} is a FILE -- a solo-driver checkpoint; engine-client durability "
+                "uses a study-root DIRECTORY (<root>/fmin.wal and fmin.snap).  Resume a "
+                "solo checkpoint with engine=False, or start a new recoverable run against "
+                "a directory"
+            )
+    elif trials_save_file or resume_from is not None:
+        raise ValueError(
+            "with a provided engine service, durability rides its root=; drop "
+            "trials_save_file/resume_from (restore is implicit when the root holds study "
+            "artifacts)"
+        )
+
+    if trials is None and points_to_evaluate is not None:
+        assert isinstance(points_to_evaluate, list)
+        trials = generate_trials_to_calculate(points_to_evaluate)
+    elif trials is not None and points_to_evaluate is not None and len(trials) == 0:
+        assert isinstance(points_to_evaluate, list)
+        seeded = generate_trials_to_calculate(points_to_evaluate)
+        trials._ids.update(t["tid"] for t in seeded._dynamic_trials)
+        trials._insert_trial_docs(seeded._dynamic_trials)
+        trials.refresh()
+
+    client, trials, rstate, _restored = connect(
+        eng, algo, domain, trials, rstate, fn=fn,
+        ask_ahead=1 if ask_ahead is None else int(ask_ahead), root=root,
+        require_existing=require_existing, max_submits=max_evals, recorder=recorder,
+    )
+    rval = FMinIter(algo, domain, trials, rstate=rstate, max_evals=max_evals, timeout=timeout,
+                    loss_threshold=loss_threshold, early_stop_fn=early_stop_fn,
+                    verbose=verbose, show_progressbar=show_progressbar,
+                    trial_timeout=trial_timeout, catch=catch, recorder=recorder,
+                    client=client)
+    rval.catch_eval_exceptions = catch_eval_exceptions
+    try:
+        rval.exhaust()
+    except BaseException:
+        # a crash leaves the WAL as the truth, not compacted; the registry
+        # hold is dropped so a retry in this process restores from disk
+        client.abandon()
+        raise
+    client.finalize()
+    return _fmin_result(trials, return_argmin)
+
+
 def fmin(
     fn,
     space,
@@ -362,7 +657,7 @@ def fmin(
     max_queue_len=1,
     early_stop_fn=None,
     device=None,
-    show_progressbar=False,
+    show_progressbar=True,
     trials_save_file="",
     resume_from=None,
     trial_timeout=None,
@@ -388,23 +683,56 @@ def fmin(
     of ``{label: value}`` dicts) is evaluated first when the store is
     empty; ``verbose`` is kept on the driver, as the reference keeps it;
     ``allow_trials_fmin`` lets a ``Trials`` subclass with its own ``fmin``
-    take the call (the port's stores are all sequential, so none does).
+    take the call.  ``show_progressbar`` (default on) draws a ``tqdm``
+    bar; a callable ``(initial=, total=)`` returning a context manager
+    with ``update(n, best_loss=)`` takes its place.
+
+    Crash recovery: ``trials_save_file`` routes through
+    :class:`~hyperopt_tpu_torch.utils.checkpoint.DriverRecovery` (a
+    write-ahead tell log and durable bundles): a run killed anywhere
+    resumes with zero lost and zero duplicated tells and a stream bitwise
+    the uninterrupted run (the restored bit-generator supersedes
+    ``rstate``).  ``resume_from`` is the explicit form: the checkpoint
+    must exist (else :class:`~hyperopt_tpu_torch.exceptions.
+    CheckpointError`); it may also be a ``DriverRecovery`` (crash tests
+    arm crash points on its ``fs``).  ``trial_timeout`` (seconds) records
+    an overrunning objective as a ``STATUS_FAIL`` trial and moves on;
+    ``catch`` (an exception class or tuple) does the same for a raising
+    objective, with its traceback; both are logged ahead, so a resumed
+    run never evaluates them again.  ``recorder`` (a
+    :class:`~hyperopt_tpu_torch.obs.FlightRecorder`) records the
+    driver's spans and changes no stream.
+
+    Engine routing: ``engine=True`` (or any ``ask_ahead=``) makes the
+    driver a client of an in-process
+    :class:`~hyperopt_tpu_torch.serve.SuggestService` on ``device``:
+    ``ask_ahead=k`` keeps k asks submitted ahead (seeds drawn at submit
+    time, each dispatch held until the posterior is full), so the stream
+    is bitwise the solo fused driver's at any depth.  ``engine`` may be a
+    caller-built ``SuggestService``.  ``trials_save_file``/
+    ``resume_from`` then name a study-root DIRECTORY (``<root>/fmin.wal``,
+    ``fmin.snap``).  ``algo`` must be the port's ``tpe.suggest``,
+    ``anneal.suggest`` or ``atpe.suggest`` (partials included).
 
     ``compiled=True`` runs the whole experiment in the compiled loop on
     ``device`` (:func:`hyperopt_tpu_torch.device_loop.compile_fmin`, ``fn``
     a batch objective over tensors or a ``TrainableObjective``):
     ``algo`` maps by name, ``loss_threshold`` stops on the device,
     ``compiled_options`` holds ``compile_fmin`` arguments (or ``runner=``
-    and ``seed=``), and ``trials`` is filled from the history.  The
-    reference's progress bar, ``trial_timeout``/``catch``, checkpoints
-    (``trials_save_file``, ``resume_from``), the flight recorder
-    (``recorder``) and ``engine``/``ask_ahead`` are not ported: setting
-    one raises ``NotImplementedError``.
+    and ``seed=``), and ``trials`` is filled from the history.
     """
-    if recorder is not None:
-        raise NotImplementedError(
-            "fmin(recorder=...): the flight recorder's driver spans are not ported yet "
-            "(ROADMAP.md Queue A, item 12b)"
+    _validate_stopping(timeout, loss_threshold)
+    if trial_timeout is not None and (not isinstance(trial_timeout, (int, float))
+                                      or trial_timeout <= 0):
+        raise ValueError(
+            "The trial_timeout argument should be None or a positive value. Given value: "
+            f"{trial_timeout}"
+        )
+    use_engine = bool(engine) or ask_ahead is not None
+    if use_engine and compiled:
+        raise ValueError(
+            "engine=/ask_ahead= route the sequential driver through the serve engine; "
+            "compiled=True is the on-device regime -- pick one"
         )
     if compiled:
         if trials_save_file or resume_from is not None:
@@ -427,16 +755,6 @@ def fmin(
                 "on-device stopping rule; use compiled_options for chunked "
                 "progress/checkpointing)"
             )
-    unported = [
-        name for name, v in (
-            ("show_progressbar", show_progressbar), ("trials_save_file", trials_save_file),
-            ("resume_from", resume_from), ("trial_timeout", trial_timeout),
-            ("catch", catch), ("engine", engine), ("ask_ahead", ask_ahead),
-        ) if v
-    ]
-    if unported:
-        raise NotImplementedError(f"fmin: {unported} not ported yet")
-    _validate_stopping(timeout, loss_threshold)
     if algo is None:
         from . import tpe
 
@@ -447,9 +765,45 @@ def fmin(
         rstate = np.random.default_rng()
     elif isinstance(rstate, (int, np.integer)):
         rstate = np.random.default_rng(int(rstate))
+    if use_engine:
+        return _run_engine_client(
+            fn, space, algo, max_evals, timeout, loss_threshold, trials, rstate,
+            pass_expr_memo_ctrl, catch_eval_exceptions, verbose, return_argmin,
+            points_to_evaluate, max_queue_len, show_progressbar, early_stop_fn,
+            trials_save_file, resume_from, trial_timeout, catch, recorder, engine, ask_ahead,
+            device,
+        )
     if compiled:
         return _run_compiled(fn, space, algo, max_evals, loss_threshold, trials, rstate,
                              return_argmin, compiled_options, device)
+
+    from .utils.checkpoint import DriverRecovery
+
+    recovery = None
+    ask_ahead_seed = None
+    if resume_from is not None or trials_save_file:
+        if isinstance(resume_from, DriverRecovery):
+            # an injected coordinator: load if it exists, else start anew
+            recovery = resume_from
+        else:
+            recovery = DriverRecovery(resume_from or trials_save_file)
+            if resume_from is not None and not recovery.exists():
+                raise CheckpointError(
+                    f"resume_from checkpoint {recovery.path!r} does not exist; pass "
+                    "trials_save_file= to start a new recoverable run instead"
+                )
+        recovery.set_guard(_driver_guard(algo, fn, space))
+        if recovery.exists():
+            restored = recovery.load()
+            trials = restored.trials
+            ask_ahead_seed = restored.ask_ahead_seed
+            if restored.rstate is not None:
+                rstate = restored.rstate
+                logger.info(
+                    "resumed %d trials from %r (replayed %d tell(s) from the WAL); the "
+                    "bit-generator is restored, so the stream continues exactly",
+                    len(trials), recovery.path, restored.n_replayed_tells)
+
     if trials is None:
         if points_to_evaluate is None:
             trials = Trials()
@@ -472,16 +826,21 @@ def fmin(
             trials_save_file=trials_save_file, device=device,
         )
     if trials.asynchronous:
-        raise NotImplementedError(
-            "the port's fmin drives sequential Trials stores only"
-        )
+        raise NotImplementedError(_NO_ASYNC)
 
-    domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl,
-                    device=device)
-    rval = FMinIter(algo, domain, trials, rstate=rstate,
-                    max_queue_len=max_queue_len, max_evals=max_evals,
-                    timeout=timeout, loss_threshold=loss_threshold,
-                    early_stop_fn=early_stop_fn, verbose=verbose)
+    domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl, device=device)
+    rval = FMinIter(algo, domain, trials, rstate=rstate, max_queue_len=max_queue_len,
+                    max_evals=max_evals, timeout=timeout, loss_threshold=loss_threshold,
+                    early_stop_fn=early_stop_fn, verbose=verbose,
+                    show_progressbar=show_progressbar, recovery=recovery,
+                    trial_timeout=trial_timeout, catch=catch, recorder=recorder)
     rval.catch_eval_exceptions = catch_eval_exceptions
+    if ask_ahead_seed is not None:
+        # the seed the crashed run had pre-drawn for its next ask
+        rval._ask_ahead_seed = int(ask_ahead_seed)
+    if recovery is not None and not recovery.exists():
+        # anchor bundle before the first ask: WAL replay is relative to a
+        # bundle, and points_to_evaluate must survive an early crash
+        recovery.checkpoint(trials, rstate)
     rval.exhaust()
     return _fmin_result(trials, return_argmin)

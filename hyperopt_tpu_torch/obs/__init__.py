@@ -1,9 +1,16 @@
 """Observability of the PyTorch port: the metrics registry the serve
 scheduler keeps its counters on, its Prometheus exposition, and the
-disarmed flight recorder."""
+flight recorder of trace spans with its durable export."""
 
 from .expo import render_prometheus
-from .flightrec import NULL_RECORDER, NullRecorder
+from .flightrec import (
+    NULL_RECORDER,
+    FlightRecorder,
+    NullRecorder,
+    audit_flight_log,
+    read_flight_log,
+    repair_flight_log,
+)
 from .registry import (
     Counter,
     CounterAttr,
@@ -15,6 +22,7 @@ from .registry import (
 )
 
 __all__ = [
-    "Counter", "CounterAttr", "Gauge", "GaugeAttr", "Histogram", "HistogramAttr",
-    "MetricsRegistry", "NULL_RECORDER", "NullRecorder", "render_prometheus",
+    "Counter", "CounterAttr", "FlightRecorder", "Gauge", "GaugeAttr", "Histogram",
+    "HistogramAttr", "MetricsRegistry", "NULL_RECORDER", "NullRecorder", "audit_flight_log",
+    "read_flight_log", "render_prometheus", "repair_flight_log",
 ]

@@ -12,7 +12,13 @@ boundary ACROSS studies as LLM serving batches requests:
   watchdog, with per-study seed streams that keep every study's
   suggestions independent of batching order;
 * :mod:`.service` -- the in-process front (:class:`SuggestService`,
-  :class:`StudyHandle`).
+  :class:`StudyHandle`) and per-study durability (``root=``: a
+  write-ahead log and snapshots per study, exactly-once tells across a
+  crash).
+
+``fmin(engine=True)`` is a client of this engine
+(:mod:`hyperopt_tpu_torch.client`).  The socket transport and the fleet
+are not ported yet (``ROADMAP.md`` Queue A, items 12c and 12d).
 
 Example, on the card::
 

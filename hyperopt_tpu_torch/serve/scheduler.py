@@ -17,8 +17,11 @@ Determinism: each study draws its per-ask seed from its OWN
 sequence is a pure function of its seed and its own tells --
 independent of batching order, sibling churn or slot placement.
 
-Tells are absorbed synchronously: host ``ObsBuffer.add``, then an O(D)
-delta staged for the slot.  A backlog past one delta drains through the
+Tells are absorbed synchronously: the study's write-ahead record (when
+the service persists it), host ``ObsBuffer.add``, then an O(D) delta
+staged for the slot.  Under group commit (the default) a tell's record is
+flushed at once and ONE fsync per touched WAL runs at the next round,
+before its dispatch.  A backlog past one delta drains through the
 stacked masked-delta write; late tells and bucket growth re-materialize
 the stacked state from host truth into new tensors.
 
@@ -28,10 +31,14 @@ finite-check verdicts.  Nothing read from the device feeds the step.
 The guard (admission control with a per-study fairness cap and jittered
 ``retry_after``; the finite check with quarantine and eviction; the
 dispatch watchdog with one retry and a circuit breaker) is the
-reference's.  Not ported yet: the write-ahead log and the flight
-recorder (``ROADMAP.md`` Queue A item 12b), ``mesh=`` (item 15), the
-device-metrics twin (item 16), and the per-study host hook that serves
-``algo="atpe"`` (item 12a).
+reference's, and so are the engine client's two gates: a study's
+``fresh_window`` holds a queued ask back until every suggestion served
+to it has its tell (so an ask-ahead client's every dispatch sees the
+full posterior), and a study with a ``host_algo`` hook (ATPE, whose host
+decision layer cannot run across studies) is served by its hook inside
+the round, on the round's thread, and holds no slot.  Not ported yet:
+``mesh=`` (``ROADMAP.md`` Queue A item 15) and the device-metrics twin
+(item 16).
 """
 
 from __future__ import annotations
@@ -129,7 +136,16 @@ def dense_to_vals(ps, col_v, col_a):
 class ServeStudy:
     """One tenant: host-truth history + seed stream + slot bookkeeping.
     The host :class:`~hyperopt_tpu_torch.torch_trials.ObsBuffer` is
-    authoritative; the device only holds a slot-wise mirror of it."""
+    authoritative; the device only holds a slot-wise mirror of it.
+
+    The engine client's fields: ``persist`` (the service's
+    :class:`~hyperopt_tpu_torch.serve.service.StudyPersistence`, or None),
+    ``host_algo`` (``hook(seed) -> (values [D, 1], active [D, 1])``,
+    serving this study instead of the stacked step), ``fresh_window``
+    (None, or the most served-but-untold suggestions before a queued ask
+    may be picked), ``client_state_fn`` (extra durable state for the
+    snapshot) and ``client_blob``/``restore_records`` (what a restore
+    hands back to the client)."""
 
     def __init__(self, name, seed, ps):
         self.name = name
@@ -146,6 +162,13 @@ class ServeStudy:
         self.n_asks = 0
         self.n_tells = 0
         self.outstanding = {}  # tid -> served vals (awaiting their tell)
+        self.pending_asks = {}  # tid -> seed: logged, not served yet
+        self.persist = None
+        self.host_algo = None
+        self.fresh_window = None
+        self.client_state_fn = None
+        self.client_blob = None
+        self.restore_records = None
 
     def best(self):
         """(loss, vals) of the best finite completed trial, or None."""
@@ -187,9 +210,14 @@ class BatchScheduler:
 
     Deterministic counters (never timing): ``dispatch_count``,
     ``delta_drain_dispatches`` (included in ``dispatch_count``),
-    ``upload_events`` / ``upload_bytes``, ``joins``, ``rebuckets`` and the
-    guard's counters.  ``ask_latencies`` / ``occupancy`` are bounded
-    timing windows.
+    ``upload_events`` / ``upload_bytes``, ``joins``, ``rebuckets``, the
+    guard's counters, ``host_algo_served`` (asks a study's hook served;
+    not part of ``dispatch_count``) and ``group_commit_barriers`` (round
+    fsyncs).  ``ask_latencies`` / ``occupancy`` are bounded timing
+    windows.  ``recorder`` (a :class:`~hyperopt_tpu_torch.obs.
+    FlightRecorder`) records the ask/tell spans; it reads no device
+    state and changes no stream.  ``group_commit=False`` fsyncs every
+    tell record on its own.
 
     The guard: a bounded ask queue (``max_queue``, default ``4 *
     max_batch``) with a per-study fairness cap (``study_queue_cap``),
@@ -223,6 +251,12 @@ class BatchScheduler:
     watchdog_retries = CounterAttr("serve_watchdog_retries_total", "watchdog retry rounds")
     watchdog_recoveries = CounterAttr("serve_watchdog_recoveries_total",
                                       "watchdog retries that healed")
+    host_algo_served = CounterAttr(
+        "serve_host_algo_served_total",
+        "asks served by a per-study host_algo hook (not part of serve_dispatch_total)")
+    group_commit_barriers = CounterAttr(
+        "serve_group_commit_barriers_total",
+        "round fsync barriers (one covers every tell flushed since the previous round)")
     ask_latencies = HistogramAttr("serve_ask_latency_seconds", "submit-to-ack ask latency",
                                   window=METRICS_WINDOW)
     occupancy = HistogramAttr("serve_batch_occupancy", "filled-slot fraction per round",
@@ -236,25 +270,15 @@ class BatchScheduler:
                  finite_check=True, quarantine_trips=QUARANTINE_TRIPS,
                  circuit_threshold=CIRCUIT_THRESHOLD, mesh=None, recorder=None,
                  device_metrics_every=0, retry_jitter=0.25, retry_jitter_seed=0,
-                 **algo_kw):
+                 group_commit=True, **algo_kw):
         _no_mesh(mesh)
-        if recorder is not None:
-            raise NotImplementedError(
-                "recorder= (the flight recorder) is not ported yet: it comes "
-                "with the durability slice, ROADMAP.md Queue A item 12b"
-            )
         if int(device_metrics_every) > 0:
             raise NotImplementedError(
                 "device_metrics_every > 0 (the device-metrics twin) is not "
                 "ported yet: ROADMAP.md Queue A item 16"
             )
-        if algo == "atpe":
-            raise NotImplementedError(
-                'algo="atpe" is served by a per-study host hook of the engine '
-                "client, not ported yet: ROADMAP.md Queue A item 12a"
-            )
         self.metrics = MetricsRegistry("serve")
-        self.recorder = NULL_RECORDER
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.ps = ps
         self.device = ps.device
         self.algo = str(algo)
@@ -277,14 +301,22 @@ class BatchScheduler:
         self.quarantine_trips = int(quarantine_trips)
         self.circuit_threshold = int(circuit_threshold)
         self._device_faults = getattr(getattr(fs, "plan", None), "device", None)
+        # group commit: tells append flush-only and ONE fsync per touched
+        # WAL runs at the next round, before its dispatch
+        self.group_commit = bool(group_commit)
+        self._pending_barrier = set()  # TellWALs flushed, not barriered
         self.algo_kw = dict(algo_kw)
-        if self.algo == "tpe":
+        # "atpe" studies are served by their host_algo hook, never by the
+        # stacked step: the step family stays TPE's (built, never run)
+        self._engine_algo = "tpe" if self.algo == "atpe" else self.algo
+        if self._engine_algo == "tpe":
             from ..tpe import _resolve_above_cap
 
             self._pow2_cap = _resolve_above_cap(self.algo_kw.get("above_cap"))
         else:
             self._pow2_cap = None
-        self._step_fn = build_batched_step_fn(ps, algo=self.algo, **self.algo_kw)
+        engine_kw = {} if self.algo == "atpe" else self.algo_kw
+        self._step_fn = build_batched_step_fn(ps, algo=self._engine_algo, **engine_kw)
         self._delta_fn = build_batched_delta_fn()
         self._finite_fn = build_finite_check_fn()
 
@@ -311,8 +343,9 @@ class BatchScheduler:
         for attr in ("dispatch_count", "delta_drain_dispatches", "upload_events",
                      "upload_bytes", "joins", "rebuckets", "admitted_count", "shed_count",
                      "guard_checks", "quarantine_count", "evictions", "watchdog_timeouts",
-                     "watchdog_retries", "watchdog_recoveries", "ask_latencies",
-                     "occupancy", "watchdog_recovery_ms"):
+                     "watchdog_retries", "watchdog_recoveries", "host_algo_served",
+                     "group_commit_barriers", "ask_latencies", "occupancy",
+                     "watchdog_recovery_ms"):
             getattr(self, attr)
         self._delta_cache = None
 
@@ -332,7 +365,8 @@ class BatchScheduler:
         return len(self._studies)
 
     def open_study(self, name, seed=0, study=None):
-        """Join a (new) study to the slotted batch."""
+        """Join a (new or restored) study to the slotted batch; a study
+        with a ``host_algo`` hook takes no slot."""
         with self._lock:
             if name in self._studies:
                 raise ValueError(f"study {name!r} already open")
@@ -342,9 +376,12 @@ class BatchScheduler:
                     "close a study or raise max_batch"
                 )
             st = study if study is not None else ServeStudy(name, seed, self.ps)
-            st.slot = self._alloc_slot()
-            st.dirty = True  # _maintain re-materializes
-            self._slots[st.slot] = st
+            if st.host_algo is None:
+                st.slot = self._alloc_slot()
+                st.dirty = True  # _maintain re-materializes
+                self._slots[st.slot] = st
+            else:
+                st.slot = None
             self._studies[name] = st
             self.joins += 1
             return st
@@ -369,9 +406,12 @@ class BatchScheduler:
             return self._studies[name]
 
     # -- tell --------------------------------------------------------------
-    def tell(self, study, tid, vals, loss):
-        """Absorb one completed trial: host buffer first, device delta
-        staged second.  Idempotent by tid."""
+    def tell(self, study, tid, vals, loss, result=None):
+        """Absorb one completed trial: WAL record first, host buffer
+        second, device delta staged third.  Idempotent by tid: a tell a
+        restore already replayed is absorbed once.  ``result`` (JSON-able)
+        rides the WAL record."""
+        rec = self.recorder
         with self._lock:
             if study.quarantined:
                 raise StudyQuarantined(
@@ -382,20 +422,40 @@ class BatchScheduler:
             if (buf.tids[: buf.count] == int(tid)).any():
                 study.outstanding.pop(tid, None)
                 return
+            t0 = time.perf_counter() if rec.enabled else 0.0
+            if study.persist is not None:
+                study.persist.log_tell(tid, vals, loss, result=result,
+                                       sync=not self.group_commit)
+                if self.group_commit:
+                    self._pending_barrier.add(study.persist.wal)
+            if rec.enabled:
+                t1 = time.perf_counter()
+                rec.record("tell.wal_append", t0, t1, study=study.name, tid=int(tid))
             self.fs.crashpoint("serve_after_wal_before_dispatch")
             self._apply_tell(study, tid, vals, loss)
             study.outstanding.pop(tid, None)
+            study.pending_asks.pop(int(tid), None)
+            if rec.enabled:
+                t2 = time.perf_counter()
+                rec.record("tell.applied", t1, t2, study=study.name, tid=int(tid))
+                rec.record("tell", t0, t2, study=study.name, tid=int(tid), loss=float(loss))
+            # a tell can open a study's fresh_window gate
             self._cond.notify_all()
 
-    def tell_failure(self, study, tid):
-        """Absorb one FAILED trial: nothing enters the posterior, the
-        outstanding suggestion is retired."""
+    def tell_failure(self, study, tid, doc=None):
+        """Absorb one FAILED trial: nothing enters the posterior, but the
+        outcome (with the JSON-able ``doc``) is logged before the
+        outstanding suggestion is retired, so a resumed client neither
+        evaluates nor serves it again."""
         with self._lock:
             buf = study.buf
             if (buf.tids[: buf.count] == int(tid)).any():
                 return  # already told ok earlier: nothing to fail
+            if study.persist is not None:
+                study.persist.log_fail(tid, doc=doc)
             study.next_tid = max(study.next_tid, int(tid) + 1)
             study.outstanding.pop(int(tid), None)
+            study.pending_asks.pop(int(tid), None)
             self._cond.notify_all()
 
     def _apply_tell(self, study, tid, vals, loss):
@@ -451,13 +511,17 @@ class BatchScheduler:
         else:
             c[name] -= 1
 
-    def submit_ask(self, study, deadline=None):
+    def submit_ask(self, study, deadline=None, replay=None):
         """Queue one ask; returns the queued request (``.tid`` /
         ``.future``).  The per-ask seed is drawn HERE, from the study's
-        own stream.  Admission control runs BEFORE the seed draw: a
-        refused submit consumes nothing of the study's seed stream or
-        tid space.  ``deadline`` is an absolute ``time.perf_counter()``
-        instant; an expired one is shed here or at pick time."""
+        own stream, and logged (flush-only) with the cursor after it.
+        Admission control runs BEFORE the seed draw: a refused submit
+        consumes nothing of the study's seed stream or tid space.
+        ``replay=(tid, seed)`` queues a restored in-flight ask again with
+        its logged seed: nothing is drawn or logged, so it is served
+        bitwise as the crashed service would have served it.
+        ``deadline`` is an absolute ``time.perf_counter()`` instant; an
+        expired one is shed here or at pick time."""
         with self._lock:
             if self._stopping:
                 raise RuntimeError("suggestion service shutting down")
@@ -503,14 +567,26 @@ class BatchScheduler:
                     "(per-study fairness cap); tell or await results first",
                     retry_after=self._jittered(self.retry_after()), reason="study_queue_cap",
                 )
-            seed = draw_seed(study.rstate)
-            tid = study.next_tid
-            study.next_tid = tid + 1
-            study.n_asks += 1
+            if replay is not None:
+                tid, seed = int(replay[0]), int(replay[1])
+                study.next_tid = max(study.next_tid, tid + 1)
+            else:
+                seed = draw_seed(study.rstate)
+                tid = study.next_tid
+                study.next_tid = tid + 1
+                study.n_asks += 1
+                if study.persist is not None:
+                    study.persist.log_ask(tid, seed, study.rstate)
+                # queued-but-unserved asks survive a snapshot that compacts
+                # their records away (the bundle carries pending_asks)
+                study.pending_asks[int(tid)] = int(seed)
             self.admitted_count += 1
             req = _AskRequest(study, tid, seed, deadline=deadline)
             self._asks.append(req)
             self._queued_per_study[study.name] += 1
+            if self.recorder.enabled:
+                self.recorder.event("ask.submit", study=study.name, tid=tid,
+                                    queue_depth=len(self._asks))
             self._cond.notify_all()
             return req
 
@@ -608,7 +684,9 @@ class BatchScheduler:
     def _pick_round(self):
         """At most one queued ask per study this round, FIFO, capped at
         ``max_batch``.  Expired deadlines and closed/quarantined studies
-        are shed here."""
+        are shed here; an ask of a study whose ``fresh_window`` is full
+        (that many served suggestions still owe their tell) stays
+        queued."""
         now = time.perf_counter()
         if not self._asks:
             return []
@@ -631,13 +709,19 @@ class BatchScheduler:
                         f"ask tid={req.tid} for study {st.name!r} expired "
                         "while queued; shed before dispatch"
                     ))
-            elif id(st) not in seen and len(picked) < self.max_batch:
+            elif (id(st) not in seen and len(picked) < self.max_batch
+                  and (st.fresh_window is None or len(st.outstanding) < st.fresh_window)):
                 seen.add(id(st))
                 self._dec_queue(req)
                 picked.append(req)
             else:
                 leftover.append(req)
         self._asks = leftover
+        if self.recorder.enabled:
+            rec, now2 = self.recorder, time.perf_counter()
+            for req in picked:
+                rec.record("ask.queued", req.t_submit, now2, study=req.study.name,
+                           tid=req.tid)
         return picked
 
     def step(self):
@@ -653,18 +737,44 @@ class BatchScheduler:
         propagates, after failing the picked futures."""
         with self._lock, self._on_device():
             picked = self._pick_round()
-            if not picked:
-                return 0
             try:
+                # the group-commit fsync point: every WAL flushed since the
+                # previous round is made durable before this round's
+                # dispatch, which is conditioned on those tells
+                self._barrier_round()
+                if not picked:
+                    return 0
                 served = self._dispatch_round(picked)
                 self._round_failures = 0
                 return served
             except Exception as e:
+                if not picked:
+                    raise  # a barrier failure with no picks to contain it
                 return self._recover_round(picked, e)
             except BaseException as e:
                 for req in picked:
                     if not req.future.done():
                         req.future.set_exception(e)
+                raise
+
+    def _barrier_round(self, fire_crashpoint=True):
+        """One fsync per WAL a flush-only tell touched since the last
+        round (lock held).  The ``serve_group_commit_after_flush_before_
+        barrier`` crash point sits between the flushed records and their
+        fsync.  A WAL whose barrier fails stays registered for the next
+        round (or :meth:`stop`)."""
+        if not self._pending_barrier:
+            return
+        if fire_crashpoint:
+            self.fs.crashpoint("serve_group_commit_after_flush_before_barrier")
+        pend = list(self._pending_barrier)
+        self._pending_barrier.clear()
+        for i, wal in enumerate(pend):
+            try:
+                if wal.barrier():
+                    self.group_commit_barriers += 1
+            except BaseException:
+                self._pending_barrier.update(pend[i:])
                 raise
 
     def _force_rematerialize(self):
@@ -743,16 +853,69 @@ class BatchScheduler:
             ) from None
 
     def _dispatch_round(self, picked):
-        """Serve one picked round (lock held), then ack every pick --
-        acks last, so a crash anywhere above leaves the round unacked."""
+        """Serve one picked round (lock held): the stacked step for the
+        slotted studies, each ``host_algo`` study's hook for the others,
+        then ack every pick -- acks last, so a crash anywhere above
+        leaves the round unacked."""
+        host_picked = [r for r in picked if r.study.host_algo is not None]
+        eng_picked = [r for r in picked if r.study.host_algo is None]
+        if eng_picked:
+            results = self._dispatch_engine(eng_picked)
+            results.extend(self._serve_host_picks(host_picked, False))
+        else:
+            # a round of hooks only has the engine round's crash windows
+            self.fs.crashpoint("serve_mid_batch")
+            results = self._serve_host_picks(host_picked, True)
         served = 0
-        for req, vals in self._dispatch_engine(picked):
+        rec = self.recorder
+        now = time.perf_counter()
+        for req, vals in results:
             if isinstance(vals, Exception):
                 req.future.set_exception(vals)
             else:
                 req.future.set_result((req.tid, vals))
                 served += 1
+                if rec.enabled:
+                    rec.record("ask.delivered", req.t_submit, now, study=req.study.name,
+                               tid=req.tid, slot=req.study.slot)
         return served
+
+    def _serve_host_picks(self, host_picked, fire_crashpoint):
+        """Serve the hook studies' picks of one round (lock held): each
+        study's ``host_algo(seed)`` draws its suggestion, which is the
+        solo host-adaptive dispatch, so the stream is the solo driver's.
+        A raising hook fails only its own client."""
+        draws = []
+        for req in host_picked:
+            try:
+                draws.append((req, req.study.host_algo(req.seed)))
+            except Exception as e:
+                draws.append((req, e))
+        if fire_crashpoint:
+            self.fs.crashpoint("serve_after_dispatch_before_ack")
+        results = []
+        now = time.perf_counter()
+        for req, out in draws:
+            if isinstance(out, Exception):
+                results.append((req, out))
+                continue
+            v, a = out
+            vals = dense_to_vals(self.ps, np.asarray(v)[:, 0], np.asarray(a)[:, 0])
+            self._served(req, vals, now)
+            self.host_algo_served += 1
+            results.append((req, vals))
+        return results
+
+    def _served(self, req, vals, now):
+        """Record one suggestion as served (lock held, before its ack): the
+        flush-only ``served`` record, the outstanding vals its tell may
+        default to, and its latency."""
+        st = req.study
+        if st.persist is not None:
+            st.persist.log_served(req.tid, vals)
+        st.outstanding[req.tid] = vals
+        st.pending_asks.pop(req.tid, None)
+        self.ask_latencies.append(now - req.t_submit)
 
     def _dispatch_engine(self, picked):
         """Maintain the stacked state, run the batched step, build the
@@ -767,7 +930,7 @@ class BatchScheduler:
             slot_arr = np.fromiter(self._slots.keys(), np.int64, n_slots)
             counts = np.fromiter((st.buf.count for st in self._slots.values()), np.int64,
                                  n_slots)
-            warm[slot_arr] = (counts > 0 if self.algo == "anneal"
+            warm[slot_arr] = (counts > 0 if self._engine_algo == "anneal"
                               else counts >= self.n_startup_jobs)
         for st in self._slots.values():
             if st.pending:  # at most one left after _maintain
@@ -797,11 +960,15 @@ class BatchScheduler:
                 poisoned = self._finite_fn(*new_state, v).cpu().numpy()
             return new_state, new_v, new_a, poisoned
 
+        t_disp = time.perf_counter() if self.recorder.enabled else 0.0
         new_state, new_v, new_a, poisoned = self._run_dispatch(run)
         self._state = type(state)(*new_state)
         self.dispatch_count += 1
         if self.finite_check:
             self.guard_checks += 1
+        if self.recorder.enabled:
+            self.recorder.record("serve.dispatch", t_disp, time.perf_counter(),
+                                 n_picked=len(picked), slots=s)
         bad_slots = self._quarantine(poisoned)
         self.fs.crashpoint("serve_after_dispatch_before_ack")
         now = time.perf_counter()
@@ -822,8 +989,7 @@ class BatchScheduler:
                 )))
                 continue
             vals = dense_to_vals(self.ps, new_v[st.slot, :, 0], new_a[st.slot, :, 0])
-            st.outstanding[req.tid] = vals
-            self.ask_latencies.append(now - req.t_submit)
+            self._served(req, vals, now)
             results.append((req, vals))
         return results
 
@@ -892,6 +1058,14 @@ class BatchScheduler:
             self._cond.notify_all()
             t = self._thread
             self._thread = None
+            # no round follows: the last window's flushed tells are made
+            # durable here (a failing mount must not hang the shutdown;
+            # the records are flushed and the torn-tail rule covers them)
+            try:
+                self._barrier_round(fire_crashpoint=False)
+            except OSError:
+                logger.warning("group-commit barrier failed during stop; flushed tells "
+                               "remain kernel-visible", exc_info=True)
             stranded = list(self._asks)
             self._asks.clear()
             for req in stranded:
@@ -927,7 +1101,12 @@ class BatchScheduler:
                 if self._stopping:
                     return
             try:
-                self.step()
+                if self.step() == 0:
+                    # every queued ask is gated (a fresh_window study still
+                    # owes tells): wait for a tell instead of spinning
+                    with self._cond:
+                        if self._asks and not self._stopping:
+                            self._cond.wait(timeout=0.005)
             except BaseException:
                 # a dying batcher must not strand blocked clients: fail
                 # the queue after the lock is released, then re-raise

@@ -314,17 +314,40 @@ class TorchTrials(Trials):
     def obs_buffer(self, space, resident=None):
         buf = self._buffers.get(id(space))
         if buf is None:
-            buf = ObsBuffer(space, resident=self._resident_default)
+            buf = self._restore_stashed(space)
+            if buf is None:
+                buf = ObsBuffer(space, resident=self._resident_default)
             self._buffers[id(space)] = buf
         if resident is not None:
             buf.set_resident(resident)
         buf.sync(self)
         return buf
 
+    def _restore_stashed(self, space):
+        """A buffer rebuilt from a checkpoint bundle's ``.npz`` bytes
+        (:meth:`~hyperopt_tpu_torch.utils.checkpoint.DriverRecovery.load`
+        stashes them on the unpickled store): ``sync`` then ingests only
+        the WAL-replayed suffix.  A blob of another space is skipped."""
+        blobs = getattr(self, "_stashed_obs_npz", None)
+        if not blobs:
+            return None
+        from .utils.checkpoint import load_obs_buffer_bytes
+
+        for i, blob in enumerate(blobs):
+            try:
+                buf = load_obs_buffer_bytes(space, blob)
+            except ValueError:
+                continue
+            blobs.pop(i)
+            buf.set_resident(self._resident_default)
+            return buf
+        return None
+
     def __getstate__(self):
         # buffers are derived state; rebuilt on demand after unpickling
         state = self.__dict__.copy()
         state["_buffers"] = {}
+        state.pop("_stashed_obs_npz", None)
         return state
 
 

@@ -1,7 +1,9 @@
 """Tests of the port that need the card (marker ``cuda``).
 
 They skip, inside the test, where ``torch.cuda.is_available()`` is false.
-They import no JAX, so the machine with the card runs them with::
+Every ``fmin`` passes ``show_progressbar=False``: the card's machine may
+lack ``tqdm``.  They import no JAX, so the machine with the card runs
+them with::
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -146,7 +148,7 @@ def test_cuda_fmin_runs_through_the_kernel(cuda):
     G.KERNEL.launches = 0
     trials = H.Trials()
     H.fmin(mixed_space_fn, mixed_space(), algo=tpe.suggest, max_evals=30,
-           trials=trials, rstate=np.random.default_rng(0))
+           trials=trials, rstate=np.random.default_rng(0), show_progressbar=False)
     assert len(trials.trials) == 30
     assert G.KERNEL.launches == 10
 
@@ -162,7 +164,7 @@ def test_cuda_fused_stream_equals_plain(cuda):
                                 H.TorchTrials(resident=True))):
         G.KERNEL.launches = 0
         H.fmin(mixed_space_fn, mixed_space(), algo=algo, max_evals=100, trials=trials,
-               rstate=np.random.default_rng(0))
+               rstate=np.random.default_rng(0), show_progressbar=False)
         runs[name] = (trials.losses(), G.KERNEL.launches)
     assert runs["fused"][0] == runs["plain"][0]
     assert (runs["plain"][1], runs["fused"][1]) == (80, 81)
@@ -481,3 +483,124 @@ def test_cuda_pbt_round_replays_its_eager_round(cuda):
     resumed = runner(seed=0, init=out)
     assert np.array_equal(resumed["loss_history"],
                           runner._run(0, out, eager=True)["loss_history"])
+
+
+def _engine_stream(trials):
+    return [(t["misc"]["vals"], t["result"]) for t in trials.trials]
+
+
+@pytest.mark.cuda
+def test_cuda_engine_fmin_is_the_solo_fused_stream(cuda):
+    """``fmin(engine=True)`` on the card at ask_ahead 1 and 3: bitwise the
+    solo fused driver's stream from the same rstate, one ``gmm_llr``
+    launch per ask (the stacked step runs the TPE body every round)."""
+    n = 60
+    ref = H.TorchTrials(resident=True)
+    H.fmin(mixed_space_fn, mixed_space(), algo=H.partial(tpe.suggest, fused=True), max_evals=n,
+           trials=ref, rstate=np.random.default_rng(0), show_progressbar=False)
+    for k in (1, 3):
+        trials = H.Trials()
+        G.KERNEL.launches = 0
+        H.fmin(mixed_space_fn, mixed_space(), algo=tpe.suggest, max_evals=n, trials=trials,
+               rstate=np.random.default_rng(0), show_progressbar=False, engine=True,
+               ask_ahead=k)
+        assert _engine_stream(trials) == _engine_stream(ref), k
+        assert G.KERNEL.launches == n, (k, G.KERNEL.launches)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_kill_and_resume_is_bitwise(cuda, tmp_path):
+    """An engine-routed fmin on a study root, killed at a serve crash
+    point past startup and resumed: bitwise the uninterrupted stream,
+    every tell logged once, and the resumed asks launch the kernel."""
+    from hyperopt_tpu_torch.client import resolve_engine_algo
+    from hyperopt_tpu_torch.distributed.faults import FaultPlan, SimulatedCrash
+    from hyperopt_tpu_torch.serve import SuggestService
+    from hyperopt_tpu_torch.utils.wal import TellWAL
+
+    n, root = 40, str(tmp_path / "root")
+
+    def service(fs):
+        return SuggestService(mixed_space(), root=root, fs=fs, background=False, max_batch=1,
+                              n_startup_jobs=20, snapshot_cadence=8, finite_check=False,
+                              **resolve_engine_algo(tpe.suggest).algo_kw)
+
+    def run(svc):
+        trials = H.Trials()
+        H.fmin(mixed_space_fn, mixed_space(), algo=tpe.suggest, max_evals=n, trials=trials,
+               rstate=np.random.default_rng(1), show_progressbar=False, engine=svc)
+        return trials
+
+    ref = H.Trials()
+    H.fmin(mixed_space_fn, mixed_space(), algo=H.partial(tpe.suggest, fused=True), max_evals=n,
+           trials=ref, rstate=np.random.default_rng(1), show_progressbar=False)
+    plan = FaultPlan(seed=0).arm("serve_mid_batch", at=30)
+    with pytest.raises(SimulatedCrash):
+        run(service(plan.fs()))
+    svc = service(FaultPlan(seed=1).fs())
+    G.KERNEL.launches = 0
+    trials = run(svc)
+    assert _engine_stream(trials) == _engine_stream(ref)
+    assert [t["tid"] for t in trials.trials] == list(range(n))
+    assert TellWAL(f"{root}/fmin.wal").total_tells == n
+    assert G.KERNEL.launches == svc.counters["dispatch_count"] == n - 29
+
+
+@pytest.mark.cuda
+def test_cuda_persisted_round_reads_no_device_state(cuda, tmp_path):
+    """A persisted study on the card: the submit (its WAL ask record),
+    the tell (WAL record, host apply, snapshot cadence), the gated pump
+    (the fresh_window gate and the group-commit barrier) run under
+    ``set_sync_debug_mode("error")``; only the dispatch reads the card."""
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    svc = SuggestService(mixed_space(), root=str(tmp_path / "root"), background=False,
+                         max_batch=2, n_startup_jobs=3, snapshot_cadence=4)
+    h = svc.create_study("s", seed=1)
+    h._study.fresh_window = 1
+    for r in range(8):
+        fut = _sync_checked(h.ask_async)
+        assert svc.pump() == 1
+        tid, vals = fut.result(timeout=60)
+        gated = _sync_checked(h.ask_async)  # one suggestion owes its tell
+        assert _sync_checked(svc.pump) == 0 and not gated.done()
+        _sync_checked(lambda: h.tell(tid, mixed_space_fn(vals)))
+        assert svc.pump() == 1
+        tid, vals = gated.result(timeout=60)
+        _sync_checked(lambda: h.tell(tid, mixed_space_fn(vals)))
+    c = svc.counters
+    assert c["wal_tells"] == 16 and c["group_commit_barriers"] == 15  # none after the last tell
+    svc.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_atpe_hook_launches_from_the_serve_thread(cuda):
+    """ATPE through a background service's host_algo hook: bitwise the
+    solo ATPE stream, each warm ask's sweep launched from the scheduler's
+    loop thread."""
+    import threading
+
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    n = 40
+    ref = H.Trials()
+    H.fmin(mixed_space_fn, mixed_space(), algo=H.atpe.suggest, max_evals=n, trials=ref,
+           rstate=np.random.default_rng(2), show_progressbar=False)
+    threads, real = [], G._launch_checked
+
+    def recording(*args):
+        threads.append(threading.current_thread().name)
+        return real(*args)
+
+    svc = SuggestService(mixed_space(), algo="atpe", max_batch=1, n_startup_jobs=20,
+                         finite_check=False)
+    trials = H.Trials()
+    G._launch_checked = recording
+    try:
+        H.fmin(mixed_space_fn, mixed_space(), algo=H.atpe.suggest, max_evals=n, trials=trials,
+               rstate=np.random.default_rng(2), show_progressbar=False, engine=svc)
+    finally:
+        G._launch_checked = real
+    svc.shutdown()
+    assert _engine_stream(trials) == _engine_stream(ref)
+    assert threads and set(threads) == {"serve-batcher"} and len(threads) == n - 20

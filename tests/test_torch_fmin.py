@@ -114,11 +114,16 @@ def test_allow_trials_fmin_hands_the_call_to_the_store():
     assert len(store.trials) == 2 and len(calls) == 1
 
 
-def test_recorder_raises_naming_its_item():
-    trials = H.Trials()
-    with pytest.raises(NotImplementedError, match="12b"):
+def test_async_store_raises_naming_its_item():
+    """Asynchronous stores wait for ROADMAP item 20: refused, no trial run."""
+
+    class AsyncTrials(H.Trials):
+        asynchronous = True
+
+    trials = AsyncTrials()
+    with pytest.raises(NotImplementedError, match="item 20"):
         H.fmin(mixed_space_fn, t_mixed_space(), max_evals=2, trials=trials,
-               recorder=object(), device="cpu")
+               allow_trials_fmin=False, device="cpu")
     assert len(trials.trials) == 0
 
 
@@ -136,3 +141,59 @@ def test_space_eval_and_generate_trials_match_the_reference():
     jt, tt = j_gen(POINTS), t_gen(POINTS)
     assert [(t["tid"], t["misc"]["vals"], t["result"]) for t in tt.trials] == [
         (t["tid"], t["misc"]["vals"], t["result"]) for t in jt.trials]
+
+
+def test_progressbar_is_on_by_default(capsys):
+    """``show_progressbar`` defaults to a ``tqdm`` bar on stderr, as the
+    reference's; prints of the objective still reach stdout."""
+    def noisy(cfg):
+        print("evaluating")
+        return mixed_space_fn(cfg)
+
+    H.fmin(noisy, t_mixed_space(), algo=H.rand.suggest, max_evals=5,
+           rstate=np.random.default_rng(0), device="cpu")
+    out, err = capsys.readouterr()
+    assert "5/5" in err and "trial" in err and "best loss" in err
+    assert out.count("evaluating") == 5
+
+
+def _recording_progress(log):
+    import contextlib
+
+    class Ctx:
+        def update(self, n=1, best_loss=None):
+            log.append(("update", n, best_loss))
+
+    @contextlib.contextmanager
+    def progress(initial, total):
+        log.append(("open", initial, total))
+        yield Ctx()
+        log.append(("close",))
+
+    return progress
+
+
+@pytest.mark.parametrize("engine", [False, True])
+def test_progress_callable_sees_what_the_reference_shows(engine):
+    """A callable ``show_progressbar`` gets ``(initial=, total=)`` and the
+    same ``update(n, best_loss=)`` calls as under the reference's driver,
+    on the same random-search stream (the engine route on the TPE
+    startup stream, whose draws are the reference's too)."""
+    from hyperopt_tpu import tpe_jax
+    from hyperopt_tpu.fmin import partial as jpartial
+
+    jlog, tlog = [], []
+    if engine:
+        jalgo = jpartial(tpe_jax.suggest, n_startup_jobs=50)
+        talgo, kw = H.partial(H.tpe.suggest, n_startup_jobs=50), {"engine": True}
+    else:
+        jalgo, talgo, kw = rand_jax.suggest, H.rand.suggest, {}
+    J.fmin(mixed_space_fn, j_mixed_space(), algo=jalgo, max_evals=12,
+           rstate=np.random.default_rng(2), show_progressbar=_recording_progress(jlog), **kw)
+    H.fmin(mixed_space_fn, t_mixed_space(), algo=talgo, max_evals=12,
+           rstate=np.random.default_rng(2), device="cpu",
+           show_progressbar=_recording_progress(tlog), **kw)
+    assert tlog[0] == jlog[0] == ("open", 0, 12) and tlog[-1] == ("close",)
+    assert [e[:2] for e in tlog] == [e[:2] for e in jlog]
+    np.testing.assert_allclose([e[2] for e in tlog if e[0] == "update"],
+                               [e[2] for e in jlog if e[0] == "update"], rtol=1e-6)

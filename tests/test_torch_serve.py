@@ -13,7 +13,8 @@ Also here: the study axis of the building blocks (random bits, prior
 draws, activity, the stacked delta write, the stacked kernel wrapper),
 the guard (poisoned-slot quarantine and eviction, admission control,
 deadlines, the watchdog), the background loop, and the options that are
-not ported yet.  ``tests/test_torch_serve_batched.py`` holds the engine
+not ported yet (``root=``, ``recorder=`` and ``algo="atpe"`` are held in
+``tests/test_torch_serve_chaos.py`` and ``tests/test_torch_client.py``).  ``tests/test_torch_serve_batched.py`` holds the engine
 against the JAX reference.
 """
 
@@ -568,9 +569,7 @@ def test_front_health_metrics_and_shutdown():
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"root": "x"}, "12b"), ({"owner": "r0"}, "12d"), ({"mesh": object()}, "15"),
-    ({"recorder": object()}, "12b"), ({"device_metrics_every": 1}, "16"),
-    ({"algo": "atpe"}, "12a"),
+    ({"owner": "r0"}, "12d"), ({"mesh": object()}, "15"), ({"device_metrics_every": 1}, "16"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):

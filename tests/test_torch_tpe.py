@@ -265,17 +265,23 @@ def test_obs_buffer_matches_reference():
 
 
 @pytest.mark.parametrize("kw", [{"show_progressbar": True}, {"trial_timeout": 1.0},
-                                {"recorder": object()},
+                                {"recorder": "armed"},
                                 {"engine": True}, {"trials_save_file": "fmin.ckpt"}])
-def test_unported_modes_raise(kw):
-    """What the port's drivers do not serve yet raises, and runs no trial
-    (every mode of tpe.suggest is served: test_every_suggest_mode_runs;
-    the flight recorder is item 12b)."""
+def test_driver_modes_run(kw, tmp_path):
+    """The driver's modes that came with the durability slice run with
+    the port's tpe.suggest (their parity with the reference is held in
+    test_torch_resume_parity.py, test_torch_client.py and
+    test_torch_flightrec.py)."""
+    from hyperopt_tpu_torch.obs import FlightRecorder
+
+    if "recorder" in kw:
+        kw = {"recorder": FlightRecorder()}
+    if "trials_save_file" in kw:
+        kw = {"trials_save_file": str(tmp_path / kw["trials_save_file"])}
     trials = H.Trials()
-    with pytest.raises(NotImplementedError):
-        H.fmin(lambda cfg: 0.0, t_mixed_space(), algo=T.suggest, max_evals=2,
-               trials=trials, device="cpu", **kw)
-    assert len(trials.trials) == 0
+    H.fmin(lambda cfg: 0.0, t_mixed_space(), algo=T.suggest, max_evals=2,
+           trials=trials, device="cpu", **kw)
+    assert len(trials.trials) == 2 and trials.losses() == [0.0, 0.0]
 
 
 @pytest.mark.parametrize("kw", [{"joint_ei": True}, {"speculative": 4}, {"fused": True},

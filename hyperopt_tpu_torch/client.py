@@ -31,7 +31,7 @@ Algorithms: the port's ``tpe.suggest`` and ``anneal.suggest`` (partials
 included) map onto the engine's stacked step; ``atpe.suggest`` keeps its
 host decision layer as the study's ``host_algo`` hook, served inside the
 same rounds.  Anything else raises and names the solo path.  The socket
-client (the reference's ``RemoteStudy``) waits for the transport slice
+client (:class:`RemoteStudy`) raises until the transport slice
 (``ROADMAP.md`` Queue A, item 12c).
 """
 
@@ -58,6 +58,7 @@ __all__ = [
     "CLIENT_STUDY",
     "EngineClient",
     "EngineSpec",
+    "RemoteStudy",
     "SHARED_MAX_BATCH",
     "SHARED_QUEUE_CAP",
     "connect",
@@ -517,6 +518,16 @@ class EngineClient:
         if self._shared_key is not None:
             with _SHARED_LOCK:
                 _drop_hold(self._shared_key, self.service, shutdown=False)
+
+
+class RemoteStudy:
+    """The reference's socket client of a served study: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "RemoteStudy (the socket transport's study client) is not ported yet: "
+            "ROADMAP.md Queue A item 12c"
+        )
 
 
 def connect(engine, algo, domain, trials, rstate, fn=None, ask_ahead=1, root=None,

@@ -173,6 +173,11 @@ def test_resolve_engine_algo_refuses_the_rest(algo, match):
         resolve_engine_algo(algo)
 
 
+def test_remote_study_raises_naming_its_item():
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        C.RemoteStudy("localhost", 0, "s0")
+
+
 def test_engine_argument_refusals(tmp_path):
     with pytest.raises(ValueError, match="max_queue_len"):
         run_fmin(CLIENT_TPE, n=2, engine=True, max_queue_len=4)

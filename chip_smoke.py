@@ -117,12 +117,38 @@ network.  Every phase asserts, and a failure exits non-zero:
    unarmed stream, its export auditing clean; the kernel is then held
    against its plain version at every launch shape these paths gave it.
    Every fmin of the script passes ``show_progressbar=False`` (phase 1
-   says whether ``tqdm`` is importable).
+   says whether ``tqdm`` is importable);
+11. (after phase 10) the suggestion service as a network process, at
+   ``mixed_space()``'s full width, every reply asserted ``ok``: (a) the
+   console script (``python -m hyperopt_tpu_torch.serve.service --root
+   ...``) as a subprocess, 4 studies x 60 trials driven by
+   ``RemoteStudy`` threads on binary frames, SIGKILLed once after 30
+   tells per study (one ask each in flight) and restarted on its root:
+   every stream bitwise the in-process service's, every tell logged once
+   (``wal_tells``), the dispatches and ``gmm_llr`` launches read from its
+   ``metrics`` op; (b) the reference's burst protocol (64 clients x 8
+   pipelined asks over 4 studies, a ``root=`` background service) on
+   binary frames and on JSON lines, one pair: asks/s, fsyncs per tell,
+   co-batch occupancy; (c) 7b's serve protocol over the socket (one
+   ``ask_batch`` frame and 64 pipelined tells per round) in pairs with
+   7b's in-process rounds: bitwise, one launch per round, ms per round on
+   both sides; (d) 4 ``RemoteStudy`` clients under a seeded
+   ``NetFaultPlan`` (resets, latency, truncation, both
+   ``NET_CRASH_POINTS``) against a ``root=`` service whose ``FaultPlan``
+   injects ``ESTALE``/``EIO`` and partial writes: zero lost and zero
+   duplicated tells, streams bitwise the clean run's, the connection cap's
+   typed ``Overloaded``, a silent client reaped at ``idle_timeout``; (e)
+   (c)'s rounds with ``device_metrics_every=2`` (bitwise, the twin's ms
+   per dispatch) and a chunked ``compile_fmin(metrics_registry=)``; then
+   the kernel at every launch shape of those paths; (f), last of all,
+   served rounds under ``utils.profiling.device_trace``: its Chrome trace
+   holds the ``gmm_llr`` kernel.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
 loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
-10's under ``durable`` and each new path's launch shapes with their errors under ``checked_shapes``),
+10's under ``durable``, phase 11's under ``transport`` and each new path's launch shapes with
+their errors under ``checked_shapes``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -2008,6 +2034,603 @@ def phase10(card):
     return launches, results
 
 
+# -- phase 11: the suggestion service as a network process -------------------
+#: the device phase 11 serves on (None: the card; a CPU rehearsal sets "cpu")
+P11_DEVICE = None
+P11_STUDIES, P11_TRIALS, P11_KILL_AT = 4, 60, 30
+BURST = dict(n_clients=64, n_studies=4, asks_per_client=8, pool_width=32)
+STORM_TRIALS = 20
+SOCKET_ROUNDS = 6  # 7b's timed rounds, after one warm-up
+
+
+def p11_sync():
+    import torch
+
+    if P11_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def spawn_front(svc, **kw):
+    """``serve_forever`` on 127.0.0.1, port 0, served from a daemon thread."""
+    import threading
+
+    from hyperopt_tpu_torch.serve.service import serve_forever
+
+    srv = serve_forever(svc, host="127.0.0.1", port=0, **kw)
+    threading.Thread(target=srv.serve_forever, name="serve-front", daemon=True).start()
+    return srv
+
+
+def close_front(srv):
+    srv.shutdown()
+    srv.server_close()
+
+
+def console_process(root, log_path):
+    """Start ``python -m hyperopt_tpu_torch.serve.service`` (the console
+    script) on ``root`` and read its listening line; returns the process
+    and its port."""
+    import select
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "hyperopt_tpu_torch.serve.service", "--space",
+           "hyperopt_tpu_torch.models.synthetic:mixed_space", "--port", "0", "--root", root,
+           "--n-startup-jobs", "3"]
+    if P11_DEVICE is not None:
+        cmd += ["--device", P11_DEVICE]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    err = open(log_path, "a")
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE, stderr=err,
+                            text=True)
+    err.close()
+    deadline = time.perf_counter() + 120
+    while True:
+        ready, _, _ = select.select([proc.stdout], [], [], max(deadline - time.perf_counter(), 0))
+        line = proc.stdout.readline() if ready else ""
+        if "listening on 127.0.0.1:" in line:
+            return proc, int(line.split("127.0.0.1:")[1].split()[0])
+        if not ready or not line or time.perf_counter() > deadline:
+            proc.kill()
+            proc.wait(timeout=30)
+            with open(log_path) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"the console script did not start: {line!r}\n{tail}")
+
+
+def stop_process(proc):
+    """SIGINT (the script shuts its service down), then SIGKILL past 30 s."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    proc.stdout.close()
+
+
+def frame_call(port, req, timeout=120):
+    """One request on a new binary-frame connection; asserts its reply is ok."""
+    from hyperopt_tpu_torch.serve.frames import FrameConn, dial
+
+    sock, f = dial("127.0.0.1", port, read_timeout=timeout)
+    conn = FrameConn(f)
+    try:
+        reply = conn.call(req)
+    finally:
+        conn.close()
+        sock.close()
+    assert reply.get("ok"), reply
+    return reply
+
+
+def run_threads(targets):
+    """Run each target on a thread; re-raise the first failure."""
+    import threading
+
+    errors = []
+
+    def wrap(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # ferried to the caller, re-raised there
+                errors.append(e)
+        return run
+
+    threads = [threading.Thread(target=wrap(fn), daemon=True) for fn in targets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive(), "a client thread hung"
+    if errors:
+        raise errors[0]
+
+
+def socket_rounds(port, names, seeds, rounds, streams):
+    """``rounds`` of 7b's serve protocol over one binary-frame connection:
+    one ``ask_batch`` frame for every study, then one pipelined ``tell``
+    each; appends each study's vals to ``streams``; returns the wall."""
+    from hyperopt_tpu_torch.serve.frames import FrameConn, dial
+
+    sock, f = dial("127.0.0.1", port, read_timeout=300)
+    conn = FrameConn(f)
+    try:
+        for n, s in zip(names, seeds):
+            assert conn.call({"op": "create_study", "name": n, "seed": s})["ok"]
+        walls = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            reply = conn.call({"op": "ask_batch", "names": names, "timeout": 300})
+            assert reply["ok"], reply
+            tells = []
+            for n in names:
+                r = reply["results"][n]
+                assert r["ok"], (n, r)
+                streams.setdefault(n, []).append(r["vals"])
+                tells.append(conn.submit({"op": "tell", "study": n, "tid": r["tid"],
+                                          "loss": serve_loss(r["vals"]), "vals": r["vals"]}))
+            assert all(conn.drain(t)["ok"] for t in tells)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        conn.close()
+        sock.close()
+    return walls
+
+
+def phase11(card):
+    """The suggestion service as a network process on the card: (a) the
+    console script as a process, killed once with SIGKILL and restarted on
+    its root, 4 studies driven by ``RemoteStudy`` threads, bitwise the
+    in-process service; (b) the reference's burst protocol on binary
+    frames and on JSON lines; (c) 7b's serve protocol over the socket, in
+    pairs with the in-process rounds; (d) a storm of network and file
+    faults; (e) the device-metrics twin and the compiled loop's
+    ``metrics_registry=``.  Returns the launches by path, the numbers,
+    and (f), which runs last of all: a ``device_trace`` of served rounds."""
+    import concurrent.futures
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch.client import RemoteStudy
+    from hyperopt_tpu_torch.distributed.faults import (NET_CRASH_POINTS, FaultPlan,
+                                                       NetFaultPlan, SimulatedCrash)
+    from hyperopt_tpu_torch.exceptions import Overloaded
+    from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.serve import SuggestService
+    from hyperopt_tpu_torch.serve.frames import FrameConn, dial
+
+    t_phase = time.perf_counter()
+    launches, shapes, out = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p11_")
+
+    def counted(path, run):
+        """``run()`` with the launch counter at 0 just before it and each
+        launch's shape recorded; adds the launches to ``path``."""
+        p11_sync()
+        G.KERNEL.launches = 0
+        with launch_shapes() as seen:
+            result = run()
+            p11_sync()
+        launches[path] = launches.get(path, 0) + G.KERNEL.launches
+        shapes.setdefault(path, set()).update(seen)
+        return result, G.KERNEL.launches
+
+    # -- 11a. the console script as a process, killed and restarted -------
+    names = [f"p{i}" for i in range(P11_STUDIES)]
+    root, plog = os.path.join(tmp, "process"), os.path.join(tmp, "process.log")
+    streams = {n: [] for n in names}
+
+    def drive(port, name, seed, upto, recover):
+        def run():
+            c = RemoteStudy("127.0.0.1", port, name, seed=seed, read_timeout=120)
+            if recover:  # the ask in flight at the kill: served again, or drawn again
+                r = c.call({"op": "ask", "study": name, "timeout": 120, "recover": True})
+                tid, vals = r["tid"], r["vals"]
+                assert tid == len(streams[name]), (name, tid)
+                c.tell(tid, serve_loss(vals), vals)
+                streams[name].append(vals)
+            while len(streams[name]) < upto:
+                tid, vals = c.ask(timeout=120)
+                assert tid == len(streams[name]), (name, tid)
+                c.tell(tid, serve_loss(vals), vals)
+                streams[name].append(vals)
+            c.close()
+        return run
+
+    t0 = time.perf_counter()
+    proc, port = console_process(root, plog)
+    start_1 = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        run_threads([drive(port, n, i, P11_KILL_AT, False) for i, n in enumerate(names)])
+        leg_1 = time.perf_counter() - t0
+        rows_1 = {r["name"]: r.get("value") for r in frame_call(port, {"op": "metrics"})["metrics"]}
+        # one ask per study in flight, its reply never read, then SIGKILL
+        sock, f = dial("127.0.0.1", port, read_timeout=120)
+        inflight = FrameConn(f)
+        for n in names:
+            inflight.submit({"op": "ask", "study": n, "timeout": 120})
+        time.sleep(0.5)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+        inflight.close()
+        sock.close()
+    finally:
+        stop_process(proc)
+    t0 = time.perf_counter()
+    proc, port = console_process(root, plog)
+    start_2 = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        run_threads([drive(port, n, i, P11_TRIALS, True) for i, n in enumerate(names)])
+        leg_2 = time.perf_counter() - t0
+        health = frame_call(port, {"op": "health"})
+        rows_2 = {r["name"]: r.get("value") for r in frame_call(port, {"op": "metrics"})["metrics"]}
+    finally:
+        stop_process(proc)
+    # the same studies on an in-process service at the script's defaults
+    ref = SuggestService(mixed_space(), max_batch=64, background=False, n_startup_jobs=3,
+                         device=P11_DEVICE)
+    handles = [ref.create_study(n, seed=i) for i, n in enumerate(names)]
+    want = {}
+    counted("socket_process", lambda: [serve_round(ref, handles, want)
+                                       for _ in range(P11_TRIALS)])
+    ref.shutdown()
+    launches["socket_process"] = rows_1["serve_kernel_launches"] + rows_2["serve_kernel_launches"]
+    n_bitwise = sum(streams[n] == [v for v in want[n]] for n in names)
+    tells = health["counters"]["wal_tells"]
+    per_trial = 1e3 * (leg_1 + leg_2) / (P11_STUDIES * P11_TRIALS)
+    log(f"[11a] {card}: hyperopt-tpu-torch-serve as a process (--n-startup-jobs 3, the script's "
+        f"n_cand 16), {P11_STUDIES} studies x {P11_TRIALS} trials by RemoteStudy threads on "
+        f"binary frames, SIGKILLed after {P11_KILL_AT} tells per study with one ask each in "
+        f"flight and restarted on its root: {n_bitwise} of {P11_STUDIES} streams bitwise the "
+        f"in-process service's; wal_tells {tells}; dispatches {rows_1['serve_dispatch_total']} "
+        f"+ {rows_2['serve_dispatch_total']}, gmm_llr launches {rows_1['serve_kernel_launches']} "
+        f"+ {rows_2['serve_kernel_launches']}; {per_trial:.3f} ms wall per trial (legs "
+        f"{leg_1:.2f} + {leg_2:.2f} s); process start {start_1:.2f} s, restart {start_2:.2f} s")
+    assert n_bitwise == P11_STUDIES, "a served stream is not the in-process stream"
+    assert tells == P11_STUDIES * P11_TRIALS, f"{tells} tells logged"
+    assert rows_2["serve_dispatch_total"] >= P11_TRIALS - P11_KILL_AT - 1, rows_2
+    assert rows_2["serve_kernel_launches"] == rows_2["serve_dispatch_total"] > 0, rows_2
+    out["process"] = dict(ms_per_trial=per_trial, start_s=start_1, restart_s=start_2,
+                          wal_tells=tells, bitwise=n_bitwise)
+
+    # -- 11b. the reference's burst protocol, binary frames and JSON lines --
+    def burst(binary, tag):
+        broot = tempfile.mkdtemp(dir=tmp, prefix="burst_")
+        svc = SuggestService(mixed_space(), root=broot, background=True, max_batch=64,
+                             n_startup_jobs=3, n_cand=128, snapshot_cadence=1000,
+                             max_queue=4096, study_queue_cap=64, device=P11_DEVICE)
+        bnames = [f"b{i}" for i in range(BURST["n_studies"])]
+        for i, n in enumerate(bnames):
+            svc.create_study(n, seed=i)
+        # warm the service with one in-process round before any client connects
+        warm = [svc._handles[n].ask_async() for n in bnames]
+        for n, fut in zip(bnames, warm):
+            tid, vals = fut.result(timeout=120)
+            svc._handles[n].tell(tid, 0.1 + (tid % 97) / 100.0)
+        srv = spawn_front(svc)
+        addr = srv.server_address[:2]
+        bad = []
+
+        def one_client(i):
+            name = bnames[i % len(bnames)]
+            sock, f = dial(*addr, read_timeout=120)
+            served = 0
+            try:
+                conn = FrameConn(f, negotiate=binary)
+                assert conn.binary is binary
+                futs = [conn.submit({"op": "ask", "study": name, "timeout": 120})
+                        for _ in range(BURST["asks_per_client"])]
+                replies = [conn.drain(fut) for fut in futs]
+                bad.extend(r for r in replies if not r.get("ok"))
+                tells = [conn.submit({"op": "tell", "study": name, "tid": r["tid"],
+                                      "loss": 0.1 + (r["tid"] % 97) / 100.0})
+                         for r in replies if r.get("ok")]
+                for fut in tells:
+                    r = conn.drain(fut)
+                    served += bool(r.get("ok"))
+                    if not r.get("ok"):
+                        bad.append(r)
+                conn.close()
+            finally:
+                sock.close()
+            return served
+
+        def run():
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(BURST["pool_width"]) as pool:
+                served = sum(pool.map(one_client, range(BURST["n_clients"])))
+            return served, time.perf_counter() - t0
+
+        try:
+            occ0 = len(svc.scheduler.occupancy)
+            (served, dt), nl = counted(tag, run)
+            c = svc.counters
+            occ = [float(x) for x in list(svc.scheduler.occupancy)[occ0:]]
+        finally:
+            close_front(srv)
+            svc.shutdown()
+        n_asks = BURST["n_clients"] * BURST["asks_per_client"]
+        assert not bad and served == n_asks, (served, bad[:3])
+        return dict(asks_per_s=served / dt, wal_fsyncs_per_tell=c["wal_fsyncs"] / c["wal_tells"],
+                    occupancy=float(np.mean(occ)), launches=nl, rounds=len(occ))
+
+    bursts = {"binary": [], "json": []}
+    for binary in (True, False):  # one pair, in one call
+        tag = "burst_binary" if binary else "burst_json"
+        bursts["binary" if binary else "json"].append(burst(binary, tag))
+    for proto, runs in bursts.items():
+        log(f"[11b] {card}: burst on {proto} ({BURST['n_clients']} clients x "
+            f"{BURST['asks_per_client']} pipelined asks over {BURST['n_studies']} studies, pool "
+            f"{BURST['pool_width']}, root= background service, n_cand 128): asks/s "
+            + ", ".join(f"{r['asks_per_s']:.1f}" for r in runs) + "; wal_fsyncs_per_tell "
+            + ", ".join(f"{r['wal_fsyncs_per_tell']:.4f}" for r in runs) + "; mean co-batch "
+            "occupancy " + ", ".join(f"{r['occupancy']:.4f}" for r in runs) + "; gmm_llr "
+            "launches " + ", ".join(f"{r['launches']} in {r['rounds']} rounds" for r in runs)
+            + "; every reply ok")
+    out["burst"] = bursts
+
+    # -- 11c. 7b's serve protocol over the socket, in pairs with 7b --------
+    snames = [f"bench{i:03d}" for i in range(SERVE_STUDIES)]
+    seeds = list(range(SERVE_STUDIES))
+
+    def socket_serve(every=0, twin_ms=None):
+        svc = SuggestService(mixed_space(), max_batch=SERVE_STUDIES, background=False,
+                             n_startup_jobs=3, n_cand=128, device_metrics_every=every,
+                             device=P11_DEVICE)
+        if twin_ms is not None:
+            real = svc.scheduler._dispatch_device_metrics
+
+            def timed():
+                t0 = time.perf_counter()
+                real()
+                twin_ms.append(1e3 * (time.perf_counter() - t0))
+
+            svc.scheduler._dispatch_device_metrics = timed
+        srv = spawn_front(svc)
+        got = {}
+        try:
+            walls = socket_rounds(srv.server_address[1], snames, seeds, 1 + SOCKET_ROUNDS, got)
+            c = svc.counters
+            twin = svc.scheduler.device_metric_dispatches
+        finally:
+            close_front(srv)
+            svc.shutdown()
+        return got, walls[1:], c, twin
+
+    def inprocess_serve():
+        # open_service's settings, on phase 11's device
+        svc = SuggestService(mixed_space(), max_batch=SERVE_STUDIES, background=False,
+                             n_startup_jobs=3, n_cand=128, device=P11_DEVICE)
+        handles = [svc.create_study(n, seed=s) for n, s in zip(snames, seeds)]
+        got, walls = {}, []
+        for _ in range(1 + SOCKET_ROUNDS):
+            t0 = time.perf_counter()
+            serve_round(svc, handles, got)
+            p11_sync()
+            walls.append(time.perf_counter() - t0)
+        svc.shutdown()
+        return got, walls[1:]
+
+    pair_ms = {"socket": [], "in_process": []}
+    socket_streams = inproc_streams = None
+    for side in ("socket", "in_process", "in_process", "socket"):
+        if side == "socket":
+            (got, walls, c, twin), nl = counted("socket_serve_64", socket_serve)
+            assert nl == 1 + SOCKET_ROUNDS == c["dispatch_count"], (nl, c["dispatch_count"])
+            assert twin == 0
+            socket_streams = socket_streams or got
+            assert got == socket_streams
+        else:
+            got, walls = inprocess_serve()
+            inproc_streams = inproc_streams or got
+        pair_ms[side].append(1e3 * float(np.mean(walls)))
+    launches["socket_serve_64"] //= 2
+    n_bitwise = sum(socket_streams[n] == inproc_streams[n] for n in snames)
+    log(f"[11c] {card}: 7b's protocol over the socket ({SERVE_STUDIES} studies, one ask_batch "
+        f"frame then {SERVE_STUDIES} pipelined tells per round, 1 warm-up + {SOCKET_ROUNDS} "
+        f"timed rounds): {n_bitwise} of {SERVE_STUDIES} streams bitwise the in-process rounds; "
+        f"gmm_llr launches {launches['socket_serve_64']} in {1 + SOCKET_ROUNDS} rounds; ms per "
+        f"round in pairs (socket, in-process, in-process, socket): socket "
+        + ", ".join(f"{x:.3f}" for x in pair_ms["socket"]) + "; in-process "
+        + ", ".join(f"{x:.3f}" for x in pair_ms["in_process"]))
+    assert n_bitwise == SERVE_STUDIES, "the socket rounds are not the in-process rounds"
+    out["socket_serve"] = dict(ms_per_round=pair_ms, bitwise=n_bitwise)
+
+    # -- 11d. the storm: network and file faults ----------------------------
+    tnames = [f"t{i}" for i in range(P11_STUDIES)]
+
+    def storm(net_plan, fs_plan, tag):
+        sroot = tempfile.mkdtemp(dir=tmp, prefix="storm_")
+        svc = SuggestService(mixed_space(), root=sroot, background=True, max_batch=4,
+                             n_startup_jobs=3, n_cand=128, snapshot_cadence=8,
+                             fs=fs_plan.fs(), device=P11_DEVICE)
+        srv = spawn_front(svc)
+        port = srv.server_address[1]
+        got, crashes = {n: [] for n in tnames}, []
+
+        def client(name):
+            def run():
+                st = svc.scheduler.study(name)
+                c, recover, pending = None, False, None
+                while len(got[name]) < STORM_TRIALS:
+                    try:
+                        if c is None:  # the study exists: a (re)started client attaches
+                            c = RemoteStudy("127.0.0.1", port, name, net_plan=net_plan,
+                                            read_timeout=60, create=False)
+                        if pending is None:
+                            if recover:
+                                r = c.call({"op": "ask", "study": name, "timeout": 60,
+                                            "recover": True})
+                                pending = (r["tid"], r["vals"])
+                            else:
+                                pending = c.ask(timeout=60)
+                            recover = False
+                        tid, vals = pending
+                        c.tell(tid, mixed_space_fn(vals), vals)
+                        got[name].append((tid, vals))
+                        pending = None
+                    except SimulatedCrash as e:  # this client died: a new one resumes
+                        crashes.append((name, e.point))
+                        c, recover = None, pending is None
+                        if recover:
+                            # as the reference's lost-ack test waits: let the ask the
+                            # dead client sent reach the service before asking it to
+                            # serve that ask again (a hello it died in sent none)
+                            t_wait = time.perf_counter() + 2.0
+                            while (st.next_tid <= len(got[name])
+                                   and time.perf_counter() < t_wait):
+                                time.sleep(0.005)
+                if c is not None:
+                    c.close()
+            return run
+
+        try:
+            for n in tnames:  # created before the storm: the restarted clients re-attach
+                svc.create_study(n, seed=int(n[1:]))
+            (_, nl) = counted(tag, lambda: run_threads([client(n) for n in tnames]))
+            hist = {n: svc.scheduler.study(n) for n in tnames}
+            wal = {n: int(st.persist.wal.total_tells) for n, st in hist.items()}
+            tids = {n: st.buf.tids[: st.buf.count].tolist() for n, st in hist.items()}
+            cap = hygiene(svc) if net_plan is not None else None
+        finally:
+            close_front(srv)
+            svc.shutdown()
+        return got, wal, tids, crashes, nl, cap
+
+    def hygiene(svc):
+        """A second front on the storm's service: the connection cap's typed
+        refusal, and a silent client reaped at the idle deadline."""
+        srv = spawn_front(svc, max_conns=1, idle_timeout=0.5)
+        addr = srv.server_address[:2]
+        try:
+            s1, f1 = dial(*addr, read_timeout=30)
+            c1 = FrameConn(f1)
+            assert c1.call({"op": "ping"})["pong"] is True
+            s2, f2 = dial(*addr, read_timeout=30)
+            try:
+                FrameConn(f2)
+                refused = None
+            except Overloaded as e:
+                refused = e.reason
+            f2.close()
+            s2.close()
+            s1.settimeout(10.0)
+            t0 = time.perf_counter()
+            reaped = s1.recv(64) == b""  # we stay silent: the server hangs up
+            reap_s = time.perf_counter() - t0
+            c1.close()
+            s1.close()
+        finally:
+            close_front(srv)
+        assert refused == "max_connections", refused
+        assert reaped, "the idle client was not reaped"
+        return dict(refused=refused, reaped_after_s=reap_s)
+
+    clean, clean_wal, clean_tids, _, _, _ = storm(None, FaultPlan(seed=0), "storm_clean")
+    net = NetFaultPlan(seed=11, reset_rate=0.08, latency=0.002, truncate_rate=0.04, burst=2)
+    net.arm(NET_CRASH_POINTS[0], at=40).arm(NET_CRASH_POINTS[1], at=70)
+    files = FaultPlan(seed=7, rate=0.1, partial_rate=0.2)
+    got, wal, tids, crashes, nl, cap = storm(net, files, "storm")
+    launches.pop("storm_clean", None)
+    shapes.pop("storm_clean", None)
+    exact = all(wal[n] == STORM_TRIALS and tids[n] == list(range(STORM_TRIALS)) for n in tnames)
+    n_bitwise = sum(got[n] == clean[n] for n in tnames)
+    injected = {k: v for k, v in sorted(net.stats.items())}
+    file_faults = {k: v for k, v in sorted(files.stats.items())}
+    log(f"[11d] {card}: storm, {P11_STUDIES} RemoteStudy clients x {STORM_TRIALS} trials under "
+        f"NetFaultPlan(reset 0.08, latency 2 ms, truncate 0.04) with both NET_CRASH_POINTS armed "
+        f"once, against a root= service with FaultPlan(rate 0.1, partial 0.2): network "
+        f"{injected}, files {file_faults}; client deaths {crashes}; zero lost and zero "
+        f"duplicated tells: {exact} (WAL {wal}); {n_bitwise} of {P11_STUDIES} streams bitwise "
+        f"the clean run's; gmm_llr launches {nl}; the cap refused with Overloaded("
+        f"{cap['refused']}), a silent client reaped after {cap['reaped_after_s']:.2f} s")
+    assert exact, (wal, tids)
+    assert n_bitwise == P11_STUDIES, "the storm changed a stream"
+    assert sorted(p for _, p in crashes) == sorted(NET_CRASH_POINTS), crashes
+    assert net.stats["net:reset"] + net.stats["net:truncate"] > 0, injected
+    assert sum(v for k, v in files.stats.items() if k.startswith("error:")) > 0, file_faults
+    out["storm"] = dict(network=injected, files=file_faults, crashes=len(crashes), **cap)
+
+    # -- 11e. the device utilities -----------------------------------------
+    twin_ms = []
+    (got, walls, c, twin), nl = counted("twin", lambda: socket_serve(2, twin_ms))
+    assert got == socket_streams, "the twin changed a stream"
+    assert twin == c["dispatch_count"] // 2 == len(twin_ms), (twin, c["dispatch_count"])
+    assert nl == c["dispatch_count"] == 1 + SOCKET_ROUNDS
+    log(f"[11e] {card}: 11c's rounds with device_metrics_every=2: the streams bitwise those at "
+        f"cadence 0 (twin dispatches 0 there), {twin} twin dispatches in "
+        f"{c['dispatch_count']} rounds, ms per twin dispatch "
+        + ", ".join(f"{x:.3f}" for x in twin_ms) + " (host clock, its read of the card "
+        "included)")
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models.synthetic import mixed_space_fn_torch
+    from hyperopt_tpu_torch.obs import MetricsRegistry
+
+    reg = MetricsRegistry("dl")
+    runner = compile_fmin(mixed_space_fn_torch, mixed_space(), max_evals=COMPILED_TRIALS,
+                          chunk_size=COMPILED_TRIALS // 4, metrics_registry=reg,
+                          batch_size=1, n_EI_candidates=128, n_EI_candidates_cat=24,
+                          device=P11_DEVICE)
+    res = runner(seed=7)
+    rows = {r["name"]: r.get("value") for r in reg.collect()}
+    log(f"[11e] {card}: compile_fmin(chunk_size={COMPILED_TRIALS // 4}, metrics_registry=reg): "
+        f"obs_device_events_total {rows['obs_device_events_total']}, device_loop_trials_done "
+        f"{rows['device_loop_trials_done']}, device_loop_best_loss "
+        f"{rows['device_loop_best_loss']!r} (the run's best {float(res['best_loss'])!r}), "
+        f"{rows['device_loop_trials_per_sec']:.1f} trials/s")
+    assert rows["obs_device_events_total"] == 4 and rows["device_loop_trials_done"] == COMPILED_TRIALS
+    assert rows["device_loop_best_loss"] == float(np.min(res["losses"])) == float(res["best_loss"])
+    out["twin"] = dict(ms_per_dispatch=twin_ms, dispatches=twin,
+                       compiled_rows=int(rows["obs_device_events_total"]))
+
+    for path, seen in shapes.items():
+        if seen:
+            CHECKED_SHAPES[path] = check_shapes(f"11 {path}, {card}", seen, seed=29)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[11] {card}: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+    def trace_11f():
+        """(f), last of all: a few served rounds under ``device_trace``; the
+        Chrome trace in its logdir holds the ``gmm_llr`` kernel."""
+        from hyperopt_tpu_torch.utils.profiling import device_trace as profiled
+
+        svc, handles = open_service(P11_STUDIES)
+        for _ in range(2):
+            serve_round(svc, handles)
+        logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+        try:
+            with profiled(logdir):
+                for _ in range(3):
+                    serve_round(svc, handles)
+                p11_sync()
+            (name,) = os.listdir(logdir)
+            with open(os.path.join(logdir, name)) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            svc.shutdown()
+            shutil.rmtree(logdir, ignore_errors=True)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        ours = [e for e in kernels if "gmm_llr" in e.get("name", "")]
+        log(f"[11f] {card}: device_trace over 3 served rounds: {len(events)} events, "
+            f"{len(kernels)} CUDA kernel events, {len(ours)} of them the gmm_llr kernel "
+            f"({ours[0]['name'] if ours else None})")
+        assert ours, "the device_trace holds no gmm_llr kernel event"
+        return dict(events=len(events), kernels=len(kernels), gmm_llr_events=len(ours))
+
+    return launches, out, trace_11f
+
+
 def main():
     import torch
 
@@ -2250,9 +2873,14 @@ def main():
     # -- 10. durable fmin: the engine client, the WALs, containment --------
     durable_launches, durable = phase10(card)
     launches_by_path.update(durable_launches)
+    # -- 11. the suggestion service as a network process -------------------
+    transport_launches, transport, trace_11f = phase11(card)
+    launches_by_path.update(transport_launches)
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
+    # -- 11f. device_trace, last of all (after a trace, later ones came back empty)
+    transport["trace"] = trace_11f()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     main = results["fmin"]  # the shape of the main path's asks
@@ -2283,6 +2911,7 @@ def main():
         "compiled": compiled,
         "schedulers": schedulers,
         "durable": durable,
+        "transport": transport,
         "checked_shapes": CHECKED_SHAPES,
     }]}
     print(json.dumps(kernels))

@@ -30,9 +30,12 @@ Why the stream is the solo fused driver's, bitwise:
 Algorithms: the port's ``tpe.suggest`` and ``anneal.suggest`` (partials
 included) map onto the engine's stacked step; ``atpe.suggest`` keeps its
 host decision layer as the study's ``host_algo`` hook, served inside the
-same rounds.  Anything else raises and names the solo path.  The socket
-client (:class:`RemoteStudy`) raises until the transport slice
-(``ROADMAP.md`` Queue A, item 12c).
+same rounds.  Anything else raises and names the solo path.
+
+:class:`RemoteStudy` is the exactly-once client of one study behind a
+TCP front (:func:`~hyperopt_tpu_torch.serve.service.serve_forever`, the
+``hyperopt-tpu-torch-serve`` process, or the reference's server: the wire
+is the same).
 """
 
 from __future__ import annotations
@@ -43,12 +46,24 @@ import json
 import logging
 import threading
 import time
+import uuid
 
 import numpy as np
 
 from .base import JOB_STATE_DONE, JOB_STATE_ERROR, STATUS_OK, SONify, Trials
 from .distributed import _common
-from .exceptions import CheckpointError, DeadlineExpired, Overloaded
+from .exceptions import (
+    CheckpointError,
+    DeadlineExpired,
+    DispatchTimeout,
+    NetworkTimeout,
+    Overloaded,
+    OwnershipLost,
+    PeerUnreachable,
+    ReplicaDead,
+    StudyPoisoned,
+    StudyQuarantined,
+)
 from .rand import docs_from_idxs_vals
 
 logger = logging.getLogger(__name__)
@@ -520,14 +535,177 @@ class EngineClient:
                 _drop_hold(self._shared_key, self.service, shutdown=False)
 
 
-class RemoteStudy:
-    """The reference's socket client of a served study: not ported yet."""
+#: a reply's ``error_type`` -> the exception it is raised as: a server's
+#: failure crosses the wire as a name and comes back typed
+_REPLY_ERRORS = {
+    "DeadlineExpired": DeadlineExpired,
+    "DispatchTimeout": DispatchTimeout,
+    "NetworkTimeout": NetworkTimeout,
+    "OwnershipLost": OwnershipLost,
+    "PeerUnreachable": PeerUnreachable,
+    "ReplicaDead": ReplicaDead,
+    "StudyPoisoned": StudyPoisoned,
+    "StudyQuarantined": StudyQuarantined,
+}
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RemoteStudy (the socket transport's study client) is not ported yet: "
-            "ROADMAP.md Queue A item 12c"
-        )
+
+class RemoteStudy:
+    """Exactly-once client of ONE study behind a TCP front.
+
+    The transport discipline (the reference's :class:`hyperopt_tpu.
+    client.RemoteStudy`):
+
+    * every socket carries connect and read deadlines
+      (:func:`~hyperopt_tpu_torch.serve.frames.dial`): a silent peer
+      surfaces as :class:`NetworkTimeout`, never a hung thread;
+    * a transport failure (reset, torn frame, missed deadline, refused
+      connect) drops the connection and retries the op on a new one with
+      bounded backoff: asks go again with ``recover=True`` (the service
+      serves the oldest undelivered suggestion again, bitwise, instead of
+      drawing a new seed), tells with their explicit ``vals`` (the WAL's
+      tid dedup absorbs the duplicate), so a lost ack neither loses nor
+      duplicates a trial;
+    * a server's typed error comes back as its exception class;
+    * ``Overloaded`` (queue caps, draining, the connection cap) is retried
+      after the server's ``retry_after`` hint, capped at
+      :data:`~hyperopt_tpu_torch.serve.service.RETRY_AFTER_CAP`.
+
+    ``max_retries`` failed attempts on one op end in
+    :class:`PeerUnreachable` (transport) or the last ``Overloaded``.  Not
+    thread-safe: one RemoteStudy per driving thread.
+    """
+
+    def __init__(self, host, port, name, seed=0, connect_timeout=None, read_timeout=None,
+                 net_plan=None, key=None, max_retries=8, create=True, takeover=False):
+        from .serve.frames import DEFAULT_CONNECT_TIMEOUT, DEFAULT_READ_TIMEOUT
+
+        self.host = host
+        self.port = int(port)
+        self.name = str(name)
+        self.connect_timeout = (DEFAULT_CONNECT_TIMEOUT if connect_timeout is None
+                                else float(connect_timeout))
+        self.read_timeout = (DEFAULT_READ_TIMEOUT if read_timeout is None
+                             else float(read_timeout))
+        self.net_plan = net_plan
+        self.key = key if key is not None else f"client/{name}"
+        self.max_retries = int(max_retries)
+        self.stats = collections.Counter()
+        self._conn = None
+        if create:
+            self.call({"op": "create_study", "name": self.name, "seed": int(seed),
+                       "takeover": bool(takeover)})
+
+    # -- transport -----------------------------------------------------------
+    def _connect(self):
+        from .serve.frames import FrameConn, dial
+
+        if self._conn is None:
+            _sock, f = dial(self.host, self.port, connect_timeout=self.connect_timeout,
+                            read_timeout=self.read_timeout, net_plan=self.net_plan,
+                            key=self.key)
+            self._conn = FrameConn(f)
+        return self._conn
+
+    def _drop(self):
+        c, self._conn = self._conn, None
+        if c is not None:
+            c.close()
+
+    def close(self):
+        self._drop()
+
+    def call(self, req, mutate=None):
+        """One op, exactly once under a hostile network: bounded transport
+        retries on new connections (``mutate`` rewrites the request for a
+        resubmission: the ask's ``recover=True``), bounded ``Overloaded``
+        backoff under the server's hint, typed re-raise of the rest."""
+        from .distributed.faults import SimulatedCrash
+        from .serve.frames import FrameError
+        from .serve.service import RETRY_AFTER_CAP
+
+        transport = (NetworkTimeout, PeerUnreachable, ConnectionError, FrameError, OSError)
+        last = None
+        for attempt in range(self.max_retries + 1):
+            if attempt:
+                self.stats["retries"] += 1
+                if mutate is not None:
+                    req = mutate(req)
+            try:
+                reply = self._connect().call(req)
+            except Overloaded as e:
+                # the front's connection-cap refusal rides the hello line
+                self._drop()
+                last = e
+                self.stats["typed:Overloaded"] += 1
+                time.sleep(min(e.retry_after or 0.05, RETRY_AFTER_CAP))
+                continue
+            except SimulatedCrash:
+                # an armed network crash point: this client died in its
+                # send/ack window; a harness restarting it starts clean
+                self._drop()
+                raise
+            except transport as e:
+                self._drop()
+                last = e
+                self.stats["transport_errors"] += 1
+                self.stats[f"transport:{type(e).__name__}"] += 1
+                time.sleep(min(0.01 * (attempt + 1), 0.05))
+                continue
+            if reply.get("ok"):
+                return reply
+            etype = reply.get("error_type")
+            if etype == "Overloaded":
+                last = Overloaded(reply.get("error") or "overloaded",
+                                  retry_after=reply.get("retry_after"),
+                                  reason=reply.get("reason") or "queue_full")
+                self.stats["typed:Overloaded"] += 1
+                time.sleep(min(last.retry_after or 0.05, RETRY_AFTER_CAP))
+                continue
+            self.stats[f"typed:{etype}"] += 1
+            exc = _REPLY_ERRORS.get(etype)
+            if exc is not None:
+                raise exc(reply.get("error") or etype)
+            if etype == "FrameError":
+                # the server closed after a framing error: a new connection
+                self._drop()
+                last = FrameError(reply.get("error") or "framing error")
+                self.stats["transport_errors"] += 1
+                continue
+            raise RuntimeError(
+                f"study {self.name!r}: server error {etype or '?'}: {reply.get('error')}")
+        if isinstance(last, Overloaded):
+            raise last
+        raise PeerUnreachable(
+            f"study {self.name!r}: {self.max_retries + 1} attempts exhausted against "
+            f"{self.host}:{self.port} (last: {type(last).__name__ if last else '?'}: {last})"
+        ) from (last if isinstance(last, Exception) else None)
+
+    # -- the study API --------------------------------------------------------
+    def ask(self, timeout=60.0):
+        """The next ``(tid, vals)``; after a transport failure the ask goes
+        again with ``recover=True``, so a suggestion the service already
+        logged is delivered again bitwise, never drawn anew.  Every copy
+        carries one ``ask_id``: the port's server serves them all as one
+        tid, whichever reaches it first (the reference's server ignores
+        the key)."""
+        reply = self.call({"op": "ask", "study": self.name, "timeout": float(timeout),
+                           "ask_id": uuid.uuid4().hex},
+                          mutate=lambda r: dict(r, recover=True))
+        return reply["tid"], reply["vals"]
+
+    def tell(self, tid, loss, vals):
+        """Report one result.  ``vals`` is required: a tell sent again after
+        a lost ack carries its payload (the service refuses a bare tell for
+        a tid it no longer holds), and the WAL's tid dedup absorbs it."""
+        self.call({"op": "tell", "study": self.name, "tid": int(tid), "loss": float(loss),
+                   "vals": vals})
+
+    def best(self):
+        return self.call({"op": "best", "study": self.name})["best"]
+
+    def close_study(self):
+        self.call({"op": "close_study", "study": self.name})
+        self._drop()
 
 
 def connect(engine, algo, domain, trials, rstate, fn=None, ask_ahead=1, root=None,

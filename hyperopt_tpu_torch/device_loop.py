@@ -474,8 +474,11 @@ def compile_fmin(
     the place of ``n_epochs``; ``artifact_callback`` (with ``asha=`` and
     ``chunk_size``) receives one ``{"bracket", "slot", "loss",
     "params"}`` dict per bracket, the full-fidelity winner with its
-    trained state as host numpy.  ``mesh=``/``cand_axis=`` and
-    ``metrics_registry=`` are not ported yet and raise
+    trained state as host numpy.  ``metrics_registry`` (a
+    :class:`~hyperopt_tpu_torch.obs.MetricsRegistry`, with ``chunk_size``
+    and no ``progress_callback``) lands each progress row on the
+    registry (:func:`~hyperopt_tpu_torch.obs.device.progress_to_registry`).
+    ``mesh=``/``cand_axis=`` are not ported yet and raise
     ``NotImplementedError``.
 
     The result dict has ``best`` (``{label: value}``, the index form
@@ -519,8 +522,6 @@ def compile_fmin(
     if mesh is not None or cand_axis is not None:
         raise _not_ported("mesh" if mesh is not None else "cand_axis", 15,
                           "sharding the loop over several cards")
-    if metrics_registry is not None:
-        raise _not_ported("metrics_registry", 16, "progress rows on a metrics registry")
     if algo not in ("tpe", "anneal", "rand", "atpe"):
         raise ValueError(f"unknown algo {algo!r}: expected tpe|anneal|rand|atpe")
     if algo == "atpe" and joint_ei:
@@ -536,6 +537,12 @@ def compile_fmin(
     ):
         raise ValueError("no_progress_steps must be a positive integer")
     chunked = chunk_size is not None
+    if metrics_registry is not None and progress_callback is None:
+        # the progress rows land on the registry: the same chunked-path
+        # requirement as a progress_callback
+        from .obs.device import progress_to_registry
+
+        progress_callback = progress_to_registry(metrics_registry)
     if not chunked and (progress_callback is not None or checkpoint_path is not None or resume):
         raise ValueError(
             "progress_callback/checkpoint_path/resume ride the chunked scan path; pass "

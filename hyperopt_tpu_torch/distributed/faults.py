@@ -1,32 +1,38 @@
 """Deterministic fault injection for the PyTorch port's serve stack and
 compiled loop.
 
-A subset of :mod:`hyperopt_tpu.distributed.faults`: the filesystem seam
-(:class:`RealFS`, the ``os`` primitives the write-ahead log and the
-durable savers use, and crash points that do nothing), the simulated
-process death (:class:`SimulatedCrash`), the device-fault schedule the
-scheduler's guard is tested with (:class:`DeviceFaultPlan`: NaN outputs,
-dispatch hangs, transient and fatal raises), and a :class:`FaultPlan`
-that carries it and arms the driver, serve, compiled-loop, checkpoint
-and flight-recorder crash points.  Injected file errors and partial
-writes, and network faults, wait for the transport slice (``ROADMAP.md``
-Queue A, item 12c).
+The port's copy of :mod:`hyperopt_tpu.distributed.faults`, for the seams
+the port has: the filesystem seam (:class:`RealFS`, the ``os`` primitives
+the write-ahead log and the durable savers use, crash points that do
+nothing), the simulated process death (:class:`SimulatedCrash`), the
+device-fault schedule the scheduler's guard is tested with
+(:class:`DeviceFaultPlan`: NaN outputs, dispatch hangs, transient and
+fatal raises), and :class:`FaultPlan`, which arms the driver, serve,
+compiled-loop, checkpoint, flight-recorder and network crash points and
+injects seeded file faults through :meth:`FaultPlan.fs`: transient errno
+faults (``ESTALE``/``EIO`` at ``rate``, burst-bounded so retries always
+converge), bounded latency and partial writes, decision for decision the
+reference's for one seed and one sequence of operations.  Network faults
+are :mod:`.netfaults`'s, re-exported here.
 """
 
 from __future__ import annotations
 
 import collections
+import errno
 import os
 import random
 import threading
 import time
+import zlib
 
 from ..exceptions import TransientBackendError
 
 __all__ = [
-    "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "DEVICE_LOOP_CRASH_POINTS",
-    "DRIVER_CRASH_POINTS", "OBS_CRASH_POINTS", "SERVE_CRASH_POINTS", "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "REAL_FS",
-    "RealFS", "SimulatedCrash",
+    "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "DEFAULT_ERRORS", "DEVICE_LOOP_CRASH_POINTS",
+    "DRIVER_CRASH_POINTS", "NET_CRASH_POINTS", "OBS_CRASH_POINTS", "SERVE_CRASH_POINTS",
+    "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "FaultyWire", "NetFaultPlan",
+    "REAL_FS", "RealFS", "SimulatedCrash",
 ]
 
 #: crash points of the sequential driver's recovery protocol (``fmin``'s
@@ -93,10 +99,20 @@ CHECKPOINT_CRASH_POINTS = ("after_ckpt_tmp_before_rename",)
 #:     obs_flight_export_mid_append  half a span line written, a torn tail
 OBS_CRASH_POINTS = ("obs_flight_export_mid_append",)
 
+from .netfaults import (  # noqa: E402 -- re-exported beside FaultPlan
+    NET_CRASH_POINTS,
+    FaultyWire,
+    NetFaultPlan,
+)
+
 # the durable saver's window is also the driver's fourth point: listed once
 ALL_CRASH_POINTS = tuple(dict.fromkeys(
     DRIVER_CRASH_POINTS + SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + SHA_CRASH_POINTS
-    + CHECKPOINT_CRASH_POINTS + OBS_CRASH_POINTS))
+    + CHECKPOINT_CRASH_POINTS + OBS_CRASH_POINTS + NET_CRASH_POINTS))
+
+#: the transient errno mix a flaky mount produces (``ENOENT`` may be added
+#: to a plan's ``errors`` to simulate a visibility lag)
+DEFAULT_ERRORS = (errno.ESTALE, errno.EIO)
 
 
 class SimulatedCrash(BaseException):
@@ -120,6 +136,21 @@ class RealFS:
 
     def rename(self, src, dst):
         os.rename(src, dst)
+
+    def utime(self, path, times=None):
+        os.utime(path, times)
+
+    def stat(self, path):
+        return os.stat(path)
+
+    def getmtime(self, path):
+        return os.path.getmtime(path)
+
+    def listdir(self, path):
+        return os.listdir(path)
+
+    def unlink(self, path):
+        os.unlink(path)
 
     def exists(self, path):
         return os.path.exists(path)
@@ -247,18 +278,52 @@ class DeviceFaultPlan:
 
 
 class FaultPlan:
-    """A seeded, deterministic schedule of faults: one-shot crashes at
-    named crash points (:meth:`arm`, :data:`ALL_CRASH_POINTS`), and an optional
-    :class:`DeviceFaultPlan` riding along (``device=``), which the serve
-    scheduler finds through its ``fs=`` seam (``fs.plan.device``)."""
+    """A seeded, deterministic schedule of faults.
 
-    def __init__(self, seed=0, device=None):
+    One plan is one RNG stream: for a fixed seed and a fixed sequence of
+    filesystem operations the injected faults are the same run to run,
+    and ``log`` records every decision.  Give each concurrent actor its
+    own :meth:`split` plan, so decisions depend only on its own
+    operations.
+
+    ``rate`` is the probability of a transient error per gated call,
+    drawn from ``errors`` (``OSError(errno, ...)`` picks the matching
+    subclass); ``latency`` the most injected delay per call (capped at
+    50 ms); ``partial_rate`` the probability that a file opened for
+    writing fails midway with ``EIO`` after a prefix (the torn write);
+    ``burst`` the most consecutive injected failures per (op, file) key,
+    so ``burst + 1`` attempts always converge (None: unbounded); ``ops``
+    restricts errors to those op names.  One-shot crashes arm at named
+    crash points (:meth:`arm`, :data:`ALL_CRASH_POINTS`), and an optional
+    :class:`DeviceFaultPlan` rides along (``device=``): the serve
+    scheduler finds it through its ``fs=`` seam (``fs.plan.device``).
+    """
+
+    def __init__(self, seed=0, rate=0.0, errors=DEFAULT_ERRORS, latency=0.0,
+                 partial_rate=0.0, burst=2, ops=None, device=None):
         self.seed = seed
+        self.rate = float(rate)
+        self.errors = tuple(errors)
+        self.latency = min(float(latency), 0.05)
+        self.partial_rate = float(partial_rate)
+        self.burst = burst
+        self.ops = None if ops is None else frozenset(ops)
         self.device = device
+        self._rng = random.Random(seed)
         self._lock = threading.RLock()
+        self._consecutive = {}
         self._crash = {}
         self.log = []
         self.stats = collections.Counter()
+
+    def split(self, name):
+        """A derived plan with the same fault profile and a stably derived
+        seed (crc32, not ``hash()``).  Crash points and the device plan are
+        not inherited."""
+        child_seed = zlib.crc32(f"{self.seed}/{name}".encode())
+        return FaultPlan(seed=child_seed, rate=self.rate, errors=self.errors,
+                         latency=self.latency, partial_rate=self.partial_rate,
+                         burst=self.burst, ops=self.ops)
 
     def fs(self):
         """An injectable filesystem bound to this plan."""
@@ -271,6 +336,48 @@ class FaultPlan:
         with self._lock:
             self._crash[point] = int(at)
         return self
+
+    # -- decisions (called by FaultyFS) ---------------------------------------
+    def _decide_error(self, op, key):
+        with self._lock:
+            if not self.rate or (self.ops is not None and op not in self.ops):
+                self.log.append((op, key, "ok"))
+                return None
+            k = (op, key)
+            streak = self._consecutive.get(k, 0)
+            allowed = self.burst is None or streak < self.burst
+            if allowed and self._rng.random() < self.rate:
+                self._consecutive[k] = streak + 1
+                err = self._rng.choice(self.errors)
+                self.log.append((op, key, f"errno={err}"))
+                self.stats[f"error:{op}"] += 1
+                return err
+            self._consecutive[k] = 0
+            self.log.append((op, key, "ok"))
+            return None
+
+    def _decide_partial(self, key, size_hint=256):
+        """None, or the byte offset at which a write handle dies."""
+        with self._lock:
+            if not self.partial_rate:
+                return None
+            k = ("write", key)
+            streak = self._consecutive.get(k, 0)
+            allowed = self.burst is None or streak < self.burst
+            if allowed and self._rng.random() < self.partial_rate:
+                self._consecutive[k] = streak + 1
+                cut = self._rng.randrange(0, size_hint)
+                self.log.append(("write", key, f"partial@{cut}"))
+                self.stats["error:partial_write"] += 1
+                return cut
+            self._consecutive[k] = 0
+            return None
+
+    def _decide_latency(self):
+        if not self.latency:
+            return 0.0
+        with self._lock:
+            return self._rng.uniform(0.0, self.latency)
 
     def fire_crashpoint(self, name):
         with self._lock:
@@ -285,13 +392,111 @@ class FaultPlan:
         raise SimulatedCrash(name)
 
 
-class FaultyFS(RealFS):
-    """The injectable seam: the ``os`` primitives of :class:`RealFS` and
-    crash points that consult the plan (and raise :class:`SimulatedCrash`
-    when armed)."""
+class _FaultyWriteFile:
+    """A write handle that may die midway: it writes a prefix up to the
+    plan's offset, then raises ``EIO`` -- the torn write that the
+    tmp + fsync + rename protocols and the WAL's retry survive."""
+
+    def __init__(self, f, fail_at):
+        self._f = f
+        self._fail_at = fail_at
+        self._written = 0
+
+    def write(self, data):
+        if self._fail_at is not None:
+            budget = self._fail_at - self._written
+            if len(data) >= budget:
+                if budget > 0:
+                    self._f.write(data[:budget])
+                    self._written += budget
+                self._fail_at = None  # one torn write per handle
+                raise OSError(errno.EIO, "injected partial write")
+        self._f.write(data)
+        self._written += len(data)
+        return len(data)
+
+    def flush(self):
+        self._f.flush()
+
+    def fileno(self):
+        return self._f.fileno()
+
+    def close(self):
+        self._f.close()
+
+    @property
+    def name(self):
+        return self._f.name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._f.close()
+        return False
+
+
+class FaultyFS:
+    """The injectable filesystem: every primitive consults the plan for a
+    latency and an error decision before it calls ``os``, and crash
+    points raise :class:`SimulatedCrash` when armed.  The interface is
+    :class:`RealFS`'s."""
 
     def __init__(self, plan):
         self.plan = plan
+
+    def _gate(self, op, path):
+        delay = self.plan._decide_latency()
+        if delay:
+            time.sleep(delay)
+        err = self.plan._decide_error(op, os.path.basename(str(path)))
+        if err is not None:
+            raise OSError(err, f"injected {errno.errorcode.get(err, err)}", str(path))
+
+    def open(self, path, mode="r"):
+        self._gate("open", path)
+        f = open(path, mode)
+        if any(c in mode for c in "wxa+"):
+            fail_at = self.plan._decide_partial(os.path.basename(str(path)))
+            if fail_at is not None:
+                return _FaultyWriteFile(f, fail_at)
+        return f
+
+    def rename(self, src, dst):
+        self._gate("rename", src)
+        os.rename(src, dst)
+
+    def utime(self, path, times=None):
+        self._gate("utime", path)
+        os.utime(path, times)
+
+    def stat(self, path):
+        self._gate("stat", path)
+        return os.stat(path)
+
+    def getmtime(self, path):
+        self._gate("stat", path)
+        return os.path.getmtime(path)
+
+    def listdir(self, path):
+        self._gate("listdir", path)
+        return os.listdir(path)
+
+    def unlink(self, path):
+        self._gate("unlink", path)
+        os.unlink(path)
+
+    def exists(self, path):
+        self._gate("stat", path)
+        return os.path.exists(path)
+
+    def makedirs(self, path, exist_ok=True):
+        os.makedirs(path, exist_ok=exist_ok)
+
+    def fsync(self, f):
+        self._gate("fsync", getattr(f, "name", "?"))
+        f.flush()
+        os.fsync(f.fileno())
 
     def crashpoint(self, name):
         self.plan.fire_crashpoint(name)

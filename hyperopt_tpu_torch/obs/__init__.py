@@ -1,6 +1,8 @@
 """Observability of the PyTorch port: the metrics registry the serve
-scheduler keeps its counters on, its Prometheus exposition, and the
-flight recorder of trace spans with its durable export."""
+scheduler keeps its counters on, its Prometheus exposition, the flight
+recorder of trace spans with its durable export, the device-side metric
+rows (:mod:`.device`: the serve twin, the compiled loop's registry
+adapter) and the ``hyperopt-tpu-torch-scope`` console (:mod:`.cli`)."""
 
 from .expo import render_prometheus
 from .flightrec import (

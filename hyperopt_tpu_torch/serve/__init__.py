@@ -12,13 +12,17 @@ boundary ACROSS studies as LLM serving batches requests:
   watchdog, with per-study seed streams that keep every study's
   suggestions independent of batching order;
 * :mod:`.service` -- the in-process front (:class:`SuggestService`,
-  :class:`StudyHandle`) and per-study durability (``root=``: a
-  write-ahead log and snapshots per study, exactly-once tells across a
-  crash).
+  :class:`StudyHandle`), per-study durability (``root=``: a write-ahead
+  log and snapshots per study, exactly-once tells across a crash), and
+  the TCP front (``serve_forever``, the ``hyperopt-tpu-torch-serve``
+  console script);
+* :mod:`.frames` -- the wire: JSON lines, negotiated binary frames and
+  pipelining, byte for byte the reference's.
 
-``fmin(engine=True)`` is a client of this engine
-(:mod:`hyperopt_tpu_torch.client`).  The socket transport and the fleet
-are not ported yet (``ROADMAP.md`` Queue A, items 12c and 12d).
+``fmin(engine=True)`` is an in-process client of this engine, and
+:class:`~hyperopt_tpu_torch.client.RemoteStudy` a socket client
+(:mod:`hyperopt_tpu_torch.client`).  The fleet is not ported yet
+(``ROADMAP.md`` Queue A, item 12d).
 
 Example, on the card::
 
@@ -32,6 +36,14 @@ Example, on the card::
     svc.shutdown()
 """
 
-from .service import StudyHandle, SuggestService
-
 __all__ = ["StudyHandle", "SuggestService"]
+
+
+def __getattr__(name):
+    # lazy, as the reference's: ``python -m hyperopt_tpu_torch.serve.service``
+    # then runs the one copy of the module
+    if name in __all__:
+        from . import service
+
+        return getattr(service, name)
+    raise AttributeError(name)

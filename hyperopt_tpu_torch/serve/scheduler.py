@@ -36,9 +36,12 @@ reference's, and so are the engine client's two gates: a study's
 to it has its tell (so an ask-ahead client's every dispatch sees the
 full posterior), and a study with a ``host_algo`` hook (ATPE, whose host
 decision layer cannot run across studies) is served by its hook inside
-the round, on the round's thread, and holds no slot.  Not ported yet:
-``mesh=`` (``ROADMAP.md`` Queue A item 15) and the device-metrics twin
-(item 16).
+the round, on the round's thread, and holds no slot.  With
+``device_metrics_every=k`` a read-only metrics twin
+(:func:`~hyperopt_tpu_torch.obs.device.build_device_metrics_fn`) reads
+the stacked state every ``k`` rounds, after the round's futures are
+resolved; at 0 it is never built.  Not ported yet: ``mesh=``
+(``ROADMAP.md`` Queue A item 15).
 """
 
 from __future__ import annotations
@@ -144,8 +147,10 @@ class ServeStudy:
     serving this study instead of the stacked step), ``fresh_window``
     (None, or the most served-but-untold suggestions before a queued ask
     may be picked), ``client_state_fn`` (extra durable state for the
-    snapshot) and ``client_blob``/``restore_records`` (what a restore
-    hands back to the client)."""
+    snapshot), ``client_blob``/``restore_records`` (what a restore
+    hands back to the client) and ``ask_keys`` (the socket client's ask
+    keys and the tids they were served as, the most recent
+    ``ASK_KEYS_KEPT``: a resubmitted ask gets its first tid again)."""
 
     def __init__(self, name, seed, ps):
         self.name = name
@@ -169,6 +174,7 @@ class ServeStudy:
         self.client_state_fn = None
         self.client_blob = None
         self.restore_records = None
+        self.ask_keys = collections.OrderedDict()
 
     def best(self):
         """(loss, vals) of the best finite completed trial, or None."""
@@ -212,8 +218,10 @@ class BatchScheduler:
     ``delta_drain_dispatches`` (included in ``dispatch_count``),
     ``upload_events`` / ``upload_bytes``, ``joins``, ``rebuckets``, the
     guard's counters, ``host_algo_served`` (asks a study's hook served;
-    not part of ``dispatch_count``) and ``group_commit_barriers`` (round
-    fsyncs).  ``ask_latencies`` / ``occupancy`` are bounded timing
+    not part of ``dispatch_count``), ``group_commit_barriers`` (round
+    fsyncs) and ``device_metric_dispatches`` (the metrics twin's runs,
+    every ``device_metrics_every`` engine rounds; not part of
+    ``dispatch_count``).  ``ask_latencies`` / ``occupancy`` are bounded timing
     windows.  ``recorder`` (a :class:`~hyperopt_tpu_torch.obs.
     FlightRecorder`) records the ask/tell spans; it reads no device
     state and changes no stream.  ``group_commit=False`` fsyncs every
@@ -251,6 +259,9 @@ class BatchScheduler:
     watchdog_retries = CounterAttr("serve_watchdog_retries_total", "watchdog retry rounds")
     watchdog_recoveries = CounterAttr("serve_watchdog_recoveries_total",
                                       "watchdog retries that healed")
+    device_metric_dispatches = CounterAttr(
+        "serve_device_metric_dispatches_total",
+        "device-metrics twin dispatches (cadence-gated; not part of serve_dispatch_total)")
     host_algo_served = CounterAttr(
         "serve_host_algo_served_total",
         "asks served by a per-study host_algo hook (not part of serve_dispatch_total)")
@@ -272,13 +283,11 @@ class BatchScheduler:
                  device_metrics_every=0, retry_jitter=0.25, retry_jitter_seed=0,
                  group_commit=True, **algo_kw):
         _no_mesh(mesh)
-        if int(device_metrics_every) > 0:
-            raise NotImplementedError(
-                "device_metrics_every > 0 (the device-metrics twin) is not "
-                "ported yet: ROADMAP.md Queue A item 16"
-            )
         self.metrics = MetricsRegistry("serve")
         self.recorder = recorder if recorder is not None else NULL_RECORDER
+        self.device_metrics_every = int(device_metrics_every)
+        self._device_metrics_fn = None  # built at the first dispatch due
+        self._device_metrics_due = False
         self.ps = ps
         self.device = ps.device
         self.algo = str(algo)
@@ -343,8 +352,8 @@ class BatchScheduler:
         for attr in ("dispatch_count", "delta_drain_dispatches", "upload_events",
                      "upload_bytes", "joins", "rebuckets", "admitted_count", "shed_count",
                      "guard_checks", "quarantine_count", "evictions", "watchdog_timeouts",
-                     "watchdog_retries", "watchdog_recoveries", "host_algo_served",
-                     "group_commit_barriers", "ask_latencies", "occupancy",
+                     "watchdog_retries", "watchdog_recoveries", "device_metric_dispatches",
+                     "host_algo_served", "group_commit_barriers", "ask_latencies", "occupancy",
                      "watchdog_recovery_ms"):
             getattr(self, attr)
         self._delta_cache = None
@@ -746,16 +755,21 @@ class BatchScheduler:
                     return 0
                 served = self._dispatch_round(picked)
                 self._round_failures = 0
-                return served
             except Exception as e:
                 if not picked:
                     raise  # a barrier failure with no picks to contain it
-                return self._recover_round(picked, e)
+                served = self._recover_round(picked, e)
             except BaseException as e:
                 for req in picked:
                     if not req.future.done():
                         req.future.set_exception(e)
                 raise
+            # the twin reads the card after the round's acks, so its host
+            # read never delays the futures it follows
+            if self._device_metrics_due:
+                self._device_metrics_due = False
+                self._dispatch_device_metrics()
+            return served
 
     def _barrier_round(self, fire_crashpoint=True):
         """One fsync per WAL a flush-only tell touched since the last
@@ -964,6 +978,9 @@ class BatchScheduler:
         new_state, new_v, new_a, poisoned = self._run_dispatch(run)
         self._state = type(state)(*new_state)
         self.dispatch_count += 1
+        every = self.device_metrics_every
+        if every > 0 and self.dispatch_count % every == 0:
+            self._device_metrics_due = True
         if self.finite_check:
             self.guard_checks += 1
         if self.recorder.enabled:
@@ -992,6 +1009,45 @@ class BatchScheduler:
             self._served(req, vals, now)
             results.append((req, vals))
         return results
+
+    def _dispatch_device_metrics(self):
+        """The device-metrics twin (lock held, after the round's acks): the
+        read-only :func:`~hyperopt_tpu_torch.obs.device.
+        build_device_metrics_fn` reduction over the stacked state lands
+        the round's occupancy, trials done and best loss on the registry
+        (the ``serve_device_*`` gauges, ``obs_device_events_total``) and,
+        with a recorder armed, a ``device.metrics`` event.  It reads the
+        card once; at cadence 0 it is never built or run."""
+        if self._device_metrics_fn is None:
+            from ..obs.device import build_device_metrics_fn
+
+            m = self.metrics
+            best = m.gauge("serve_device_best_loss",
+                           "best finite loss across the stacked batch (device twin)")
+            done = m.gauge("serve_device_trials_done",
+                           "valid observations across the stacked batch (device twin)")
+            active_g = m.gauge("serve_device_active_slots",
+                               "occupied slots this round (device twin)")
+            events = m.counter("obs_device_events_total",
+                               "device->host metric rows received via declared io_callback")
+            rec = self.recorder
+
+            def sink(row):
+                best.set(row["best_loss"])
+                done.set(row["trials_done"])
+                active_g.set(row["active_slots"])
+                events.inc()
+                if rec.enabled:
+                    rec.event("device.metrics", **row)
+
+            self._device_metrics_fn = build_device_metrics_fn(sink)
+        state = self._state
+        if state is None:
+            return
+        active = np.zeros(self._slot_cap, dtype=bool)
+        active[list(self._slots)] = True
+        self._device_metrics_fn(state.losses, state.valid, active)
+        self.device_metric_dispatches += 1
 
     def _quarantine(self, poisoned):
         """Apply one round's finite-check verdicts (lock held): trip

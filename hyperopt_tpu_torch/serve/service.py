@@ -1,13 +1,20 @@
-"""The in-process service front of the PyTorch port.
+"""The service front of the PyTorch port: study handles, per-study
+durability, and the socket transport.
 
-The counterpart of :mod:`hyperopt_tpu.serve.service`'s
-:class:`SuggestService` / :class:`StudyHandle` (``create_study / ask /
-tell / best``), over the study-batched
-:class:`~hyperopt_tpu_torch.serve.scheduler.BatchScheduler`: concurrent
-asks from many studies coalesce into shared device rounds.  The service
-runs on the card unless the caller passes ``device="cpu"``
-(:func:`~hyperopt_tpu_torch.utils.resolve_device`); without a card it
-raises.
+The counterpart of :mod:`hyperopt_tpu.serve.service`:
+
+* :class:`SuggestService` / :class:`StudyHandle` (``create_study / ask /
+  tell / best``), the in-process API over the study-batched
+  :class:`~hyperopt_tpu_torch.serve.scheduler.BatchScheduler`:
+  concurrent asks from many studies coalesce into shared device rounds.
+  The service runs on the card unless the caller passes ``device="cpu"``
+  (:func:`~hyperopt_tpu_torch.utils.resolve_device`); without a card it
+  raises;
+* :func:`serve_forever`, the TCP front (JSON lines by default, binary
+  frames after a ``hello``: :mod:`~hyperopt_tpu_torch.serve.frames`),
+  and :func:`main`, the ``hyperopt-tpu-torch-serve`` console script.
+  The wire is the reference's byte for byte, so clients and servers of
+  the two packages interoperate.
 
 ``root=`` makes every study durable (:class:`StudyPersistence`): each
 tell is appended to the study's :class:`~hyperopt_tpu_torch.utils.wal.
@@ -21,13 +28,16 @@ again.  The WAL records are the reference's bytes; the snapshot pickles
 the port's own objects and is not read across the packages.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-``ROADMAP.md`` Queue A item that brings them: ``owner=`` (fleet claims,
-item 12d) here, ``mesh=`` (item 15) and ``device_metrics_every`` (item
-16) by the scheduler.  The socket transport waits for item 12c.
+``ROADMAP.md`` Queue A item that brings them (a refusal rides a socket
+reply as an ``ok: false`` error): ``owner=``, ``create_study(
+takeover=True)`` and ``handoff_study`` (the fleet, item 12d) here, and
+``mesh=`` (item 15) by the scheduler and ``main``'s ``--mesh-devices``.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
 import re
 import threading
@@ -38,9 +48,10 @@ import numpy as np
 
 from ..distributed import _common
 from ..distributed.faults import REAL_FS
-from ..exceptions import CheckpointError, DeadlineExpired, Overloaded
+from ..exceptions import CheckpointError, DeadlineExpired, Overloaded, ServeError
 from ..obs.expo import render_prometheus
 from ..ops.compile import compile_space
+from ..ops.gmm_scores import KERNEL
 from ..utils.checkpoint import (
     decode_rstate,
     durable_pickle,
@@ -52,7 +63,10 @@ from ..utils.checkpoint import (
 from ..utils.wal import TellWAL
 from .scheduler import BatchScheduler, ServeStudy
 
-__all__ = ["RETRY_AFTER_CAP", "StudyHandle", "StudyPersistence", "SuggestService"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["RETRY_AFTER_CAP", "StudyHandle", "StudyPersistence", "SuggestService", "main",
+           "serve_forever"]
 
 _NAME_RE = re.compile(r"[A-Za-z0-9._-]{1,120}")
 
@@ -60,10 +74,14 @@ _NAME_RE = re.compile(r"[A-Za-z0-9._-]{1,120}")
 #: will honor (seconds)
 RETRY_AFTER_CAP = 5.0
 
+#: ask keys a study remembers (the most recent): a resubmitted ask that
+#: carries its key is served as the tid its first copy drew
+ASK_KEYS_KEPT = 256
+
 
 def _not_ported(what, item):
     return NotImplementedError(
-        f"SuggestService({what}) is not ported yet: ROADMAP.md Queue A item {item}"
+        f"{what} is not ported yet: ROADMAP.md Queue A item {item}"
     )
 
 
@@ -260,7 +278,7 @@ class StudyHandle:
         control refuses the submit."""
         return self._service.scheduler.submit_ask(self._study).future
 
-    def ask(self, timeout=60.0, recover=False, backoff=False):
+    def ask(self, timeout=60.0, recover=False, backoff=False, ask_id=None):
         """One suggestion, blocking until its round is served.
 
         ``timeout`` doubles as the CLIENT DEADLINE the scheduler sheds
@@ -272,7 +290,12 @@ class StudyHandle:
         ``recover=True`` declares that the previous ask's reply was lost:
         the smallest undelivered suggestion is served again instead of a
         new draw (a restored in-flight ask with its logged seed, a
-        served-but-untold one from its recorded vals)."""
+        served-but-untold one from its recorded vals).  ``ask_id`` (the
+        socket client's key for one logical ask, the same on each of its
+        resubmissions) makes the ask idempotent: every copy is served as
+        the tid the first copy drew (:meth:`SuggestService._ask_keyed`)."""
+        if ask_id is not None:
+            return self._service._ask_keyed(self._study, str(ask_id), timeout, recover)
         if recover:
             got = self._service._recover_ask(self._study, timeout)
             if got is not None:
@@ -354,7 +377,7 @@ class SuggestService:
                  device_metrics_every=0, retry_jitter=0.25, retry_jitter_seed=0,
                  group_commit=True, device=None, **algo_kw):
         if owner is not None:
-            raise _not_ported("owner= (fleet claims)", "12d")
+            raise _not_ported("SuggestService(owner=) (fleet claims)", "12d")
         self.space = space
         self.ps = compile_space(space, device=device)
         self.device = self.ps.device
@@ -378,13 +401,17 @@ class SuggestService:
             self.scheduler.start()
 
     # -- tenancy -----------------------------------------------------------
-    def create_study(self, name, seed=0, host_algo=None):
+    def create_study(self, name, seed=0, takeover=False, host_algo=None):
         """Open (or re-attach to, or restore) a study by name.
 
-        ``host_algo`` (in-process clients) attaches a per-study hook
+        ``takeover=True`` (adopting a study another fleet replica owned)
+        is not ported yet (item 12d).  ``host_algo`` (in-process clients)
+        attaches a per-study hook
         ``hook(seed) -> (values [D, 1], active [D, 1])`` that serves the
         study instead of the stacked step (ATPE's host decision layer
         cannot run across studies); the study then takes no slot."""
+        if takeover:
+            raise _not_ported("create_study(takeover=True) (fleet adoption)", "12d")
         if not _NAME_RE.fullmatch(name):
             raise ValueError(f"study name {name!r} must match {_NAME_RE.pattern}")
         with self._lock:
@@ -420,6 +447,10 @@ class SuggestService:
             study.persist.maybe_snapshot(study, force=True)
             study.persist.close()
 
+    def handoff_study(self, name):
+        """Release a study to another fleet replica: not ported yet."""
+        raise _not_ported("handoff_study (fleet migration)", "12d")
+
     def studies(self):
         with self._lock:
             return sorted(self._handles)
@@ -439,6 +470,38 @@ class SuggestService:
         if tid in study.outstanding:
             return tid, dict(study.outstanding[tid])
         req = self._submit(study, timeout=timeout, replay=(tid, study.pending_asks[tid]))
+        return self._await(req, timeout)
+
+    def _ask_keyed(self, study, key, timeout, recover):
+        """An ask that carries its client's key.  A client that lost an
+        ask's reply sends it again, with the same key, on a new
+        connection; the copy may reach the scheduler before the first
+        one, which another handler thread still holds.  Either way both
+        are the tid the first of them drew: served again from its vals,
+        or, still queued, from its logged seed -- never a second draw,
+        which would skip a seed and leave a suggestion nobody tells.
+        A key not seen before is an ordinary ask (``recover`` as
+        :meth:`StudyHandle.ask`'s)."""
+        with self.scheduler._lock:
+            tid = study.ask_keys.get(key)
+            if tid is None and recover:
+                undelivered = sorted(set(study.pending_asks) | set(study.outstanding))
+                tid = undelivered[0] if undelivered else None
+            if tid is None:
+                req = self._submit(study, timeout=timeout)
+            elif tid in study.outstanding:
+                req = None
+            elif tid in study.pending_asks:
+                req = self._submit(study, timeout=timeout,
+                                   replay=(tid, study.pending_asks[tid]))
+            else:
+                raise ValueError(f"ask {key!r} of study {study.name!r} was served as tid "
+                                 f"{tid}, which is told already")
+            study.ask_keys[key] = tid = req.tid if req is not None else tid
+            while len(study.ask_keys) > ASK_KEYS_KEPT:
+                study.ask_keys.popitem(last=False)
+            if req is None:
+                return tid, dict(study.outstanding[tid])
         return self._await(req, timeout)
 
     def _tell(self, study, tid, loss, vals=None, result=None):
@@ -531,10 +594,17 @@ class SuggestService:
         m.gauge("serve_studies", "open studies").set(n_studies)
         m.gauge("serve_queue_depth", "asks queued").set(len(s._asks))
         m.gauge("serve_ready", "1 = accepting asks").set(1 if self.ready() else 0)
+        m.gauge("serve_kernel_launches",
+                "gmm_llr kernel launches in this process").set(KERNEL.launches)
         return m.collect()
 
     def metrics_text(self):
         return render_prometheus(self.metrics_rows())
+
+    def trace_tail(self, n=None):
+        """The most recent flight-recorder spans (empty when no recorder
+        is armed)."""
+        return self.recorder.tail(n)
 
     def ready(self):
         """False while draining, circuit-broken or stopped."""
@@ -587,3 +657,349 @@ class SuggestService:
                 self.close_study(name)
         self.recorder.flush()
         self.recorder.close()
+
+
+# ---------------------------------------------------------------------------
+# the socket transport and the console script
+# ---------------------------------------------------------------------------
+
+
+def _serve_error_reply(e):
+    """The refusal a typed :class:`ServeError` maps to on the wire:
+    ``error_type`` names the class, and an :class:`Overloaded`'s
+    ``retry_after`` and ``reason`` ride along, so a client backs off as
+    the in-process API would."""
+    reply = {"ok": False, "error": str(e), "error_type": type(e).__name__}
+    if isinstance(e, Overloaded):
+        # a concrete back-off: null would make a client hot-loop
+        reply["retry_after"] = 0.05 if e.retry_after is None else e.retry_after
+        reply["reason"] = e.reason
+    return reply
+
+
+def _ask_batch(service, req):
+    """A multi-study ask: every admitted ask is submitted before any round
+    is pumped, so one device round serves the whole group (one
+    ``ask_batch`` frame keeps the coalescing a lockstep connection would
+    lose).  On a service without a background loop the handler's thread
+    pumps the rounds; the scheduler's lock keeps one round in flight."""
+    names = list(req.get("studies") or req.get("names") or ())
+    timeout = float(req.get("timeout", 60.0))
+    results, reqs = {}, {}
+    for name in names:
+        with service._lock:
+            handle = service._handles.get(name)
+        if handle is None:
+            results[name] = {"ok": False, "error": f"unknown study {name!r}",
+                             "error_type": "UnknownStudy"}
+            continue
+        try:
+            reqs[name] = service._submit(handle._study, timeout=timeout)
+        except ServeError as e:
+            results[name] = _serve_error_reply(e)
+    deadline = time.perf_counter() + timeout
+    pending = dict(reqs)
+    while pending:
+        stepped = service.scheduler.step() if not service._background else 0
+        for name in [n for n, r in pending.items() if r.future.done()]:
+            pending.pop(name)
+        if not pending or time.perf_counter() >= deadline:
+            break
+        if stepped == 0:
+            time.sleep(0.001)
+    for name, r in reqs.items():
+        if not r.future.done():
+            # past the deadline: drop it, so a late round cannot strand
+            # the suggestion in flight
+            service.scheduler.drop_request(r)
+        try:
+            tid, vals = r.future.result(timeout=0)
+            results[name] = {"ok": True, "tid": tid, "vals": vals}
+        except ServeError as e:
+            results[name] = _serve_error_reply(e)
+        except Exception as e:
+            results[name] = {"ok": False, "error": f"{type(e).__name__}: {e}",
+                             "error_type": type(e).__name__}
+    return {"ok": True, "results": results}
+
+
+def _handle_request(service, req):
+    """One request's reply (the reference's ops and reply fields)."""
+    op = req.get("op")
+    try:
+        if op == "ping":
+            return {"ok": True, "pong": True}
+        if op == "health":
+            return {"ok": True, **service.health()}
+        if op == "ready":
+            return {"ok": True, "ready": service.ready()}
+        if op == "metrics":
+            rows = service.metrics_rows()
+            return {"ok": True, "metrics": rows, "text": render_prometheus(rows)}
+        if op == "trace":
+            tail = req.get("tail")
+            return {"ok": True, "spans": service.trace_tail(None if tail is None else int(tail))}
+        if op == "create_study":
+            h = service.create_study(req["name"], seed=int(req.get("seed", 0)),
+                                     takeover=bool(req.get("takeover", False)))
+            return {"ok": True, "study": h.name, "n_tells": h.n_tells}
+        if op == "studies":
+            return {"ok": True, "studies": service.studies()}
+        if op == "ask_batch":
+            return _ask_batch(service, req)
+        if op == "drain":
+            service.drain(timeout=float(req.get("timeout", 30.0)), block=False)
+            return {"ok": True, "draining": True,
+                    "retry_after": service.scheduler.drain_retry_after()}
+        name = req.get("study")
+        with service._lock:
+            handle = service._handles.get(name)
+        if handle is None:
+            return {"ok": False, "error": f"unknown study {name!r}",
+                    "error_type": "UnknownStudy"}
+        if op == "ask":
+            tid, vals = handle.ask(timeout=float(req.get("timeout", 60.0)),
+                                   recover=bool(req.get("recover", False)),
+                                   ask_id=req.get("ask_id"))
+            return {"ok": True, "tid": tid, "vals": vals}
+        if op == "tell":
+            handle.tell(int(req["tid"]), float(req["loss"]), vals=req.get("vals"))
+            return {"ok": True}
+        if op == "best":
+            return {"ok": True, "best": handle.best()}
+        if op == "close_study":
+            handle.close()
+            return {"ok": True}
+        if op == "handoff_study":
+            service.handoff_study(name)
+            return {"ok": True, "handed_off": name}
+        return {"ok": False, "error": f"unknown op {op!r}"}
+    except ServeError as e:
+        return _serve_error_reply(e)
+
+
+def serve_forever(service, host="127.0.0.1", port=0, idle_timeout=300.0, max_conns=256,
+                  net_plan=None):
+    """Bind the TCP front; returns the (not yet serving)
+    ``ThreadingTCPServer``: call ``.serve_forever()`` (the console script
+    does) or drive it from a thread (the tests do).
+
+    JSON lines by default: one JSON object per request line, one reply
+    line each, every reply with ``ok`` and either the result fields or
+    ``error``.  A client whose first request is ``{"op": "hello",
+    "proto": 2}`` moves the connection to binary frames
+    (:mod:`~hyperopt_tpu_torch.serve.frames`); replies echo a request's
+    ``rid``, so a client may keep many requests in flight.  A framing
+    error gets a typed ``FrameError`` reply and the connection closes;
+    any other failure of a request rides its reply (``ok: false``) and
+    the connection stays.
+
+    ``idle_timeout`` is each accepted socket's read deadline (an idle or
+    half-open peer is reaped, never a stranded handler thread); at most
+    ``max_conns`` connections are served at once, and one past the cap
+    gets a typed ``Overloaded`` refusal (``reason: "max_connections"``)
+    and a close.  ``net_plan`` (a :class:`~hyperopt_tpu_torch.
+    distributed.netfaults.NetFaultPlan`) wraps every accepted connection.
+    """
+    import socket
+    import socketserver
+
+    from .frames import PROTO_V2, FrameError, read_frame, write_frame
+
+    plan = net_plan
+    slots = threading.BoundedSemaphore(int(max_conns))
+
+    class Handler(socketserver.StreamRequestHandler):
+        timeout = idle_timeout  # StreamRequestHandler sets it on the socket
+
+        def setup(self):
+            super().setup()
+            if plan is not None:
+                self.rfile, self.wfile = plan.wrap_pair(self.rfile, self.wfile,
+                                                        sock=self.connection, key="serve-front")
+
+        def _send(self, reply, binary):
+            if binary:
+                write_frame(self.wfile, reply)
+            else:
+                self.wfile.write((json.dumps(reply) + "\n").encode("utf-8"))
+            self.wfile.flush()
+
+        def handle(self):
+            if not slots.acquire(blocking=False):
+                try:
+                    self._send({"ok": False, "error": "server connection cap reached",
+                                "error_type": "Overloaded", "reason": "max_connections",
+                                "retry_after": min(0.05, RETRY_AFTER_CAP)}, False)
+                except OSError:
+                    pass
+                return
+            try:
+                self._handle_conn()
+            except socket.timeout:
+                return  # the idle deadline: a silent or half-open peer is reaped
+            except ConnectionError:
+                return  # the peer reset or vanished mid-request
+            finally:
+                slots.release()
+
+        def _refuse(self, error, binary):
+            self._send({"ok": False, "error": error, "error_type": "FrameError"}, binary)
+
+        def _handle_conn(self):
+            binary = False
+            while True:
+                if binary:
+                    try:
+                        req = read_frame(self.rfile)
+                    except FrameError as e:
+                        # a typed reply, then hang up: past a framing error
+                        # the stream offset means nothing
+                        self._refuse(str(e), binary)
+                        return
+                    if req is None:
+                        return
+                    if not isinstance(req, dict):
+                        self._refuse("frame payload must be a map", binary)
+                        return
+                else:
+                    raw = self.rfile.readline()
+                    if not raw:
+                        return
+                    line = raw.strip()
+                    if not line:
+                        continue
+                    try:
+                        req = json.loads(line)
+                    except ValueError as e:
+                        self._refuse(f"malformed request line: {e}", binary)
+                        continue
+                    if not isinstance(req, dict):
+                        self._refuse("request must be a JSON object", binary)
+                        continue
+                if req.get("op") == "hello":
+                    proto = min(int(req.get("proto", 1)), PROTO_V2)
+                    reply = {"ok": True, "proto": proto}
+                    if "rid" in req:
+                        reply["rid"] = req["rid"]
+                    # the ack goes out in the old mode; both sides switch after it
+                    self._send(reply, binary)
+                    binary = proto >= PROTO_V2
+                    continue
+                try:
+                    reply = _handle_request(service, req)
+                except Exception as e:
+                    # one bad request does not end the connection: the
+                    # error rides its reply
+                    logger.debug("request %r failed", req.get("op"), exc_info=True)
+                    reply = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                if "rid" in req:
+                    reply = dict(reply, rid=req["rid"])
+                self._send(reply, binary)
+
+    class Server(socketserver.ThreadingTCPServer):
+        allow_reuse_address = True
+        daemon_threads = True
+
+    return Server((host, int(port)), Handler)
+
+
+def _load_space(spec):
+    """``module:attr`` -> the space object (called if it is a factory)."""
+    import importlib
+
+    mod_name, _, attr = spec.partition(":")
+    if not attr:
+        raise SystemExit(f"--space must be module:attr, got {spec!r}")
+    obj = getattr(importlib.import_module(mod_name), attr)
+    return obj() if callable(obj) else obj
+
+
+def main(argv=None):
+    """``hyperopt-tpu-torch-serve``: the service as a process, on the card
+    unless ``--device cpu``."""
+    import argparse
+
+    from ..utils import resolve_device
+
+    parser = argparse.ArgumentParser(
+        prog="hyperopt-tpu-torch-serve",
+        description="multi-tenant suggestion service on the card: study-batched fused "
+        "tell+ask with continuous batching over a JSON-line / binary-frame TCP transport",
+    )
+    parser.add_argument("--space", required=True,
+                        help="module:attr of the search space (or a zero-arg factory)")
+    parser.add_argument("--algo", default="tpe", choices=("tpe", "anneal"))
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=7077)
+    parser.add_argument("--root", default=None,
+                        help="directory for per-study WAL/snapshot durability")
+    parser.add_argument("--max-batch", type=int, default=64)
+    parser.add_argument("--max-wait-ms", type=float, default=2.0)
+    parser.add_argument("--n-startup-jobs", type=int, default=20)
+    parser.add_argument("--max-queue", type=int, default=None,
+                        help="ask-queue high-water mark (default 4 * max-batch); submits "
+                        "past it get a typed Overloaded with retry-after")
+    parser.add_argument("--dispatch-timeout", type=float, default=30.0,
+                        help="watchdog deadline (seconds) per device dispatch; 0 disables "
+                        "the watchdog")
+    parser.add_argument("--mesh-devices", type=int, default=0,
+                        help="shard the study slot axis over this many devices (not ported "
+                        "yet: only 0, the single-card engine)")
+    parser.add_argument("--owner", default=None,
+                        help="fleet replica identity (not ported yet)")
+    parser.add_argument("--flight-log", default=None, metavar="PATH",
+                        help="arm the flight recorder with a durable span export at PATH "
+                        "(scrape live with hyperopt-tpu-torch-scope trace, post-mortem with "
+                        "hyperopt-tpu-torch-scope flight PATH)")
+    parser.add_argument("--trace-cadence", type=int, default=1,
+                        help="flight-recorder sampling cadence (1 = record every span; k "
+                        "keeps every k-th); only meaningful with --flight-log")
+    parser.add_argument("--device-metrics-every", type=int, default=0,
+                        help="run the device-metrics twin every N rounds (0 = off: exactly "
+                        "zero extra reads of the card)")
+    parser.add_argument("--idle-timeout", type=float, default=300.0,
+                        help="per-connection idle deadline (seconds): an idle or half-open "
+                        "client is reaped instead of stranding a handler thread")
+    parser.add_argument("--max-conns", type=int, default=256,
+                        help="bound on concurrently served connections; one past the cap "
+                        "gets a typed Overloaded refusal (reason max_connections)")
+    parser.add_argument("--device", default=None,
+                        help="the torch device to serve on (default: the CUDA card; 'cpu' "
+                        "must be asked for)")
+    args = parser.parse_args(argv)
+
+    if args.mesh_devices:
+        raise _not_ported("--mesh-devices other than 0 (the sharded study axis)", "15")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        parser.exit(2, f"{parser.prog}: {e}\n")
+    recorder = None
+    if args.flight_log:
+        from ..obs import FlightRecorder
+
+        recorder = FlightRecorder(path=args.flight_log, cadence=args.trace_cadence)
+    service = SuggestService(
+        _load_space(args.space), algo=args.algo, root=args.root, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, n_startup_jobs=args.n_startup_jobs,
+        max_queue=args.max_queue, dispatch_timeout=args.dispatch_timeout or None,
+        owner=args.owner, recorder=recorder, device_metrics_every=args.device_metrics_every,
+        device=device,
+    )
+    server = serve_forever(service, host=args.host, port=args.port,
+                           idle_timeout=args.idle_timeout, max_conns=args.max_conns)
+    host, port = server.server_address[:2]
+    print(f"hyperopt-tpu-torch-serve listening on {host}:{port} ({device})", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        service.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

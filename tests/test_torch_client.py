@@ -174,8 +174,19 @@ def test_resolve_engine_algo_refuses_the_rest(algo, match):
 
 
 def test_remote_study_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        C.RemoteStudy("localhost", 0, "s0")
+    """The socket client is ported (item 12c): with nothing listening it
+    raises ``PeerUnreachable`` naming its target after bounded retries
+    (``tests/test_torch_transport.py`` drives it against live servers)."""
+    import socket
+
+    from hyperopt_tpu_torch.exceptions import PeerUnreachable
+
+    lsock = socket.socket()
+    lsock.bind(("127.0.0.1", 0))
+    port = lsock.getsockname()[1]
+    lsock.close()  # nobody listens here now
+    with pytest.raises(PeerUnreachable, match=f"127.0.0.1:{port}"):
+        C.RemoteStudy("127.0.0.1", port, "s0", connect_timeout=0.5, max_retries=1)
 
 
 def test_engine_argument_refusals(tmp_path):

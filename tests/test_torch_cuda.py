@@ -604,3 +604,136 @@ def test_cuda_atpe_hook_launches_from_the_serve_thread(cuda):
     svc.shutdown()
     assert _engine_stream(trials) == _engine_stream(ref)
     assert threads and set(threads) == {"serve-batcher"} and len(threads) == n - 20
+
+
+def _socket_rounds(svc, names, rounds, loss):
+    """``rounds`` rounds over the service's TCP front: one ``ask_batch``
+    frame for every study, then one pipelined tell each; returns each
+    study's stream."""
+    import threading
+
+    from hyperopt_tpu_torch.serve.frames import FrameConn, dial
+    from hyperopt_tpu_torch.serve.service import serve_forever
+
+    srv = serve_forever(svc, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    sock, f = dial(*srv.server_address[:2], read_timeout=120)
+    conn = FrameConn(f)
+    streams = {n: [] for n in names}
+    try:
+        for n in names:
+            assert conn.call({"op": "create_study", "name": n, "seed": int(n[1:])})["ok"]
+        for _ in range(rounds):
+            reply = conn.call({"op": "ask_batch", "names": names, "timeout": 120})
+            assert reply["ok"], reply
+            tells = []
+            for n in names:
+                r = reply["results"][n]
+                assert r["ok"], (n, r)
+                streams[n].append(r["vals"])
+                tells.append(conn.submit({"op": "tell", "study": n, "tid": r["tid"],
+                                          "loss": loss(r["vals"]), "vals": r["vals"]}))
+            assert all(conn.drain(t)["ok"] for t in tells)
+    finally:
+        conn.close()
+        sock.close()
+        srv.shutdown()
+        srv.server_close()
+    return streams
+
+
+def _inprocess_rounds(svc, names, rounds, loss):
+    handles = [svc.create_study(n, seed=int(n[1:])) for n in names]
+    streams = {n: [] for n in names}
+    for _ in range(rounds):
+        futs = [h.ask_async() for h in handles]
+        assert svc.pump() == len(handles)
+        for h, fut in zip(handles, futs):
+            tid, vals = fut.result(timeout=120)
+            streams[h.name].append(vals)
+            h.tell(tid, loss(vals))
+    return streams
+
+
+@pytest.mark.cuda
+def test_cuda_socket_round_is_bitwise_the_in_process_round(cuda):
+    """Four studies over the TCP front on binary frames (the handler's
+    thread pumps each ``ask_batch`` round): every study's stream is
+    bitwise the in-process service's, one ``gmm_llr`` launch per round."""
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    names, rounds = [f"s{i}" for i in range(4)], 6
+    kw = dict(max_batch=4, background=False, n_startup_jobs=3, n_cand=128)
+    ref = SuggestService(mixed_space(), **kw)
+    want = _inprocess_rounds(ref, names, rounds, mixed_space_fn)
+    ref.shutdown()
+    svc = SuggestService(mixed_space(), **kw)
+    G.KERNEL.launches = 0
+    got = _socket_rounds(svc, names, rounds, mixed_space_fn)
+    assert got == want
+    assert G.KERNEL.launches == svc.counters["dispatch_count"] == rounds
+    svc.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_ask_batch_pumped_from_a_handler_thread_is_sync_free(cuda):
+    """With no background loop, ``ask_batch`` pumps rounds from the socket
+    handler's thread.  Under ``set_sync_debug_mode("error")`` everything
+    that thread does outside the round's dispatch (the submits, the
+    pick, the group-commit barrier, the tells, and at cadence 0 nothing
+    after the acks) runs without reading the card; a sync would fail the
+    reply."""
+    import functools
+
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    svc = SuggestService(mixed_space(), max_batch=4, background=False, n_startup_jobs=3,
+                         n_cand=128, device_metrics_every=0)
+    sched = svc.scheduler
+    real = sched._dispatch_round
+
+    @functools.wraps(real)
+    def dispatch_may_sync(picked):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(picked)
+        finally:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+
+    sched._dispatch_round = dispatch_may_sync
+    names = [f"s{i}" for i in range(4)]
+    for n in names:  # the socket's create_study then re-attaches
+        svc.create_study(n, seed=int(n[1:]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        streams = _socket_rounds(svc, names, 5, mixed_space_fn)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(len(s) == 5 for s in streams.values())
+    assert sched.device_metric_dispatches == 0 and sched._device_metrics_fn is None
+    svc.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_twin_at_cadence_2_leaves_the_streams_bitwise(cuda):
+    """The device-metrics twin every 2 rounds on the card: the streams are
+    bitwise those at cadence 0, the launches one per round either way,
+    and the twin ran every second round."""
+    from hyperopt_tpu_torch.serve import SuggestService
+
+    names, rounds, out = [f"s{i}" for i in range(4)], 6, {}
+    for every in (0, 2):
+        svc = SuggestService(mixed_space(), max_batch=4, background=False, n_startup_jobs=3,
+                             n_cand=128, device_metrics_every=every)
+        G.KERNEL.launches = 0
+        out[every] = _inprocess_rounds(svc, names, rounds, mixed_space_fn)
+        assert G.KERNEL.launches == rounds
+        assert svc.scheduler.device_metric_dispatches == rounds // 2 * (every > 0)
+        if every:
+            rows = {r["name"]: r.get("value") for r in svc.metrics_rows()}
+            assert rows["serve_device_trials_done"] == 4 * (rounds - 1)
+            assert rows["serve_device_active_slots"] == 4
+        svc.shutdown()
+    assert out[2] == out[0]

@@ -35,6 +35,7 @@ from hyperopt_tpu_torch import convert, hp as thp
 from hyperopt_tpu_torch import random as R
 from hyperopt_tpu_torch.device_loop import compile_fmin, history_from_trials
 from hyperopt_tpu_torch.exceptions import AllTrialsFailed
+from hyperopt_tpu_torch.obs import MetricsRegistry
 from hyperopt_tpu_torch.ops.compile import compile_space as t_compile
 
 CONT_RTOL, CONT_ATOL = 5e-5, 1e-6
@@ -275,15 +276,17 @@ def test_seed_sweep_with_early_stop_and_the_axes_not_ported():
 
 @pytest.mark.parametrize("option,value,item", [
     ("asha", {"eta": 2}, "14"), ("artifact_callback", print, "14"),
-    ("mesh", object(), "15"), ("cand_axis", "cand", "15"), ("metrics_registry", object(), "16"),
+    ("mesh", object(), "15"), ("cand_axis", "cand", "15"),
+    ("metrics_registry", MetricsRegistry("dl"), "16"),
 ])
 def test_deferred_options_raise(option, value, item):
     """What waits for a later slice raises ``NotImplementedError`` naming
-    its item; item 14's options are ported, and on a plain objective they
-    raise the reference's ``ValueError`` (ASHA needs a
-    ``TrainableObjective``, the artifact stream needs ``asha=``)."""
-    if item == "14":
-        with pytest.raises(ValueError, match="TrainableObjective|requires asha="):
+    its item; items 14's and 16's options are ported, and without what
+    they need they raise the reference's ``ValueError`` (ASHA needs a
+    ``TrainableObjective``, the artifact stream needs ``asha=``, the
+    registry's progress rows need ``chunk_size``)."""
+    if item in ("14", "16"):
+        with pytest.raises(ValueError, match="TrainableObjective|requires asha=|chunk_size"):
             compile_fmin(t_quad, quad_space(thp), max_evals=8, device="cpu", **{option: value})
         return
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -572,6 +572,16 @@ def test_front_health_metrics_and_shutdown():
     ({"owner": "r0"}, "12d"), ({"mesh": object()}, "15"), ({"device_metrics_every": 1}, "16"),
 ])
 def test_unported_options_raise(kw, item):
+    """What waits for a later slice raises naming its item; item 16's
+    ``device_metrics_every`` is ported, and its service runs the twin
+    (``tests/test_torch_obs_device.py`` holds it to the reference)."""
+    if item == "16":
+        svc = service(**kw)
+        h = svc.create_study("s0", seed=1)
+        tid, vals = h.ask()
+        assert svc.scheduler.device_metric_dispatches == 1
+        svc.shutdown()
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         service(**kw)
 

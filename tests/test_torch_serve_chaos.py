@@ -6,16 +6,22 @@ catches the simulated death, opens a new service over the same root and
 finishes the workload.  Zero lost and zero duplicated tells (exact
 per-study counts, unique tids, the WAL's tell totals), and every study's
 final history bitwise the history of the run that never crashed.  Also
-here: ``ask(recover=True)``, a retell after a lost ack, the guard, the
-counters against the reference service on one scenario, and that what
+here: a storm of injected transient file errors and partial writes
+(``FaultPlan(rate=, partial_rate=)``, whose decisions are the
+reference's), ``ask(recover=True)``, a retell after a lost ack, the
+guard, the counters against the reference service on one scenario, and
+that what
 the WAL and the snapshot hold is a copy of host truth, never a view of
 device state (on the CPU a device tensor's ``.numpy()`` would alias it).
 """
+
+import os
 
 import numpy as np
 import pytest
 
 from hyperopt_tpu import hp as jhp
+from hyperopt_tpu.distributed import faults as JF
 from hyperopt_tpu.serve import SuggestService as JService
 from hyperopt_tpu_torch import hp
 from hyperopt_tpu_torch.distributed.faults import (
@@ -69,8 +75,8 @@ def drive(svc, handles):
             h.tell(tid, loss_fn(vals))
 
 
-def run_scenario(root, crash_point=None, crash_at=2, cadence=4):
-    plan = FaultPlan(seed=0)
+def run_scenario(root, crash_point=None, crash_at=2, cadence=4, plan=None):
+    plan = FaultPlan(seed=0) if plan is None else plan
     if crash_point is not None:
         plan.arm(crash_point, at=crash_at)
     n_crashes = 0
@@ -120,6 +126,50 @@ def test_crash_point_zero_lost_zero_duplicate(tmp_path, tmp_path_factory, point)
     out, n_crashes = run_scenario(str(tmp_path / "root"), crash_point=point)
     assert n_crashes == 1, f"{point} never fired"
     assert_exact(out, clean_run(tmp_path_factory), point)
+
+
+def test_file_fault_storm_is_exact_and_bitwise_the_clean_run(tmp_path, tmp_path_factory):
+    """Transient ``ESTALE``/``EIO`` on every gated fs primitive at rate
+    0.1, and partial writes, burst-bounded: the retries absorb them, every
+    study ends with exactly R tells logged once, and the histories are
+    bitwise the run without faults."""
+    plan = FaultPlan(seed=7, rate=0.10, partial_rate=0.05)
+    out, n_crashes = run_scenario(str(tmp_path / "storm"), plan=plan)
+    assert n_crashes == 0
+    assert plan.stats["error:partial_write"] > 0
+    assert sum(v for k, v in plan.stats.items() if k.startswith("error:")) > 10
+    assert_exact(out, clean_run(tmp_path_factory), "file storm")
+
+
+def _fs_script(plan, tmp):
+    """One scripted sequence of fs operations through ``plan.fs()``: what
+    each raised, and the plan's log."""
+    fs, raised = plan.fs(), []
+    for i in range(40):
+        path = os.path.join(tmp, f"f{i % 3}")
+        for op in (lambda: fs.open(path, "w").close(), lambda: fs.exists(path),
+                   lambda: fs.rename(path, path + ".r") or fs.rename(path + ".r", path),
+                   lambda: fs.stat(path), lambda: fs.listdir(tmp)):
+            try:
+                op()
+                raised.append(None)
+            except OSError as e:
+                raised.append(e.errno)
+        with open(path, "w") as f:
+            f.write("x")  # a file for the next round, whatever was injected
+    return raised, [entry for entry in plan.log], dict(plan.stats)
+
+
+def test_fault_plan_makes_the_reference_decisions(tmp_path):
+    kw = dict(seed=5, rate=0.2, partial_rate=0.3, latency=0.0005, burst=2)
+    for side in ("t", "j"):
+        (tmp_path / side / "d").mkdir(parents=True)  # the same names: the log keys them
+    mine = _fs_script(FaultPlan(**kw), str(tmp_path / "t" / "d"))
+    ref = _fs_script(JF.FaultPlan(**kw), str(tmp_path / "j" / "d"))
+    assert mine == ref
+    assert sum(x is not None for x in mine[0]) > 10
+    assert FaultPlan(**kw).split("w").seed == JF.FaultPlan(**kw).split("w").seed
+    assert JF.DEFAULT_ERRORS == FaultPlan().errors
 
 
 def test_crash_mid_batch_late_arm(tmp_path, tmp_path_factory):

@@ -438,7 +438,7 @@ def storm_round_trip(net_plan=None, front_plan=None, seed=3, rounds=6):
     srv = spawn(svc, net_plan=front_plan)
     host, port = srv.server_address[:2]
     try:
-        c = RemoteStudy(host, port, "s", seed=seed, net_plan=net_plan, read_timeout=10.0)
+        c = RemoteStudy(host, port, "s", seed=seed, net_plan=net_plan, read_timeout=30.0)
         stream = []
         for _ in range(rounds):
             tid, vals = c.ask(timeout=30)

@@ -142,13 +142,40 @@ network.  Every phase asserts, and a failure exits non-zero:
    per dispatch) and a chunked ``compile_fmin(metrics_registry=)``; then
    the kernel at every launch shape of those paths; (f), last of all,
    served rounds under ``utils.profiling.device_trace``: its Chrome trace
-   holds the ``gmm_llr`` kernel.
+   holds the ``gmm_llr`` kernel;
+12. (after phase 11, before 11f) the serve fleet at ``mixed_space()``'s
+   full width, every reply asserted ``ok``: (a) ``bench.py``'s
+   ``bench_fleet`` protocol in one process (3 replicas of
+   ``serve.Fleet`` behind ``FleetRouter``, 12 studies, ``max_batch`` 16,
+   ``n_cand`` 128, ``snapshot_cadence`` 64, every replica padded to its
+   slot cap once, 3 timed ``ask_batch`` rounds, then the replica owning
+   the first study killed and two per-ask passes): asks/s, the failover
+   window's p99 ask latency, ``recovery_ms``, one ``gmm_llr`` launch per
+   replica round (the replicas' own counts summing to the process's),
+   every stream bitwise one in-process service's and every tell logged
+   once (restored from the root alone); (b) ``bench_pilot``'s protocol
+   (2 replicas under ``FleetPilot(max_replicas=3)``, a flight recorder
+   armed): ``pilot_scale_out_ms``, ``pilot_scale_in_ms``, autoscaled
+   asks/s, at least one scale-out and one scale-in, every stream bitwise
+   (a)'s for the same seed, and the flight log replayed against a fresh
+   service at ``replay_fidelity`` 1.0; (c) two console-script replicas
+   (``--root R --owner r0``/``r1``, started together) behind the router's
+   console script (``python -m hyperopt_tpu_torch.serve.router
+   --space``), 4 ``RemoteStudy`` clients x 40 trials on binary frames, the
+   replica owning the first study SIGKILLed after 20 tells per study: the
+   survivor adopts its studies, every stream bitwise an in-process clean
+   run, every tell logged once, the survivor's launches read from its
+   ``metrics`` op, ``fsck --serve`` at the kill naming the dead owner's
+   claims and after ``--repair`` every study restored on a fresh
+   service; (d) the kernel against its plain version at every launch
+   shape of (a)-(c).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
 loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
-10's under ``durable``, phase 11's under ``transport`` and each new path's launch shapes with
-their errors under ``checked_shapes``),
+10's under ``durable``, phase 11's under ``transport``, phase 12's under
+``fleet`` and each new path's launch shapes with their errors under
+``checked_shapes``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -2035,7 +2062,8 @@ def phase10(card):
 
 
 # -- phase 11: the suggestion service as a network process -------------------
-#: the device phase 11 serves on (None: the card; a CPU rehearsal sets "cpu")
+#: the device phases 11 and 12 serve on (None: the card; a CPU rehearsal
+#: sets "cpu")
 P11_DEVICE = None
 P11_STUDIES, P11_TRIALS, P11_KILL_AT = 4, 60, 30
 BURST = dict(n_clients=64, n_studies=4, asks_per_client=8, pool_width=32)
@@ -2048,6 +2076,22 @@ def p11_sync():
 
     if P11_DEVICE != "cpu":
         torch.cuda.synchronize()
+
+
+def counted_run(launches, shapes, path, run):
+    """``run()`` with the launch counter at 0 just before it and each
+    launch's shape recorded; adds the launches to ``launches[path]`` and
+    the shapes to ``shapes[path]``; returns the result and the launches."""
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+
+    p11_sync()
+    G.KERNEL.launches = 0
+    with launch_shapes() as seen:
+        result = run()
+        p11_sync()
+    launches[path] = launches.get(path, 0) + G.KERNEL.launches
+    shapes.setdefault(path, set()).update(seen)
+    return result, G.KERNEL.launches
 
 
 def spawn_front(svc, **kw):
@@ -2066,36 +2110,54 @@ def close_front(srv):
     srv.server_close()
 
 
-def console_process(root, log_path):
-    """Start ``python -m hyperopt_tpu_torch.serve.service`` (the console
-    script) on ``root`` and read its listening line; returns the process
-    and its port."""
-    import select
-
+def script_start(module, args, log_path):
+    """Start ``python -m module args`` from the checkout (on phase 11's
+    device), its standard error appended to ``log_path``."""
     here = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "hyperopt_tpu_torch.serve.service", "--space",
-           "hyperopt_tpu_torch.models.synthetic:mixed_space", "--port", "0", "--root", root,
-           "--n-startup-jobs", "3"]
-    if P11_DEVICE is not None:
-        cmd += ["--device", P11_DEVICE]
+    cmd = [sys.executable, "-m", module, *args]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (here, os.environ.get("PYTHONPATH")) if p))
     err = open(log_path, "a")
     proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE, stderr=err,
                             text=True)
     err.close()
-    deadline = time.perf_counter() + 120
+    return proc
+
+
+def script_port(proc, log_path, timeout=120):
+    """Read a started script's listening line; returns its port."""
+    import select
+
+    deadline = time.perf_counter() + timeout
     while True:
         ready, _, _ = select.select([proc.stdout], [], [], max(deadline - time.perf_counter(), 0))
         line = proc.stdout.readline() if ready else ""
         if "listening on 127.0.0.1:" in line:
-            return proc, int(line.split("127.0.0.1:")[1].split()[0])
+            return int(line.split("127.0.0.1:")[1].split()[0])
         if not ready or not line or time.perf_counter() > deadline:
             proc.kill()
             proc.wait(timeout=30)
             with open(log_path) as f:
                 tail = f.read()[-4000:]
-            raise AssertionError(f"the console script did not start: {line!r}\n{tail}")
+            raise AssertionError(f"{proc.args[2]} did not start: {line!r}\n{tail}")
+
+
+def serve_script_args(root, *extra):
+    """``hyperopt_tpu_torch.serve.service``'s arguments at phase 11's
+    settings on ``root``."""
+    args = ["--space", "hyperopt_tpu_torch.models.synthetic:mixed_space", "--port", "0",
+            "--root", root, "--n-startup-jobs", "3", *extra]
+    if P11_DEVICE is not None:
+        args += ["--device", P11_DEVICE]
+    return args
+
+
+def console_process(root, log_path):
+    """Start the console script (``hyperopt_tpu_torch.serve.service``) on
+    ``root`` and read its listening line; returns the process and its
+    port."""
+    proc = script_start("hyperopt_tpu_torch.serve.service", serve_script_args(root), log_path)
+    return proc, script_port(proc, log_path)
 
 
 def stop_process(proc):
@@ -2204,7 +2266,6 @@ def phase11(card):
                                                        NetFaultPlan, SimulatedCrash)
     from hyperopt_tpu_torch.exceptions import Overloaded
     from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
-    from hyperopt_tpu_torch.ops import gmm_scores as G
     from hyperopt_tpu_torch.serve import SuggestService
     from hyperopt_tpu_torch.serve.frames import FrameConn, dial
 
@@ -2213,16 +2274,7 @@ def phase11(card):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_p11_")
 
     def counted(path, run):
-        """``run()`` with the launch counter at 0 just before it and each
-        launch's shape recorded; adds the launches to ``path``."""
-        p11_sync()
-        G.KERNEL.launches = 0
-        with launch_shapes() as seen:
-            result = run()
-            p11_sync()
-        launches[path] = launches.get(path, 0) + G.KERNEL.launches
-        shapes.setdefault(path, set()).update(seen)
-        return result, G.KERNEL.launches
+        return counted_run(launches, shapes, path, run)
 
     # -- 11a. the console script as a process, killed and restarted -------
     names = [f"p{i}" for i in range(P11_STUDIES)]
@@ -2631,6 +2683,381 @@ def phase11(card):
     return launches, out, trace_11f
 
 
+# -- phase 12: the serve fleet ---------------------------------------------------
+#: bench.py:777 bench_fleet's fleet (bench_pilot's starts at two replicas)
+FLEET = dict(n_replicas=3, n_studies=12, rounds=3)
+P12_STUDIES, P12_TRIALS, P12_KILL_AT = 4, 40, 20
+
+
+def fleet_kw():
+    """bench_fleet's and bench_pilot's replica settings, on phase 11's device."""
+    return dict(max_batch=16, n_startup_jobs=3, n_cand=128, snapshot_cadence=64,
+                device=P11_DEVICE)
+
+
+def run_fsck(*args):
+    """``hyperopt_tpu_torch.distributed.fsck ... --format json`` as a
+    process; returns its exit code and report."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", "hyperopt_tpu_torch.distributed.fsck", *args,
+                           "--format", "json"], cwd=here, capture_output=True, text=True,
+                          timeout=300, env=dict(os.environ, PYTHONPATH=here))
+    return proc.returncode, json.loads(proc.stdout)
+
+
+def phase12(card, sfu_per_s):
+    """The serve fleet on the card: (a) bench.py's bench_fleet protocol in
+    one process (3 replicas, 12 studies, a replica killed), bitwise one
+    service; (b) bench_pilot's protocol under the autoscaler, its flight log
+    replayed; (c) the fleet as processes behind the router's console
+    script, one replica SIGKILLed, then fsck; (d) the kernel at every launch
+    shape of (a)-(c).  Returns the launches by path and the numbers."""
+    import signal
+    import tempfile
+    import threading
+
+    import torch
+
+    from hyperopt_tpu_torch.client import RemoteStudy
+    from hyperopt_tpu_torch.models.synthetic import mixed_space
+    from hyperopt_tpu_torch.obs import FlightRecorder
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.serve import (Fleet, FleetPilot, FleetRouter, HashRing, PilotConfig,
+                                          StudyClaim, SuggestService)
+    from hyperopt_tpu_torch.serve.fleet import fleet_salt
+    from hyperopt_tpu_torch.serve.replay import (ServiceTarget, load_workload, replay_fidelity,
+                                                 replay_workload)
+
+    t_phase = time.perf_counter()
+    launches, shapes, out = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+
+    def counted(path, run):
+        return counted_run(launches, shapes, path, run)
+
+    def cold_audit(root, names, n_tells):
+        """Every study restored from nothing but the root: its tells, once."""
+        audit = SuggestService(mixed_space(), root=root, owner="audit", background=False,
+                               **fleet_kw())
+        try:
+            for n in names:
+                h = audit.create_study(n, takeover=True)
+                tids = h._study.buf.tids[: h._study.buf.count].tolist()
+                assert tids == list(range(n_tells)), (n, tids)
+        finally:
+            audit.shutdown()
+
+    # -- 12a. bench_fleet's protocol, in one process ------------------------
+    names = [f"f{i:03d}" for i in range(FLEET["n_studies"])]
+    root = os.path.join(tmp, "fleet")
+    fleet = Fleet(mixed_space(), root, n_replicas=FLEET["n_replicas"], **fleet_kw())
+    router = FleetRouter(fleet)
+    for i, n in enumerate(names):
+        router.create_study(n, seed=i)
+    streams = {n: [] for n in names}
+
+    def take(n, tid, vals):
+        assert tid == len(streams[n]), (n, tid)
+        streams[n].append(vals)
+        router.tell(n, tid, serve_loss(vals), vals=vals)
+
+    def round_once():
+        for n, (tid, vals) in sorted(router.ask_batch(names, timeout=300).items()):
+            take(n, tid, vals)
+
+    # bench.py:825-836: every replica padded to its slot cap once, so no
+    # first materialization runs in the timed rounds or the failover
+    for rid in sorted(fleet.replicas):
+        rep = fleet.replicas[rid]
+        pads = [rep.open_study(f"warm-{rid}-{i:02d}", seed=1000 + i)
+                for i in range(max(0, 9 - len(rep.service.studies())))]
+        futs = [h.ask_async() for h in pads]
+        if futs:
+            rep.pump_until(futs, timeout=300)
+        for h in pads:
+            h.close()
+    round_once()
+    before = {rid: (rep.service.counters["dispatch_count"], rep.service.scheduler.kernel_launches)
+              for rid, rep in fleet.replicas.items()}
+    victim = fleet.route(names[0])
+
+    def fleet_run():
+        t0 = time.perf_counter()
+        for _ in range(FLEET["rounds"]):
+            round_once()
+        p11_sync()
+        dt = time.perf_counter() - t0
+        fleet.kill_replica(victim)
+        lats = []
+        for _ in range(2):  # two per-ask passes: the first ask on a dead owner fails it over
+            for n in names:
+                t1 = time.perf_counter()
+                tid, vals = router.ask(n, timeout=300)
+                p11_sync()
+                lats.append(time.perf_counter() - t1)
+                take(n, tid, vals)
+        return dt, lats
+
+    (dt, lats), nl = counted("fleet_inprocess", fleet_run)
+    rounds = sum(rep.service.counters["dispatch_count"] - before[rid][0]
+                 for rid, rep in fleet.replicas.items())
+    own = sum(rep.service.scheduler.kernel_launches - before[rid][1]
+              for rid, rep in fleet.replicas.items())
+    gauge = {r["labels"]["replica"]: r["value"] for r in fleet.metrics_rows()
+             if r["name"] == "serve_kernel_launches"}
+    n_asks = len(names) * (1 + FLEET["rounds"] + 2)
+    logged = [fleet.replicas[fleet.route(n)].service.scheduler.study(n).persist.wal.total_tells
+              for n in names]
+    fsyncs_per_tell = fleet.wal_fsyncs_per_tell()
+    recovery_ms = fleet.recovery_ms
+    fleet.shutdown()
+    cold_audit(root, names, 1 + FLEET["rounds"] + 2)
+    solo = SuggestService(mixed_space(), background=False, **fleet_kw())
+    handles = [solo.create_study(n, seed=i) for i, n in enumerate(names)]
+    want = {}
+    for _ in range(1 + FLEET["rounds"] + 2):
+        serve_round(solo, handles, want)
+    solo.shutdown()
+    n_bitwise = sum(streams[n] == want[n] for n in names)
+    lat_ms = sorted(1e3 * x for x in lats)
+    p99 = lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))]
+    rate = len(names) * FLEET["rounds"] / dt
+    log(f"[12a] {card}: bench_fleet's protocol ({FLEET['n_replicas']} replicas, "
+        f"{len(names)} studies, max_batch 16, n_cand 128, snapshot_cadence 64, the pad "
+        f"warm-up, {FLEET['rounds']} timed ask_batch rounds, then {victim} killed and two "
+        f"per-ask passes): {rate:.1f} asks/s; failover window p99 {p99:.3f} ms per ask "
+        f"(median {statistics.median(lat_ms):.3f}); recovery_ms {recovery_ms:.3f}; "
+        f"gmm_llr launches {nl} in {rounds} replica rounds (the replicas' own counts "
+        f"{own}; live gauges {gauge}); {n_bitwise} of {len(names)} streams bitwise one "
+        f"in-process service's; WAL tells per study {sorted(set(logged))}, each restored "
+        f"from the root alone; wal_fsyncs_per_tell {fsyncs_per_tell:.4f}")
+    assert n_bitwise == len(names), "a fleet stream is not the one-service stream"
+    assert nl == rounds == own > 0, (nl, rounds, own)
+    assert set(logged) == {1 + FLEET["rounds"] + 2}, logged
+    assert recovery_ms is not None and recovery_ms > 0
+    out["inprocess"] = dict(asks_per_s=rate, failover_p99_ms=p99, recovery_ms=recovery_ms,
+                            launches=nl, replica_rounds=rounds, bitwise=n_bitwise,
+                            wal_fsyncs_per_tell=fsyncs_per_tell, n_asks=n_asks)
+
+    # -- 12b. bench_pilot's protocol under the autoscaler ---------------------
+    pnames = [f"a{i:03d}" for i in range(FLEET["n_studies"])]
+    flight = os.path.join(tmp, "flight.jsonl")
+    recorder = FlightRecorder(path=flight)
+    pfleet = Fleet(mixed_space(), os.path.join(tmp, "pilot"), replica_ids=["r0", "r1"],
+                   recorder=recorder, **fleet_kw())
+    prouter = FleetRouter(pfleet)
+    pilot = FleetPilot(pfleet, config=PilotConfig(
+        min_replicas=1, max_replicas=3, shed_high=0, queue_high=max(2.0, len(pnames) / 2),
+        breach_ticks=1, clear_ticks=1, cooldown_ticks=0))
+    assert pilot.scrape == pfleet.metrics_rows  # the scrape is its only input
+    for i, n in enumerate(pnames):
+        prouter.create_study(n, seed=i)
+    recorded = {n: [] for n in pnames}
+    actions = []
+
+    def pilot_run():
+        served, t0 = 0, time.perf_counter()
+        for _ in range(FLEET["rounds"]):
+            futs = {}
+            for n in pnames:
+                rid = pfleet.route(n)
+                futs[n] = (rid, pfleet.replicas[rid].ask_async(n))
+            actions.append(pilot.tick().action)  # the scrape sees the queued wave
+            got, shed = {}, []
+            for rid in sorted({r for r, _ in futs.values()}):
+                group = [(n, f) for n, (r, f) in futs.items() if r == rid]
+                pfleet.replicas[rid].pump_until([f for _, f in group], timeout=300)
+                for n, f in group:
+                    try:
+                        got[n] = f.result(timeout=0)
+                    except ValueError:  # shed by a migration: its logged seed serves it again
+                        shed.append(n)
+            for n in shed:
+                got[n] = prouter.ask(n, timeout=300, recover=True)
+            for n in pnames:
+                tid, vals = got[n]
+                assert tid == len(recorded[n]), (n, tid)
+                prouter.tell(n, tid, serve_loss(vals), vals=vals)
+                recorded[n].append((int(tid), dict(vals)))
+                served += 1
+        p11_sync()
+        return served, time.perf_counter() - t0
+
+    (served, pdt), nl_b = counted("fleet_pilot", pilot_run)
+    for _ in range(4):  # the quiet tail
+        actions.append(pilot.tick().action)
+    prow = {r["name"]: r["value"] for r in pilot.metrics_rows() if not r.get("labels")}
+    out_ms, in_ms = prow["pilot_scale_out_ms"], prow["pilot_scale_in_ms"]
+    members = sorted(pfleet.replicas)
+    pfleet.shutdown()
+    recorder.flush()
+    target = ServiceTarget(SuggestService(mixed_space(), background=False, **fleet_kw()))
+    replayed = replay_workload(load_workload(flight), target, timeout=300)
+    target.service.shutdown()
+    fidelity = replay_fidelity(recorded, replayed)
+    n_prefix = sum([v for _, v in recorded[p]] == streams[n][:FLEET["rounds"]]
+                   for p, n in zip(pnames, names))
+    log(f"[12b] {card}: bench_pilot's protocol (2 replicas under FleetPilot(max_replicas=3, "
+        f"queue_high {max(2.0, len(pnames) / 2)}), a FlightRecorder armed, "
+        f"{FLEET['rounds']} waves of {len(pnames)} asks): decisions {actions}, members at the "
+        f"end {members}; pilot_scale_out_ms {out_ms:.3f}, pilot_scale_in_ms {in_ms:.3f}; "
+        f"{served / pdt:.1f} asks/s autoscaled; gmm_llr launches {nl_b}; {n_prefix} of "
+        f"{len(pnames)} streams bitwise (a)'s same seeds; the flight log replayed against a "
+        f"fresh service: replay_fidelity {fidelity}")
+    assert "scale_out" in actions and "scale_in" in actions, actions
+    assert n_prefix == len(pnames), "an autoscaled stream is not (a)'s"
+    assert fidelity == 1.0
+    out["pilot"] = dict(scale_out_ms=out_ms, scale_in_ms=in_ms, asks_per_s=served / pdt,
+                        decisions=actions, launches=nl_b, replay_fidelity=fidelity)
+
+    # -- 12c. the fleet as processes behind the router's console script -------
+    croot, clog = os.path.join(tmp, "procs"), os.path.join(tmp, "procs.log")
+    cnames = [f"c{i}" for i in range(P12_STUDIES)]
+    cstreams = {n: [] for n in cnames}
+    t0 = time.perf_counter()
+    procs = {rid: script_start("hyperopt_tpu_torch.serve.service",
+                               serve_script_args(croot, "--owner", rid), clog)
+             for rid in ("r0", "r1")}
+    rproc = None
+    try:
+        ports = {rid: script_port(p, clog) for rid, p in procs.items()}
+        start_s = time.perf_counter() - t0
+        # one round on each replica before any deadline of the router applies
+        for rid, port in ports.items():
+            frame_call(port, {"op": "create_study", "name": f"warm-{rid}", "seed": 1})
+            frame_call(port, {"op": "ask", "study": f"warm-{rid}", "timeout": 300})
+            frame_call(port, {"op": "close_study", "study": f"warm-{rid}"})
+        t0 = time.perf_counter()
+        rproc = script_start("hyperopt_tpu_torch.serve.router",
+                             ["--space", "hyperopt_tpu_torch.models.synthetic:mixed_space",
+                              "--port", "0", "--probe-interval", "0"]
+                             + [f"--backend={r}=127.0.0.1:{p}" for r, p in ports.items()], clog)
+        rport = script_port(rproc, clog)
+        router_start_s = time.perf_counter() - t0
+        ring = HashRing(ports, salt=fleet_salt("tpe", mixed_space()))
+        victim = ring.owner(cnames[0])
+        survivor = next(r for r in ports if r != victim)
+        barrier = threading.Barrier(len(cnames) + 1, timeout=600)
+
+        def client(i, n):
+            def run():
+                c = RemoteStudy("127.0.0.1", rport, n, seed=i, read_timeout=120)
+                while len(cstreams[n]) < P12_TRIALS:
+                    if len(cstreams[n]) == P12_KILL_AT:
+                        barrier.wait()  # every study told KILL_AT trials
+                        barrier.wait()  # the victim is dead
+                    tid, vals = c.ask(timeout=120)
+                    assert tid == len(cstreams[n]), (n, tid)
+                    c.tell(tid, serve_loss(vals), vals)
+                    cstreams[n].append(vals)
+                c.close()
+            return run
+
+        errors = []
+        t0 = time.perf_counter()
+
+        def drive():
+            try:
+                run_threads([client(i, n) for i, n in enumerate(cnames)])
+            except BaseException as e:  # re-raised on the main thread below
+                errors.append(e)
+
+        runner = threading.Thread(target=drive, daemon=True)
+        runner.start()
+        barrier.wait()
+        pre = {rid: {r["name"]: r.get("value") for r in frame_call(
+            port, {"op": "metrics"})["metrics"]} for rid, port in ports.items()}
+        owned = [n for n in cnames if StudyClaim.read(croot, n)["replica"] == victim]
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(timeout=60)
+        rc_kill, at_kill = run_fsck("--serve", croot, "--live-owner", survivor)
+        barrier.wait()
+        runner.join(timeout=900)
+        assert not runner.is_alive() and not errors, errors
+        legs_s = time.perf_counter() - t0
+        claims = {n: StudyClaim.read(croot, n)["replica"] for n in cnames}
+        post = {r["name"]: r.get("value") for r in frame_call(
+            ports[survivor], {"op": "metrics"})["metrics"]}
+    finally:
+        for p in [*procs.values(), *([rproc] if rproc is not None else [])]:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+            p.stdout.close()
+    rc_after, after = run_fsck("--serve", croot)
+    rc_repair, repaired = run_fsck("--serve", croot, "--repair")
+    cold_audit(croot, cnames, P12_TRIALS)
+    ref = SuggestService(mixed_space(), max_batch=64, background=False, n_startup_jobs=3,
+                         device=P11_DEVICE)
+    rhandles = [ref.create_study(n, seed=i) for i, n in enumerate(cnames)]
+    cwant = {}
+    counted("fleet_process_inprocess", lambda: [serve_round(ref, rhandles, cwant)
+                                                for _ in range(P12_TRIALS)])
+    ref.shutdown()
+    ref_shapes = shapes.pop("fleet_process_inprocess")
+    launches.pop("fleet_process_inprocess")
+    # the replicas fold 1..4 studies into a round: every such fold of each
+    # shape the in-process run launched
+    shapes["fleet_process"] = {(b, k * dg, s_, kb, ka, dg) for (b, _, s_, kb, ka, dg) in ref_shapes
+                               for k in range(1, P12_STUDIES + 1)}
+    proc_launches = pre[victim]["serve_kernel_launches"] + post["serve_kernel_launches"]
+    launches["fleet_process"] = proc_launches
+    n_bitwise = sum(cstreams[n] == cwant[n] for n in cnames)
+    kinds = sorted({i["kind"] for i in at_kill["issues"]})
+    log(f"[12c] {card}: two hyperopt-tpu-torch-serve replicas (--root, --owner r0/r1, the "
+        f"script's n_cand 16) started together in {start_s:.2f} s, warmed by one round each, "
+        f"behind hyperopt-tpu-torch-router --space (started in {router_start_s:.2f} s); "
+        f"{P12_STUDIES} RemoteStudy clients x {P12_TRIALS} trials on binary frames, {victim} "
+        f"(owning {owned}) SIGKILLed after {P12_KILL_AT} tells per study: claims afterwards "
+        f"{claims}; {n_bitwise} of {P12_STUDIES} streams bitwise the in-process clean run; "
+        f"every tell logged once (cold audit of the root); gmm_llr launches {victim} "
+        f"{pre[victim]['serve_kernel_launches']} before the kill + {survivor} "
+        f"{post['serve_kernel_launches']} in {post['serve_dispatch_total']} rounds (its metrics "
+        f"op); fsck at the kill (--live-owner {survivor}): rc {rc_kill}, kinds {kinds}; after "
+        f"the run: rc {rc_after}, {len(after['issues'])} issue(s); --repair rc {rc_repair}, "
+        f"{repaired['remaining']} left; every study restored on a fresh service; legs "
+        f"{legs_s:.2f} s")
+    assert set(claims.values()) == {survivor}, claims
+    assert n_bitwise == P12_STUDIES, "a process-fleet stream is not the clean run's"
+    assert post["serve_kernel_launches"] == post["serve_dispatch_total"] > 0, post
+    assert owned and rc_kill == 1 and kinds == ["claim_stale_foreign"], at_kill
+    assert sorted(i["path"] for i in at_kill["issues"]) == sorted(
+        os.path.join(croot, n + ".claim") for n in owned)
+    assert rc_repair == 0 and not (repaired["remaining"] or []), repaired
+    out["process"] = dict(start_s=start_s, router_start_s=router_start_s, legs_s=legs_s,
+                          bitwise=n_bitwise, launches=proc_launches,
+                          fsck_at_kill=kinds, fsck_after=len(after["issues"]))
+
+    # -- 12d. the kernel at every launch shape of (a)-(c) ---------------------
+    for path, seen in shapes.items():
+        if seen:
+            CHECKED_SHAPES[path] = check_shapes(f"12 {path}, {card}", seen, seed=31)
+    # the fleet's own fold (a replica padded to its slot cap), timed beside
+    # its plain version and its bound
+    b_, dg_all, s_, kb, ka, dg = max(shapes["fleet_inprocess"])
+    fshape = dict(N=dg_all // dg, B=b_, Dg=dg, S=s_, Kb=kb, Ka=ka)
+    x, ls, pb, pa, _ = stacked_scoring_inputs(fshape, seed=37, device=torch.device("cuda"))
+    fold = lambda pre: {k: pre[k].reshape((dg_all,) + tuple(pre[k].shape[2:]))  # noqa: E731
+                        for k in G._PRE_KEYS}
+    xf, lsf, pbf, paf = x.reshape(b_, dg_all, s_), ls.repeat(fshape["N"]), fold(pb), fold(pa)
+    k_ms = device_ms(lambda: G.gmm_llr_stacked(x, ls, pb, pa), 20)
+    p_ms = device_ms(lambda: G.gmm_llr_plain(xf, lsf, pbf, paf), 10)
+    fb = bound(dict(B=b_, Dg=dg_all, S=s_, Kb=kb, Ka=ka), sfu_per_s)
+    log(f"[12d] {card}: the kernel at the fleet's fold {fshape}: {k_ms:.4f} ms device time "
+        f"(plain {p_ms:.4f} ms), bound {fb['bound_ms']:.5f} ms by {fb['bound_by']}: "
+        f"{fb['bound_ms'] / k_ms:.3f} of it")
+    out["fold"] = dict(fshape, ms=k_ms, plain_ms=p_ms, **fb)
+    del x, ls, pb, pa, xf, lsf, pbf, paf
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[12] {card}: phase 12 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -2876,6 +3303,9 @@ def main():
     # -- 11. the suggestion service as a network process -------------------
     transport_launches, transport, trace_11f = phase11(card)
     launches_by_path.update(transport_launches)
+    # -- 12. the serve fleet -----------------------------------------------
+    fleet_launches, fleet = phase12(card, sfu_per_s)
+    launches_by_path.update(fleet_launches)
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
@@ -2912,6 +3342,7 @@ def main():
         "schedulers": schedulers,
         "durable": durable,
         "transport": transport,
+        "fleet": fleet,
         "checked_shapes": CHECKED_SHAPES,
     }]}
     print(json.dumps(kernels))

@@ -489,7 +489,7 @@ class EngineClient:
         client study's snapshots to here, so the doc blob never captures
         a trial whose tell is durable but whose doc is not DONE yet."""
         if self.durable:
-            self.study.persist.maybe_snapshot(self.study)
+            self.service._snapshot(self.study)
 
     def arm_durability(self):
         """Put the client's docs into the study's snapshot and publish the
@@ -502,7 +502,8 @@ class EngineClient:
         st.client_state_fn = lambda: {"format": 1,
                                       "docs": SONify(list(self.trials._dynamic_trials))}
         if not self.restored:
-            _common.with_retries(lambda: st.persist.snapshot(st), label="client anchor")
+            _common.with_retries(lambda: self.service._snapshot(st, force=True),
+                                 label="client anchor")
 
     def finalize(self):
         """The orderly end of a run: drop the queued window tail, publish

@@ -8,8 +8,8 @@ nothing), the simulated process death (:class:`SimulatedCrash`), the
 device-fault schedule the scheduler's guard is tested with
 (:class:`DeviceFaultPlan`: NaN outputs, dispatch hangs, transient and
 fatal raises), and :class:`FaultPlan`, which arms the driver, serve,
-compiled-loop, checkpoint, flight-recorder and network crash points and
-injects seeded file faults through :meth:`FaultPlan.fs`: transient errno
+compiled-loop, checkpoint, fleet, autoscaler, flight-recorder and network
+crash points and injects seeded file faults through :meth:`FaultPlan.fs`: transient errno
 faults (``ESTALE``/``EIO`` at ``rate``, burst-bounded so retries always
 converge), bounded latency and partial writes, decision for decision the
 reference's for one seed and one sequence of operations.  Network faults
@@ -30,8 +30,8 @@ from ..exceptions import TransientBackendError
 
 __all__ = [
     "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "DEFAULT_ERRORS", "DEVICE_LOOP_CRASH_POINTS",
-    "DRIVER_CRASH_POINTS", "NET_CRASH_POINTS", "OBS_CRASH_POINTS", "SERVE_CRASH_POINTS",
-    "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "FaultyWire", "NetFaultPlan",
+    "DRIVER_CRASH_POINTS", "FLEET_CRASH_POINTS", "NET_CRASH_POINTS", "OBS_CRASH_POINTS",
+    "PILOT_CRASH_POINTS", "SERVE_CRASH_POINTS", "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "FaultyWire", "NetFaultPlan",
     "REAL_FS", "RealFS", "SimulatedCrash",
 ]
 
@@ -99,6 +99,38 @@ CHECKPOINT_CRASH_POINTS = ("after_ckpt_tmp_before_rename",)
 #:     obs_flight_export_mid_append  half a span line written, a torn tail
 OBS_CRASH_POINTS = ("obs_flight_export_mid_append",)
 
+#: crash points of the serve fleet (:mod:`hyperopt_tpu_torch.serve.fleet`
+#: and :mod:`~hyperopt_tpu_torch.serve.router`; a replica's own death is
+#: ``serve_mid_batch`` armed on that replica's plan):
+#:     fleet_router_after_forward_before_ack  the replica ran the op, the
+#:                                            router died before the ack
+#:                                            (retried idempotently)
+#:     fleet_migrate_after_snapshot_before_handoff  snapshot published, the
+#:                                            source still owns the study
+#:     fleet_migrate_after_handoff_before_restore   the source released its
+#:                                            claim, the target has not
+#:                                            restored (lazy adoption heals)
+#:     fleet_claim_tmp_before_rename          claim tmp fsynced, the rename
+#:                                            never landed
+FLEET_CRASH_POINTS = (
+    "fleet_router_after_forward_before_ack",
+    "fleet_migrate_after_snapshot_before_handoff",
+    "fleet_migrate_after_handoff_before_restore",
+    "fleet_claim_tmp_before_rename",
+)
+
+#: crash points of the autoscaler (:mod:`hyperopt_tpu_torch.serve.pilot`):
+#:     pilot_after_decision_before_actuate  the decision is recorded, no fleet
+#:                                          primitive has run
+#:     pilot_mid_scale_out                  on the fleet's plan inside
+#:                                          ``add_replica``: the ring holds
+#:                                          the new replica, only the first
+#:                                          remapped study moved
+PILOT_CRASH_POINTS = (
+    "pilot_after_decision_before_actuate",
+    "pilot_mid_scale_out",
+)
+
 from .netfaults import (  # noqa: E402 -- re-exported beside FaultPlan
     NET_CRASH_POINTS,
     FaultyWire,
@@ -108,7 +140,8 @@ from .netfaults import (  # noqa: E402 -- re-exported beside FaultPlan
 # the durable saver's window is also the driver's fourth point: listed once
 ALL_CRASH_POINTS = tuple(dict.fromkeys(
     DRIVER_CRASH_POINTS + SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + SHA_CRASH_POINTS
-    + CHECKPOINT_CRASH_POINTS + OBS_CRASH_POINTS + NET_CRASH_POINTS))
+    + CHECKPOINT_CRASH_POINTS + FLEET_CRASH_POINTS + OBS_CRASH_POINTS + PILOT_CRASH_POINTS
+    + NET_CRASH_POINTS))
 
 #: the transient errno mix a flaky mount produces (``ENOENT`` may be added
 #: to a plan's ``errors`` to simulate a visibility lag)

@@ -1,5 +1,6 @@
 """Prometheus-style text exposition of collected registry rows (a copy
-of :mod:`hyperopt_tpu.obs.expo`'s renderer): each row is a plain dict
+of :mod:`hyperopt_tpu.obs.expo`: the renderer, and the label stamping and
+merge a fleet-wide scrape uses): each row is a plain dict
 with name/type/help/labels and either a scalar ``value`` or a
 histogram's buckets/sum/count, as
 :meth:`~hyperopt_tpu_torch.obs.registry.MetricsRegistry.collect` returns
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["render_prometheus"]
+__all__ = ["merge_rows", "render_prometheus", "tag_rows"]
 
 
 def _fmt_value(v):
@@ -39,6 +40,27 @@ def _label_str(labels, extra=None):
         f'{k}="{_escape(v)}"' for k, v in sorted(items.items())
     )
     return "{" + body + "}"
+
+
+def tag_rows(rows, **labels):
+    """Stamp extra labels onto collected rows (the router tags each
+    replica's rows with ``replica=<rid>`` before merging); a row that
+    already carries a label keeps its own value."""
+    out = []
+    for row in rows:
+        row = dict(row)
+        row["labels"] = {**labels, **(row.get("labels") or {})}
+        out.append(row)
+    return out
+
+
+def merge_rows(*row_lists):
+    """Concatenate collected-row lists (label sets keep the series
+    distinct; the exposition groups HELP/TYPE by name)."""
+    out = []
+    for rows in row_lists:
+        out.extend(rows)
+    return out
 
 
 def render_prometheus(rows):

@@ -10,14 +10,16 @@ nothing is fetched.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
-__all__ = ["CudaKernel", "NVCC_FLAGS"]
+__all__ = ["CudaKernel", "LaunchTally", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -44,15 +46,31 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels are built on the machine with the card")
 
 
+class LaunchTally:
+    """The launches one owner made (:meth:`CudaKernel.counting_into`); its
+    threads may launch at once (a round and an abandoned watchdog worker)."""
+
+    def __init__(self):
+        self.n = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self.n += 1
+
+
 class CudaKernel:
     """One kernel: its source, its C entry point, and its launch count.
 
     ``launches`` counts the launches made by the kernel's wrapper (a plain
     int the caller may reset), so a run can show that its main path went
-    through the kernel.  ``build_seconds`` and ``build_log`` (nvcc's
-    ``-Xptxas=-v`` report of registers, shared memory and spills) are set
-    by the build that produced the loaded library, or stay None when it
-    was already built.
+    through the kernel.  It counts for the whole process; a launch made
+    inside a :meth:`counting_into` block also counts into that block's
+    :class:`LaunchTally`, so one of several services in a process can
+    count its own rounds' launches.  ``build_seconds`` and ``build_log``
+    (nvcc's ``-Xptxas=-v`` report of registers, shared memory and spills)
+    are set by the build that produced the loaded library, or stay None
+    when it was already built.
     """
 
     def __init__(self, source, symbol, argtypes):
@@ -63,6 +81,24 @@ class CudaKernel:
         self.build_seconds = None
         self.build_log = None
         self._fn = None
+        self._local = threading.local()
+
+    def count_launch(self):
+        """Count one launch (the wrapper calls it where it launches)."""
+        self.launches += 1
+        tally = getattr(self._local, "tally", None)
+        if tally is not None:
+            tally.add()
+
+    @contextlib.contextmanager
+    def counting_into(self, tally):
+        """Count this thread's launches inside the block into ``tally``."""
+        prev = getattr(self._local, "tally", None)
+        self._local.tally = tally
+        try:
+            yield tally
+        finally:
+            self._local.tally = prev
 
     def library_path(self):
         src = os.path.join(CSRC_DIR, self.source)

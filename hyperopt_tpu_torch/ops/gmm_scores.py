@@ -223,5 +223,5 @@ def _launch_checked(x, logspace, pre_b, pre_a, split_dims):
     err = launch(x, logspace, pre_b, pre_a, out, config)
     if err != 0:
         raise RuntimeError(f"gmm_llr: kernel launch failed with CUDA error {err}")
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return out

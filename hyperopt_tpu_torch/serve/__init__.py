@@ -17,12 +17,21 @@ boundary ACROSS studies as LLM serving batches requests:
   the TCP front (``serve_forever``, the ``hyperopt-tpu-torch-serve``
   console script);
 * :mod:`.frames` -- the wire: JSON lines, negotiated binary frames and
-  pipelining, byte for byte the reference's.
+  pipelining, byte for byte the reference's;
+* :mod:`.fleet`, :mod:`.router` -- the horizontal tier above one service:
+  replicas over one study root fenced by per-study claim/epoch tokens
+  (:class:`StudyClaim`), placed by the consistent-hash ring
+  (:class:`HashRing`), migrated by snapshot and handoff, failed over by
+  takeover (:class:`Fleet`), routed in-process (:class:`FleetRouter`) or
+  as a process (the ``hyperopt-tpu-torch-router`` console script);
+* :mod:`.pilot`, :mod:`.replay` -- the autoscaler that reads only the
+  fleet's scrape (:class:`FleetPilot`, :class:`PilotConfig`), and
+  flight-recorder logs replayed as traffic (:func:`extract_workload`,
+  :func:`replay_flight_log`, :func:`stream_hash`).
 
 ``fmin(engine=True)`` is an in-process client of this engine, and
 :class:`~hyperopt_tpu_torch.client.RemoteStudy` a socket client
-(:mod:`hyperopt_tpu_torch.client`).  The fleet is not ported yet
-(``ROADMAP.md`` Queue A, item 12d).
+(:mod:`hyperopt_tpu_torch.client`).
 
 Example, on the card::
 
@@ -34,16 +43,49 @@ Example, on the card::
     tid, vals = study.ask()
     study.tell(tid, (vals["x"] - 1) ** 2)
     svc.shutdown()
+
+A fleet of three replicas on the card, routed in-process::
+
+    from hyperopt_tpu_torch.serve import Fleet, FleetRouter
+
+    fleet = Fleet({"x": hp.uniform("x", -5, 5)}, "/shared/studies", n_replicas=3)
+    router = FleetRouter(fleet)
+    router.create_study("s0", seed=1)
+    tid, vals = router.ask("s0")
+    router.tell("s0", tid, (vals["x"] - 1) ** 2)
+    fleet.shutdown()
 """
 
-__all__ = ["StudyHandle", "SuggestService"]
+__all__ = [
+    "StudyHandle", "SuggestService",
+    # the fleet: the horizontal tier above one service
+    "Fleet", "FleetRouter", "HashRing", "StudyClaim",
+    # the autoscaler and traffic replay
+    "FleetPilot", "PilotConfig",
+    "extract_workload", "replay_flight_log", "stream_hash",
+]
+
+_HOMES = {
+    "StudyHandle": "service",
+    "SuggestService": "service",
+    "Fleet": "fleet",
+    "StudyClaim": "fleet",
+    "FleetRouter": "router",
+    "HashRing": "router",
+    "FleetPilot": "pilot",
+    "PilotConfig": "pilot",
+    "extract_workload": "replay",
+    "replay_flight_log": "replay",
+    "stream_hash": "replay",
+}
 
 
 def __getattr__(name):
     # lazy, as the reference's: ``python -m hyperopt_tpu_torch.serve.service``
     # then runs the one copy of the module
-    if name in __all__:
-        from . import service
+    home = _HOMES.get(name)
+    if home is not None:
+        import importlib
 
-        return getattr(service, name)
+        return getattr(importlib.import_module(f".{home}", __name__), name)
     raise AttributeError(name)

@@ -76,6 +76,8 @@ from ..obs.registry import (
     HistogramAttr,
     MetricsRegistry,
 )
+from ..ops.cuda_build import LaunchTally
+from ..ops.gmm_scores import KERNEL
 from ..torch_trials import MAX_PENDING_DELTAS, MIN_CAPACITY, ObsBuffer
 from .batched import (
     _dummy_delta,
@@ -148,9 +150,11 @@ class ServeStudy:
     (None, or the most served-but-untold suggestions before a queued ask
     may be picked), ``client_state_fn`` (extra durable state for the
     snapshot), ``client_blob``/``restore_records`` (what a restore
-    hands back to the client) and ``ask_keys`` (the socket client's ask
-    keys and the tids they were served as, the most recent
-    ``ASK_KEYS_KEPT``: a resubmitted ask gets its first tid again)."""
+    hands back to the client), ``claim`` (a fleet replica's
+    :class:`~hyperopt_tpu_torch.serve.fleet.StudyClaim`) and ``ask_keys``
+    (the socket client's ask keys and the tids they were served as, the
+    most recent ``ASK_KEYS_KEPT``: a resubmitted ask gets its first tid
+    again)."""
 
     def __init__(self, name, seed, ps):
         self.name = name
@@ -169,6 +173,7 @@ class ServeStudy:
         self.outstanding = {}  # tid -> served vals (awaiting their tell)
         self.pending_asks = {}  # tid -> seed: logged, not served yet
         self.persist = None
+        self.claim = None  # the fleet's StudyClaim, when the service has an owner
         self.host_algo = None
         self.fresh_window = None
         self.client_state_fn = None
@@ -285,6 +290,10 @@ class BatchScheduler:
         _no_mesh(mesh)
         self.metrics = MetricsRegistry("serve")
         self.recorder = recorder if recorder is not None else NULL_RECORDER
+        self.span_ids = {}  # stamped on every span (a fleet replica's id)
+        # the gmm_llr launches of this scheduler's own rounds, whatever
+        # other services of the process launch meanwhile
+        self._launch_tally = LaunchTally()
         self.device_metrics_every = int(device_metrics_every)
         self._device_metrics_fn = None  # built at the first dispatch due
         self._device_metrics_due = False
@@ -358,12 +367,20 @@ class BatchScheduler:
             getattr(self, attr)
         self._delta_cache = None
 
+    @contextlib.contextmanager
     def _on_device(self):
         """The round's CUDA device context (the background loop and the
-        watchdog's worker are threads of their own)."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
+        watchdog's worker are threads of their own), with the kernel's
+        launches on this thread counted as this scheduler's."""
+        device = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                  else contextlib.nullcontext())
+        with device, KERNEL.counting_into(self._launch_tally):
+            yield
+
+    @property
+    def kernel_launches(self):
+        """``gmm_llr`` launches made by this scheduler's rounds."""
+        return self._launch_tally.n
 
     # -- tenancy -----------------------------------------------------------
     def _alloc_slot(self):
@@ -439,15 +456,18 @@ class BatchScheduler:
                     self._pending_barrier.add(study.persist.wal)
             if rec.enabled:
                 t1 = time.perf_counter()
-                rec.record("tell.wal_append", t0, t1, study=study.name, tid=int(tid))
+                rec.record("tell.wal_append", t0, t1, study=study.name, tid=int(tid),
+                           **self.span_ids)
             self.fs.crashpoint("serve_after_wal_before_dispatch")
             self._apply_tell(study, tid, vals, loss)
             study.outstanding.pop(tid, None)
             study.pending_asks.pop(int(tid), None)
             if rec.enabled:
                 t2 = time.perf_counter()
-                rec.record("tell.applied", t1, t2, study=study.name, tid=int(tid))
-                rec.record("tell", t0, t2, study=study.name, tid=int(tid), loss=float(loss))
+                rec.record("tell.applied", t1, t2, study=study.name, tid=int(tid),
+                           **self.span_ids)
+                rec.record("tell", t0, t2, study=study.name, tid=int(tid), loss=float(loss),
+                           **self.span_ids)
             # a tell can open a study's fresh_window gate
             self._cond.notify_all()
 
@@ -595,7 +615,7 @@ class BatchScheduler:
             self._queued_per_study[study.name] += 1
             if self.recorder.enabled:
                 self.recorder.event("ask.submit", study=study.name, tid=tid,
-                                    queue_depth=len(self._asks))
+                                    queue_depth=len(self._asks), **self.span_ids)
             self._cond.notify_all()
             return req
 
@@ -730,7 +750,7 @@ class BatchScheduler:
             rec, now2 = self.recorder, time.perf_counter()
             for req in picked:
                 rec.record("ask.queued", req.t_submit, now2, study=req.study.name,
-                           tid=req.tid)
+                           tid=req.tid, **self.span_ids)
         return picked
 
     def step(self):
@@ -891,7 +911,7 @@ class BatchScheduler:
                 served += 1
                 if rec.enabled:
                     rec.record("ask.delivered", req.t_submit, now, study=req.study.name,
-                               tid=req.tid, slot=req.study.slot)
+                               tid=req.tid, slot=req.study.slot, **self.span_ids)
         return served
 
     def _serve_host_picks(self, host_picked, fire_crashpoint):
@@ -985,7 +1005,7 @@ class BatchScheduler:
             self.guard_checks += 1
         if self.recorder.enabled:
             self.recorder.record("serve.dispatch", t_disp, time.perf_counter(),
-                                 n_picked=len(picked), slots=s)
+                                 n_picked=len(picked), slots=s, **self.span_ids)
         bad_slots = self._quarantine(poisoned)
         self.fs.crashpoint("serve_after_dispatch_before_ack")
         now = time.perf_counter()

@@ -27,11 +27,17 @@ stopped; ``ask(recover=True)`` serves a crashed client's undelivered ask
 again.  The WAL records are the reference's bytes; the snapshot pickles
 the port's own objects and is not read across the packages.
 
+``owner=`` gives the service a fleet identity (:mod:`.fleet`): with a
+``root`` every study is fenced by a per-study claim/epoch token
+(:class:`~hyperopt_tpu_torch.serve.fleet.StudyClaim`, the reference's
+file bytes), so a replica whose study was taken over
+(``create_study(takeover=True)`` on another replica) or handed off
+(:meth:`SuggestService.handoff_study`) gets :class:`~hyperopt_tpu_torch.
+exceptions.OwnershipLost` instead of serving it twice.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-``ROADMAP.md`` Queue A item that brings them (a refusal rides a socket
-reply as an ``ok: false`` error): ``owner=``, ``create_study(
-takeover=True)`` and ``handoff_study`` (the fleet, item 12d) here, and
-``mesh=`` (item 15) by the scheduler and ``main``'s ``--mesh-devices``.
+``ROADMAP.md`` Queue A item that brings it: ``mesh=`` (item 15) by the
+scheduler and ``main``'s ``--mesh-devices``.
 """
 
 from __future__ import annotations
@@ -51,7 +57,6 @@ from ..distributed.faults import REAL_FS
 from ..exceptions import CheckpointError, DeadlineExpired, Overloaded, ServeError
 from ..obs.expo import render_prometheus
 from ..ops.compile import compile_space
-from ..ops.gmm_scores import KERNEL
 from ..utils.checkpoint import (
     decode_rstate,
     durable_pickle,
@@ -276,6 +281,7 @@ class StudyHandle:
         """Queue one ask; returns a Future of ``(tid, vals)``.  Raises
         :class:`~hyperopt_tpu_torch.exceptions.Overloaded` when admission
         control refuses the submit."""
+        self._service._fence(self._study)
         return self._service.scheduler.submit_ask(self._study).future
 
     def ask(self, timeout=60.0, recover=False, backoff=False, ask_id=None):
@@ -303,6 +309,7 @@ class StudyHandle:
         deadline = time.perf_counter() + float(timeout)
         while True:
             remaining = deadline - time.perf_counter()
+            self._service._fence(self._study)
             try:
                 req = self._service.scheduler.submit_ask(
                     self._study, deadline=time.perf_counter() + max(remaining, 0.0))
@@ -367,7 +374,10 @@ class SuggestService:
     every ``snapshot_cadence`` tells) and :meth:`create_study` restores a
     study the root already holds; ``fs`` is the fault seam shared by the
     scheduler and every WAL and snapshot write; ``group_commit`` makes
-    one fsync per round cover its tells.
+    one fsync per round cover its tells.  ``owner`` is a fleet replica's
+    id: with a ``root`` each study is claimed for it and every ask and
+    tell is fenced by the claim; every metric series and span carries it
+    as the ``replica`` label.
     """
 
     def __init__(self, space, algo="tpe", root=None, max_batch=64, max_wait_ms=2.0,
@@ -376,8 +386,6 @@ class SuggestService:
                  finite_check=True, mesh=None, owner=None, recorder=None,
                  device_metrics_every=0, retry_jitter=0.25, retry_jitter_seed=0,
                  group_commit=True, device=None, **algo_kw):
-        if owner is not None:
-            raise _not_ported("SuggestService(owner=) (fleet claims)", "12d")
         self.space = space
         self.ps = compile_space(space, device=device)
         self.device = self.ps.device
@@ -386,6 +394,7 @@ class SuggestService:
         self.snapshot_cadence = int(snapshot_cadence)
         self._guard = _study_guard(algo, space)
         self._background = bool(background)
+        self.owner = None if owner is None else str(owner)
         self._lock = threading.RLock()
         self._handles = {}
         self.scheduler = BatchScheduler(
@@ -397,6 +406,10 @@ class SuggestService:
             retry_jitter_seed=retry_jitter_seed, group_commit=group_commit, **algo_kw,
         )
         self.recorder = self.scheduler.recorder
+        if self.owner is not None:
+            # a fleet scrape and trace tell the replicas apart by this label
+            self.scheduler.metrics.const_labels["replica"] = self.owner
+            self.scheduler.span_ids["replica"] = self.owner
         if self._background:
             self.scheduler.start()
 
@@ -404,20 +417,36 @@ class SuggestService:
     def create_study(self, name, seed=0, takeover=False, host_algo=None):
         """Open (or re-attach to, or restore) a study by name.
 
-        ``takeover=True`` (adopting a study another fleet replica owned)
-        is not ported yet (item 12d).  ``host_algo`` (in-process clients)
-        attaches a per-study hook
-        ``hook(seed) -> (values [D, 1], active [D, 1])`` that serves the
-        study instead of the stacked step (ATPE's host decision layer
-        cannot run across studies); the study then takes no slot."""
-        if takeover:
-            raise _not_ported("create_study(takeover=True) (fleet adoption)", "12d")
+        With a fleet identity (``owner=`` and a ``root``) the study's claim
+        is acquired first: a study another replica owns is refused with
+        :class:`~hyperopt_tpu_torch.exceptions.OwnershipLost` unless
+        ``takeover=True`` (the failover and migration path, which bumps
+        the claim's epoch and fences the previous owner out).  A study
+        this replica still holds under a claim it lost is, with
+        ``takeover=True``, dropped and restored from the root: every
+        local change since the takeover was fenced off, so the root is
+        the truth.  ``host_algo`` (in-process clients) attaches a
+        per-study hook ``hook(seed) -> (values [D, 1], active [D, 1])``
+        that serves the study instead of the stacked step (ATPE's host
+        decision layer cannot run across studies); the study then takes
+        no slot."""
         if not _NAME_RE.fullmatch(name):
             raise ValueError(f"study name {name!r} must match {_NAME_RE.pattern}")
         with self._lock:
             handle = self._handles.get(name)
             if handle is not None:
-                return handle
+                stale = handle._study.claim
+                if not (takeover and stale is not None and not stale.is_live()):
+                    return handle
+                # a rejoining replica: it lost the claim while cut off, and
+                # the router adopts the study here again
+                self._drop_fenced(name)
+            claim = None
+            if self.owner is not None and self.root is not None:
+                from .fleet import StudyClaim
+
+                claim = StudyClaim.acquire(self.root, name, self.owner, fs=self.fs,
+                                           takeover=takeover)
             persist = study = None
             if self.root is not None:
                 persist = StudyPersistence(self.root, name, self._guard, fs=self.fs,
@@ -428,41 +457,112 @@ class SuggestService:
                 if persist is not None:
                     persist.log_open(seed)
             study.persist = persist
+            study.claim = claim
             study.host_algo = host_algo  # before open: it decides the slot
             self.scheduler.open_study(name, seed, study=study)
             if self.recorder.enabled:
                 # the study's effective seed (restored or new)
-                self.recorder.event("study.open", study=name, seed=int(study.seed))
+                self.recorder.event("study.open", study=name, seed=int(study.seed),
+                                    **self.scheduler.span_ids)
             handle = self._handles[name] = StudyHandle(self, study)
             return handle
 
-    def close_study(self, name):
+    def _fenced_off(self, study):
+        return study.claim is not None and not study.claim.is_live()
+
+    def _drop_fenced(self, name):
+        """Forget a study whose claim another replica took: close its WAL
+        and write nothing, since the root now belongs to the new owner."""
         with self._lock:
-            if self._handles.pop(name, None) is None:
+            self._handles.pop(name, None)
+            study = self.scheduler.close_study(name)
+        self._close_wal(study)
+        return study
+
+    def _close_wal(self, study):
+        # under the scheduler's lock: a round may still barrier the WAL
+        if study.persist is not None:
+            with self.scheduler._lock:
+                study.persist.close()
+
+    def close_study(self, name):
+        """Close a study: a final snapshot and the claim's release.  A study
+        this replica was fenced off from is only forgotten: its snapshot
+        would overwrite what the new owner logged since the takeover."""
+        with self._lock:
+            handle = self._handles.get(name)
+            if handle is None:
                 return
+            if self._fenced_off(handle._study):
+                self._drop_fenced(name)
+                return
+            self._handles.pop(name)
             study = self.scheduler.close_study(name)
         # the durable close runs outside the registry lock: the study is
         # unregistered, and its WAL holds every tell
         if study.persist is not None:
-            study.persist.maybe_snapshot(study, force=True)
-            study.persist.close()
+            self._snapshot(study, force=True)
+        self._close_wal(study)
+        if study.claim is not None:
+            study.claim.release()
 
     def handoff_study(self, name):
-        """Release a study to another fleet replica: not ported yet."""
-        raise _not_ported("handoff_study (fleet migration)", "12d")
+        """The source half of a migration: publish a final snapshot while
+        still owning the study, then (past the
+        ``fleet_migrate_after_snapshot_before_handoff`` crash point, where
+        an aborted migration leaves this replica owning and serving it)
+        unregister it, close its WAL and release its claim with the
+        handoff mark, so the target adopts it with the next epoch.  The
+        artifacts in the shared root are the handoff: nothing is copied."""
+        with self._lock:
+            handle = self._handles.get(name)
+            if handle is None:
+                raise ValueError(f"study {name!r} is not open here")
+            study = handle._study
+            if self._fenced_off(study):
+                # taken over already: the target adopts from the root as is
+                return self._drop_fenced(name)
+        if study.persist is not None:
+            self._snapshot(study, force=True)
+        self.fs.crashpoint("fleet_migrate_after_snapshot_before_handoff")
+        with self._lock:
+            self._handles.pop(name, None)
+            self.scheduler.close_study(name)
+        self._close_wal(study)
+        if study.claim is not None:
+            # adoption overwrites the mark: one still on disk is a study
+            # stranded between handoff and restore (fsck's
+            # study_half_migrated)
+            study.claim.release(handoff=True)
+        return study
 
     def studies(self):
         with self._lock:
             return sorted(self._handles)
 
     # -- the handle's plumbing ---------------------------------------------
+    def _snapshot(self, study, force=False):
+        """A study's snapshot at its cadence (``force``: now), under the
+        scheduler's lock: a round appends to the same WAL and reads the
+        same history, and the snapshot compacts that WAL."""
+        with self.scheduler._lock:
+            return study.persist.maybe_snapshot(study, force=force)
+
+    def _fence(self, study):
+        """The ownership fence: refuse to act on a study whose claim this
+        replica no longer holds (a no-op without claims)."""
+        if study.claim is not None:
+            study.claim.ensure_live()
+
     def _submit(self, study, timeout=None, replay=None):
+        self._fence(study)
         deadline = None if timeout is None else time.perf_counter() + float(timeout)
         return self.scheduler.submit_ask(study, deadline=deadline, replay=replay)
 
     def _recover_ask(self, study, timeout):
         """Serve the smallest undelivered suggestion again for a client
         that lost its reply, or None when nothing is undelivered."""
+        self._fence(study)
         cand = sorted(set(study.pending_asks) | set(study.outstanding))
         if not cand:
             return None
@@ -482,6 +582,7 @@ class SuggestService:
         which would skip a seed and leave a suggestion nobody tells.
         A key not seen before is an ordinary ask (``recover`` as
         :meth:`StudyHandle.ask`'s)."""
+        self._fence(study)
         with self.scheduler._lock:
             tid = study.ask_keys.get(key)
             if tid is None and recover:
@@ -512,16 +613,20 @@ class SuggestService:
                 f"study {study.name!r} has no outstanding suggestion for tid "
                 f"{tid}; pass vals= explicitly"
             )
+        # the fence comes before the WAL append: a replica whose claim was
+        # taken over must not write into the log the new owner appends to
+        self._fence(study)
         self.scheduler.tell(study, tid, vals, loss, result=result)
         if study.persist is not None and study.client_state_fn is None:
             # a client's study snapshots at trial boundaries instead, so
             # the bundle never captures a doc mid-finalize
-            study.persist.maybe_snapshot(study)
+            self._snapshot(study)
 
     def _fail(self, study, tid, doc=None):
+        self._fence(study)
         self.scheduler.tell_failure(study, tid, doc=doc)
         if study.persist is not None and study.client_state_fn is None:
-            study.persist.maybe_snapshot(study)
+            self._snapshot(study)
 
     def _await(self, req, timeout):
         """Block on one admitted ask under its client deadline: pump
@@ -536,10 +641,14 @@ class SuggestService:
                         break
                     time.sleep(0.001)
             if fut.done():
-                return fut.result(timeout=0)
+                out = fut.result(timeout=0)
+                self._fence(req.study)  # a replica fenced off must not deliver
+                return out
         else:
             try:
-                return fut.result(timeout=timeout)
+                out = fut.result(timeout=timeout)
+                self._fence(req.study)
+                return out
             except FutureTimeout:
                 pass
         if self.scheduler.drop_request(req):
@@ -595,7 +704,7 @@ class SuggestService:
         m.gauge("serve_queue_depth", "asks queued").set(len(s._asks))
         m.gauge("serve_ready", "1 = accepting asks").set(1 if self.ready() else 0)
         m.gauge("serve_kernel_launches",
-                "gmm_llr kernel launches in this process").set(KERNEL.launches)
+                "gmm_llr kernel launches of this service's rounds").set(s.kernel_launches)
         return m.collect()
 
     def metrics_text(self):
@@ -627,6 +736,7 @@ class SuggestService:
         return {
             "status": status,
             "ready": self.ready(),
+            "owner": self.owner,
             "studies": n_studies,
             "queue_depth": len(s._asks),
             "max_queue": s.max_queue,
@@ -947,7 +1057,9 @@ def main(argv=None):
                         help="shard the study slot axis over this many devices (not ported "
                         "yet: only 0, the single-card engine)")
     parser.add_argument("--owner", default=None,
-                        help="fleet replica identity (not ported yet)")
+                        help="fleet replica identity: with --root, every study is fenced by a "
+                        "per-study claim/epoch token (hyperopt-tpu-torch-router fronts such "
+                        "replicas)")
     parser.add_argument("--flight-log", default=None, metavar="PATH",
                         help="arm the flight recorder with a durable span export at PATH "
                         "(scrape live with hyperopt-tpu-torch-scope trace, post-mortem with "

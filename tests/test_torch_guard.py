@@ -237,3 +237,126 @@ def test_no_cuda_means_no_silent_cpu_schedulers(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_fleet_router_and_fsck_in_a_fresh_process_load_no_jax(tmp_path):
+    """(a'''') the fleet on the CPU -- three replicas, a kill and its
+    failover, the pilot's scale-out, a TCP router in front of two replica
+    fronts, the flight log replayed, fsck over the root -- and afterwards
+    neither jax nor the JAX package is in sys.modules."""
+    code = textwrap.dedent(f"""
+        import sys, threading
+        from hyperopt_tpu_torch.client import RemoteStudy
+        from hyperopt_tpu_torch.distributed import fsck
+        from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+        from hyperopt_tpu_torch.obs import FlightRecorder
+        from hyperopt_tpu_torch.serve import (Fleet, FleetPilot, FleetRouter, PilotConfig,
+                                              SuggestService)
+        from hyperopt_tpu_torch.serve.fleet import fleet_salt
+        from hyperopt_tpu_torch.serve.replay import ServiceTarget, load_workload, replay_workload
+        from hyperopt_tpu_torch.serve.router import RouterServer, _Backend
+        from hyperopt_tpu_torch.serve.service import serve_forever
+
+        root, log = {str(tmp_path / "root")!r}, {str(tmp_path / "f.jsonl")!r}
+        kw = dict(max_batch=4, n_startup_jobs=2, n_cand=8, device="cpu")
+        fleet = Fleet(mixed_space(), root, n_replicas=3, recorder=FlightRecorder(path=log), **kw)
+        router = FleetRouter(fleet)
+        for i in range(4):
+            router.create_study(f"s{{i}}", seed=i)
+        for r in range(3):
+            if r == 1:
+                fleet.kill_replica(fleet.route("s0"))
+            for n, (tid, vals) in router.ask_batch([f"s{{i}}" for i in range(4)]).items():
+                router.tell(n, tid, mixed_space_fn(vals), vals=vals)
+        pilot = FleetPilot(fleet, config=PilotConfig(max_replicas=3, queue_high=0, breach_ticks=1))
+        assert pilot.tick().action == "scale_out"
+        fleet.shutdown()
+        target = ServiceTarget(SuggestService(mixed_space(), background=False, **kw))
+        assert sum(map(len, replay_workload(load_workload(log), target).values())) == 12
+        target.service.shutdown()
+        assert fsck.main(["--serve", root]) == 0
+        svcs = [SuggestService(mixed_space(), root=root + "2", owner=f"b{{i}}", **kw)
+                for i in range(2)]
+        fronts = [serve_forever(s, port=0) for s in svcs]
+        for f in fronts:
+            threading.Thread(target=f.serve_forever, daemon=True).start()
+        rs = RouterServer([_Backend(f"b{{i}}", *f.server_address[:2])
+                           for i, f in enumerate(fronts)],
+                          salt=fleet_salt("tpe", mixed_space())).serve_forever(port=0)
+        threading.Thread(target=rs.serve_forever, daemon=True).start()
+        c = RemoteStudy(*rs.server_address[:2], "t", seed=1)
+        tid, vals = c.ask(timeout=60)
+        c.tell(tid, mixed_space_fn(vals), vals)
+        c.close()
+        for s in [rs] + fronts:
+            s.shutdown()
+            s.server_close()
+        for s in svcs:
+            s.shutdown()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_no_cuda_means_no_silent_cpu_fleet(monkeypatch, tmp_path):
+    """(c''') without CUDA, ``Fleet()`` raises unless the caller passes
+    device="cpu", and builds no replica; ``router.main``, which serves
+    nothing itself, answers a study whose backend is gone with a typed
+    ``ReplicaDead`` and never builds a service of its own on the CPU."""
+    import json
+    import socket
+    import threading
+
+    from hyperopt_tpu_torch.serve import Fleet, router
+    from hyperopt_tpu_torch.serve import service as service_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Fleet(mixed_space(), str(tmp_path / "root"), n_replicas=2)
+    assert not os.path.exists(str(tmp_path / "root")) or not os.listdir(str(tmp_path / "root"))
+
+    def no_service(*args, **kw):
+        raise AssertionError("the router built a service")
+
+    monkeypatch.setattr(service_mod.SuggestService, "__init__", no_service)
+    servers = []
+    real = router.RouterServer.serve_forever
+
+    def capture(self, *args, **kw):
+        servers.append(real(self, *args, **kw))
+        return servers[-1]
+
+    monkeypatch.setattr(router.RouterServer, "serve_forever", capture)
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_port = dead.getsockname()[1]
+    dead.close()  # nobody listens there
+    done = []
+    t = threading.Thread(target=lambda: done.append(router.main([
+        "--space", "hyperopt_tpu_torch.models.synthetic:mixed_space", "--port", "0",
+        "--probe-interval", "0", "--backend", f"r0=127.0.0.1:{dead_port}"])), daemon=True)
+    t.start()
+    for _ in range(500):
+        if servers:
+            break
+        threading.Event().wait(0.01)
+    host, port = servers[0].server_address[:2]
+    with socket.create_connection((host, port), timeout=30) as sock:
+        f = sock.makefile("rwb")
+        f.write(b'{"op": "create_study", "name": "s", "seed": 1}\n')
+        f.flush()
+        reply = json.loads(f.readline())
+        f.close()
+    servers[0].shutdown()
+    t.join(timeout=30)
+    assert done == [0]
+    assert not reply["ok"] and reply["error_type"] == "ReplicaDead", reply

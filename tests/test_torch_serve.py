@@ -574,7 +574,20 @@ def test_front_health_metrics_and_shutdown():
 def test_unported_options_raise(kw, item):
     """What waits for a later slice raises naming its item; item 16's
     ``device_metrics_every`` is ported, and its service runs the twin
-    (``tests/test_torch_obs_device.py`` holds it to the reference)."""
+    (``tests/test_torch_obs_device.py`` holds it to the reference), and
+    so is item 12d's ``owner=``: its series and spans carry the replica's
+    id (``tests/test_torch_fleet.py`` holds the claims to the
+    reference's)."""
+    if item == "12d":
+        svc = service(**kw)
+        h = svc.create_study("s0", seed=1)
+        tid, vals = h.ask()
+        h.tell(tid, loss_fn(vals))
+        assert svc.health()["owner"] == "r0"
+        rows = svc.metrics_rows()
+        assert rows and all(r["labels"].get("replica") == "r0" for r in rows)
+        svc.shutdown()
+        return
     if item == "16":
         svc = service(**kw)
         h = svc.create_study("s0", seed=1)

@@ -348,3 +348,47 @@ def test_serve_points_registered():
         "serve_after_wal_before_dispatch", "serve_mid_batch",
         "serve_after_dispatch_before_ack", "serve_group_commit_after_flush_before_barrier",
     }
+
+
+def test_snapshots_never_race_a_round_on_one_wal(tmp_path):
+    """A background service snapshotting after every tell while its loop
+    serves other studies: the snapshot compacts a WAL that the next round
+    barriers (group commit), so the two must not interleave.  Sixteen
+    client threads (more than the cores), a short switch interval: every
+    ask and tell succeeds, every tell is logged once and restores."""
+    import sys
+    import threading
+
+    root = str(tmp_path / "root")
+    svc = SuggestService({"x": hp.uniform("x", -5, 5), "c": hp.choice("c", [0, 1, 2])},
+                         root=root, background=True, max_batch=16, n_startup_jobs=2,
+                         n_cand=8, n_cand_cat=4, snapshot_cadence=1, device="cpu")
+    errors, n_tells = [], 30
+
+    def client(i):
+        h = svc.create_study(f"s{i}", seed=i)
+        try:
+            for _ in range(n_tells):
+                tid, vals = h.ask(timeout=60)
+                h.tell(tid, vals["x"] ** 2)
+        except Exception as e:  # ferried to the assert below
+            errors.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads), "a client hung"
+    finally:
+        sys.setswitchinterval(interval)
+        svc.shutdown()
+    assert not errors, errors[:3]
+    again = SuggestService({"x": hp.uniform("x", -5, 5), "c": hp.choice("c", [0, 1, 2])},
+                           root=root, background=False, device="cpu", n_cand=8, n_cand_cat=4)
+    for i in range(16):
+        assert again.create_study(f"s{i}").n_tells == n_tells
+    again.shutdown()

@@ -160,15 +160,18 @@ network.  Every phase asserts, and a failure exits non-zero:
    (a)'s for the same seed, and the flight log replayed against a fresh
    service at ``replay_fidelity`` 1.0; (c) two console-script replicas
    (``--root R --owner r0``/``r1``, started together) behind the router's
-   console script (``python -m hyperopt_tpu_torch.serve.router
-   --space``), 4 ``RemoteStudy`` clients x 40 trials on binary frames, the
-   replica owning the first study SIGKILLed after 20 tells per study: the
+   console script (``python -m hyperopt_tpu_torch.serve.router --salt``
+   with the fleet's ``fleet_salt``), each replica warmed by one round, 4
+   ``RemoteStudy`` clients x 40 trials on binary frames, the replica
+   owning the first study SIGKILLed after 20 tells per study: the
    survivor adopts its studies, every stream bitwise an in-process clean
-   run, every tell logged once, the survivor's launches read from its
-   ``metrics`` op, ``fsck --serve`` at the kill naming the dead owner's
-   claims and after ``--repair`` every study restored on a fresh
-   service; (d) the kernel against its plain version at every launch
-   shape of (a)-(c).
+   run, every tell logged once, each replica's launches after its warm-up
+   read from its ``metrics`` op, ``fsck --serve`` at the kill naming the
+   dead owner's claims and after ``--repair`` every study restored on a
+   fresh service; (d) the kernel against its plain version at every
+   launch shape of (a)-(c); (c)'s shapes are not recorded in the replica
+   processes but derived from an in-process twin serving the same
+   studies: every fold of 1 to 4 of its shapes.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
@@ -2695,6 +2698,14 @@ def fleet_kw():
                 device=P11_DEVICE)
 
 
+def replica_counts(port, since=None):
+    """A console replica's ``serve_kernel_launches`` and
+    ``serve_dispatch_total`` from its ``metrics`` op, less ``since``."""
+    rows = {r["name"]: r.get("value") for r in frame_call(port, {"op": "metrics"})["metrics"]}
+    keys = ("serve_kernel_launches", "serve_dispatch_total")
+    return {k: rows[k] - (since or {}).get(k, 0) for k in keys}
+
+
 def run_fsck(*args):
     """``hyperopt_tpu_torch.distributed.fsck ... --format json`` as a
     process; returns its exit code and report."""
@@ -2922,19 +2933,21 @@ def phase12(card, sfu_per_s):
     try:
         ports = {rid: script_port(p, clog) for rid, p in procs.items()}
         start_s = time.perf_counter() - t0
-        # one round on each replica before any deadline of the router applies
+        # one round on each replica before any deadline of the router
+        # applies; the path's counts start after it
         for rid, port in ports.items():
             frame_call(port, {"op": "create_study", "name": f"warm-{rid}", "seed": 1})
             frame_call(port, {"op": "ask", "study": f"warm-{rid}", "timeout": 300})
             frame_call(port, {"op": "close_study", "study": f"warm-{rid}"})
+        warm = {rid: replica_counts(port) for rid, port in ports.items()}
+        salt = fleet_salt("tpe", mixed_space())
         t0 = time.perf_counter()
         rproc = script_start("hyperopt_tpu_torch.serve.router",
-                             ["--space", "hyperopt_tpu_torch.models.synthetic:mixed_space",
-                              "--port", "0", "--probe-interval", "0"]
+                             ["--salt", salt, "--port", "0", "--probe-interval", "0"]
                              + [f"--backend={r}=127.0.0.1:{p}" for r, p in ports.items()], clog)
         rport = script_port(rproc, clog)
         router_start_s = time.perf_counter() - t0
-        ring = HashRing(ports, salt=fleet_salt("tpe", mixed_space()))
+        ring = HashRing(ports, salt=salt)
         victim = ring.owner(cnames[0])
         survivor = next(r for r in ports if r != victim)
         barrier = threading.Barrier(len(cnames) + 1, timeout=600)
@@ -2965,8 +2978,7 @@ def phase12(card, sfu_per_s):
         runner = threading.Thread(target=drive, daemon=True)
         runner.start()
         barrier.wait()
-        pre = {rid: {r["name"]: r.get("value") for r in frame_call(
-            port, {"op": "metrics"})["metrics"]} for rid, port in ports.items()}
+        pre = replica_counts(ports[victim], since=warm[victim])
         owned = [n for n in cnames if StudyClaim.read(croot, n)["replica"] == victim]
         procs[victim].send_signal(signal.SIGKILL)
         procs[victim].wait(timeout=60)
@@ -2976,8 +2988,7 @@ def phase12(card, sfu_per_s):
         assert not runner.is_alive() and not errors, errors
         legs_s = time.perf_counter() - t0
         claims = {n: StudyClaim.read(croot, n)["replica"] for n in cnames}
-        post = {r["name"]: r.get("value") for r in frame_call(
-            ports[survivor], {"op": "metrics"})["metrics"]}
+        post = replica_counts(ports[survivor], since=warm[survivor])
     finally:
         for p in [*procs.values(), *([rproc] if rproc is not None else [])]:
             if p.poll() is None:
@@ -3000,36 +3011,42 @@ def phase12(card, sfu_per_s):
     ref.shutdown()
     ref_shapes = shapes.pop("fleet_process_inprocess")
     launches.pop("fleet_process_inprocess")
-    # the replicas fold 1..4 studies into a round: every such fold of each
-    # shape the in-process run launched
+    # the replicas' own launch shapes are not recorded (their processes run
+    # the console script untouched): a replica folds 1..4 of these studies
+    # into a round, so the kernel is checked at every such fold of each
+    # shape the in-process twin launched for the same studies
     shapes["fleet_process"] = {(b, k * dg, s_, kb, ka, dg) for (b, _, s_, kb, ka, dg) in ref_shapes
                                for k in range(1, P12_STUDIES + 1)}
-    proc_launches = pre[victim]["serve_kernel_launches"] + post["serve_kernel_launches"]
+    proc_launches = pre["serve_kernel_launches"] + post["serve_kernel_launches"]
     launches["fleet_process"] = proc_launches
     n_bitwise = sum(cstreams[n] == cwant[n] for n in cnames)
     kinds = sorted({i["kind"] for i in at_kill["issues"]})
     log(f"[12c] {card}: two hyperopt-tpu-torch-serve replicas (--root, --owner r0/r1, the "
         f"script's n_cand 16) started together in {start_s:.2f} s, warmed by one round each, "
-        f"behind hyperopt-tpu-torch-router --space (started in {router_start_s:.2f} s); "
+        f"behind hyperopt-tpu-torch-router --salt (started in {router_start_s:.2f} s); "
         f"{P12_STUDIES} RemoteStudy clients x {P12_TRIALS} trials on binary frames, {victim} "
         f"(owning {owned}) SIGKILLed after {P12_KILL_AT} tells per study: claims afterwards "
         f"{claims}; {n_bitwise} of {P12_STUDIES} streams bitwise the in-process clean run; "
-        f"every tell logged once (cold audit of the root); gmm_llr launches {victim} "
-        f"{pre[victim]['serve_kernel_launches']} before the kill + {survivor} "
-        f"{post['serve_kernel_launches']} in {post['serve_dispatch_total']} rounds (its metrics "
-        f"op); fsck at the kill (--live-owner {survivor}): rc {rc_kill}, kinds {kinds}; after "
+        f"every tell logged once (cold audit of the root); gmm_llr launches after the warm-up "
+        f"round (each replica's metrics op, less its reading after the warm-up): {victim} "
+        f"{pre['serve_kernel_launches']} in {pre['serve_dispatch_total']} rounds before the "
+        f"kill + {survivor} {post['serve_kernel_launches']} in {post['serve_dispatch_total']} "
+        f"rounds; fsck at the kill (--live-owner {survivor}): rc {rc_kill}, kinds {kinds}; after "
         f"the run: rc {rc_after}, {len(after['issues'])} issue(s); --repair rc {rc_repair}, "
         f"{repaired['remaining']} left; every study restored on a fresh service; legs "
         f"{legs_s:.2f} s")
     assert set(claims.values()) == {survivor}, claims
     assert n_bitwise == P12_STUDIES, "a process-fleet stream is not the clean run's"
-    assert post["serve_kernel_launches"] == post["serve_dispatch_total"] > 0, post
+    for counts in (pre, post):
+        assert counts["serve_kernel_launches"] == counts["serve_dispatch_total"] > 0, counts
     assert owned and rc_kill == 1 and kinds == ["claim_stale_foreign"], at_kill
     assert sorted(i["path"] for i in at_kill["issues"]) == sorted(
         os.path.join(croot, n + ".claim") for n in owned)
     assert rc_repair == 0 and not (repaired["remaining"] or []), repaired
     out["process"] = dict(start_s=start_s, router_start_s=router_start_s, legs_s=legs_s,
                           bitwise=n_bitwise, launches=proc_launches,
+                          launches_by_replica={victim: pre["serve_kernel_launches"],
+                                               survivor: post["serve_kernel_launches"]},
                           fsck_at_kill=kinds, fsck_after=len(after["issues"]))
 
     # -- 12d. the kernel at every launch shape of (a)-(c) ---------------------

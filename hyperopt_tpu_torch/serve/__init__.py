@@ -56,28 +56,23 @@ A fleet of three replicas on the card, routed in-process::
     fleet.shutdown()
 """
 
-__all__ = [
-    "StudyHandle", "SuggestService",
-    # the fleet: the horizontal tier above one service
-    "Fleet", "FleetRouter", "HashRing", "StudyClaim",
-    # the autoscaler and traffic replay
-    "FleetPilot", "PilotConfig",
-    "extract_workload", "replay_flight_log", "stream_hash",
-]
-
 _HOMES = {
     "StudyHandle": "service",
     "SuggestService": "service",
+    # the fleet: the horizontal tier above one service
     "Fleet": "fleet",
     "StudyClaim": "fleet",
     "FleetRouter": "router",
     "HashRing": "router",
+    # the autoscaler and traffic replay
     "FleetPilot": "pilot",
     "PilotConfig": "pilot",
     "extract_workload": "replay",
     "replay_flight_log": "replay",
     "stream_hash": "replay",
 }
+
+__all__ = list(_HOMES)
 
 
 def __getattr__(name):

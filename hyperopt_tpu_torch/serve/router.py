@@ -727,12 +727,12 @@ def main(argv=None):
             --owner r0 --port 7070 &
         hyperopt-tpu-torch-serve --space my.mod:space --root /shared/studies \\
             --owner r1 --port 7071 &
-        hyperopt-tpu-torch-router --space my.mod:space \\
+        hyperopt-tpu-torch-router --salt my-space \\
             --backend r0=127.0.0.1:7070 --backend r1=127.0.0.1:7071
 
-    The router computes nothing on a device: ``--space`` (with ``--algo``)
-    only derives the ring's salt, ``fleet_salt``, so a study lands where
-    any other router over the same fleet, of either package, places it.
+    Placement depends only on ``--salt``: a router of either package given
+    the same salt (for instance the fleet's ``fleet_salt``) places every
+    study on the same replica.
     """
     import argparse
 
@@ -744,13 +744,9 @@ def main(argv=None):
     )
     parser.add_argument("--backend", action="append", required=True, metavar="ID=HOST:PORT",
                         help="one replica endpoint (repeatable)")
-    parser.add_argument("--salt", default=None,
-                        help="the ring's salt (default: the fleet salt of --space and --algo, "
-                        "or '' without --space)")
-    parser.add_argument("--space", default=None,
-                        help="module:attr of the fleet's search space (or a zero-arg "
-                        "factory): the salt is its guard, the reference's fleet_salt")
-    parser.add_argument("--algo", default="tpe", choices=("tpe", "anneal"))
+    parser.add_argument("--salt", default="",
+                        help="ring salt -- use the fleet's space/guard fingerprint so placement "
+                        "matches any other router over the same fleet")
     parser.add_argument("--vnodes", type=int, default=64)
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=7076)
@@ -777,15 +773,7 @@ def main(argv=None):
         if not (rid and host and port):
             raise SystemExit(f"--backend must be ID=HOST:PORT, got {spec!r}")
         backends.append(_Backend(rid, host, int(port)))
-    salt = args.salt
-    if salt is None:
-        salt = ""
-        if args.space is not None:
-            from .fleet import fleet_salt
-            from .service import _load_space
-
-            salt = fleet_salt(args.algo, _load_space(args.space))
-    router = RouterServer(backends, salt=salt, vnodes=args.vnodes,
+    router = RouterServer(backends, salt=args.salt, vnodes=args.vnodes,
                           probe_backoff_cap=args.probe_backoff_cap,
                           read_timeout=args.read_timeout, idle_timeout=args.idle_timeout,
                           max_conns=args.max_conns)

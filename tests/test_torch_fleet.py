@@ -640,12 +640,12 @@ def _port_of(proc):
 def test_console_scripts_owner_replicas_router_and_fsck(tmp_path, capsys):
     """Two ``hyperopt-tpu-torch-serve --owner`` replicas on one root (the
     CPU asked for), started together, behind ``hyperopt-tpu-torch-router
-    --space``; the replica owning the first study is SIGKILLed mid-run, the
-    router fails over (the survivor adopts every study by takeover), and
-    ``hyperopt-tpu-torch-fsck --serve`` holds the root to the survivor's
-    claims: clean with the survivor live, every claim stale with only the
-    dead replica named live, and clean once the replicas closed their
-    studies."""
+    --salt`` given the fleet's ``fleet_salt``; the replica owning the first
+    study is SIGKILLed mid-run, the router fails over (the survivor adopts
+    every study by takeover), and ``hyperopt-tpu-torch-fsck --serve`` holds
+    the root to the survivor's claims: clean with the survivor live, every
+    claim stale with only the dead replica named live, and clean once the
+    replicas closed their studies."""
     root = str(tmp_path / "root")
     space = "hyperopt_tpu_torch.models.synthetic:mixed_space"
     reps = {rid: _start(["--space", space, "--port", "0", "--root", root, "--owner", rid,
@@ -654,12 +654,13 @@ def test_console_scripts_owner_replicas_router_and_fsck(tmp_path, capsys):
     router = None
     try:
         ports = {rid: _port_of(p) for rid, p in reps.items()}
-        router = _start(["--space", space, "--port", "0", "--probe-interval", "0",
+        salt = fleet_salt("tpe", mixed_space())
+        router = _start(["--salt", salt, "--port", "0", "--probe-interval", "0",
                          "--read-timeout", "30"]
                         + [f"--backend={rid}=127.0.0.1:{port}" for rid, port in ports.items()],
                         "hyperopt_tpu_torch.serve.router")
         rport = _port_of(router)
-        ring = HashRing(ports, salt=fleet_salt("tpe", mixed_space()))
+        ring = HashRing(ports, salt=salt)
         names = ["p0", "p1", "p2"]
         clients = {n: RemoteStudy("127.0.0.1", rport, n, seed=i, read_timeout=60)
                    for i, n in enumerate(names)}

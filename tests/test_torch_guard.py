@@ -318,6 +318,7 @@ def test_no_cuda_means_no_silent_cpu_fleet(monkeypatch, tmp_path):
 
     from hyperopt_tpu_torch.serve import Fleet, router
     from hyperopt_tpu_torch.serve import service as service_mod
+    from hyperopt_tpu_torch.serve.fleet import fleet_salt
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -342,7 +343,7 @@ def test_no_cuda_means_no_silent_cpu_fleet(monkeypatch, tmp_path):
     dead.close()  # nobody listens there
     done = []
     t = threading.Thread(target=lambda: done.append(router.main([
-        "--space", "hyperopt_tpu_torch.models.synthetic:mixed_space", "--port", "0",
+        "--salt", fleet_salt("tpe", mixed_space()), "--port", "0",
         "--probe-interval", "0", "--backend", f"r0=127.0.0.1:{dead_port}"])), daemon=True)
     t.start()
     for _ in range(500):

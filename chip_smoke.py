@@ -171,14 +171,33 @@ network.  Every phase asserts, and a failure exits non-zero:
    fresh service; (d) the kernel against its plain version at every
    launch shape of (a)-(c); (c)'s shapes are not recorded in the replica
    processes but derived from an in-process twin serving the same
-   studies: every fold of 1 to 4 of its shapes.
+   studies: every fold of 1 to 4 of its shapes;
+13. (after phase 12, before 11f) asynchronous trial farming at
+   ``mixed_space()``'s full width, ``tpe.suggest`` on the card: (a)
+   ``ThreadTrials(parallelism=4)``, 200 trials of ``mixed_space_fn`` plus
+   three fp32 2048x2048 matmuls on each objective's own thread, twice, in
+   pairs with the sequential twin (a plain ``Trials`` at
+   ``max_queue_len=4``, the same rstate and objective): both runs bitwise
+   the twin, 45 ``gmm_llr`` launches each (5 startup asks of 4, then 45
+   TPE asks), ms per trial of each; (b) ``FileTrials`` with two
+   ``hyperopt_tpu_torch.distributed.worker`` processes (started together,
+   their start time read from their logs), 100 trials at
+   ``max_queue_len=4``, one worker SIGKILLed while it holds a live claim
+   (caught by SIGSTOP samples) so that the survivor reruns the reaped job:
+   one DONE doc per tid, the stream bitwise the first 100 trials of (a)'s
+   twin, 20 launches, ``fsck --dir`` clean; (c) ``asha_filequeue``
+   (max_budget 27, eta 3, 40 jobs, 4 in flight) over
+   ``budgeted_quadratic_fn`` with the survivor and a replacement worker:
+   every job recorded once, one launch per rung-0 ask on 20 or more
+   completed trials, ``fsck --dir`` clean, both workers drained by
+   SIGTERM with rc 0; (d) the kernel at every launch shape of (a)-(c).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
 loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 10's under ``durable``, phase 11's under ``transport``, phase 12's under
-``fleet`` and each new path's launch shapes with their errors under
-``checked_shapes``),
+``fleet``, phase 13's under ``farm`` and each new path's launch shapes
+with their errors under ``checked_shapes``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -190,6 +209,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -3075,6 +3095,286 @@ def phase12(card, sfu_per_s):
     return launches, out
 
 
+FARM_K, FARM_TRIALS, FARM_FILE_TRIALS = 4, 200, 100
+FARM_MATMULS, FARM_WIDTH = 3, 2048
+FARM_RESERVE_TIMEOUT = 2.0  # the workers' --reserve-timeout: a SIGKILLed claim is reaped after it
+FARM_ASHA = dict(max_budget=27, eta=3, max_jobs=40, inflight=4)
+_FARM_MAT = {}
+
+
+def farm_device():
+    import torch
+
+    return torch.device("cuda" if P11_DEVICE is None else P11_DEVICE)
+
+
+def farm_objective(cfg):
+    """``mixed_space_fn`` plus a fixed card workload on the calling thread,
+    as a threaded objective that trains on the card runs: FARM_MATMULS
+    fp32 products of a FARM_WIDTH-square matrix, synchronized on the
+    thread's stream.  The loss is ``mixed_space_fn``'s."""
+    import torch
+
+    from hyperopt_tpu_torch.models.synthetic import mixed_space_fn
+
+    a = b = _FARM_MAT[farm_device()]
+    for _ in range(FARM_MATMULS):
+        b = a @ b
+    if b.is_cuda:
+        torch.cuda.current_stream(b.device).synchronize()
+    return mixed_space_fn(cfg)
+
+
+def farm_stream(trials):
+    return [(t["tid"], t["misc"]["vals"], t["result"]) for t in trials.trials]
+
+
+def worker_start(qdir, name, log_dir):
+    """Start a ``hyperopt_tpu_torch.distributed.worker`` process on
+    ``qdir``, its log in ``log_dir``."""
+    log_path = os.path.join(log_dir, f"{name}.log")
+    proc = script_start("hyperopt_tpu_torch.distributed.worker",
+                        ["--dir", qdir, "--poll-interval", "0.05", "--reserve-timeout",
+                         str(FARM_RESERVE_TIMEOUT)], log_path)
+    return proc, log_path
+
+
+def workers_up(procs, timeout=120):
+    """Wait until every started worker logs that it serves its queue;
+    returns the seconds each took."""
+    t0, up = time.perf_counter(), {}
+    while len(up) < len(procs):
+        for name, (proc, log_path) in procs.items():
+            if name in up:
+                continue
+            with open(log_path) as f:
+                if " serving " in f.read():
+                    up[name] = time.perf_counter() - t0
+            assert proc.poll() is None, f"worker {name} exited: {open(log_path).read()[-2000:]}"
+        assert time.perf_counter() - t0 < timeout, f"workers not up after {timeout} s"
+        time.sleep(0.02)
+    return up
+
+
+def stop_worker(proc):
+    """SIGTERM: the worker drains (finishes or gives back its job), exits 0."""
+    proc.terminate()
+    rc = proc.wait(timeout=60)
+    proc.stdout.close()
+    return rc
+
+
+def kill_holding_claim(proc, qdir, owner, after_done, stop, out):
+    """Once ``after_done`` jobs are DONE, SIGSTOP the worker again and
+    again until it is caught holding a live claim (its claim written in
+    ``running/``, no DONE doc and no result being written for that job),
+    then SIGKILL it there; records the job in ``out``."""
+    import signal
+
+    done_dir, run_dir = os.path.join(qdir, "done"), os.path.join(qdir, "running")
+    while not stop.is_set() and len(os.listdir(done_dir)) < after_done:
+        time.sleep(0.01)
+    tries = 0
+    while not stop.is_set():
+        tries += 1
+        os.kill(proc.pid, signal.SIGSTOP)
+        deadline = time.perf_counter() + 5
+        while open(f"/proc/{proc.pid}/stat").read().split(")")[-1].split()[0] != "T":
+            assert time.perf_counter() < deadline, "the worker did not stop"
+            time.sleep(0.0005)
+        held = None
+        for name in os.listdir(run_dir):
+            if not name.endswith(".json"):
+                continue
+            try:
+                with open(os.path.join(run_dir, name)) as f:
+                    doc = json.load(f)
+            except (OSError, ValueError):
+                continue
+            busy = [n for n in os.listdir(done_dir) if n.startswith(name)]
+            if doc.get("owner") == owner and not busy:
+                held = doc["tid"]
+        if held is not None:
+            os.kill(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+            out.update(tid=held, tries=tries, at=time.perf_counter())
+            return
+        os.kill(proc.pid, signal.SIGCONT)
+        time.sleep(0.004)
+
+
+def phase13(card):
+    """Asynchronous trial farming on the card: (a) ThreadTrials with a card
+    workload in each objective thread, bitwise its sequential twin; (b)
+    FileTrials with two worker processes, one SIGKILLed holding a claim,
+    bitwise the twin's first trials, fsck clean; (c) asha_filequeue with
+    the worker processes; (d) the kernel at every launch shape.  Returns
+    the launches by path and the numbers."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch.distributed import FileJobQueue, FileTrials, ThreadTrials
+    from hyperopt_tpu_torch.distributed import asha_filequeue
+    from hyperopt_tpu_torch.models.synthetic import (budgeted_quadratic_fn,
+                                                     budgeted_quadratic_space, mixed_space,
+                                                     mixed_space_fn)
+
+    t_phase = time.perf_counter()
+    launches, shapes, out = {}, {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    dev = farm_device()
+    g = torch.Generator().manual_seed(13)
+    _FARM_MAT[dev] = (torch.randn(FARM_WIDTH, FARM_WIDTH, generator=g)
+                      / FARM_WIDTH ** 0.5).to(dev)
+
+    def counted(path, run):
+        return counted_run(launches, shapes, path, run)
+
+    def run_fmin(trials, n, **kw):
+        t0 = time.perf_counter()
+        H.fmin(farm_objective, mixed_space(), algo=H.tpe.suggest, max_evals=n, trials=trials,
+               rstate=np.random.default_rng(13), device=P11_DEVICE, show_progressbar=False,
+               **kw)
+        p11_sync()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    # -- 13a. ThreadTrials(parallelism=4), in pairs with the sequential twin -
+    twin, thread_ms, twin_ms, threaded = None, [], [], []
+    for kind in ("twin", "threads", "threads", "twin"):
+        if kind == "twin":
+            trials = H.Trials()
+            ms, n = counted("threads_twin", lambda: run_fmin(trials, FARM_TRIALS,
+                                                            max_queue_len=FARM_K))
+            twin_ms.append(ms)
+            stream = farm_stream(trials)
+            assert twin is None or stream == twin, "the twin's stream moved between runs"
+            twin = stream
+        else:
+            trials = ThreadTrials(parallelism=FARM_K)
+            ms, n = counted("threads_fmin", lambda: run_fmin(trials, FARM_TRIALS))
+            thread_ms.append(ms)
+            threaded.append(farm_stream(trials))
+            owners = {t["owner"] for t in trials.trials}
+        assert n == (FARM_TRIALS - 20) // FARM_K == 45, (kind, n)
+    n_bitwise = [sum(a == b for a, b in zip(run, twin)) for run in threaded]
+    log(f"[13a] {card}: ThreadTrials(parallelism={FARM_K}) x {FARM_TRIALS} trials of "
+        f"mixed_space_fn + {FARM_MATMULS} fp32 {FARM_WIDTH}^2 matmuls per objective thread, "
+        f"tpe.suggest on the card: {n_bitwise} of {FARM_TRIALS} trials bitwise the sequential "
+        f"max_queue_len={FARM_K} twin; ms per trial threaded {[round(x, 3) for x in thread_ms]} "
+        f"against the twin's {[round(x, 3) for x in twin_ms]} (twin, threads, threads, twin); "
+        f"gmm_llr launches per run 45 (5 startup asks of 4, then 45 TPE asks), "
+        f"{launches['threads_fmin']} over the two threaded runs; owners {sorted(owners)}")
+    assert n_bitwise == [FARM_TRIALS] * 2 and len(twin) == FARM_TRIALS
+    assert all(len(run) == FARM_TRIALS for run in threaded)
+    assert launches["threads_fmin"] == launches["threads_twin"] == 90
+    assert owners <= {f"thread:{i}" for i in range(FARM_K)}
+    out["threads"] = dict(trials=FARM_TRIALS, parallelism=FARM_K, ms_per_trial=thread_ms,
+                          twin_ms_per_trial=twin_ms, bitwise=n_bitwise,
+                          launches_per_run=launches["threads_fmin"] // 2)
+
+    # -- 13b. FileTrials with two worker processes, one SIGKILLed ------------
+    qdir = os.path.join(tmp, "queue")
+    FileJobQueue(qdir)
+    t0 = time.perf_counter()
+    procs = {name: worker_start(qdir, name, tmp) for name in ("w0", "w1")}
+    up = workers_up(procs)
+    start_s = time.perf_counter() - t0
+    victim, survivor = procs["w0"][0], procs["w1"][0]
+    killed, stop = {}, threading.Event()
+    killer = threading.Thread(target=kill_holding_claim, daemon=True, args=(
+        victim, qdir, f"{socket.gethostname()}:{victim.pid}", 24, stop, killed))
+    killer.start()
+    ftrials = FileTrials(qdir, reserve_timeout=FARM_RESERVE_TIMEOUT)
+    t0 = time.perf_counter()
+    try:
+        _, file_launches = counted("file_fmin", lambda: H.fmin(
+            mixed_space_fn, mixed_space(), algo=H.tpe.suggest, max_evals=FARM_FILE_TRIALS,
+            trials=ftrials, max_queue_len=FARM_K, rstate=np.random.default_rng(13),
+            device=P11_DEVICE, show_progressbar=False))
+        file_wall = time.perf_counter() - t0
+    finally:
+        stop.set()
+        killer.join(timeout=60)
+    queue = FileJobQueue(qdir)
+    done = queue.done_docs()
+    file_bitwise = sum(a == b for a, b in zip(farm_stream(ftrials), twin[:FARM_FILE_TRIALS]))
+    rerun_owner = done[killed["tid"]]["owner"] if killed else None
+    # a replacement worker for (c), started now: its start overlaps the audit
+    t_c = time.perf_counter()
+    procs["w2"] = worker_start(qdir, "w2", tmp)
+    rc_fsck, report = run_fsck("--dir", qdir, "--reserve-timeout", str(FARM_RESERVE_TIMEOUT),
+                               "--tmp-grace", "0")
+    log(f"[13b] {card}: FileTrials + 2 hyperopt-tpu-torch-worker processes (started together, "
+        f"serving after {sorted((k, round(v, 2)) for k, v in up.items())} s; {start_s:.2f} s "
+        f"for both), {FARM_FILE_TRIALS} trials at max_queue_len={FARM_K}: wall {file_wall:.2f} s "
+        f"({file_wall / FARM_FILE_TRIALS * 1e3:.2f} ms per trial), gmm_llr launches "
+        f"{file_launches}; w0 SIGKILLed holding the claim of tid {killed.get('tid')} (caught on "
+        f"SIGSTOP sample {killed.get('tries')}), rerun by {rerun_owner}; {len(done)} DONE docs, "
+        f"queue {queue.counts()}; {file_bitwise} of {FARM_FILE_TRIALS} trials bitwise (a)'s "
+        f"twin; fsck --dir rc {rc_fsck}, {len(report['issues'])} issue(s)")
+    assert killed, "no worker was caught holding a claim"
+    assert rerun_owner == f"{socket.gethostname()}:{survivor.pid}", rerun_owner
+    assert sorted(done) == list(range(FARM_FILE_TRIALS)), sorted(done)
+    assert queue.counts() == {"new": 0, "running": 0, "done": FARM_FILE_TRIALS}
+    assert file_bitwise == FARM_FILE_TRIALS, "the file queue's stream is not the twin's"
+    assert file_launches == (FARM_FILE_TRIALS - 20) // FARM_K == 20, file_launches
+    assert rc_fsck == 0 and not report["issues"], report
+    out["file"] = dict(trials=FARM_FILE_TRIALS, wall_s=file_wall,
+                       ms_per_trial=file_wall / FARM_FILE_TRIALS * 1e3, workers_start_s=start_s,
+                       worker_start_s=up, killed_tid=killed["tid"], bitwise=file_bitwise,
+                       launches=file_launches)
+
+    # -- 13c. asha_filequeue with two worker processes -----------------------
+    expected = []
+
+    def counted_tpe(new_ids, domain, trials, seed):
+        # the model runs (one launch) once 20 completed trials exist
+        expected.append(int(len(trials.trials) >= 20))
+        return H.tpe.suggest(new_ids, domain, trials, seed)
+
+    workers_up({"w2": procs["w2"]})
+    replace_s = time.perf_counter() - t_c
+    t0 = time.perf_counter()
+    res, asha_launches = counted("asha_filequeue", lambda: asha_filequeue(
+        budgeted_quadratic_fn, budgeted_quadratic_space(), dirpath=qdir, algo=counted_tpe,
+        rstate=np.random.default_rng(0), eval_timeout=120.0, device=P11_DEVICE, **FARM_ASHA))
+    asha_wall = time.perf_counter() - t0
+    done = queue.done_docs()
+    asha_done = {t: d for t, d in done.items() if isinstance(t, str)}
+    asha_owners = {d["owner"] for d in asha_done.values()}
+    rc_fsck_c, report_c = run_fsck("--dir", qdir, "--reserve-timeout",
+                                   str(FARM_RESERVE_TIMEOUT), "--tmp-grace", "0")
+    rc_drain = [stop_worker(procs[n][0]) for n in ("w1", "w2")]
+    log(f"[13c] {card}: asha_filequeue(max_budget=27, eta=3, max_jobs=40, inflight=4) over "
+        f"budgeted_quadratic_fn with tpe.suggest on the card and 2 worker processes (w1, and w2 "
+        f"started after (b), serving within {replace_s:.2f} s of its start, fsck running "
+        f"meanwhile): wall {asha_wall:.2f} s, {len(res['trials'])} evaluations, rungs {res['rungs']}, "
+        f"best {res['best_loss']:.6f}; {len(asha_done)} job DONE docs by {len(asha_owners)} "
+        f"worker(s); {len(expected)} rung-0 asks, gmm_llr launches {asha_launches} (one per ask "
+        f"on 20 or more completed trials: {sum(expected)}); fsck --dir rc {rc_fsck_c}, "
+        f"{len(report_c['issues'])} issue(s); the workers drained on SIGTERM with rc {rc_drain}")
+    assert len(res["trials"]) == FARM_ASHA["max_jobs"] == len(asha_done)
+    assert asha_launches == sum(expected) > 0, (asha_launches, expected)
+    assert rc_fsck_c == 0 and not report_c["issues"], report_c
+    assert rc_drain == [0, 0], rc_drain
+    out["asha"] = dict(jobs=FARM_ASHA["max_jobs"], wall_s=asha_wall, rungs=res["rungs"],
+                       launches=asha_launches, worker_ready_s=replace_s)
+
+    # -- 13d. the kernel at every launch shape of (a)-(c) ---------------------
+    for path, seen in shapes.items():
+        if seen:
+            CHECKED_SHAPES[path] = check_shapes(f"13 {path}, {card}", seen, seed=41)
+    launches = {k: launches[k] for k in ("threads_fmin", "file_fmin", "asha_filequeue")}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[13] {card}: phase 13 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -3323,6 +3623,9 @@ def main():
     # -- 12. the serve fleet -----------------------------------------------
     fleet_launches, fleet = phase12(card, sfu_per_s)
     launches_by_path.update(fleet_launches)
+    # -- 13. asynchronous trial farming -----------------------------------
+    farm_launches, farm = phase13(card)
+    launches_by_path.update(farm_launches)
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
@@ -3360,6 +3663,7 @@ def main():
         "durable": durable,
         "transport": transport,
         "fleet": fleet,
+        "farm": farm,
         "checked_shapes": CHECKED_SHAPES,
     }]}
     print(json.dumps(kernels))

@@ -19,7 +19,10 @@ the multi-fidelity schedulers (:mod:`hyperopt_tpu_torch.hyperband`,
 and crash-exact resume (``trials_save_file``/``resume_from``),
 ``trial_timeout``/``catch``, the progress bar, the flight recorder
 (:mod:`hyperopt_tpu_torch.obs`) and the engine client
-(``fmin(engine=True, ask_ahead=k)``, :mod:`hyperopt_tpu_torch.client`).
+(``fmin(engine=True, ask_ahead=k)``, :mod:`hyperopt_tpu_torch.client`);
+and asynchronous trial farming (:mod:`hyperopt_tpu_torch.distributed`:
+``ThreadTrials``, ``FileTrials`` with its worker processes, ``MongoTrials``,
+``SparkTrials`` and ASHA over the queues), the suggestion on the card.
 The EI scoring of continuous candidates runs in a hand-written Hopper
 kernel (:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
 """

@@ -558,6 +558,14 @@ class Domain:
 
         self.cmd = ("domain_attachment", "FMinIter_Domain")
 
+    def __getstate__(self):
+        # the suggest paths cache derived state on the domain under private
+        # names (the packed space and history on the card, built suggest
+        # functions, the ask-ahead hook's closure, a weakref to the trials
+        # store): a pickled domain -- the one an asynchronous fmin ships to
+        # its workers -- carries only what __init__ set
+        return {k: v for k, v in self.__dict__.items() if not k.startswith("_")}
+
     # -- evaluation --------------------------------------------------------
     def memo_from_config(self, config):
         memo = {}

@@ -3,11 +3,11 @@ compiled loop.
 
 The port's copy of :mod:`hyperopt_tpu.distributed.faults`, for the seams
 the port has: the filesystem seam (:class:`RealFS`, the ``os`` primitives
-the write-ahead log and the durable savers use, crash points that do
-nothing), the simulated process death (:class:`SimulatedCrash`), the
+the write-ahead log, the durable savers and the file job queue use, crash
+points that do nothing), the simulated process death (:class:`SimulatedCrash`), the
 device-fault schedule the scheduler's guard is tested with
 (:class:`DeviceFaultPlan`: NaN outputs, dispatch hangs, transient and
-fatal raises), and :class:`FaultPlan`, which arms the driver, serve,
+fatal raises), and :class:`FaultPlan`, which arms the job-queue, driver, serve,
 compiled-loop, checkpoint, fleet, autoscaler, flight-recorder and network
 crash points and injects seeded file faults through :meth:`FaultPlan.fs`: transient errno
 faults (``ESTALE``/``EIO`` at ``rate``, burst-bounded so retries always
@@ -29,11 +29,37 @@ import zlib
 from ..exceptions import TransientBackendError
 
 __all__ = [
-    "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "DEFAULT_ERRORS", "DEVICE_LOOP_CRASH_POINTS",
+    "ALL_CRASH_POINTS", "CHECKPOINT_CRASH_POINTS", "CRASH_POINTS", "DEFAULT_ERRORS", "DEVICE_LOOP_CRASH_POINTS",
     "DRIVER_CRASH_POINTS", "FLEET_CRASH_POINTS", "NET_CRASH_POINTS", "OBS_CRASH_POINTS",
     "PILOT_CRASH_POINTS", "SERVE_CRASH_POINTS", "SHA_CRASH_POINTS", "DeviceFaultPlan", "FaultPlan", "FaultyFS", "FaultyWire", "NetFaultPlan",
     "REAL_FS", "RealFS", "SimulatedCrash",
 ]
+
+#: crash points of the file job queue (:mod:`.filequeue`, :mod:`.worker`):
+#:     after_publish_tmp_before_rename      job tmp fsynced, not yet in new/
+#:     after_claim_utime_before_rename      claim's mtime refreshed, the CAS
+#:                                          rename not yet made
+#:     after_claim_rename_before_write      job in running/, the claim doc
+#:                                          not yet written
+#:     after_done_tmp_before_rename         result tmp fsynced, not yet in done/
+#:     after_done_rename_before_unlink      result published, claim not released
+#:     after_unreserve_utime_before_rename  a given-back job's mtime refreshed,
+#:                                          not yet back in new/
+#:     after_reap_utime_before_rename       a stale claim's mtime refreshed,
+#:                                          not yet back in new/
+#:     after_attach_fsync_before_rename     attachment tmp fsynced, not published
+#:     before_complete                      evaluated, nothing published
+CRASH_POINTS = (
+    "after_publish_tmp_before_rename",
+    "after_claim_utime_before_rename",
+    "after_claim_rename_before_write",
+    "after_done_tmp_before_rename",
+    "after_done_rename_before_unlink",
+    "after_unreserve_utime_before_rename",
+    "after_reap_utime_before_rename",
+    "after_attach_fsync_before_rename",
+    "before_complete",
+)
 
 #: crash points of the sequential driver's recovery protocol (``fmin``'s
 #: write-ahead tell log and checkpoint bundles, ``utils/wal.py`` and
@@ -139,7 +165,7 @@ from .netfaults import (  # noqa: E402 -- re-exported beside FaultPlan
 
 # the durable saver's window is also the driver's fourth point: listed once
 ALL_CRASH_POINTS = tuple(dict.fromkeys(
-    DRIVER_CRASH_POINTS + SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + SHA_CRASH_POINTS
+    CRASH_POINTS + DRIVER_CRASH_POINTS + SERVE_CRASH_POINTS + DEVICE_LOOP_CRASH_POINTS + SHA_CRASH_POINTS
     + CHECKPOINT_CRASH_POINTS + FLEET_CRASH_POINTS + OBS_CRASH_POINTS + PILOT_CRASH_POINTS
     + NET_CRASH_POINTS))
 

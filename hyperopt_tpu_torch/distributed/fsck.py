@@ -35,8 +35,8 @@ the first four kinds above; after ``--repair`` ``fmin(resume_from=PATH)``
 resumes.  ``--obs PATH`` audits a flight-recorder log (a torn tail is
 truncated).  ``--dir D`` audits a file job-queue directory (``new/``,
 ``running/``, ``done/``: ``stale_tmp``, ``half_written``,
-``orphaned_claim``, ``completed_claim``, ``duplicate_tid``); it reads
-only the directory's layout and documents.
+``orphaned_claim``, ``completed_claim``, ``duplicate_tid``), the
+directory :mod:`.filequeue` and :mod:`.worker` keep.
 
 The tool moves or deletes only what the protocol proves is residue;
 anything ambiguous is quarantined (a ``.quarantined.<pid>`` suffix),
@@ -47,7 +47,6 @@ found (audit only) or issues left after a repair.
 from __future__ import annotations
 
 import argparse
-import datetime
 import json
 import logging
 import os
@@ -56,6 +55,7 @@ import time
 
 from . import _common
 from .faults import REAL_FS
+from .filequeue import _read_json
 
 logger = logging.getLogger(__name__)
 
@@ -66,18 +66,6 @@ __all__ = [
 ]
 
 _SUBS = ("new", "running", "done")
-
-
-def _decode(d):
-    # a job document's datetimes travel as {"__dt__": isoformat}
-    if "__dt__" in d:
-        return datetime.datetime.fromisoformat(d["__dt__"])
-    return d
-
-
-def _read_json(path, fs=REAL_FS):
-    with fs.open(path) as f:
-        return json.load(f, object_hook=_decode)
 
 
 class Issue:

@@ -1,8 +1,9 @@
-"""The sequential optimization driver of the PyTorch port: ``fmin``.
+"""The optimization driver of the PyTorch port: ``fmin``.
 
-The counterpart of :mod:`hyperopt_tpu.fmin` for sequential stores: ask
-the algo for new trial docs at the plugin seam, evaluate them in order
-(``serial_evaluate``), stop at ``max_evals``, ``timeout``,
+The counterpart of :mod:`hyperopt_tpu.fmin`: ask the algo for new trial
+docs at the plugin seam, evaluate them in order (``serial_evaluate``) or,
+on an asynchronous store, publish them and wait for the store's workers
+(``block_until_done``), stop at ``max_evals``, ``timeout``,
 ``loss_threshold`` or ``early_stop_fn``, and return the argmin config.
 The seed draw takes the same ``rstate`` draws as the reference's driver,
 so equal ``rstate``s hand the algo equal seeds, with or without the
@@ -23,7 +24,12 @@ records ``driver.trial``/``tell.wal_append`` spans.  ``engine=True`` (or
 (:mod:`hyperopt_tpu_torch.client`); ``compiled=True`` routes the whole
 experiment through the compiled loop
 (:func:`hyperopt_tpu_torch.device_loop.compile_fmin`).  Asynchronous
-stores are not ported (``ROADMAP.md`` Queue A, item 20).
+stores (:mod:`hyperopt_tpu_torch.distributed`: ``ThreadTrials``,
+``FileTrials``, ``MongoTrials``, ``SparkTrials``) get the pickled Domain
+as their ``FMinIter_Domain`` attachment, published before the first ask,
+and the driver waits on every round: with ``max_queue_len=k`` the stream
+is the sequential driver's at the same ``k``, whatever the workers'
+timing.
 
 One addition: ``device`` (None = the card) is stored on the ``Domain``,
 where the port's suggest path reads it.
@@ -34,7 +40,9 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import pickle
 import threading
+import time
 import timeit
 import traceback
 
@@ -68,10 +76,6 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["fmin", "FMinIter", "StopExperiment", "generate_trials_to_calculate", "partial",
            "space_eval"]
-
-_NO_ASYNC = ("the port's fmin drives sequential Trials stores only; asynchronous stores "
-             "are not ported yet (ROADMAP.md Queue A, item 20)")
-
 
 class StopExperiment:
     """Sentinel an algo may return instead of new trials to halt fmin."""
@@ -120,28 +124,35 @@ def generate_trials_to_calculate(points):
 
 
 class FMinIter:
-    """Object-based sequential fmin: step the ask/evaluate loop explicitly.
+    """Object-based fmin: step the ask/evaluate loop explicitly.
 
     ``recovery`` (a :class:`~hyperopt_tpu_torch.utils.checkpoint.
     DriverRecovery`) makes every ask and tell durable before it is
-    applied; ``client`` (an :class:`~hyperopt_tpu_torch.client.
+    applied (sequential stores only: an asynchronous store's queue is its
+    own record, and ``trials_save_file`` then pickles the store every
+    round); ``client`` (an :class:`~hyperopt_tpu_torch.client.
     EngineClient`) routes the asks and tells through the serve engine
-    instead of ``algo``."""
+    instead of ``algo``.  ``asynchronous`` (None: the store's own flag)
+    publishes the pickled domain as the store's ``FMinIter_Domain``
+    attachment and has each round wait for the store's workers, polling
+    every ``poll_interval_secs``."""
 
     catch_eval_exceptions = False
+    pickle_protocol = pickle.HIGHEST_PROTOCOL
 
-    def __init__(self, algo, domain, trials, rstate, max_queue_len=1,
-                 max_evals=float("inf"), timeout=None, loss_threshold=None,
-                 early_stop_fn=None, verbose=False, show_progressbar=True, recovery=None,
-                 trial_timeout=None, catch=(), recorder=None, client=None):
-        if trials.asynchronous:
-            raise NotImplementedError(_NO_ASYNC)
+    def __init__(self, algo, domain, trials, rstate, asynchronous=None, max_queue_len=1,
+                 poll_interval_secs=0.1, max_evals=float("inf"), timeout=None,
+                 loss_threshold=None, early_stop_fn=None, verbose=False, show_progressbar=True,
+                 trials_save_file="", recovery=None, trial_timeout=None, catch=(),
+                 recorder=None, client=None):
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.algo = algo
         self.domain = domain
         self.trials = trials
         self.rstate = rstate
+        self.asynchronous = trials.asynchronous if asynchronous is None else asynchronous
         self.max_queue_len = max_queue_len
+        self.poll_interval_secs = poll_interval_secs
         self.max_evals = max_evals
         self.timeout = timeout
         self.loss_threshold = loss_threshold
@@ -150,7 +161,8 @@ class FMinIter:
         self.verbose = verbose
         self.show_progressbar = show_progressbar
         self.start_time = timeit.default_timer()
-        self._recovery = recovery
+        self.trials_save_file = trials_save_file
+        self._recovery = None if self.asynchronous else recovery
         # per-trial containment: a deadline in seconds, and the exception
         # classes recorded as STATUS_FAIL trials instead of aborting
         self.trial_timeout = trial_timeout
@@ -162,6 +174,15 @@ class FMinIter:
         self._ask_ahead_seed = None
         self._client = client
         self._span_study = "driver" if client is None else client.study_name
+
+        if self.asynchronous and "FMinIter_Domain" not in trials.attachments:
+            # workers fetch the domain by attachment; published before any
+            # ask, so it carries none of the suggest paths' caches
+            try:
+                trials.attachments["FMinIter_Domain"] = pickle.dumps(
+                    domain, protocol=self.pickle_protocol)
+            except Exception:
+                logger.warning("domain not picklable for async backend")
 
     def _draw_seed(self):
         # works for both np.random.Generator and legacy RandomState
@@ -351,13 +372,36 @@ class FMinIter:
                 break
         self.trials.refresh()
 
+    def block_until_done(self):
+        """Wait until the store has no NEW or RUNNING trial left (or the
+        run's ``timeout`` passes), polling every ``poll_interval_secs``;
+        each poll is also the pump of a store that dispatches from it."""
+        unfinished_states = [JOB_STATE_NEW, JOB_STATE_RUNNING]
+
+        def get_queue_len():
+            return self.trials.count_by_state_unsynced(unfinished_states)
+
+        qlen = get_queue_len()
+        while qlen > 0:
+            if self._timed_out():
+                logger.warning("timeout while waiting on %d jobs", qlen)
+                break
+            time.sleep(self.poll_interval_secs)
+            self.trials.refresh()
+            qlen = get_queue_len()
+
     # -- checkpoints -------------------------------------------------------
     def _checkpoint_round(self, force=False):
         """Round-boundary durability: the recovery bundle at its tell
-        cadence (the WAL covers the gaps)."""
+        cadence (the WAL covers the gaps), or, without a recovery (an
+        asynchronous store), the durable pickle of the store every round."""
         if self._recovery is not None:
             self._recovery.maybe_checkpoint(self.trials, self.rstate,
                                             ask_ahead_seed=self._ask_ahead_seed, force=force)
+        elif self.trials_save_file:
+            from .utils.checkpoint import save_trials
+
+            save_trials(self.trials, self.trials_save_file)
 
     # -- main loop ---------------------------------------------------------
     def _progress_ctx(self, initial, total):
@@ -406,8 +450,10 @@ class FMinIter:
                 self._report(progress, initial_n_done)
         trials.refresh()
 
-    def run(self, N):
-        """Enqueue and evaluate up to N new trials."""
+    def run(self, N, block_until_done=True):
+        """Enqueue and evaluate up to N new trials (on an asynchronous
+        store: enqueue, then wait for the round, or with
+        ``block_until_done=False`` sleep one poll)."""
         if self._client is not None:
             return self._run_client(N)
         trials = self.trials
@@ -433,8 +479,20 @@ class FMinIter:
                     trials.insert_trial_docs(new_trials)
                     trials.refresh()
                     n_queued += len(new_trials)
+                    if self.asynchronous and block_until_done:
+                        # a blocking round is one ask on one history: the
+                        # store's workers may take or finish its trials at
+                        # once, and a second ask would see part of the round
+                        break
                     qlen = trials.count_by_state_unsynced(JOB_STATE_NEW)
-                self.serial_evaluate()
+                if self.asynchronous:
+                    if block_until_done:
+                        self.block_until_done()
+                    else:
+                        time.sleep(self.poll_interval_secs)
+                    trials.refresh()
+                else:
+                    self.serial_evaluate()
                 self._report(progress, initial_n_done)
                 self._checkpoint_round()
                 if stopped:
@@ -442,9 +500,18 @@ class FMinIter:
         self._checkpoint_round(force=True)
 
     def exhaust(self):
-        self.run(self.max_evals - len(self.trials))
+        self.run(self.max_evals - len(self.trials), block_until_done=self.asynchronous)
         self.trials.refresh()
         return self
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.run(1, block_until_done=self.asynchronous)
+        if len(self.trials) >= self.max_evals:
+            raise StopIteration()
+        return self.trials
 
 
 def progress_done(progress):
@@ -574,7 +641,7 @@ def _run_engine_client(fn, space, algo, max_evals, timeout, loss_threshold, tria
     run; the last client out shuts the shared service down."""
     from .client import connect
 
-    if max_queue_len != 1:
+    if max_queue_len not in (None, 1):
         raise ValueError(
             "engine routing drives one ask at a time -- use ask_ahead=k for pipelining "
             "(max_queue_len applies to the solo driver)"
@@ -654,7 +721,7 @@ def fmin(
     verbose=False,
     return_argmin=True,
     points_to_evaluate=None,
-    max_queue_len=1,
+    max_queue_len=None,
     early_stop_fn=None,
     device=None,
     show_progressbar=True,
@@ -669,7 +736,7 @@ def fmin(
     recorder=None,
 ):
     """Minimize ``fn`` over ``space`` with ``algo`` (default: the port's
-    ``tpe.suggest``), sequentially.
+    ``tpe.suggest``).
 
     ``rstate`` is a ``np.random.Generator`` (or an int seed): one
     ``integers(2**31 - 1)`` draw per ask, as the reference draws.
@@ -683,9 +750,14 @@ def fmin(
     of ``{label: value}`` dicts) is evaluated first when the store is
     empty; ``verbose`` is kept on the driver, as the reference keeps it;
     ``allow_trials_fmin`` lets a ``Trials`` subclass with its own ``fmin``
-    take the call.  ``show_progressbar`` (default on) draws a ``tqdm``
-    bar; a callable ``(initial=, total=)`` returning a context manager
-    with ``update(n, best_loss=)`` takes its place.
+    take the call (``ThreadTrials``, ``SparkTrials``); an asynchronous
+    store (``FileTrials``, ``MongoTrials``) is driven here, its workers
+    evaluating each round of ``max_queue_len`` trials (None: 1, or a
+    dispatching store's ``parallelism``) before the next ask, so the
+    stream is the sequential driver's at the same ``max_queue_len``.
+    ``show_progressbar`` (default on) draws a ``tqdm`` bar; a callable
+    ``(initial=, total=)`` returning a context manager with
+    ``update(n, best_loss=)`` takes its place.
 
     Crash recovery: ``trials_save_file`` routes through
     :class:`~hyperopt_tpu_torch.utils.checkpoint.DriverRecovery` (a
@@ -825,20 +897,19 @@ def fmin(
             show_progressbar=show_progressbar, early_stop_fn=early_stop_fn,
             trials_save_file=trials_save_file, device=device,
         )
-    if trials.asynchronous:
-        raise NotImplementedError(_NO_ASYNC)
-
     domain = Domain(fn, space, pass_expr_memo_ctrl=pass_expr_memo_ctrl, device=device)
-    rval = FMinIter(algo, domain, trials, rstate=rstate, max_queue_len=max_queue_len,
+    rval = FMinIter(algo, domain, trials, rstate=rstate,
+                    max_queue_len=1 if max_queue_len is None else max_queue_len,
                     max_evals=max_evals, timeout=timeout, loss_threshold=loss_threshold,
                     early_stop_fn=early_stop_fn, verbose=verbose,
-                    show_progressbar=show_progressbar, recovery=recovery,
-                    trial_timeout=trial_timeout, catch=catch, recorder=recorder)
+                    show_progressbar=show_progressbar, trials_save_file=trials_save_file,
+                    recovery=recovery, trial_timeout=trial_timeout, catch=catch,
+                    recorder=recorder)
     rval.catch_eval_exceptions = catch_eval_exceptions
     if ask_ahead_seed is not None:
         # the seed the crashed run had pre-drawn for its next ask
         rval._ask_ahead_seed = int(ask_ahead_seed)
-    if recovery is not None and not recovery.exists():
+    if rval._recovery is not None and not recovery.exists():
         # anchor bundle before the first ask: WAL replay is relative to a
         # bundle, and points_to_evaluate must survive an early crash
         recovery.checkpoint(trials, rstate)

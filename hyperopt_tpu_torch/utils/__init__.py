@@ -3,12 +3,14 @@
 from __future__ import annotations
 
 import datetime
+import os
 
 import numpy as np
 import torch
 
 __all__ = [
     "capture_graph", "coarse_utcnow", "host_copy", "resolve_device", "tree_leaves", "tree_map",
+    "working_dir",
 ]
 
 
@@ -81,3 +83,20 @@ def capture_graph(step, device):
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         step()
     return graph
+
+
+class working_dir:
+    """Context manager: chdir into ``path`` (creating it), restore on exit."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        os.makedirs(self.path, exist_ok=True)
+        self._prev = os.getcwd()
+        os.chdir(self.path)
+        return self.path
+
+    def __exit__(self, *exc):
+        os.chdir(self._prev)
+        return False

@@ -737,3 +737,72 @@ def test_cuda_twin_at_cadence_2_leaves_the_streams_bitwise(cuda):
             assert rows["serve_device_active_slots"] == 4
         svc.shutdown()
     assert out[2] == out[0]
+
+
+def _farm_stream(trials):
+    return [(t["tid"], t["misc"]["vals"], t["result"]) for t in trials.trials]
+
+
+def _farm_twin(n, seed):
+    twin = H.Trials()
+    G.KERNEL.launches = 0
+    H.fmin(mixed_space_fn, mixed_space(), algo=tpe.suggest, max_evals=n, trials=twin,
+           max_queue_len=4, rstate=np.random.default_rng(seed), show_progressbar=False)
+    return _farm_stream(twin), G.KERNEL.launches
+
+
+@pytest.mark.cuda
+def test_cuda_thread_trials_are_the_sequential_twin(cuda):
+    """``ThreadTrials(parallelism=4)`` with TPE on the card, each objective
+    thread running card work of its own: bitwise the sequential
+    ``max_queue_len=4`` stream, one launch per post-startup ask."""
+    from hyperopt_tpu_torch.distributed import ThreadTrials
+
+    def objective(cfg):
+        a = torch.ones(512, 512, device="cuda")
+        (a @ a).sum().item()
+        return mixed_space_fn(cfg)
+
+    want, twin_launches = _farm_twin(40, 6)
+    trials = ThreadTrials(parallelism=4)
+    G.KERNEL.launches = 0
+    H.fmin(objective, mixed_space(), algo=tpe.suggest, max_evals=40, trials=trials,
+           rstate=np.random.default_rng(6), show_progressbar=False)
+    assert _farm_stream(trials) == want
+    assert G.KERNEL.launches == twin_launches == 5  # 5 TPE asks of 4 after 20 startup
+
+
+@pytest.mark.cuda
+def test_cuda_mongo_trials_are_the_sequential_twin(cuda, monkeypatch):
+    """``MongoTrials`` over the in-memory doubles with an in-process
+    ``MongoWorker``, TPE on the card: bitwise the sequential stream."""
+    import threading
+    import time
+
+    from fake_backends import install_fake_mongo
+
+    install_fake_mongo(monkeypatch)
+    from hyperopt_tpu_torch.distributed.mongo import MongoJobs, MongoTrials, MongoWorker
+
+    conn = "localhost:27017/db_cuda"
+    trials = MongoTrials(f"mongo://{conn}/jobs")
+    worker = MongoWorker(MongoJobs.new_from_connection_str(conn))
+    stop = threading.Event()
+
+    def loop():
+        while not stop.is_set():
+            if not worker.run_one("host:1"):
+                time.sleep(0.005)
+
+    th = threading.Thread(target=loop, daemon=True)
+    th.start()
+    want, twin_launches = _farm_twin(32, 7)
+    G.KERNEL.launches = 0
+    try:
+        H.fmin(mixed_space_fn, mixed_space(), algo=tpe.suggest, max_evals=32, trials=trials,
+               max_queue_len=4, rstate=np.random.default_rng(7), show_progressbar=False)
+    finally:
+        stop.set()
+        th.join(timeout=30)
+    assert _farm_stream(trials) == want
+    assert G.KERNEL.launches == twin_launches == 3

@@ -3,6 +3,7 @@ same stream (random search, whose draws are the reference's within
 2 ulp) ``timeout``, ``loss_threshold`` and ``early_stop_fn`` stop at the
 same trial."""
 
+import threading
 import timeit
 
 import numpy as np
@@ -114,17 +115,27 @@ def test_allow_trials_fmin_hands_the_call_to_the_store():
     assert len(store.trials) == 2 and len(calls) == 1
 
 
-def test_async_store_raises_naming_its_item():
-    """Asynchronous stores wait for ROADMAP item 20: refused, no trial run."""
+def test_async_store_runs_every_trial_once():
+    """An asynchronous store (``ThreadTrials``) runs through the port's
+    ``fmin``: every trial evaluated exactly once, each round awaited, and
+    the pickled Domain published for workers before the first ask."""
+    from hyperopt_tpu_torch.distributed import ThreadTrials
 
-    class AsyncTrials(H.Trials):
-        asynchronous = True
+    seen = []
+    lock = threading.Lock()
 
-    trials = AsyncTrials()
-    with pytest.raises(NotImplementedError, match="item 20"):
-        H.fmin(mixed_space_fn, t_mixed_space(), max_evals=2, trials=trials,
-               allow_trials_fmin=False, device="cpu")
-    assert len(trials.trials) == 0
+    def counted(cfg):
+        with lock:
+            seen.append(cfg["u0"])
+        return mixed_space_fn(cfg)
+
+    trials = ThreadTrials(parallelism=3)
+    H.fmin(counted, t_mixed_space(), algo=H.rand.suggest, max_evals=10, trials=trials,
+           rstate=np.random.default_rng(0), device="cpu", show_progressbar=False)
+    assert len(trials.trials) == 10 == len(seen)
+    assert all(t["state"] == H.JOB_STATE_DONE for t in trials.trials)
+    assert sorted(seen) == sorted(t["misc"]["vals"]["u0"][0] for t in trials.trials)
+    assert "FMinIter_Domain" not in trials.attachments  # a closure does not pickle
 
 
 def test_space_eval_and_generate_trials_match_the_reference():

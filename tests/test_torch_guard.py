@@ -361,3 +361,69 @@ def test_no_cuda_means_no_silent_cpu_fleet(monkeypatch, tmp_path):
     t.join(timeout=30)
     assert done == [0]
     assert not reply["ok"] and reply["error_type"] == "ReplicaDead", reply
+
+
+def test_farming_in_a_fresh_process_loads_no_jax(tmp_path):
+    """(a'''') the asynchronous backends on the CPU -- threads, filequeue
+    with its worker, asha_queue, and the import-gated mongo and spark
+    modules -- and afterwards neither jax nor the JAX package is loaded."""
+    code = textwrap.dedent(f"""
+        import sys
+        import numpy as np
+        import hyperopt_tpu_torch as H
+        from hyperopt_tpu_torch import distributed
+        from hyperopt_tpu_torch.distributed import (
+            asha_queue, filequeue, mongo, spark, threads, worker)
+        from hyperopt_tpu_torch.models.synthetic import (
+            budgeted_quadratic_fn, budgeted_quadratic_space, mixed_space, mixed_space_fn)
+        t = distributed.ThreadTrials(parallelism=2)
+        H.fmin(mixed_space_fn, mixed_space(), algo=H.tpe.suggest, max_evals=8, trials=t,
+               rstate=np.random.default_rng(0), device="cpu", show_progressbar=False)
+        assert len(t.trials) == 8
+        ft = distributed.FileTrials({str(tmp_path / "q")!r}, reserve_timeout=None)
+        domain = H.Domain(mixed_space_fn, mixed_space(), device="cpu")
+        ft.insert_trial_docs(H.rand.suggest(ft.new_trial_ids(2), domain, ft, 0))
+        import pickle
+        ft.attachments["FMinIter_Domain"] = pickle.dumps(domain)
+        while worker.run_one(ft.queue, "w"):
+            pass
+        assert ft.queue.counts()["done"] == 2
+        for gated in (mongo.MongoTrials, spark.SparkTrials):
+            try:
+                gated()
+            except (ImportError, TypeError):
+                pass
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_no_cuda_means_no_silent_cpu_farming(monkeypatch, tmp_path):
+    """(c'''') without CUDA, ``ThreadTrials().fmin`` and
+    ``asha_filequeue`` with ``device=None`` raise, evaluate nothing and
+    publish no job."""
+    from hyperopt_tpu_torch.distributed import FileJobQueue, ThreadTrials, asha_filequeue
+    from hyperopt_tpu_torch.models.synthetic import budgeted_quadratic_fn, budgeted_quadratic_space
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ran = []
+    trials = ThreadTrials(parallelism=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trials.fmin(lambda cfg: ran.append(cfg) or 0.0, mixed_space(), max_evals=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.fmin(mixed_space_fn, mixed_space(), max_evals=4, trials=ThreadTrials())
+    assert len(trials.trials) == 0 and not ran
+    dirpath = str(tmp_path / "q")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asha_filequeue(budgeted_quadratic_fn, budgeted_quadratic_space(), max_budget=9,
+                       dirpath=dirpath, max_jobs=4)
+    assert FileJobQueue(dirpath).counts() == {"new": 0, "running": 0, "done": 0}

@@ -179,7 +179,12 @@ network.  Every phase asserts, and a failure exits non-zero:
    pairs with the sequential twin (a plain ``Trials`` at
    ``max_queue_len=4``, the same rstate and objective): both runs bitwise
    the twin, 45 ``gmm_llr`` launches each (5 startup asks of 4, then 45
-   TPE asks), ms per trial of each; (b) ``FileTrials`` with two
+   TPE asks), ms per trial of each; (s) unequal evaluation times (one
+   in four sleeps 0.3 s, the others 0.02 s), 32 trials on
+   ``ThreadTrials(parallelism=4)`` in blocking rounds and in the
+   reference's refill loop (``FMinIter.run(N, block_until_done=False)``),
+   twice each: every trial run once, the blocking streams bitwise, ms per
+   trial and the threads' busy share of each; (b) ``FileTrials`` with two
    ``hyperopt_tpu_torch.distributed.worker`` processes (started together,
    their start time read from their logs), 100 trials at
    ``max_queue_len=4``, one worker SIGKILLed while it holds a live claim
@@ -213,6 +218,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -3099,7 +3105,9 @@ FARM_K, FARM_TRIALS, FARM_FILE_TRIALS = 4, 200, 100
 FARM_MATMULS, FARM_WIDTH = 3, 2048
 FARM_RESERVE_TIMEOUT = 2.0  # the workers' --reserve-timeout: a SIGKILLed claim is reaped after it
 FARM_ASHA = dict(max_budget=27, eta=3, max_jobs=40, inflight=4)
-_FARM_MAT = {}
+# 13s: unequal evaluation times, one call in four the slow one
+FARM_STRAGGLER = dict(trials=32, slow_s=0.3, fast_s=0.02)
+_FARM_MAT, _STRAGGLER_LOCK = {}, threading.Lock()
 
 
 def farm_device():
@@ -3123,6 +3131,68 @@ def farm_objective(cfg):
     if b.is_cuda:
         torch.cuda.current_stream(b.device).synchronize()
     return mixed_space_fn(cfg)
+
+
+class StragglerObjective:
+    """``mixed_space_fn`` after a sleep of ``FARM_STRAGGLER['slow_s']`` on
+    every fourth call and ``['fast_s']`` on the others; ``busy_s`` sums
+    the evaluations' seconds over the threads."""
+
+    def __init__(self):
+        self.calls, self.busy_s = 0, 0.0
+
+    def __call__(self, cfg):
+        from hyperopt_tpu_torch.models.synthetic import mixed_space_fn
+
+        with _STRAGGLER_LOCK:
+            slow = self.calls % 4 == 0
+            self.calls += 1
+        t0 = time.perf_counter()
+        time.sleep(FARM_STRAGGLER["slow_s" if slow else "fast_s"])
+        loss = mixed_space_fn(cfg)
+        with _STRAGGLER_LOCK:
+            self.busy_s += time.perf_counter() - t0
+        return loss
+
+
+def farm_straggler(blocking, counted):
+    """One ``ThreadTrials(parallelism=FARM_K)`` run of
+    ``FARM_STRAGGLER['trials']`` trials of ``StragglerObjective`` with
+    ``tpe.suggest`` on the card at ``max_queue_len=FARM_K``: blocking
+    rounds as ``fmin`` runs them (one ask, then ``block_until_done``), or
+    the reference's refill loop (``FMinIter.run(N,
+    block_until_done=False)``: ask whenever fewer than FARM_K trials wait,
+    one poll between fills).  Returns the trials, the wall, the asks and
+    the threads' busy share (evaluation seconds over wall x parallelism)."""
+    import numpy as np
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch.base import Domain
+    from hyperopt_tpu_torch.distributed import ThreadTrials
+    from hyperopt_tpu_torch.fmin import FMinIter
+    from hyperopt_tpu_torch.models.synthetic import mixed_space
+
+    n, asks, fn = FARM_STRAGGLER["trials"], [], StragglerObjective()
+
+    def algo(new_ids, domain, trials, seed):
+        asks.append(len(new_ids))
+        return H.tpe.suggest(new_ids, domain, trials, seed)
+
+    trials = ThreadTrials(parallelism=FARM_K)
+    domain = Domain(fn, mixed_space(), device=P11_DEVICE)
+    trials._domain = domain  # the pump's domain, as ThreadTrials.fmin sets it
+    it = FMinIter(algo, domain, trials, rstate=np.random.default_rng(17),
+                  max_queue_len=FARM_K, max_evals=n, show_progressbar=False)
+
+    def run():
+        it.run(n, block_until_done=blocking)
+        it.block_until_done()
+
+    t0 = time.perf_counter()
+    counted("threads_straggler", run)
+    wall = time.perf_counter() - t0
+    trials.refresh()
+    return trials, wall, asks, fn.busy_s / (wall * FARM_K)
 
 
 def farm_stream(trials):
@@ -3205,7 +3275,8 @@ def kill_holding_claim(proc, qdir, owner, after_done, stop, out):
 
 def phase13(card):
     """Asynchronous trial farming on the card: (a) ThreadTrials with a card
-    workload in each objective thread, bitwise its sequential twin; (b)
+    workload in each objective thread, bitwise its sequential twin; (s)
+    what a slow trial costs a blocking round against the refill loop; (b)
     FileTrials with two worker processes, one SIGKILLed holding a claim,
     bitwise the twin's first trials, fsck clean; (c) asha_filequeue with
     the worker processes; (d) the kernel at every launch shape.  Returns
@@ -3275,6 +3346,35 @@ def phase13(card):
     out["threads"] = dict(trials=FARM_TRIALS, parallelism=FARM_K, ms_per_trial=thread_ms,
                           twin_ms_per_trial=twin_ms, bitwise=n_bitwise,
                           launches_per_run=launches["threads_fmin"] // 2)
+
+    # -- 13s. unequal evaluation times: a blocking round waits for its -------
+    # slowest trial; the reference's refill loop keeps the threads busy
+    straggle = {True: [], False: []}
+    for blocking in (True, False, False, True):
+        trials, wall, asks, busy = farm_straggler(blocking, counted)
+        assert [t["tid"] for t in trials.trials] == list(range(FARM_STRAGGLER["trials"]))
+        assert {t["state"] for t in trials.trials} == {H.base.JOB_STATE_DONE}
+        if blocking:
+            assert asks == [FARM_K] * (FARM_STRAGGLER["trials"] // FARM_K), asks
+        straggle[blocking].append(dict(wall_s=wall, ms_per_trial=wall / len(trials) * 1e3,
+                                       asks=len(asks), busy_share=busy,
+                                       stream=farm_stream(trials)))
+    assert straggle[True][0]["stream"] == straggle[True][1]["stream"]
+    for runs in straggle.values():
+        for r in runs:
+            del r["stream"]
+    log(f"[13s] {card}: ThreadTrials(parallelism={FARM_K}) x {FARM_STRAGGLER['trials']} trials, "
+        f"one evaluation in four sleeping {FARM_STRAGGLER['slow_s']} s and the others "
+        f"{FARM_STRAGGLER['fast_s']} s, tpe.suggest on the card at max_queue_len={FARM_K} "
+        f"(blocking, refill, refill, blocking): blocking rounds "
+        f"{[(round(r['ms_per_trial'], 3), round(r['busy_share'], 4)) for r in straggle[True]]} "
+        f"(ms per trial, threads' busy share; {straggle[True][0]['asks']} asks, the two streams "
+        f"bitwise), the reference's refill loop "
+        f"{[(round(r['ms_per_trial'], 3), round(r['busy_share'], 4)) for r in straggle[False]]} "
+        f"({[r['asks'] for r in straggle[False]]} asks); gmm_llr launches "
+        f"{launches['threads_straggler']} over the four runs")
+    out["straggler"] = dict(FARM_STRAGGLER, blocking=straggle[True], refill=straggle[False],
+                            launches=launches["threads_straggler"])
 
     # -- 13b. FileTrials with two worker processes, one SIGKILLed ------------
     qdir = os.path.join(tmp, "queue")

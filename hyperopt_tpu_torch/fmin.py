@@ -451,9 +451,14 @@ class FMinIter:
         trials.refresh()
 
     def run(self, N, block_until_done=True):
-        """Enqueue and evaluate up to N new trials (on an asynchronous
-        store: enqueue, then wait for the round, or with
-        ``block_until_done=False`` sleep one poll)."""
+        """Enqueue and evaluate up to N new trials.  On an asynchronous
+        store a blocking round is one ask, then ``block_until_done``: the
+        stream is the sequential driver's at the same ``max_queue_len``,
+        and a round lasts as long as its slowest trial.  With
+        ``block_until_done=False`` it is the reference's refill loop: ask
+        whenever fewer than ``max_queue_len`` trials are NEW, sleep one
+        poll between fills; the workers stay busy, and the stream
+        depends on their timing."""
         if self._client is not None:
             return self._run_client(N)
         trials = self.trials

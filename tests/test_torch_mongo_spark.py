@@ -8,6 +8,15 @@ dispatcher threads, job-group cancellation), not the doubles.
 ``fmin`` through ``MongoTrials`` (two ``MongoWorker`` threads) and
 through ``SparkTrials`` gives the TPE stream of the port's sequential
 ``fmin`` at the same ``max_queue_len``, bitwise.
+
+Against the reference on the same doubles: the stored job docs after
+reserve, complete, unreserve, reap and a ``MongoWorker`` evaluation are
+the reference's field for field (times and claim tokens by type); random
+search through ``MongoTrials`` and ``SparkTrials`` at ``max_queue_len=1``
+draws the reference's ``rand_jax`` stream within the 2-ulp draw rule of
+``test_torch_rand.py``, with the same GridFS file names; and
+``asha_mongo``/``asha_spark`` at ``inflight=1`` record the reference's
+configs, budgets and losses from the same rstate, bitwise.
 """
 
 import pickle
@@ -18,9 +27,16 @@ import time
 import numpy as np
 import pytest
 
-from fake_backends import install_fake_mongo, install_fake_spark
+from fake_backends import FakeSparkSession, install_fake_mongo, install_fake_spark
 
+import hyperopt_tpu as J
 import hyperopt_tpu_torch as H
+from hyperopt_tpu import rand_jax
+from hyperopt_tpu.base import Domain as JDomain
+from hyperopt_tpu.models.synthetic import (
+    budgeted_quadratic_space as j_budgeted_quadratic_space,
+    mixed_space as j_mixed_space,
+)
 from hyperopt_tpu_torch.base import (
     JOB_STATE_CANCEL,
     JOB_STATE_DONE,
@@ -36,6 +52,8 @@ from hyperopt_tpu_torch.models.synthetic import (
     mixed_space,
     mixed_space_fn,
 )
+
+from test_torch_rand import _assert_same_draws
 
 SPACE = H.hp.uniform("x", 0, 1)
 
@@ -300,8 +318,6 @@ def test_fmin_through_mongo_trials_is_the_sequential_twin(fake_mongo):
 
 
 def test_fmin_through_spark_trials_is_the_sequential_twin(fake_spark):
-    from fake_backends import FakeSparkSession
-
     from hyperopt_tpu_torch.distributed.spark import SparkTrials
 
     session = FakeSparkSession()
@@ -316,8 +332,6 @@ def test_fmin_through_spark_trials_is_the_sequential_twin(fake_spark):
 
 
 def test_spark_trials_timeout_cancels_and_errors_are_captured(fake_spark):
-    from fake_backends import FakeSparkSession
-
     from hyperopt_tpu_torch.distributed.spark import SparkTrials
 
     def slow(x):
@@ -363,8 +377,6 @@ def _ladder_ok(out, n):
 
 
 def test_asha_mongo_and_asha_spark(fake_mongo, fake_spark, tmp_path):
-    from fake_backends import FakeSparkSession
-
     from hyperopt_tpu_torch.distributed import FileTrials, ThreadTrials
     from hyperopt_tpu_torch.distributed.asha_queue import asha_filequeue, asha_mongo, asha_spark
     from hyperopt_tpu_torch.distributed.mongo import MongoTrials
@@ -402,3 +414,186 @@ def test_asha_mongo_and_asha_spark(fake_mongo, fake_spark, tmp_path):
         with pytest.raises(ValueError, match="in-memory Trials"):
             asha_filequeue(budgeted_quadratic_fn, budgeted_quadratic_space(), max_budget=4,
                            dirpath=str(tmp_path / "q"), trials=store, device="cpu")
+
+
+# -- against the reference on the same doubles ----------------------------------
+
+
+def _normal(doc):
+    """A stored job doc with its clock readings and claim token by type:
+    the two runs read different clocks and draw different tokens."""
+    out = dict(doc)
+    for key in ("book_time", "refresh_time"):
+        if key in out:
+            out[key] = type(out[key]).__name__
+    if out.get("claim") is not None:
+        assert isinstance(out["claim"], str) and len(out["claim"]) == 32
+        out["claim"] = "token"
+    return out
+
+
+def _gridfs_names(jobs):
+    return sorted(name for name, _ in jobs.db._gridfs.get("fs", {}).values())
+
+
+def _protocol_run(pkg, db):
+    """One scenario of the job protocol through ``pkg``'s MongoJobs and
+    MongoWorker: what each call returned and the docs it left."""
+    import importlib
+
+    mongo = importlib.import_module(f"{pkg.__name__}.distributed.mongo")
+    jobs = mongo.MongoJobs.new_from_connection_str(f"localhost:27017/{db}")
+    for tid, key in ((0, "A"), (1, "B"), ("asha-2", "B"), (3, "B"), (4, None)):
+        jobs.publish(_doc(tid, exp_key=key))
+    r1 = jobs.reserve("w1", exp_key="B")
+    r2 = jobs.reserve("w2", exclude_tids=(0,))
+    r3 = jobs.reserve("w3")
+    returned = [_normal(r) for r in (r1, r2, r3)]
+    calls = [jobs.complete(r1, result={"status": STATUS_OK, "loss": 0.5}, require_claim=True),
+             jobs.complete(r2, error=("<class 'RuntimeError'>", "kaboom"))]
+    jobs.unreserve(r3)
+    r4 = jobs.reserve("w4", exp_key="B")
+    returned.append(_normal(r4))
+    time.sleep(0.05)
+    calls += [jobs.reap(0.01),
+              jobs.complete(r4, result={"status": STATUS_OK, "loss": 1.0}, require_claim=True)]
+    # a worker evaluates one job through the package's pickled Domain
+    domain = (_domain(_objective_a) if pkg is H
+              else JDomain(_objective_a, J.hp.uniform("x", 0, 1)))
+    jobs.set_attachment("FMinIter_Domain", pickle.dumps(domain))
+    jobs.set_attachment("FMinIter_Domain", pickle.dumps(domain))  # replaced, not kept twice
+    jobs.publish(_doc(5, exp_key="C", cmd=("domain_attachment", "FMinIter_Domain")))
+    calls.append(mongo.MongoWorker(jobs, exp_key="C").run_one("w:5"))
+    docs = [_normal(d) for d in jobs.coll.find({}, sort=[("_id", 1)])]
+    return returned, calls, docs, _gridfs_names(jobs)
+
+
+def test_job_docs_are_the_references_through_the_protocol(fake_mongo):
+    """Reserve (exp_key filter, exclusion, insertion order), DONE and
+    ERROR write-back, unreserve, reap, a reaped claim's write-back and a
+    worker's evaluation leave the reference's docs, field for field."""
+    got = _protocol_run(H, "port_proto")
+    want = _protocol_run(J, "ref_proto")
+    assert got == want
+    returned, calls, docs, names = got
+    assert [r["tid"] for r in returned] == [1, "asha-2", 0, 3]
+    assert calls == [True, True, 1, False, True]
+    assert docs[-1]["state"] == JOB_STATE_DONE and names == ["FMinIter_Domain"]
+
+
+def _ref_worker_pool(conn, n, stop):
+    from hyperopt_tpu.distributed.mongo import MongoJobs as JMongoJobs, MongoWorker as JWorker
+
+    threads = []
+    for i in range(n):
+        worker = JWorker(JMongoJobs.new_from_connection_str(conn))
+
+        def loop(w=worker, owner=f"host{i}:{1000 + i}"):
+            while not stop.is_set():
+                if not w.run_one(owner):
+                    time.sleep(0.005)
+
+        threads.append(threading.Thread(target=loop, daemon=True))
+        threads[-1].start()
+    return threads
+
+
+def _run_with_pool(pool, conn, run):
+    stop = threading.Event()
+    workers = pool(conn, 2, stop)
+    try:
+        return run()
+    finally:
+        stop.set()
+        for th in workers:
+            th.join(timeout=10)
+
+
+def _same_docs_but_draws(jt, tt, owners):
+    """The docs of two runs agree in every field but the draws (held by
+    ``_assert_same_draws``), the losses computed from them, the clock
+    readings and which worker of the pool took the job."""
+    _assert_same_draws(jt, tt)
+    for a, b in zip(jt.trials, tt.trials, strict=True):
+        assert b["owner"] in owners and a["owner"] in owners
+        assert b["result"]["loss"] == pytest.approx(a["result"]["loss"], rel=1e-5, abs=1e-6)
+        a, b = _normal(a), _normal(b)
+        for d in (a, b):
+            d.pop("owner")
+            d["result"] = {k: v for k, v in d["result"].items() if k != "loss"}
+            d["misc"] = {k: v for k, v in d["misc"].items() if k != "vals"}
+        assert b == a
+
+
+def test_rand_through_mongo_trials_draws_the_references_stream(fake_mongo):
+    """Random search at ``max_queue_len=1``: one seed per trial whatever
+    the workers' timing, so both packages' streams are one stream."""
+    from hyperopt_tpu.distributed.mongo import MongoTrials as JMongoTrials
+
+    from hyperopt_tpu_torch.distributed.mongo import MongoTrials
+
+    n = 12
+    jt = JMongoTrials("mongo://localhost:27017/ref_rand/jobs", exp_key="e")
+    _run_with_pool(_ref_worker_pool, "localhost:27017/ref_rand", lambda: J.fmin(
+        mixed_space_fn, j_mixed_space(), algo=rand_jax.suggest, max_evals=n, trials=jt,
+        max_queue_len=1, rstate=np.random.default_rng(6), show_progressbar=False))
+    tt = MongoTrials("mongo://localhost:27017/port_rand/jobs", exp_key="e")
+    _run_with_pool(_worker_pool, "localhost:27017/port_rand", lambda: H.fmin(
+        mixed_space_fn, mixed_space(), algo=H.rand.suggest, max_evals=n, trials=tt,
+        max_queue_len=1, rstate=np.random.default_rng(6), device="cpu",
+        show_progressbar=False))
+    assert len(tt) == len(jt) == n
+    _same_docs_but_draws(jt, tt, {"host0:1000", "host1:1001"})
+    assert _gridfs_names(tt.handle) == _gridfs_names(jt.handle) == ["FMinIter_Domain"]
+
+
+def test_rand_through_spark_trials_draws_the_references_stream(fake_spark):
+    from hyperopt_tpu.distributed.spark import SparkTrials as JSparkTrials
+
+    from hyperopt_tpu_torch.distributed.spark import SparkTrials
+
+    n = 12
+    jsession, tsession = FakeSparkSession(), FakeSparkSession()
+    jt = JSparkTrials(parallelism=2, spark_session=jsession)
+    J.fmin(mixed_space_fn, j_mixed_space(), algo=rand_jax.suggest, max_evals=n, trials=jt,
+           max_queue_len=1, rstate=np.random.default_rng(8), show_progressbar=False)
+    tt = SparkTrials(parallelism=2, spark_session=tsession)
+    H.fmin(mixed_space_fn, mixed_space(), algo=H.rand.suggest, max_evals=n, trials=tt,
+           max_queue_len=1, rstate=np.random.default_rng(8), device="cpu",
+           show_progressbar=False)
+    _same_docs_but_draws(jt, tt, {"spark"})
+    assert (tsession.sparkContext.parallelize_calls
+            == jsession.sparkContext.parallelize_calls == n)
+
+
+def _asha_records(out):
+    return ([(t["misc"]["vals"], t["result"]) for t in out["trials"].trials],
+            out["rungs"], out["best_loss"], out["best"])
+
+
+def test_asha_mongo_and_asha_spark_record_the_references_runs(fake_mongo, fake_spark):
+    """One evaluation in flight: the promotions, configs, budgets and
+    losses of each transport's run are the reference's, bitwise."""
+    from hyperopt_tpu.distributed.asha_queue import (
+        asha_mongo as j_asha_mongo,
+        asha_spark as j_asha_spark,
+    )
+    from hyperopt_tpu.models.synthetic import budgeted_quadratic_fn as j_fn
+
+    from hyperopt_tpu_torch.distributed.asha_queue import asha_mongo, asha_spark
+
+    kw = dict(max_budget=9, eta=3, max_jobs=20, inflight=1, poll_interval=0.002)
+    want = _run_with_pool(_ref_worker_pool, "localhost:27017/ref_asha", lambda: j_asha_mongo(
+        j_fn, j_budgeted_quadratic_space(), mongo="localhost:27017/ref_asha",
+        rstate=np.random.default_rng(2), **kw))
+    got = _run_with_pool(_worker_pool, "localhost:27017/port_asha", lambda: asha_mongo(
+        budgeted_quadratic_fn, budgeted_quadratic_space(), mongo="localhost:27017/port_asha",
+        rstate=np.random.default_rng(2), device="cpu", **kw))
+    assert _asha_records(got) == _asha_records(want)
+    kw.pop("poll_interval")
+    want = j_asha_spark(j_fn, j_budgeted_quadratic_space(), spark=FakeSparkSession(),
+                        rstate=np.random.default_rng(3), **kw)
+    got = asha_spark(budgeted_quadratic_fn, budgeted_quadratic_space(),
+                     spark=FakeSparkSession(), rstate=np.random.default_rng(3), device="cpu",
+                     **kw)
+    assert _asha_records(got) == _asha_records(want)

@@ -6,9 +6,12 @@ queue under a stepping clock.  Streams: random search on ``ThreadTrials``
 is the reference's ``ThreadTrials`` stream within the 2-ulp draw rule of
 ``test_torch_rand.py``; TPE at ``parallelism=4`` asks whole rounds of 4
 and waits for each, so its stream is bitwise the port's sequential
-``fmin(max_queue_len=4)`` on a plain ``Trials``, and equal to the
-reference's ``tpe_jax`` stream at ``max_queue_len=4`` up to a near-tie
-(the rule of ``test_torch_tpe.py``, at the ask's batch of 4).
+``fmin(max_queue_len=4)`` on a plain ``Trials``, and equal up to a
+near-tie (the rule of ``test_torch_tpe.py``, at the ask's batch of 4) to
+the reference's ``ThreadTrials`` driven one round at a time
+(``FMinIter.run(4)``: one ask of 4, then ``block_until_done``).
+``run(N, block_until_done=False)``, the reference's refill loop, still
+runs every trial once.
 """
 
 import threading
@@ -21,13 +24,16 @@ import pytest
 import hyperopt_tpu as J
 import hyperopt_tpu_torch as H
 from hyperopt_tpu import rand_jax, tpe_jax
+from hyperopt_tpu.base import Domain as JDomain
 from hyperopt_tpu.distributed import ThreadTrials as JThreadTrials
+from hyperopt_tpu.fmin import FMinIter as JFMinIter
 from hyperopt_tpu.jax_trials import ObsBuffer as JObsBuffer, host_key
 from hyperopt_tpu.models.synthetic import mixed_space as j_mixed_space, mixed_space_fn
 from hyperopt_tpu.ops import kernels as JK
 from hyperopt_tpu.ops.compile import compile_space as j_compile
-from hyperopt_tpu_torch.base import JOB_STATE_CANCEL, JOB_STATE_DONE, JOB_STATE_ERROR
+from hyperopt_tpu_torch.base import JOB_STATE_CANCEL, JOB_STATE_DONE, JOB_STATE_ERROR, Domain
 from hyperopt_tpu_torch.distributed import ThreadTrials
+from hyperopt_tpu_torch.fmin import FMinIter
 from hyperopt_tpu_torch.models.synthetic import mixed_space as t_mixed_space
 from test_torch_rand import _assert_same_draws
 from test_torch_tpe import NEAR_TIE, _first_divergence, _ref_margins
@@ -124,11 +130,18 @@ def test_tpe_stream_is_the_sequential_twin_and_the_reference(seed):
            show_progressbar=False)
     assert streams(tt) == streams(twin)
 
-    # the reference at the same rounds: its sequential driver at K (its
-    # ThreadTrials asks again while a round runs, see ROADMAP Queue C)
-    jt = J.Trials()
-    J.fmin(mixed_space_fn, j_mixed_space(), algo=tpe_jax.suggest, max_evals=n, trials=jt,
-           max_queue_len=K, rstate=np.random.default_rng(seed), show_progressbar=False)
+    # the reference's ThreadTrials at the same rounds: its fmin asks again
+    # while a round runs (ROADMAP Queue C), so its FMinIter is stepped one
+    # round at a time
+    jt = JThreadTrials(parallelism=K)
+    domain = JDomain(mixed_space_fn, j_mixed_space())
+    jt._domain = domain  # the pump's domain, as the reference's ThreadTrials.fmin sets it
+    it = JFMinIter(tpe_jax.suggest, domain, jt, rstate=np.random.default_rng(seed),
+                   max_queue_len=K, poll_interval_secs=0.01, max_evals=n,
+                   show_progressbar=False)
+    for _ in range(n // K):
+        it.run(K)
+    assert {t["owner"] for t in jt.trials} <= {f"thread:{i}" for i in range(K)}
     jps = j_compile(j_mixed_space())
     first, labels = _first_divergence(jps, jt, tt)
     assert first is None or first >= 20, (first, labels)  # startup rounds equal
@@ -146,3 +159,32 @@ def test_tpe_stream_is_the_sequential_twin_and_the_reference(seed):
     margins = _ref_margins(jps, arrays, host_key(seeds[-1] % (2**31 - 1)), K)[:, first % K]
     for label in labels:
         assert margins[jps.labels.index(label)] < NEAR_TIE, (first, label)
+
+
+def test_run_without_blocking_runs_every_trial_once():
+    """``run(N, block_until_done=False)`` keeps the reference's refill
+    loop: it asks whenever fewer than ``max_queue_len`` trials wait,
+    sleeping one poll between fills, so its stream depends on the
+    threads' timing; what holds is that every trial runs once."""
+    ran, lock = [], threading.Lock()
+
+    def quad(x):
+        with lock:
+            ran.append(x)
+        time.sleep(0.01 * (1 + len(ran) % 3))  # unequal evaluation times
+        return (x - 0.5) ** 2
+
+    trials = ThreadTrials(parallelism=3)
+    domain = Domain(quad, H.hp.uniform("x", 0, 1), device="cpu")
+    trials._domain = domain  # the pump's domain, as ThreadTrials.fmin sets it
+    it = FMinIter(H.rand.suggest, domain, trials, rstate=np.random.default_rng(2),
+                  max_queue_len=2, poll_interval_secs=0.01, max_evals=12,
+                  show_progressbar=False)
+    it.run(12, block_until_done=False)
+    it.block_until_done()
+    trials.refresh()
+    assert [t["tid"] for t in trials.trials] == list(range(12))
+    assert [t["state"] for t in trials.trials] == [JOB_STATE_DONE] * 12
+    assert sorted(ran) == sorted(t["misc"]["vals"]["x"][0] for t in trials.trials)
+    assert [t["result"]["loss"] for t in trials.trials] == [
+        (t["misc"]["vals"]["x"][0] - 0.5) ** 2 for t in trials.trials]

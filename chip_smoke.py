@@ -195,14 +195,45 @@ network.  Every phase asserts, and a failure exits non-zero:
    ``budgeted_quadratic_fn`` with the survivor and a replacement worker:
    every job recorded once, one launch per rung-0 ask on 20 or more
    completed trials, ``fsck --dir`` clean, both workers drained by
-   SIGTERM with rc 0; (d) the kernel at every launch shape of (a)-(c).
+   SIGTERM with rc 0; (d) the kernel at every launch shape of (a)-(c);
+14. (right after phase 9, before any profiler too) the population models
+   (``models.transformer``, ``models.resnet``) at their full widths: (a)
+   ``bench.py``'s ``bench_pbt`` protocol on TinyLM (vocab 32, d_model 32,
+   2 heads, 2 layers, sequences of 32, batches of 32; ``PBT_STUDY_CONFIG``:
+   pop 32, ``exploit_every`` 10, 20 rounds, lr in (1e-4, 1), wd in (1e-7,
+   1e-2)): a warm runner (seed 99), then ``runner(seed=0)`` timed:
+   member-steps/s, ms per round, the population's nanmedian loss, the
+   captured rounds bitwise the eager rounds and the last round's median
+   below the first's; (b) ``compile_sha`` on the same TinyLM (32 configs,
+   eta 2, 10 steps per rung, 5 rungs down to 2 survivors: a sixth rung of
+   320 steps is a graph of some 670,000 kernels to capture): ms per rung
+   replay (CUDA events),
+   member-steps/s, captured bitwise eager, the best loss at most rung 0's
+   best; (c) ``compile_fmin(transformer.device_objective(n_steps=4))`` at
+   (a)'s widths, ``hpo_space()``, 256 trials in batches of 16: a warm
+   runner's wall and trials/s, one ``gmm_llr`` launch per model step, a
+   second ``runner(seed=0)`` bitwise, the best loss below the worst by
+   0.1; (d) ``bench.py``'s ``bench_asha_device`` protocol:
+   ``asha(budget_objective(), hpo_space(), max_budget=27, eta=3,
+   max_jobs=40, workers=4)`` with ``tpe.suggest`` on the card, every rung
+   budget captured first, and ``successive_halving(n_configs=27)`` at
+   equal jobs: both walls and best losses, one launch per rung-0 ask on
+   20 or more completed trials; (e) a population of 8 ``resnet20()``s
+   with distinct lr/wd on ``synthetic_cifar_batch(128, 32)``: 10 steps,
+   ms per step (CUDA events), member-images/s, finite and distinct
+   losses, the best lowered by training; then ``fmin`` over
+   ``resnet.population_objective(width=16, image_size=32,
+   batch_size=128, n_steps=3)`` with ``tpe.suggest``, 30 trials: ms per
+   trial and 10 launches; the kernel at every launch shape of (c)-(e);
+   the card's peak allocated memory of each part.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
 loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 10's under ``durable``, phase 11's under ``transport``, phase 12's under
-``fleet``, phase 13's under ``farm`` and each new path's launch shapes
-with their errors under ``checked_shapes``),
+``fleet``, phase 13's under ``farm``, phase 14's under ``population``
+and each new path's launch shapes with their errors under
+``checked_shapes``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -1850,6 +1881,285 @@ def phase9d(asha, out):
         "bracket_busy_ms": prof["busy_ms"], "bracket_wall_ms": prof["wall_ms"],
         "bracket_idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
         "kernels_per_bracket": prof["kernels_per_ask"]}
+
+
+# phase 14: the population models at their full widths (bench.py:1199-1243
+# bench_pbt's TinyLM, bench.py:1150 bench_asha_device, BASELINE.json
+# config #4's ResNet-20 on CIFAR-shaped batches)
+LM = dict(vocab=32, d_model=32, n_heads=2, n_layers=2, max_len=32)
+LM_DATA = dict(batch_size=32, seq_len=32, vocab=32)
+LM_BOUNDS = {"lr": (1e-4, 1.0), "wd": (1e-7, 1e-2)}
+LM_SHA = dict(n_configs=32, eta=2, steps_per_rung=10, n_rungs=5)
+LM_FMIN = dict(n_steps=4, max_evals=256, batch_size=16)
+LM_ASHA = dict(max_budget=27, eta=3, max_jobs=40, workers=4)
+RESNET_POP, RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 8, 128, 32, 10
+RESNET_FMIN_TRIALS = 30
+
+
+def peak_gb():
+    """The card's peak allocated memory since the last reset, in GB."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase14():
+    """The population models on the card; returns the kernel launches of
+    their paths and their numbers."""
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch import hyperband as HB
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch import tpe
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models import resnet as TR
+    from hyperopt_tpu_torch.models import transformer as TT
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.pbt import compile_pbt
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    launches, pop = {}, {}
+    model = TT.TinyLM(**LM)
+
+    def lm_state(n, seed):
+        params = TT.init_population(model, n, R.key(seed, device=dev), seq_len=LM["max_len"])
+        return params, {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def same_state(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    # -- 14a. bench_pbt's protocol on TinyLM at its full width -------------
+    torch.cuda.reset_peak_memory_stats()
+    train_fn = TT.make_pbt_train_fn(model, **LM_DATA)
+    pbt = compile_pbt(train_fn, lm_state(PBT_POP, 0), LM_BOUNDS, pop_size=PBT_POP,
+                      exploit_every=PBT_EXPLOIT_EVERY, n_rounds=PBT_ROUNDS)
+    t0 = time.perf_counter()
+    pbt(seed=99)  # warm-up and capture
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_out = pbt(seed=0)
+    torch.cuda.synchronize()
+    pbt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_eager = pbt._run(0, None, eager=True)
+    eager_s = time.perf_counter() - t0
+    pbt_equal = (np.array_equal(p_eager["loss_history"], p_out["loss_history"])
+                 and np.array_equal(p_eager["log_hypers"], p_out["log_hypers"])
+                 and same_state(p_eager["state"][0], p_out["state"][0]))
+    hist = p_out["loss_history"]
+    med_first, med_last = float(np.nanmedian(hist[0])), float(np.nanmedian(hist[-1]))
+    member_steps = PBT_POP * PBT_EXPLOIT_EVERY * PBT_ROUNDS
+    pop.update(pbt_seconds=pbt_s, pbt_member_steps_per_s=member_steps / pbt_s,
+               pbt_ms_per_round=pbt_s / PBT_ROUNDS * 1e3, pbt_median_loss=med_last,
+               pbt_first_round_median_loss=med_first, pbt_best_loss=p_out["best_loss"],
+               pbt_warm_seconds=warm_s, pbt_eager_seconds=eager_s, pbt_peak_gb=peak_gb())
+    log(f"[14a] bench_pbt on TinyLM {LM}, batch {LM_DATA['batch_size']} x "
+        f"{LM_DATA['seq_len']}, pop {PBT_POP}, exploit_every {PBT_EXPLOIT_EVERY}, "
+        f"{PBT_ROUNDS} rounds, bounds {LM_BOUNDS}: warm-up and capture {warm_s:.3f} s; timed "
+        f"runner(seed=0) {pbt_s:.4f} s, {member_steps / pbt_s:.1f} member-steps/s, "
+        f"{pbt_s / PBT_ROUNDS * 1e3:.4f} ms per round (one replay each); population median "
+        f"loss (nanmedian) of the last round {med_last:.6f}, of the first {med_first:.6f}; "
+        f"best {p_out['best_loss']:.6f}; the eager twin {eager_s:.3f} s, captured bitwise "
+        f"eager: {pbt_equal}; peak memory "
+        f"{pop['pbt_peak_gb']:.3f} GB")
+    assert pbt_equal, "the replayed PBT rounds are not the eager rounds' bits"
+    assert np.isfinite(med_last) and med_last < med_first, (med_first, med_last)
+    del pbt, p_out, p_eager
+
+    # -- 14b. compile_sha on the same TinyLM -----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    sha = HB.compile_sha(train_fn, lm_state(LM_SHA["n_configs"], 1), LM_BOUNDS, **LM_SHA)
+    t0 = time.perf_counter()
+    sha(seed=0)  # warm-up and capture of every rung
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_out = sha(seed=1)
+    sha_s = time.perf_counter() - t0
+    rung_ms = []
+    for graph in sha._graphs:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        rung_ms.append(start.elapsed_time(end))
+    t0 = time.perf_counter()
+    s_eager = sha._run(1, None, eager=True)
+    eager_s = time.perf_counter() - t0
+    sha_equal = (s_eager["rungs"] == s_out["rungs"]
+                 and s_eager["best_index"] == s_out["best_index"]
+                 and same_state(s_eager["state"][0], s_out["state"][0]))
+    sha_steps = sum(p * n for p, n, _ in sha._ladder)
+    best0 = s_out["rungs"][0]["best_loss"]
+    pop.update(sha_seconds=sha_s, sha_member_steps_per_s=sha_steps / sha_s,
+               sha_ms_per_rung=rung_ms, sha_best_loss=s_out["best_loss"],
+               sha_rung0_best_loss=best0, sha_warm_seconds=warm_s, sha_eager_seconds=eager_s,
+               sha_peak_gb=peak_gb())
+    log(f"[14b] compile_sha on TinyLM, {LM_SHA}: ladder {sha._ladder}, warm-up and capture "
+        f"{warm_s:.3f} s, timed run "
+        f"{sha_s:.4f} s ({sha_steps} member-steps, {sha_steps / sha_s:.1f} member-steps/s); "
+        f"ms per rung replay (CUDA events) {[round(t, 4) for t in rung_ms]}; best loss "
+        f"{s_out['best_loss']:.6f} (rung 0's best {best0:.6f}); the eager twin {eager_s:.3f} "
+        f"s, captured bitwise eager: "
+        f"{sha_equal}; peak memory {pop['sha_peak_gb']:.3f} GB")
+    assert sha_equal, "the replayed SHA rungs are not the eager rungs' bits"
+    assert s_out["best_loss"] <= best0, (s_out["best_loss"], best0)
+    del sha, s_out, s_eager
+
+    # -- 14c. compile_fmin over device_objective at (a)'s widths ----------
+    torch.cuda.reset_peak_memory_stats()
+    obj = TT.device_objective(n_steps=LM_FMIN["n_steps"], d_model=LM["d_model"],
+                              n_heads=LM["n_heads"], n_layers=LM["n_layers"], **LM_DATA)
+    runner = compile_fmin(obj, TT.hpo_space(), max_evals=LM_FMIN["max_evals"],
+                          batch_size=LM_FMIN["batch_size"])
+    t0 = time.perf_counter()
+    with launch_shapes() as lm_shapes:
+        runner(seed=1)  # warm-up and capture of both regimes
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = runner(seed=0)
+    fmin_s = time.perf_counter() - t0
+    prog = runner._program()
+    launches["lm_compiled"] = compiled_launches(prog)
+    replays = dict(prog.replays)
+    again = runner(seed=0)
+    n_steps = LM_FMIN["max_evals"] // LM_FMIN["batch_size"]
+    n_prior = -(-20 // LM_FMIN["batch_size"])
+    losses = out["losses"]
+    pop.update(fmin_seconds=fmin_s, fmin_trials_per_s=LM_FMIN["max_evals"] / fmin_s,
+               fmin_best_loss=out["best_loss"], fmin_max_loss=float(np.max(losses)),
+               fmin_peak_gb=peak_gb())
+    log(f"[14c] compile_fmin(transformer.device_objective({LM_FMIN['n_steps']} steps, "
+        f"TinyLM {LM}, batch {LM_DATA['batch_size']} x {LM_DATA['seq_len']}), hpo_space(), "
+        f"max_evals {LM_FMIN['max_evals']}, batch_size {LM_FMIN['batch_size']}): warm-up and "
+        f"capture {warm_s:.3f} s; warm runner {fmin_s:.4f} s, "
+        f"{LM_FMIN['max_evals'] / fmin_s:.1f} trials/s; best {out['best_loss']:.6f}, worst "
+        f"{np.max(losses):.6f}; replays {replays}, gmm_llr launches {launches['lm_compiled']} "
+        f"(captured per replay {prog.launches_per_replay}); a second runner(seed=0) bitwise: "
+        f"{np.array_equal(again['losses'], losses)}; peak memory {pop['fmin_peak_gb']:.3f} GB")
+    assert np.isfinite(losses).all()
+    assert replays == {"prior": n_prior, "model": n_steps - n_prior}, replays
+    assert prog.launches_per_replay == {"prior": 0, "model": 1}, prog.launches_per_replay
+    assert launches["lm_compiled"] == n_steps - n_prior, launches
+    assert np.array_equal(again["losses"], losses) and np.array_equal(again["values"],
+                                                                      out["values"])
+    assert out["best_loss"] < np.max(losses) - 0.1, (out["best_loss"], np.max(losses))
+    CHECKED_SHAPES["lm_compiled"] = check_shapes("lm_compiled", lm_shapes, seed=141)
+    del runner, prog, obj
+
+    # -- 14d. bench_asha_device's protocol --------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    fn = TT.budget_objective()
+    space = TT.hpo_space()
+    t0 = time.perf_counter()
+    for b in (1, 3, 9, 27):  # warm (capture) every rung budget
+        fn({"lr": 0.1, "wd": 1e-4}, b)
+    warm_s = time.perf_counter() - t0
+    expected = []
+
+    def counted_tpe(new_ids, domain, trials, seed):
+        # the model runs (one launch) once 20 completed trials exist
+        expected.append(int(len(trials.trials) >= 20))
+        return tpe.suggest(new_ids, domain, trials, seed)
+
+    G.KERNEL.launches = 0
+    with launch_shapes() as asha_shapes:
+        t0 = time.perf_counter()
+        out_a = HB.asha(fn, space, algo=counted_tpe, rstate=np.random.default_rng(0), **LM_ASHA)
+        asha_s = time.perf_counter() - t0
+    launches["lm_asha"] = G.KERNEL.launches
+    G.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    out_s = HB.successive_halving(fn, space, max_budget=LM_ASHA["max_budget"], min_budget=1,
+                                  eta=LM_ASHA["eta"], n_configs=27, algo=tpe.suggest,
+                                  rstate=np.random.default_rng(0))
+    sync_s = time.perf_counter() - t0
+    launches["lm_sha_host"] = G.KERNEL.launches
+    pop.update(asha_seconds=asha_s, sha_host_seconds=sync_s, asha_best_loss=out_a["best_loss"],
+               sha_host_best_loss=out_s["best_loss"], asha_warm_seconds=warm_s,
+               asha_peak_gb=peak_gb())
+    log(f"[14d] bench_asha_device: budget_objective() (TinyLM vocab 16, d 16, one layer), "
+        f"every rung budget warmed (captured) in {warm_s:.3f} s; asha({LM_ASHA}) with "
+        f"tpe.suggest on the card: {asha_s:.4f} s, {len(out_a['trials'])} evaluations, rungs "
+        f"{out_a['rungs']}, best {out_a['best_loss']:.6f}, {len(expected)} rung-0 asks, "
+        f"gmm_llr launches {launches['lm_asha']} (one per ask on 20 or more completed "
+        f"trials: {sum(expected)}); successive_halving(n_configs=27) at equal jobs: "
+        f"{sync_s:.4f} s, {len(out_s['trials'])} evaluations, best {out_s['best_loss']:.6f}, "
+        f"launches {launches['lm_sha_host']}; peak memory {pop['asha_peak_gb']:.3f} GB")
+    assert len(out_a["trials"]) == LM_ASHA["max_jobs"] and len(out_s["trials"]) == 40
+    assert launches["lm_asha"] == sum(expected), (launches["lm_asha"], sum(expected))
+    assert np.isfinite(out_a["best_loss"]) and np.isfinite(out_s["best_loss"])
+    CHECKED_SHAPES["lm_asha"] = check_shapes("lm_asha", asha_shapes, seed=142)
+
+    # -- 14e. ResNet-20 at its full width --------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    net = TR.resnet20()
+    params = TR.init_population(net, RESNET_POP, R.key(0, device=dev),
+                                image_size=RESNET_IMAGE)
+    momentum = {k: torch.zeros_like(v) for k, v in params.items()}
+    images, labels = TR.synthetic_cifar_batch(R.key(1, device=dev), RESNET_BATCH, RESNET_IMAGE)
+    lr = torch.exp(torch.linspace(np.log(0.3), np.log(0.003), RESNET_POP, device=dev))
+    wd = torch.exp(torch.linspace(np.log(1e-5), np.log(1e-3), RESNET_POP, device=dev))
+    step = TR.make_population_train_step(net)
+    step(params, momentum, lr, wd, images, labels)  # warm-up: the algorithms' choice
+    torch.cuda.synchronize()
+    step_ms, step_losses = [], []
+    p, m = params, momentum
+    for _ in range(RESNET_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, m, loss = step(p, m, lr, wd, images, labels)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        step_losses.append(loss.cpu().numpy())
+    first, last = step_losses[0], step_losses[-1]
+    ms = statistics.median(step_ms)
+    pop.update(resnet_ms_per_step=ms, resnet_step_ms=step_ms,
+               resnet_member_images_per_s=RESNET_POP * RESNET_BATCH / (ms / 1e3),
+               resnet_first_best_loss=float(first.min()),
+               resnet_last_best_loss=float(last.min()), resnet_peak_gb=peak_gb())
+    log(f"[14e] resnet20 population of {RESNET_POP} (lr {lr.cpu().numpy().round(5).tolist()}), "
+        f"batch {RESNET_BATCH} of {RESNET_IMAGE}x{RESNET_IMAGE}x3: ms per step (CUDA events) "
+        f"{[round(t, 3) for t in step_ms]}, median {ms:.3f} ms, "
+        f"{pop['resnet_member_images_per_s']:.1f} member-images/s; losses at the first step "
+        f"{first.round(5).tolist()}, at the last {last.round(5).tolist()}; peak memory "
+        f"{pop['resnet_peak_gb']:.3f} GB")
+    assert all(np.isfinite(x).all() for x in step_losses)
+    assert len(np.unique(last)) > 1, "the members' losses do not differ"
+    assert last.min() < first.min(), (first.min(), last.min())
+    del p, m, params, momentum
+
+    torch.cuda.reset_peak_memory_stats()
+    obj = TR.population_objective(width=16, image_size=RESNET_IMAGE, batch_size=RESNET_BATCH,
+                                  n_steps=3)
+    trials = H.Trials()
+    G.KERNEL.launches = 0
+    with launch_shapes() as rn_shapes:
+        t0 = time.perf_counter()
+        H.fmin(obj, TR.hpo_space(), algo=tpe.suggest, max_evals=RESNET_FMIN_TRIALS,
+               trials=trials, rstate=np.random.default_rng(0), show_progressbar=False)
+        rn_s = time.perf_counter() - t0
+    launches["resnet_fmin"] = G.KERNEL.launches
+    rn_losses = trials.losses()
+    pop.update(resnet_fmin_seconds=rn_s, resnet_fmin_ms_per_trial=rn_s / RESNET_FMIN_TRIALS * 1e3,
+               resnet_fmin_best_loss=float(min(rn_losses)), resnet_fmin_peak_gb=peak_gb())
+    log(f"[14e] fmin(resnet.population_objective(width=16, image_size {RESNET_IMAGE}, batch "
+        f"{RESNET_BATCH}, 3 steps), hpo_space(), tpe.suggest, {RESNET_FMIN_TRIALS} trials): "
+        f"{rn_s:.3f} s, {rn_s / RESNET_FMIN_TRIALS * 1e3:.2f} ms per trial, best "
+        f"{min(rn_losses):.6f}, gmm_llr launches {launches['resnet_fmin']}; peak memory "
+        f"{pop['resnet_fmin_peak_gb']:.3f} GB")
+    assert len(rn_losses) == RESNET_FMIN_TRIALS and np.isfinite(rn_losses).all()
+    assert launches["resnet_fmin"] == RESNET_FMIN_TRIALS - 20, launches
+    CHECKED_SHAPES["resnet_fmin"] = check_shapes("resnet_fmin", rn_shapes, seed=143)
+    pop["seconds"] = time.perf_counter() - t_phase
+    log(f"[14] {pop['seconds']:.1f} s")
+    return launches, pop
 
 
 PHASE10_TRIALS = 300
@@ -3536,6 +3846,9 @@ def main():
     # -- 9. the multi-fidelity schedulers, before any profiler too ---------
     sched_launches, schedulers, asha_result, profile_9, profile_9d = phase9(sfu_per_s)
     compiled_launches_by_path.update(sched_launches)
+    # -- 14. the population models, before any profiler too ---------------
+    population_launches, population = phase14()
+    compiled_launches_by_path.update(population_launches)
     # then the kernel's timings at both shapes and the profiled window of
     # the compiled loop (the ASHA brackets' window runs last of all)
     profile_8f()
@@ -3764,6 +4077,7 @@ def main():
         "transport": transport,
         "fleet": fleet,
         "farm": farm,
+        "population": population,
         "checked_shapes": CHECKED_SHAPES,
     }]}
     print(json.dumps(kernels))

@@ -22,9 +22,13 @@ and crash-exact resume (``trials_save_file``/``resume_from``),
 (``fmin(engine=True, ask_ahead=k)``, :mod:`hyperopt_tpu_torch.client`);
 and asynchronous trial farming (:mod:`hyperopt_tpu_torch.distributed`:
 ``ThreadTrials``, ``FileTrials`` with its worker processes, ``MongoTrials``,
-``SparkTrials`` and ASHA over the queues), the suggestion on the card.
-The EI scoring of continuous candidates runs in a hand-written Hopper
-kernel (:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
+``SparkTrials`` and ASHA over the queues), the suggestion on the card;
+and the population models (:mod:`hyperopt_tpu_torch.models`: ``TinyLM``
+and ResNet-20 trained as populations under ``compile_fmin``, PBT, SHA and
+ASHA).  The submodules that ``import hyperopt_tpu_torch`` does not load
+load at first attribute access, as the reference's do.  The EI scoring
+of continuous candidates runs in a hand-written Hopper kernel
+(:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
 """
 
 import torch
@@ -40,22 +44,66 @@ from .base import (  # noqa: E402
     JOB_STATE_ERROR,
     JOB_STATE_NEW,
     JOB_STATE_RUNNING,
+    JOB_STATES,
     STATUS_FAIL,
     STATUS_NEW,
     STATUS_OK,
+    STATUS_RUNNING,
+    STATUS_STRINGS,
+    STATUS_SUSPENDED,
     Ctrl,
     Domain,
     Trials,
     trials_from_docs,
 )
 from .early_stop import no_progress_loss  # noqa: E402
-from .exceptions import AllTrialsFailed, CheckpointError, TrialTimeout  # noqa: E402
-from .fmin import FMinIter, fmin, generate_trials_to_calculate, partial, space_eval  # noqa: E402
+from .exceptions import (  # noqa: E402
+    AllTrialsFailed,
+    CheckpointError,
+    DuplicateLabel,
+    HyperoptTpuError,
+    InvalidLoss,
+    InvalidResultStatus,
+    InvalidTrial,
+    TrialTimeout,
+)
+from .fmin import (  # noqa: E402
+    FMinIter,
+    fmin,
+    fmin_pass_expr_memo_ctrl,
+    generate_trials_to_calculate,
+    partial,
+    space_eval,
+)
 from .torch_trials import TorchTrials  # noqa: E402
 
-__all__ = ["AllTrialsFailed", "CheckpointError", "Ctrl", "Domain", "FMinIter", "JOB_STATE_DONE",
-           "JOB_STATE_ERROR", "JOB_STATE_NEW", "JOB_STATE_RUNNING", "STATUS_FAIL", "STATUS_NEW",
-           "STATUS_OK", "TorchTrials", "TrialTimeout", "Trials", "anneal", "atpe", "client",
-           "early_stop", "exceptions", "fmin", "generate_trials_to_calculate", "hp",
-           "no_progress_loss", "partial", "progress", "rand", "space_eval", "tpe",
-           "trials_from_docs"]
+__version__ = "0.1.0"
+
+# the reference's public names, less its ``*_jax`` modules (the port's
+# ``tpe``, ``anneal``, ``atpe`` and ``rand`` are those algorithms) and
+# ``mix`` (ROADMAP.md Queue A, item 21)
+__all__ = ["AllTrialsFailed", "Ctrl", "Domain", "DuplicateLabel", "FMinIter",
+           "HyperoptTpuError", "InvalidLoss", "InvalidResultStatus", "InvalidTrial",
+           "JOB_STATES", "JOB_STATE_DONE", "JOB_STATE_ERROR", "JOB_STATE_NEW",
+           "JOB_STATE_RUNNING", "STATUS_FAIL", "STATUS_NEW", "STATUS_OK", "STATUS_RUNNING",
+           "STATUS_STRINGS", "STATUS_SUSPENDED", "Trials", "__version__", "anneal", "base",
+           "device_loop", "early_stop", "exceptions", "fmin", "fmin_pass_expr_memo_ctrl",
+           "generate_trials_to_calculate", "hp", "hyperband", "no_progress_loss", "partial",
+           "pbt", "pyll", "rand", "space_eval", "tpe", "trials_from_docs"]
+
+# modules loaded at first use, so that ``import hyperopt_tpu_torch`` stays
+# cheap: the reference's lazy names that the port has, and its own
+_LAZY = frozenset({
+    "convert", "device_loop", "distributed", "hyperband", "models", "obs", "ops", "pbt",
+    "pyll_utils", "rand_host", "random", "serve", "torch_trials", "utils", "vectorize",
+})
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

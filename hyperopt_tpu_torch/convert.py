@@ -15,8 +15,9 @@ from .ops.kernels import HistoryState
 from .utils import resolve_device
 
 __all__ = ["device_loop_result_from_numpy", "history_from_numpy", "key_from_numpy",
-           "pbt_result_from_numpy", "population_state_from_numpy", "sha_result_from_numpy",
-           "space_consts_from_numpy", "study_batch_from_numpy", "trainable_state_from_numpy"]
+           "pbt_result_from_numpy", "population_state_from_numpy", "resnet_params_from_numpy",
+           "sha_result_from_numpy", "space_consts_from_numpy", "study_batch_from_numpy",
+           "tinylm_params_from_numpy", "trainable_state_from_numpy"]
 
 
 def history_from_numpy(values, active, losses, valid, device=None):
@@ -117,3 +118,90 @@ def sha_result_from_numpy(out, device=None):
     """A reference ``compile_sha`` result -> the port's form: the surviving
     ``state`` as tensors on ``device``, the bookkeeping as is."""
     return {**out, "state": population_state_from_numpy(out["state"], device)}
+
+
+# flax layouts -> torch layouts, on the trailing axes (a leading population
+# axis passes through)
+def _dense(p):
+    """``Dense``: kernel ``[in, out]`` -> weight ``[out, in]``; bias as is."""
+    return {"weight": np.swapaxes(p["kernel"], -1, -2), "bias": p["bias"]}
+
+
+def _norm(p):
+    """``LayerNorm``/``GroupNorm``: scale, bias -> weight, bias."""
+    return {"weight": p["scale"], "bias": p["bias"]}
+
+
+def _conv(p):
+    """``Conv``: kernel HWIO -> weight OIHW."""
+    return {"weight": np.moveaxis(p["kernel"], (-4, -3, -2, -1), (-2, -1, -3, -4))}
+
+
+def _heads_in(p):
+    """``DenseGeneral`` to heads: kernel ``[d, h, hd]`` -> ``[h*hd, d]``,
+    bias ``[h, hd]`` -> ``[h*hd]``."""
+    k, b = p["kernel"], p["bias"]
+    return {"weight": np.swapaxes(k.reshape(k.shape[:-2] + (-1,)), -1, -2),
+            "bias": b.reshape(b.shape[:-2] + (-1,))}
+
+
+def _heads_out(p):
+    """``DenseGeneral`` from heads: kernel ``[h, hd, d]`` -> ``[d, h*hd]``."""
+    k = p["kernel"]
+    return {"weight": np.swapaxes(k.reshape(k.shape[:-3] + (-1, k.shape[-1])), -1, -2),
+            "bias": p["bias"]}
+
+
+def _flat(named, device):
+    dev = resolve_device(device)
+    return {f"{prefix}.{leaf}": torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+            for prefix, leaves in named for leaf, v in leaves.items()}
+
+
+def _numbered(tree, name):
+    """``tree[f"{name}_0"]``, ``tree[f"{name}_1"]``, ... while present."""
+    out = []
+    while f"{name}_{len(out)}" in tree:
+        out.append(tree[f"{name}_{len(out)}"])
+    return out
+
+
+def tinylm_params_from_numpy(params, device=None):
+    """The reference's flax ``TinyLM`` parameters (a nested dict of numpy
+    arrays, with or without the leading population axis) -> the port's
+    :class:`~hyperopt_tpu_torch.models.transformer.TinyLM` parameters,
+    ``{name: tensor}`` on ``device``, so that ``functional_call(TinyLM(...),
+    converted, tokens)`` is ``model.apply({"params": params}, tokens)``."""
+    named = [("tok_emb", {"weight": params["Embed_0"]["embedding"]}),
+             ("pos_emb", {"weight": params["Embed_1"]["embedding"]})]
+    for i, blk in enumerate(_numbered(params, "Block")):
+        att = blk["SelfAttention_0"]
+        named += [(f"blocks.{i}.ln1", _norm(blk["LayerNorm_0"])),
+                  (f"blocks.{i}.query", _heads_in(att["query"])),
+                  (f"blocks.{i}.key", _heads_in(att["key"])),
+                  (f"blocks.{i}.value", _heads_in(att["value"])),
+                  (f"blocks.{i}.out", _heads_out(att["out"])),
+                  (f"blocks.{i}.ln2", _norm(blk["LayerNorm_1"])),
+                  (f"blocks.{i}.fc1", _dense(blk["Dense_0"])),
+                  (f"blocks.{i}.fc2", _dense(blk["Dense_1"]))]
+    named += [("ln_f", _norm(params["LayerNorm_0"])), ("head", _dense(params["Dense_0"]))]
+    return _flat(named, device)
+
+
+def resnet_params_from_numpy(params, device=None):
+    """The reference's flax ``ResNet`` parameters (a nested dict of numpy
+    arrays, with or without the leading population axis) -> the port's
+    :class:`~hyperopt_tpu_torch.models.resnet.ResNet` parameters on
+    ``device``: convolutions HWIO -> OIHW, GroupNorm ``scale`` ->
+    ``weight``."""
+    named = [("stem", _conv(params["Conv_0"])), ("stem_norm", _norm(params["GroupNorm_0"]))]
+    for i, blk in enumerate(_numbered(params, "BasicBlock")):
+        named += [(f"blocks.{i}.conv1", _conv(blk["Conv_0"])),
+                  (f"blocks.{i}.norm1", _norm(blk["GroupNorm_0"])),
+                  (f"blocks.{i}.conv2", _conv(blk["Conv_1"])),
+                  (f"blocks.{i}.norm2", _norm(blk["GroupNorm_1"]))]
+        if "Conv_2" in blk:
+            named += [(f"blocks.{i}.shortcut", _conv(blk["Conv_2"])),
+                      (f"blocks.{i}.shortcut_norm", _norm(blk["GroupNorm_2"]))]
+    named.append(("head", _dense(params["Dense_0"])))
+    return _flat(named, device)

@@ -74,11 +74,20 @@ from .utils import coarse_utcnow
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["fmin", "FMinIter", "StopExperiment", "generate_trials_to_calculate", "partial",
-           "space_eval"]
+__all__ = ["fmin", "FMinIter", "StopExperiment", "fmin_pass_expr_memo_ctrl",
+           "generate_trials_to_calculate", "partial", "space_eval"]
 
 class StopExperiment:
     """Sentinel an algo may return instead of new trials to halt fmin."""
+
+
+def fmin_pass_expr_memo_ctrl(f):
+    """Decorator: the objective takes the raw ``(expr, memo, ctrl)``
+    instead of a materialized config (the reference's
+    ``fmin_pass_expr_memo_ctrl``; :class:`~hyperopt_tpu_torch.base.Domain`
+    reads the attribute)."""
+    f.fmin_pass_expr_memo_ctrl = True
+    return f
 
 
 def partial(fn, **kwargs):

@@ -15,6 +15,9 @@ streams can be held against each other.  It reproduces JAX's default
   (``threefry_seed`` of a 32-bit word) into a new key;
 * ``n`` random 32-bit words hash the counters ``(i >> 32, i & 0xffffffff)``
   of a row-major iota over the requested shape and keep ``bits1 ^ bits2``;
+* ``randint`` draws two words per value from ``split(key)`` and folds
+  them into the span as ``jax.random.randint`` does (uint32 wraparound,
+  ``(2**16 mod span)**2 mod span`` in uint32 as the high word's weight);
 * ``uniform`` sets the 23 high bits as the mantissa of a float in
   [1, 2) and subtracts one; ``normal`` is ``sqrt(2) * erfinv(u)``;
   ``categorical`` is the low-range Gumbel-max trick.
@@ -36,7 +39,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "normal", "categorical"]
+__all__ = ["key", "split", "fold_in", "random_bits", "randint", "uniform", "normal",
+           "categorical"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -120,6 +124,24 @@ def random_bits(key, shape):
     hi, lo = _iota_2x32(shape, key.device)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
     return b1 ^ b2
+
+
+def randint(key, shape, minval, maxval):
+    """int64 integers in ``[minval, maxval)``, ``[..., *shape]``
+    (``jax.random.randint`` with its default int32, bit for bit).
+
+    ``minval``/``maxval`` are ints in the int32 range; ``maxval <=
+    minval`` gives ``minval``.  Plain int64 operations, so a draw
+    captures into a CUDA graph."""
+    shape = tuple(int(s) for s in shape)
+    # the two words of each value from split(key)'s two keys, in one hash
+    higher, lower = random_bits(split(key), shape).unbind(-len(shape) - 1)
+    lo = int(minval)
+    span = max(int(maxval) - lo, 1)  # as uint32: at most 2**32 - 1
+    multiplier = ((2**16 % span) ** 2 & _MASK) % span
+    offset = (((higher % span) * multiplier + lower % span) & _MASK) % span
+    out = (lo + offset) & _MASK  # int32 wraparound
+    return torch.where(out > 2**31 - 1, out - 2**32, out)
 
 
 def uniform(key, shape, minval=0.0, maxval=1.0):

@@ -806,3 +806,75 @@ def test_cuda_mongo_trials_are_the_sequential_twin(cuda, monkeypatch):
         th.join(timeout=30)
     assert _farm_stream(trials) == want
     assert G.KERNEL.launches == twin_launches == 3
+
+
+def _population_case(model_mod, model, device, pop=4):
+    """A tiny population of ``model`` made on the CPU and copied to
+    ``device``, with distinct lr/wd and the step's data."""
+    from hyperopt_tpu_torch import random as R
+
+    params = model_mod.init_population(model, pop, R.key(0), device="cpu")
+    lr = torch.tensor([0.3, 0.1, 0.03, 0.01][:pop])
+    wd = torch.tensor([1e-5, 1e-4, 1e-3, 1e-2][:pop])
+    if model_mod.__name__.endswith("transformer"):
+        data = (model_mod.synthetic_token_batch(R.key(1), 16, 16, 16),)
+    else:
+        data = model_mod.synthetic_cifar_batch(R.key(1), 8, 8)
+    move = lambda t: t.to(device)  # noqa: E731
+    return ({k: move(v) for k, v in params.items()},
+            {k: torch.zeros_like(move(v)) for k, v in params.items()},
+            move(lr), move(wd), *(move(d) for d in data))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["transformer", "resnet"])
+def test_cuda_population_step_matches_the_cpu(cuda, family):
+    """Three population steps of the tiny TinyLM (vocab 16, d 16, one
+    layer) and ResNet (1-1-1, width 8, 8x8 images) on the card against
+    the same steps on the CPU: losses within 1e-4 relative, parameters
+    within 1e-5 (two float32 implementations of the same layers; TF32 is
+    off)."""
+    import importlib
+
+    mod = importlib.import_module(f"hyperopt_tpu_torch.models.{family}")
+    model = (mod.TinyLM(vocab=16, d_model=16, n_heads=2, n_layers=1, max_len=16)
+             if family == "transformer" else mod.ResNet(stage_sizes=(1, 1, 1), width=8))
+    outs = {}
+    for dev in ("cpu", cuda):
+        step = mod.make_population_train_step(model, device=dev)
+        p, m, lr, wd, *data = _population_case(mod, model, dev)
+        for _ in range(3):
+            p, m, loss = step(p, m, lr, wd, *data)
+        outs[str(dev)] = ({k: v.cpu() for k, v in p.items()}, loss.cpu())
+    (pc, lc), (pg, lg) = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=0)
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=0, atol=1e-5, msg=k)
+    assert len(set(lg.tolist())) > 1
+
+
+@pytest.mark.cuda
+def test_cuda_tinylm_pbt_round_replays_its_eager_round(cuda):
+    """compile_pbt on a tiny TinyLM population on the card: the captured
+    round (tokens drawn by ``randint`` on the card from each step key)
+    replayed 3 times is bitwise the eager rounds, and a warm round copies
+    nothing from the host."""
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.models import transformer as TT
+    from hyperopt_tpu_torch.pbt import compile_pbt
+
+    lm = TT.TinyLM(vocab=16, d_model=16, n_heads=2, n_layers=1, max_len=16)
+    params = TT.init_population(lm, 8, R.key(0))
+    state = (params, {k: torch.zeros_like(v) for k, v in params.items()})
+    runner = compile_pbt(TT.make_pbt_train_fn(lm, 16, 16, 16), state,
+                         {"lr": (1e-3, 1.0), "wd": (1e-7, 1e-2)}, pop_size=8, exploit_every=3,
+                         n_rounds=3)
+    out = runner(seed=0)
+    assert len(runner._graph) == 1
+    eager = runner._run(0, None, eager=True)
+    assert np.array_equal(eager["loss_history"], out["loss_history"])
+    assert np.array_equal(eager["log_hypers"], out["log_hypers"])
+    assert all(torch.equal(a, b) for a, b in zip(eager["state"][0].values(),
+                                                 out["state"][0].values()))
+    runner._round_index.zero_()
+    _sync_checked(runner._round)

@@ -59,11 +59,6 @@ def _exploding(x):
     raise RuntimeError("kaboom")
 
 
-def _slow_objective(x):
-    time.sleep(0.6)
-    return x
-
-
 def _domain(fn, space=SPACE):
     return Domain(fn, space, device="cpu")
 
@@ -265,14 +260,32 @@ def test_worker_resolves_the_domain_per_doc(tmp_path):
     assert 20.0 <= done[1]["result"]["loss"] < 21.0
 
 
+_EVALUATING = threading.Event()
+
+
+def _signalled_slow_objective(x):
+    _EVALUATING.set()
+    time.sleep(2.0)
+    return x
+
+
 def test_heartbeat_defeats_reaping_of_a_live_job(tmp_path):
-    trials = _queued(str(tmp_path / "q"), _slow_objective, 1)
+    """A claim whose evaluation beats every 0.05 s is not reaped at a 0.15
+    s timeout 0.35 s into the evaluation (its claim time is older).  The
+    wait starts when the objective runs: the worker's Domain load before
+    it is not heartbeated, and under a loaded host it can outlast the
+    timeout by itself."""
+    _EVALUATING.clear()
+    trials = _queued(str(tmp_path / "q"), _signalled_slow_objective, 1)
     t = threading.Thread(target=run_one, args=(trials.queue, worker_owner()),
                          kwargs={"heartbeat": 0.05})
     t.start()
+    assert _EVALUATING.wait(30)
     time.sleep(0.35)
+    assert trials.queue.counts()["running"] == 1  # still evaluating
     assert trials.queue.reap(reserve_timeout=0.15) == 0
     t.join(timeout=10)
+    assert not t.is_alive()
     assert trials.queue.counts() == {"new": 0, "running": 0, "done": 1}
 
 

@@ -15,7 +15,7 @@ from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "hyperopt_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "hyperopt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hyperopt_tpu")
 
 
 def test_fmin_in_a_fresh_process_loads_no_jax():
@@ -117,8 +117,9 @@ def _sources():
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_import_in_source(path):
-    """(b) no module of the port and nothing in chip_smoke.py imports jax
-    or hyperopt_tpu (absolute imports; relative ones stay in the port)."""
+    """(b) no module of the port and nothing in chip_smoke.py imports jax,
+    flax, optax or hyperopt_tpu (absolute imports; relative ones stay in
+    the port)."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     for node in ast.walk(tree):
@@ -427,3 +428,70 @@ def test_no_cuda_means_no_silent_cpu_farming(monkeypatch, tmp_path):
         asha_filequeue(budgeted_quadratic_fn, budgeted_quadratic_space(), max_budget=9,
                        dirpath=dirpath, max_jobs=4)
     assert FileJobQueue(dirpath).counts() == {"new": 0, "running": 0, "done": 0}
+
+
+def test_population_models_in_a_fresh_process_load_no_jax():
+    """(a''''') the population models on the CPU -- a TinyLM PBT round and
+    a ResNet population step -- and afterwards neither jax, flax, optax
+    nor the JAX package is loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from hyperopt_tpu_torch import random as R
+        from hyperopt_tpu_torch.models import resnet, transformer
+        from hyperopt_tpu_torch.pbt import compile_pbt
+
+        lm = transformer.TinyLM(vocab=8, d_model=8, n_heads=2, n_layers=1, max_len=8)
+        params = transformer.init_population(lm, 4, R.key(0), device="cpu")
+        momentum = {k: torch.zeros_like(v) for k, v in params.items()}
+        out = compile_pbt(transformer.make_pbt_train_fn(lm, 4, 8, 8), (params, momentum),
+                          {"lr": (1e-3, 1.0), "wd": (1e-7, 1e-2)}, pop_size=4,
+                          exploit_every=2, n_rounds=1, device="cpu")(seed=0)
+        assert out["loss_history"].shape == (1, 4)
+        net = resnet.ResNet(stage_sizes=(1, 1, 1), width=8)
+        pop = resnet.init_population(net, 2, R.key(1), device="cpu")
+        images, labels = resnet.synthetic_cifar_batch(R.key(2), 4, 8)
+        step = resnet.make_population_train_step(net, device="cpu")
+        _, _, losses = step(pop, {k: torch.zeros_like(v) for k, v in pop.items()},
+                            torch.tensor([0.1, 0.01]), torch.tensor([1e-4, 1e-4]),
+                            images, labels)
+        assert torch.isfinite(losses).all()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_no_cuda_means_no_silent_cpu_population_models(monkeypatch):
+    """(c''''') without CUDA, the TinyLM ``device_objective`` under
+    ``compile_fmin``, its ``budget_objective`` and ``population_objective``,
+    and ResNet's ``make_population_train_step``, ``init_population`` and
+    ``population_objective`` with ``device=None`` raise rather than run on
+    the CPU."""
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models import resnet, transformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = resnet.ResNet(stage_sizes=(1, 1, 1), width=8)
+    calls = [
+        lambda: compile_fmin(transformer.device_objective(), transformer.hpo_space(),
+                             max_evals=8, batch_size=4),
+        lambda: transformer.budget_objective(),
+        lambda: transformer.population_objective(),
+        lambda: transformer.make_population_train_step(transformer.TinyLM()),
+        lambda: resnet.make_population_train_step(net),
+        lambda: resnet.init_population(net, 2, R.key(0)),
+        lambda: resnet.population_objective(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

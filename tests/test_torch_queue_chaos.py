@@ -210,7 +210,14 @@ def test_two_workers_drain_12_jobs_under_faults_at_every_crash_point(tmp_path):
         w.start()
     check = FileJobQueue(dirpath)
     try:
-        time.sleep(0.3)
+        # the late Domain appears only once a worker has given job 0 back
+        # (its unreserve point fired): a fixed wait raced the workers, and
+        # a run whose first claim of job 0 came after the publish never
+        # reached that point
+        deadline = time.time() + 60
+        while time.time() < deadline and not any(
+                p.stats.get("crash:after_unreserve_utime_before_rename") for p in worker_plans):
+            time.sleep(0.01)
         _with_restarts(lambda: trials.attachments.__setitem__(LATE, pickle.dumps(_domain())))
         deadline = time.time() + 120
         while time.time() < deadline and check.counts() != {"new": 0, "running": 0, "done": 12}:

@@ -96,3 +96,27 @@ def test_normal_within_ulp():
         n += ulp.size
     assert worst <= 2, worst
     assert same / n > 0.999, same / n
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, -5])
+@pytest.mark.parametrize("low,high,shape", [
+    (0, 16, (64, 1)), (1, 9, (7,)), (-5, 3, (3, 4)), (0, 10, (128,)),
+    (5, 5, (4,)), (7, 3, (4,)), (-2**31, 2**31 - 1, (6,)), (0, 2**31 - 1, (5,)),
+])
+def test_randint_bitwise(seed, low, high, shape):
+    """``randint`` is ``jax.random.randint``'s int32 draw bit for bit:
+    small and full spans (the uint32 wraparound of the high word's
+    weight), an empty range (``maxval <= minval`` gives ``minval``),
+    negative bounds."""
+    want = np.asarray(jax.random.randint(jax.random.key(seed), shape, low, high))
+    got = R.randint(R.key(seed), shape, low, high)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_randint_batched_keys():
+    """Over a batch of keys (``vmap`` in JAX), the same bits."""
+    keys = jax.random.split(jax.random.key(3), 4)
+    want = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (5,), 0, 16))(keys))
+    got = R.randint(R.split(R.key(3), 4), (5,), 0, 16)
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -225,15 +225,36 @@ network.  Every phase asserts, and a failure exits non-zero:
    ``resnet.population_objective(width=16, image_size=32,
    batch_size=128, n_steps=3)`` with ``tpe.suggest``, 30 trials: ms per
    trial and 10 launches; the kernel at every launch shape of (c)-(e);
-   the card's peak allocated memory of each part.
+   the card's peak allocated memory of each part;
+15. (right after phase 14, before any profiler) the BASELINE.json
+   configurations #1 (``quadratic1``, 80 trials), #2 (``branin``, 100;
+   ``hartmann6``, 150), #3 (the XGBoost surrogate, 100) and #5
+   (NAS-Bench-201, 100), each ``fmin`` run with ``tpe.suggest`` on the card
+   and with the host TPE (``tpe_host.suggest``) at the battery's seeds 0-4,
+   under ``HYPEROPT_TPU_NATIVE=1``: (c) the native host library built into
+   the package's ``_build/`` under strict mode; (a) per configuration and
+   algorithm the best loss of each seed and their median beside the
+   target and the minimum, ms per trial, and the launches (one per TPE
+   ask past the 20 startup trials on the card; none on NAS-Bench-201,
+   which is all categorical, nor for the host TPE); every trial ``ok``;
+   the card's median best at most the target on the three threshold
+   domains (the battery's statistic: ``tests/test_domains.py``); (c) the
+   library against the numpy oracle at every shape (a) gave it (1e-12
+   for the fit, 1e-9 for the log-density); (d) the kernel at every launch
+   shape of the card's runs; and (b), run after phase 4's window,
+   ``bench.py``'s ``bench_host_tpe`` protocol on phase 4's 1000-trial
+   history (a warm-up ask, then 15 timed asks of ``tpe_host.suggest``,
+   with the native library and with ``_native`` patched to None), beside
+   phase 4's time in the card's ``tpe.suggest``.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
 loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 10's under ``durable``, phase 11's under ``transport``, phase 12's under
-``fleet``, phase 13's under ``farm``, phase 14's under ``population``
-and each new path's launch shapes with their errors under
-``checked_shapes``),
+``fleet``, phase 13's under ``farm``, phase 14's under ``population``,
+phase 15's under ``baseline``,
+each new path's launch shapes with their errors under
+``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, it exits non-zero and prints no result.
@@ -2162,6 +2183,220 @@ def phase14():
     return launches, pop
 
 
+# the reference battery's seeds and statistic (tests/test_domains.py):
+# a domain's target is met when the median best loss over them is at most it
+BASELINE_SEEDS = (0, 1, 2, 3, 4)
+BASELINE_THRESHOLDS = ("quadratic1", "branin", "hartmann6")
+BASELINE_TRIALS = 100  # the surrogate's and NAS-Bench-201's evaluations
+NORTH_STAR_ASKS = 15  # bench.py's bench_host_tpe: one warm-up ask, then 15 timed
+NATIVE_RTOL = {"adaptive_parzen": 1e-12, "gmm_lpdf": 1e-9}  # tests/test_native.py:38, :83
+
+
+def baseline_domains():
+    """BASELINE.json configurations #1 (``quadratic1``), #2 (``branin``,
+    ``hartmann6``), #3 (the XGBoost surrogate) and #5 (NAS-Bench-201):
+    ``(name, fn, space, n_trials, target, global_min)``; the surrogate's
+    minimum is its best known loss."""
+    from hyperopt_tpu_torch.models import nasbench, surrogate
+    from hyperopt_tpu_torch.models.synthetic import DOMAINS
+
+    out = []
+    for name in BASELINE_THRESHOLDS:
+        d = DOMAINS[name]
+        (n, target), = d.targets.items()
+        out.append((name, d.fn, d.make_space, n, target, d.global_min))
+    out.append(("surrogate", surrogate.objective, surrogate.space, BASELINE_TRIALS, None,
+                surrogate.best_known()))
+    out.append(("nasbench", nasbench.objective, nasbench.space, BASELINE_TRIALS, None,
+                nasbench.optimal_loss()))
+    return out
+
+
+@contextlib.contextmanager
+def strict_native():
+    """``HYPEROPT_TPU_NATIVE=1`` inside the block: a failed build of the
+    native host library raises instead of falling back to numpy."""
+    before = os.environ.get("HYPEROPT_TPU_NATIVE")
+    os.environ["HYPEROPT_TPU_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("HYPEROPT_TPU_NATIVE", None)
+        else:
+            os.environ["HYPEROPT_TPU_NATIVE"] = before
+
+
+@contextlib.contextmanager
+def native_calls(native):
+    """Record the inputs of the first native call at each shape made inside
+    the block: ``{(fn, shape...): (args, kwargs)}``.  The calls and their
+    results are unchanged."""
+    import numpy as np
+
+    seen, real = {}, {"gmm_lpdf": native.gmm_lpdf, "adaptive_parzen": native.adaptive_parzen}
+
+    def recorder(name):
+        def call(*args, **kw):
+            key = (name, len(np.atleast_1d(args[0])), len(np.atleast_1d(args[1]))
+                   if name == "gmm_lpdf" else args[4],
+                   *(kw.get(k) is None for k in ("low", "high", "q")), kw.get("logspace"))
+            if key not in seen:
+                seen[key] = ([np.array(a) if isinstance(a, np.ndarray) else a for a in args],
+                             dict(kw))
+            return real[name](*args, **kw)
+        return call
+
+    for name in real:
+        setattr(native, name, recorder(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(native, name, fn)
+
+
+def phase15(card):
+    """BASELINE.json configurations #1, #2, #3 and #5 on the card: (c) the
+    native host library built under strict mode; (a) each configuration's
+    ``fmin`` with the card's TPE and with the host TPE at the battery's
+    seeds (the card's median best at the target on the three threshold
+    domains); (c) the library against numpy at every shape (a) gave it;
+    (d) the kernel at every launch shape.  Returns the card's launches by
+    path, the numbers, and (b), the north-star comparison, to run on
+    phase 4's history."""
+    t_phase = time.perf_counter()
+    launches, shapes, out = {}, {}, {"domains": {}}
+    with strict_native():
+        north_star = phase15_runs(card, launches, shapes, out)
+    # -- 15d. the kernel at every launch shape of the card's runs -----------
+    for path, seen in shapes.items():
+        if seen:
+            CHECKED_SHAPES[path] = check_shapes(f"15 {path}, {card}", seen, seed=151)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[15] {card}: phase 15 took {out['seconds']:.1f} s")
+    return {k: v for k, v in launches.items() if not k.endswith("_host")}, out, north_star
+
+
+def phase15_runs(card, launches, shapes, out):
+    """Phase 15's runs under strict mode (see :func:`phase15`); returns
+    (b)."""
+    import unittest.mock
+
+    import numpy as np
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch import native, tpe_host
+
+    # -- 15c. the native library, built under strict mode ------------------
+    t0 = time.perf_counter()
+    assert native.available(), "the native library did not build"
+    build_s = time.perf_counter() - t0
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(H.__file__)), "_build")
+    lib = native.lib_path()
+    assert os.path.dirname(lib) == build_dir and os.path.exists(lib), lib
+    assert tpe_host._native() is native
+    log(f"[15c] HYPEROPT_TPU_NATIVE=1: {os.path.relpath(lib, os.path.dirname(build_dir))} built "
+        f"and loaded in {build_s:.2f} s")
+    out["native"] = dict(lib=os.path.basename(lib), build_s=build_s)
+
+    # -- 15a. the configurations, the card's TPE beside the host TPE -------
+    with native_calls(native) as calls:
+        for name, fn, space, n, target, gmin in baseline_domains():
+            rec = dict(trials=n, target=target, global_min=gmin, seeds=list(BASELINE_SEEDS))
+            for algo_name, algo, path in (("card", H.tpe.suggest, f"baseline_{name}"),
+                                          ("host", tpe_host.suggest, f"baseline_{name}_host")):
+                bests, walls, statuses = [], [], set()
+
+                def run_seeds():
+                    for seed in BASELINE_SEEDS:
+                        trials = H.Trials()
+                        t0 = time.perf_counter()
+                        H.fmin(fn, space(), algo=algo, max_evals=n, trials=trials,
+                               rstate=np.random.default_rng(seed), show_progressbar=False)
+                        p11_sync()
+                        walls.append(time.perf_counter() - t0)
+                        assert len(trials.trials) == n
+                        statuses.update(t["result"]["status"] for t in trials.trials)
+                        bests.append(float(min(trials.losses())))
+
+                _, n_launch = counted_run(launches, shapes, path, run_seeds)
+                median = float(np.median(bests))
+                rec[algo_name] = dict(best=bests, median_best=median, launches=n_launch,
+                                      ms_per_trial=sum(walls) / (n * len(walls)) * 1e3)
+                log(f"[15a] {card}: {name} ({n} trials, target {target}, minimum {gmin:.6f}), "
+                    f"{'tpe.suggest on the card' if algo_name == 'card' else 'tpe_host.suggest'}: "
+                    f"best {[round(b, 6) for b in bests]} over seeds {list(BASELINE_SEEDS)}, "
+                    f"median {median:.6f}; {rec[algo_name]['ms_per_trial']:.3f} ms per trial; "
+                    f"gmm_llr launches {n_launch}")
+                assert statuses == {H.STATUS_OK}, (name, algo_name, statuses)
+                cont = name != "nasbench"  # NAS-Bench-201 is all categorical
+                want = (n - 20) * len(BASELINE_SEEDS) if algo_name == "card" and cont else 0
+                assert n_launch == want, (name, algo_name, n_launch, want)
+                if algo_name == "card" and target is not None:
+                    assert median <= target, (
+                        f"{name}: the card's TPE missed its target, median {median} > {target}")
+            out["domains"][name] = rec
+
+    # -- 15c. the library against numpy at the shapes (a) gave it ----------
+    worst = {"adaptive_parzen": 0.0, "gmm_lpdf": 0.0}
+    for key, (args, kw) in sorted(calls.items(), key=str):
+        name = key[0]
+        if name == "adaptive_parzen":
+            got = native.adaptive_parzen(*args, **kw)
+            want = tpe_host.adaptive_parzen_normal_numpy(*args, **kw)
+        else:
+            kw = dict(kw)
+            logspace = bool(kw.pop("logspace", False))
+            oracle = tpe_host.LGMM1_lpdf_numpy if logspace else tpe_host.GMM1_lpdf_numpy
+            got = [native.gmm_lpdf(*args, logspace=logspace, **kw)]
+            want = [oracle(*args, **kw)]
+        tol = NATIVE_RTOL[name]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=str(key))
+            worst[name] = max(worst[name], float(np.max(np.abs(g - w), initial=0.0)))
+    n_shapes = {f: sum(k[0] == f for k in calls) for f in worst}
+    log(f"[15c] the library against numpy at every shape of (a): adaptive_parzen at "
+        f"{n_shapes['adaptive_parzen']} shapes (max abs diff {worst['adaptive_parzen']:.3e}, "
+        f"tolerance 1e-12), gmm_lpdf at {n_shapes['gmm_lpdf']} (max abs diff "
+        f"{worst['gmm_lpdf']:.3e}, tolerance 1e-9)")
+    assert all(n_shapes.values()), n_shapes
+    out["native"].update(shapes=n_shapes, max_abs_diff=worst)
+
+    def north_star(history, card_suggest_ms, card_ask_ms):
+        """(b) ``bench_host_tpe``'s protocol on ``history``: one warm-up
+        ask, then NORTH_STAR_ASKS timed asks of ``tpe_host.suggest``, with
+        the native library and with ``_native`` patched to None."""
+        from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+
+        domain = H.Domain(mixed_space_fn, mixed_space(), device="cuda")
+        rates = {}
+        for mode in ("native", "numpy"):
+            ctx = (strict_native() if mode == "native"
+                   else unittest.mock.patch.object(tpe_host, "_native", lambda: None))
+            with ctx:
+                assert (tpe_host._native() is native) == (mode == "native")
+                tpe_host.suggest([10_000], domain, history, seed=0)
+                t0 = time.perf_counter()
+                for i in range(NORTH_STAR_ASKS):
+                    tpe_host.suggest([10_001 + i], domain, history, seed=i)
+                dt = time.perf_counter() - t0
+            rates[mode] = NORTH_STAR_ASKS / dt
+        card_rate = 1e3 / card_suggest_ms
+        log(f"[15b] {card}: tpe_host.suggest on {len(history.trials)} observations of "
+            f"mixed_space() (bench_host_tpe's protocol, {NORTH_STAR_ASKS} timed asks): native "
+            f"library {rates['native']:.2f} suggestions/s ({1e3 / rates['native']:.3f} ms per "
+            f"ask), numpy {rates['numpy']:.2f} ({1e3 / rates['numpy']:.3f} ms); the card's "
+            f"tpe.suggest in phase 4's window {card_rate:.2f} suggestions/s ({card_suggest_ms:.3f} "
+            f"ms in tpe.suggest, {card_ask_ms:.3f} ms per ask and evaluation)")
+        return dict(observations=len(history.trials), asks=NORTH_STAR_ASKS,
+                    host_native_per_s=rates["native"], host_numpy_per_s=rates["numpy"],
+                    card_per_s=card_rate, card_suggest_ms=card_suggest_ms,
+                    card_ask_ms=card_ask_ms)
+
+    return north_star
+
+
 PHASE10_TRIALS = 300
 # the hit of each crash point to kill at, past startup: per tell or round
 # for the serve points, per append (an ask and a tell per trial) or per
@@ -3803,6 +4038,15 @@ def main():
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    phase_seconds, t_lap = {}, [t_start]
+
+    def lap(name):
+        """Log and keep the seconds since the previous lap: where the
+        script's time goes, phase by phase."""
+        now = time.perf_counter()
+        phase_seconds[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"[{name}] took {phase_seconds[name]:.1f} s")
 
     # -- 1. the card; build the kernel ------------------------------------
     card = smi("name,power.limit")
@@ -3839,20 +4083,29 @@ def main():
                 f"{n_ins} instructions, {n_ex2} MUFU.EX2: {n_ins / n_ex2:.3f} per term")
         assert set(sass_per_term) == set(G.CONFIGS), sorted(sass_per_term)
 
+    lap("1")
     # -- 8. the compiled loop, before any profiler has traced: once one has
     # run in the process, every graph replay holds the host until the card
     # has run it, which would hide the replays' host cost ----------------
     compiled_launches_by_path, mlp_result, compiled, profile_8f = phase8(sfu_per_s)
+    lap("8")
     # -- 9. the multi-fidelity schedulers, before any profiler too ---------
     sched_launches, schedulers, asha_result, profile_9, profile_9d = phase9(sfu_per_s)
+    lap("9")
     compiled_launches_by_path.update(sched_launches)
     # -- 14. the population models, before any profiler too ---------------
     population_launches, population = phase14()
     compiled_launches_by_path.update(population_launches)
+    lap("14")
+    # -- 15. the BASELINE configurations, the card's TPE beside the host TPE
+    baseline_launches, baseline, north_star = phase15(card)
+    compiled_launches_by_path.update(baseline_launches)
+    lap("15")
     # then the kernel's timings at both shapes and the profiled window of
     # the compiled loop (the ASHA brackets' window runs last of all)
     profile_8f()
     profile_9()
+    lap("8f, 9 profiles")
 
     # -- 2. kernel against its plain version -----------------------------
     results = {}
@@ -3917,6 +4170,7 @@ def main():
         f"({terms_per_clock:.2f} terms per SM per clock of the SFU's 16)")
     del x, ls, pb, pa
 
+    lap("2")
     # -- 3. suggest_batch at batch 64 on a 500-obs history ----------------
     domain = H.Domain(mixed_space_fn, mixed_space(), device="cuda")
     trials = history_trials(domain, 500, seed=11)
@@ -3934,6 +4188,7 @@ def main():
     log(f"[3] suggest_batch B=64 on 500 obs: {64 * n_calls / dt:.1f} suggestions/s "
         f"({dt / n_calls * 1e3:.2f} ms per call, {G.KERNEL.launches - before} kernel launches)")
 
+    lap("3")
     # -- 4. the main path: sequential 1000-trial fmin ---------------------
     n_trials, n_startup = 1000, 20
     fmin_trials = H.Trials()
@@ -3974,6 +4229,11 @@ def main():
     ops = count_ops(lambda: it.run(5))
     log(f"[4] PyTorch operations per ask: {sum(ops.values()) / 5:.1f}; by module: "
         + ", ".join(f"{m} {c / 5:.1f}" for m, c in ops.most_common()))
+    lap("4")
+    # -- 15b. the north star: the host TPE on this 1000-trial history ------
+    baseline["north_star"] = north_star(H.trials_from_docs(fmin_trials.trials[:n_trials]),
+                                        suggest_ms, ask_ms)
+    lap("15b")
 
     # -- 5. CUDA against CPU, teacher-forced on the phase-3 history -------
     cpu_domain = H.Domain(mixed_space_fn, mixed_space(), device="cpu")
@@ -4016,34 +4276,42 @@ def main():
         f"(margin >= {NEAR_TIE})")
     assert bad == 0, "CUDA and CPU disagree beyond near-ties"
 
+    lap("5")
     # -- 6. every other suggest path on the card ---------------------------
     launches_by_path = {"fmin": main_launches}
     launches_by_path.update(phase6(domain, cpu_domain, trials, losses,
                                    lambda: ask_window(it, 20, in_suggest, plain_buf)))
+    lap("6")
 
     # -- 7. the study-batched serve engine ---------------------------------
     serve_launches, results["serve"], serve = phase7(cpu_domain, sfu_per_s,
                                                      props.multi_processor_count)
     launches_by_path.update(serve_launches)
     launches_by_path.update(compiled_launches_by_path)
+    lap("7")
 
     # -- 10. durable fmin: the engine client, the WALs, containment --------
     durable_launches, durable = phase10(card)
+    lap("10")
     launches_by_path.update(durable_launches)
     # -- 11. the suggestion service as a network process -------------------
     transport_launches, transport, trace_11f = phase11(card)
     launches_by_path.update(transport_launches)
+    lap("11")
     # -- 12. the serve fleet -----------------------------------------------
     fleet_launches, fleet = phase12(card, sfu_per_s)
     launches_by_path.update(fleet_launches)
+    lap("12")
     # -- 13. asynchronous trial farming -----------------------------------
     farm_launches, farm = phase13(card)
     launches_by_path.update(farm_launches)
+    lap("13")
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
     # -- 11f. device_trace, last of all (after a trace, later ones came back empty)
     transport["trace"] = trace_11f()
+    lap("9d, 11f")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     main = results["fmin"]  # the shape of the main path's asks
@@ -4078,7 +4346,9 @@ def main():
         "fleet": fleet,
         "farm": farm,
         "population": population,
+        "baseline": baseline,
         "checked_shapes": CHECKED_SHAPES,
+        "phase_seconds": phase_seconds,
     }]}
     print(json.dumps(kernels))
     print(smi("name,power.limit"))

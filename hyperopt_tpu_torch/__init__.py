@@ -25,7 +25,11 @@ and asynchronous trial farming (:mod:`hyperopt_tpu_torch.distributed`:
 ``SparkTrials`` and ASHA over the queues), the suggestion on the card;
 and the population models (:mod:`hyperopt_tpu_torch.models`: ``TinyLM``
 and ResNet-20 trained as populations under ``compile_fmin``, PBT, SHA and
-ASHA).  The submodules that ``import hyperopt_tpu_torch`` does not load
+ASHA); and the host algorithms (``tpe_host`` with its C++ helper
+:mod:`hyperopt_tpu_torch.native`, ``anneal_host``, ``atpe_host``,
+``rand_host`` and ``mix``), ``criteria``, ``plotting``, ``graphviz``, the
+domain battery and the surrogate and NAS-Bench-201 benchmarks
+(:mod:`hyperopt_tpu_torch.models`).  The submodules that ``import hyperopt_tpu_torch`` does not load
 load at first attribute access, as the reference's do.  The EI scoring
 of continuous candidates runs in a hand-written Hopper kernel
 (:mod:`hyperopt_tpu_torch.ops.gmm_scores`).
@@ -38,7 +42,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from . import anneal, atpe, client, early_stop, exceptions, hp, progress, rand, tpe  # noqa: E402
+from . import anneal, atpe, client, early_stop, exceptions, hp, mix, progress, rand, tpe  # noqa: E402
 from .base import (  # noqa: E402
     JOB_STATE_DONE,
     JOB_STATE_ERROR,
@@ -79,23 +83,25 @@ from .torch_trials import TorchTrials  # noqa: E402
 
 __version__ = "0.1.0"
 
-# the reference's public names, less its ``*_jax`` modules (the port's
-# ``tpe``, ``anneal``, ``atpe`` and ``rand`` are those algorithms) and
-# ``mix`` (ROADMAP.md Queue A, item 21)
+# the reference's public names, less its ``*_jax`` modules: the port's
+# ``tpe``, ``anneal``, ``atpe`` and ``rand`` are those algorithms, and its
+# numpy ones are ``tpe_host``, ``anneal_host``, ``atpe_host`` and
+# ``rand_host`` (lazy, below)
 __all__ = ["AllTrialsFailed", "Ctrl", "Domain", "DuplicateLabel", "FMinIter",
            "HyperoptTpuError", "InvalidLoss", "InvalidResultStatus", "InvalidTrial",
            "JOB_STATES", "JOB_STATE_DONE", "JOB_STATE_ERROR", "JOB_STATE_NEW",
            "JOB_STATE_RUNNING", "STATUS_FAIL", "STATUS_NEW", "STATUS_OK", "STATUS_RUNNING",
            "STATUS_STRINGS", "STATUS_SUSPENDED", "Trials", "__version__", "anneal", "base",
            "device_loop", "early_stop", "exceptions", "fmin", "fmin_pass_expr_memo_ctrl",
-           "generate_trials_to_calculate", "hp", "hyperband", "no_progress_loss", "partial",
+           "generate_trials_to_calculate", "hp", "hyperband", "mix", "no_progress_loss", "partial",
            "pbt", "pyll", "rand", "space_eval", "tpe", "trials_from_docs"]
 
 # modules loaded at first use, so that ``import hyperopt_tpu_torch`` stays
 # cheap: the reference's lazy names that the port has, and its own
 _LAZY = frozenset({
-    "convert", "device_loop", "distributed", "hyperband", "models", "obs", "ops", "pbt",
-    "pyll_utils", "rand_host", "random", "serve", "torch_trials", "utils", "vectorize",
+    "anneal_host", "atpe_host", "convert", "criteria", "device_loop", "distributed", "graphviz",
+    "hyperband", "models", "native", "obs", "ops", "pbt", "plotting", "pyll_utils", "rand_host",
+    "random", "serve", "torch_trials", "tpe_host", "utils", "vectorize",
 })
 
 

@@ -56,6 +56,7 @@ __all__ = [
     "Domain",
     "Ctrl",
     "miscs_to_idxs_vals",
+    "miscs_update_idxs_vals",
     "spec_from_misc",
     "SONify",
 ]
@@ -166,6 +167,25 @@ def miscs_to_idxs_vals(miscs, keys=None):
             idxs[k].extend(t_idxs)
             vals[k].extend(t_vals)
     return idxs, vals
+
+
+def miscs_update_idxs_vals(miscs, idxs, vals, assert_all_vals_used=True, idxs_map=None):
+    """Scatter aggregated {label: tids/vals} back into per-trial miscs."""
+    if idxs_map is None:
+        idxs_map = {}
+    misc_by_id = {m["tid"]: m for m in miscs}
+    for m in miscs:
+        m["idxs"] = {k: [] for k in idxs}
+        m["vals"] = {k: [] for k in idxs}
+    for k, tids in idxs.items():
+        for tid, val in zip(tids, vals[k]):
+            tid = idxs_map.get(tid, tid)
+            if tid in misc_by_id:
+                misc_by_id[tid]["idxs"][k] = [tid]
+                misc_by_id[tid]["vals"][k] = [val]
+            elif assert_all_vals_used:
+                raise ValueError(f"tid {tid} not found among miscs")
+    return miscs
 
 
 def spec_from_misc(misc):

@@ -10,7 +10,7 @@ from __future__ import annotations
 import contextlib
 import sys
 
-__all__ = ["tqdm_progress_callback", "no_progress_callback"]
+__all__ = ["tqdm_progress_callback", "no_progress_callback", "default_callback"]
 
 
 class ProgressContext:
@@ -72,3 +72,5 @@ def tqdm_progress_callback(initial, total):
 def no_progress_callback(initial, total):
     yield ProgressContext(None)
 
+
+default_callback = tqdm_progress_callback

@@ -4,12 +4,14 @@ from __future__ import annotations
 
 import datetime
 import os
+import tempfile
 
 import numpy as np
 import torch
 
 __all__ = [
-    "capture_graph", "coarse_utcnow", "host_copy", "resolve_device", "tree_leaves", "tree_map",
+    "capture_graph", "coarse_utcnow", "fast_isin", "get_closest_dir", "get_most_recent_inds",
+    "host_copy", "path_split_all", "resolve_device", "temp_dir", "tree_leaves", "tree_map",
     "working_dir",
 ]
 
@@ -100,3 +102,66 @@ class working_dir:
     def __exit__(self, *exc):
         os.chdir(self._prev)
         return False
+
+
+def fast_isin(X, Y):
+    """Boolean mask: which elements of X are in (sorted or unsorted) Y."""
+    X = np.asarray(X)
+    Y = np.asarray(Y)
+    if Y.size == 0:
+        return np.zeros(len(X), dtype=bool)
+    return np.isin(X, Y)
+
+
+def get_most_recent_inds(obj):
+    """Indices of docs that are the latest version per ``_id``.
+
+    ``obj`` is a list of dicts with ``_id`` and ``version`` keys.
+    """
+    ids = np.array([o["_id"] for o in obj])
+    versions = np.array([o.get("version", 0) for o in obj])
+    order = np.lexsort((versions, ids))
+    ids_sorted = ids[order]
+    last_of_id = np.ones(len(ids), dtype=bool)
+    last_of_id[:-1] = ids_sorted[1:] != ids_sorted[:-1]
+    return np.sort(order[last_of_id])
+
+
+class temp_dir:
+    """Context manager: mkdir (tempfile if needed), yield path, keep dir."""
+
+    def __init__(self, suffix=""):
+        self.suffix = suffix
+
+    def __enter__(self):
+        self.path = tempfile.mkdtemp(suffix=self.suffix)
+        return self.path
+
+    def __exit__(self, *exc):
+        return False
+
+
+def path_split_all(path):
+    """Split a path into all of its components."""
+    parts = []
+    while True:
+        path, tail = os.path.split(path)
+        if tail:
+            parts.append(tail)
+        else:
+            if path:
+                parts.append(path)
+            break
+    return list(reversed(parts))
+
+
+def get_closest_dir(workdir):
+    """Deepest existing ancestor of ``workdir`` plus the first missing part."""
+    closest_dir = ""
+    for part in path_split_all(workdir):
+        candidate = os.path.join(closest_dir, part) if closest_dir else part
+        if os.path.isdir(candidate):
+            closest_dir = candidate
+        else:
+            return closest_dir, part
+    return closest_dir, ""

@@ -54,3 +54,40 @@ def test_sass_inner_loop_is_the_innermost_loop_with_the_most_ex2():
 ])
 def test_kernel_config_reads_the_template_arguments(name, config):
     assert chip_smoke.kernel_config(name) == config
+
+
+def test_baseline_domains_are_the_baseline_configurations():
+    got = {name: (n, target) for name, _fn, _space, n, target, _gmin
+           in chip_smoke.baseline_domains()}
+    assert got == {"quadratic1": (80, 0.3), "branin": (100, 1.2), "hartmann6": (150, -1.2),
+                   "surrogate": (100, None), "nasbench": (100, None)}
+
+
+def test_native_calls_records_the_first_call_per_shape():
+    import numpy as np
+
+    from hyperopt_tpu_torch import native
+
+    real = native.gmm_lpdf, native.adaptive_parzen
+    w = np.array([0.5, 0.5])
+    with chip_smoke.native_calls(native) as seen:
+        for x in (np.zeros(3), np.ones(3), np.zeros(4)):
+            native.gmm_lpdf(x, w, w, w, low=None, high=1.0, q=None, logspace=False)
+        native.adaptive_parzen(np.zeros(2), 1.0, 0.0, 1.0, 25)
+    assert (native.gmm_lpdf, native.adaptive_parzen) == real
+    assert sorted(k[:3] for k in seen) == [("adaptive_parzen", 2, 25), ("gmm_lpdf", 3, 2),
+                                           ("gmm_lpdf", 4, 2)]
+    args, kw = seen[("gmm_lpdf", 3, 2, True, False, True, False)]
+    np.testing.assert_array_equal(args[0], np.zeros(3))  # the first call's inputs
+    assert kw == dict(low=None, high=1.0, q=None, logspace=False)
+
+
+def test_strict_native_sets_and_restores_the_mode(monkeypatch):
+    monkeypatch.setenv("HYPEROPT_TPU_NATIVE", "auto")
+    with chip_smoke.strict_native():
+        assert os.environ["HYPEROPT_TPU_NATIVE"] == "1"
+    assert os.environ["HYPEROPT_TPU_NATIVE"] == "auto"
+    monkeypatch.delenv("HYPEROPT_TPU_NATIVE")
+    with chip_smoke.strict_native():
+        pass
+    assert "HYPEROPT_TPU_NATIVE" not in os.environ

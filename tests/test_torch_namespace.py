@@ -19,12 +19,12 @@ import hyperopt_tpu_torch as H
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_NAMES = {n for n in hyperopt_tpu.__all__ if n.endswith("_jax")}
-# ROADMAP.md Queue A: item 21 (the small host modules)
-NOT_YET_PORTED = {"mix"}
-# lazy modules of the reference still to be ported: items 21 and 15
-LAZY_NOT_YET_PORTED = {"criteria", "plotting", "graphviz", "parallel"}
+NOT_YET_PORTED = set()
+# lazy modules of the reference still to be ported: ROADMAP.md Queue A, item 15a
+LAZY_NOT_YET_PORTED = {"parallel"}
 LAZY = ("device_loop", "hyperband", "pbt", "models", "distributed", "ops", "utils", "progress",
-        "atpe", "vectorize", "pyll_utils")
+        "atpe", "vectorize", "pyll_utils", "criteria", "plotting", "graphviz", "mix",
+        "tpe_host", "anneal_host", "atpe_host", "native")
 
 
 def test_all_equals_the_references_less_the_listed_names():
@@ -70,7 +70,9 @@ def test_import_loads_no_lazy_module():
     code = textwrap.dedent("""
         import sys
         import hyperopt_tpu_torch
-        lazy = ("device_loop", "hyperband", "pbt", "models", "serve", "convert", "rand_host")
+        lazy = ("device_loop", "hyperband", "pbt", "models", "serve", "convert", "rand_host",
+                "tpe_host", "anneal_host", "atpe_host", "native", "criteria", "plotting",
+                "graphviz")
         print("LOADED", sorted(m for m in lazy if f"hyperopt_tpu_torch.{m}" in sys.modules))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -240,19 +240,39 @@ network.  Every phase asserts, and a failure exits non-zero:
    the card's median best at most the target on the three threshold
    domains (the battery's statistic: ``tests/test_domains.py``); (c) the
    library against the numpy oracle at every shape (a) gave it (1e-12
-   for the fit, 1e-9 for the log-density); (d) the kernel at every launch
+   for the fit, 1e-9 for the log-density); (d) the same ``fmin`` streams
+   of ``tpe.suggest`` on the CPU beside the card's, every configuration
+   and seed:
+   the first trial at which the two part (a categorical pick differs, or
+   a continuous one beyond rtol 1e-4, atol 1e-5), whether it is a startup
+   trial, and the pick margin there of each dimension that differs, from
+   ``sweep_margins`` on the CPU (the parity rule allows a departure only at
+   a near-tie, a margin below 1e-3); (e) the kernel at every launch
    shape of the card's runs; and (b), run after phase 4's window,
    ``bench.py``'s ``bench_host_tpe`` protocol on phase 4's 1000-trial
    history (a warm-up ask, then 15 timed asks of ``tpe_host.suggest``,
    with the native library and with ``_native`` patched to None), beside
-   phase 4's time in the card's ``tpe.suggest``.
+   phase 4's time in the card's ``tpe.suggest``;
+16. (after phase 13) the port's own checks: (a) ``hyperopt-tpu-torch-lint``
+   (``hyperopt_tpu_torch.analysis.cli``) over this tree, the AST pack,
+   ``--trace`` and ``--wire`` against the package's committed baseline and
+   wire manifest, each exit 0 with 0 findings, its seconds and the Python
+   version; (b) the lockdep sanitizer (``analysis.lockdep``) armed on every
+   ``BatchScheduler`` built, over phase 7b's serve protocol at 64 studies
+   for 3 rounds and phase 11b's burst cut to 16 clients x 8 pipelined asks
+   over 4 studies of a ``root=`` background service on binary frames:
+   0 inversions, the traced acquisitions and distinct lock orders, then
+   disarmed, and the kernel at every launch shape of the two runs.  Only
+   the scheduler's one lock is traced, so 16b is a smoke of the arming
+   seam, not evidence about lock order.  No timed phase runs with the
+   sanitizer armed.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
 loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 10's under ``durable``, phase 11's under ``transport``, phase 12's under
 ``fleet``, phase 13's under ``farm``, phase 14's under ``population``,
-phase 15's under ``baseline``,
+phase 15's under ``baseline``, phase 16's under ``checks``,
 each new path's launch shapes with their errors under
 ``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -640,12 +660,15 @@ def sweep_margins(ps, state, key, gamma, prior_weight, n_cont, n_cat, batch, pad
                            above_cap=TK.DEFAULT_ABOVE_CAP)
     dc, dk = len(ps.cont_idx), len(ps.cat_idx)
     keys = R.split(key, batch * (dc + dk))
-    cv, cl = TK.ei_sweep_cont_scores(ps.q, ps.consts, keys[: batch * dc].reshape(batch, dc, 2),
-                                     fits["cont"], n_cont)
-    kv, kl = TK.ei_sweep_cat_scores(keys[batch * dc:].reshape(batch, dk, 2), *fits["cat"], n_cat)
     out = np.empty((ps.n_dims, batch))
-    out[ps.cont_idx] = pick_margins(cv.numpy(), cl.numpy()).T
-    out[ps.cat_idx] = pick_margins(kv.numpy(), kl.numpy()).T
+    if dc:
+        cv, cl = TK.ei_sweep_cont_scores(ps.q, ps.consts, keys[: batch * dc].reshape(batch, dc, 2),
+                                         fits["cont"], n_cont)
+        out[ps.cont_idx] = pick_margins(cv.numpy(), cl.numpy()).T
+    if dk:
+        kv, kl = TK.ei_sweep_cat_scores(keys[batch * dc:].reshape(batch, dk, 2), *fits["cat"],
+                                        n_cat)
+        out[ps.cat_idx] = pick_margins(kv.numpy(), kl.numpy()).T
     return out
 
 
@@ -2262,14 +2285,17 @@ def phase15(card):
     ``fmin`` with the card's TPE and with the host TPE at the battery's
     seeds (the card's median best at the target on the three threshold
     domains); (c) the library against numpy at every shape (a) gave it;
-    (d) the kernel at every launch shape.  Returns the card's launches by
+    (d) the card's streams beside the CPU's (:func:`phase15d`); (e) the
+    kernel at every launch shape.  Returns the card's launches by
     path, the numbers, and (b), the north-star comparison, to run on
     phase 4's history."""
     t_phase = time.perf_counter()
     launches, shapes, out = {}, {}, {"domains": {}}
+    card_trials = {}
     with strict_native():
-        north_star = phase15_runs(card, launches, shapes, out)
-    # -- 15d. the kernel at every launch shape of the card's runs -----------
+        north_star = phase15_runs(card, launches, shapes, out, card_trials)
+    out["margins"] = phase15d(card, card_trials)
+    # -- 15e. the kernel at every launch shape of the card's runs -----------
     for path, seen in shapes.items():
         if seen:
             CHECKED_SHAPES[path] = check_shapes(f"15 {path}, {card}", seen, seed=151)
@@ -2278,9 +2304,10 @@ def phase15(card):
     return {k: v for k, v in launches.items() if not k.endswith("_host")}, out, north_star
 
 
-def phase15_runs(card, launches, shapes, out):
-    """Phase 15's runs under strict mode (see :func:`phase15`); returns
-    (b)."""
+def phase15_runs(card, launches, shapes, out, card_trials):
+    """Phase 15's runs under strict mode (see :func:`phase15`); keeps the
+    card's ``Trials`` of each configuration and seed in ``card_trials``
+    for (d); returns (b)."""
     import unittest.mock
 
     import numpy as np
@@ -2319,6 +2346,8 @@ def phase15_runs(card, launches, shapes, out):
                         assert len(trials.trials) == n
                         statuses.update(t["result"]["status"] for t in trials.trials)
                         bests.append(float(min(trials.losses())))
+                        if algo_name == "card":
+                            card_trials.setdefault(name, {})[seed] = trials
 
                 _, n_launch = counted_run(launches, shapes, path, run_seeds)
                 median = float(np.median(bests))
@@ -2395,6 +2424,95 @@ def phase15_runs(card, launches, shapes, out):
                     card_ask_ms=card_ask_ms)
 
     return north_star
+
+
+def departure(ps, card_docs, cpu_docs):
+    """The first trial at which two ``fmin`` streams pick differently,
+    and the labels that differ there: a categorical (or inactive) value
+    that is not equal, or a continuous one beyond phase 5's rtol 1e-4,
+    atol 1e-5 (the card's and the CPU's draws of one candidate differ in
+    the last bits).  ``(None, [])`` where they never part."""
+    import numpy as np
+
+    cont = {ps.labels[i] for i in ps.cont_idx}
+    for t, (a, b) in enumerate(zip(card_docs, cpu_docs)):
+        va, vb = a["misc"]["vals"], b["misc"]["vals"]
+        differ = []
+        for label in ps.labels:
+            x, y = va.get(label, []), vb.get(label, [])
+            if len(x) != len(y):
+                differ.append(label)
+            elif x and (not np.isclose(x[0], y[0], rtol=1e-4, atol=1e-5) if label in cont
+                        else x[0] != y[0]):
+                differ.append(label)
+        if differ:
+            return t, differ
+    return None, []
+
+
+def phase15d(card, card_trials):
+    """(d): each configuration's ``fmin`` stream of ``tpe.suggest`` on the
+    CPU at every seed of (a), beside the card's:
+    the first departure, and there, on the CPU's history, the pick margin
+    of each dimension that differs (:func:`sweep_margins` at TPE's
+    defaults and the ask's own seed).  A departure at a startup trial,
+    or one whose worst margin is :data:`NEAR_TIE` or more, fails the
+    phase once every stream is printed."""
+    import numpy as np
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch import tpe
+    from hyperopt_tpu_torch.ops import kernels as TK
+    from hyperopt_tpu_torch.torch_trials import obs_buffer_for, packed_space_for
+
+    t_phase, out, faults = time.perf_counter(), {}, []
+    for name, fn, space, n, _target, _gmin in baseline_domains():
+        for seed in BASELINE_SEEDS:
+            seeds = []
+
+            def algo(new_ids, domain, trials, s):
+                seeds.append(int(s))
+                return tpe.suggest(new_ids, domain, trials, s)
+
+            cpu = H.Trials()
+            H.fmin(fn, space(), algo=algo, max_evals=n, trials=cpu,
+                   rstate=np.random.default_rng(seed), show_progressbar=False, device="cpu")
+            domain = H.Domain(fn, space(), device="cpu")
+            ps = packed_space_for(domain)
+            t, labels = departure(ps, card_trials[name][seed].trials, cpu.trials)
+            rec = dict(first_departure=t, labels=labels, startup=None, margins={})
+            if t is not None:
+                rec["startup"] = t < tpe._default_n_startup_jobs
+                if not rec["startup"]:
+                    hist = H.trials_from_docs(cpu.trials[:t])
+                    # the ask replayed from (history, seed) is the CPU stream's trial t
+                    (doc,) = tpe.suggest([t], domain, hist, seeds[t])
+                    assert doc["misc"]["vals"] == cpu.trials[t]["misc"]["vals"], (name, seed, t)
+                    state = obs_buffer_for(domain, hist).device_arrays(
+                        pow2_cap=TK.DEFAULT_ABOVE_CAP)
+                    m = sweep_margins(ps, state, R.key(seeds[t] % (2**31 - 1)), tpe._default_gamma,
+                                      tpe._default_prior_weight, tpe._default_n_EI_candidates,
+                                      tpe._default_n_EI_candidates_cat, 1, pad_gamma=None)[:, 0]
+                    rec["margins"] = {lab: float(m[ps.labels.index(lab)]) for lab in labels}
+            worst = max(rec["margins"].values(), default=None)
+            verdict = ("the streams never part" if t is None
+                       else "a departure at a startup trial: a port fault" if rec["startup"]
+                       else f"a near-tie (margin below {NEAR_TIE})" if worst < NEAR_TIE
+                       else f"NOT a near-tie (margin {worst:.6g} >= {NEAR_TIE}): a port fault")
+            log(f"[15d] {card}: {name} seed {seed}, tpe.suggest on the card beside the CPU "
+                f"({n} trials): first departure at trial "
+                f"{'none' if t is None else t}"
+                + ("" if t is None else f" ({', '.join(labels)}); pick margins on the CPU "
+                   + ", ".join(f"{k} {v:.6g}" for k, v in rec["margins"].items()))
+                + f"; best {min(card_trials[name][seed].losses()):.6f} on the card, "
+                f"{min(cpu.losses()):.6f} on the CPU; {verdict}")
+            out[f"{name}/{seed}"] = rec
+            if t is not None and (rec["startup"] or worst >= NEAR_TIE):
+                faults.append((name, seed, t, rec["margins"]))
+    log(f"[15d] {card}: the CPU streams took {time.perf_counter() - t_phase:.1f} s")
+    assert not faults, f"departures at startup or past a near-tie: {faults}"
+    return out
 
 
 PHASE10_TRIALS = 300
@@ -2818,6 +2936,82 @@ def socket_rounds(port, names, seeds, rounds, streams):
     return walls
 
 
+def burst_run(tmp, binary, tag, counted, cfg=BURST):
+    """The reference's burst protocol: ``cfg["n_clients"]`` socket
+    clients, each pipelining ``cfg["asks_per_client"]`` asks (then their
+    tells) to one of ``cfg["n_studies"]`` studies of a ``root=``
+    background service under ``tmp``, from a pool of
+    ``cfg["pool_width"]`` threads, on binary frames or JSON lines; run
+    through ``counted(tag, run)``.  Every reply must be ok."""
+    import concurrent.futures
+    import tempfile
+
+    import numpy as np
+
+    from hyperopt_tpu_torch.models.synthetic import mixed_space
+    from hyperopt_tpu_torch.serve import SuggestService
+    from hyperopt_tpu_torch.serve.frames import FrameConn, dial
+
+    broot = tempfile.mkdtemp(dir=tmp, prefix="burst_")
+    svc = SuggestService(mixed_space(), root=broot, background=True, max_batch=64,
+                         n_startup_jobs=3, n_cand=128, snapshot_cadence=1000,
+                         max_queue=4096, study_queue_cap=64, device=P11_DEVICE)
+    bnames = [f"b{i}" for i in range(cfg["n_studies"])]
+    for i, n in enumerate(bnames):
+        svc.create_study(n, seed=i)
+    # warm the service with one in-process round before any client connects
+    warm = [svc._handles[n].ask_async() for n in bnames]
+    for n, fut in zip(bnames, warm):
+        tid, vals = fut.result(timeout=120)
+        svc._handles[n].tell(tid, 0.1 + (tid % 97) / 100.0)
+    srv = spawn_front(svc)
+    addr = srv.server_address[:2]
+    bad = []
+
+    def one_client(i):
+        name = bnames[i % len(bnames)]
+        sock, f = dial(*addr, read_timeout=120)
+        served = 0
+        try:
+            conn = FrameConn(f, negotiate=binary)
+            assert conn.binary is binary
+            futs = [conn.submit({"op": "ask", "study": name, "timeout": 120})
+                    for _ in range(cfg["asks_per_client"])]
+            replies = [conn.drain(fut) for fut in futs]
+            bad.extend(r for r in replies if not r.get("ok"))
+            tells = [conn.submit({"op": "tell", "study": name, "tid": r["tid"],
+                                  "loss": 0.1 + (r["tid"] % 97) / 100.0})
+                     for r in replies if r.get("ok")]
+            for fut in tells:
+                r = conn.drain(fut)
+                served += bool(r.get("ok"))
+                if not r.get("ok"):
+                    bad.append(r)
+            conn.close()
+        finally:
+            sock.close()
+        return served
+
+    def run():
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(cfg["pool_width"]) as pool:
+            served = sum(pool.map(one_client, range(cfg["n_clients"])))
+        return served, time.perf_counter() - t0
+
+    try:
+        occ0 = len(svc.scheduler.occupancy)
+        (served, dt), nl = counted(tag, run)
+        c = svc.counters
+        occ = [float(x) for x in list(svc.scheduler.occupancy)[occ0:]]
+    finally:
+        close_front(srv)
+        svc.shutdown()
+    n_asks = cfg["n_clients"] * cfg["asks_per_client"]
+    assert not bad and served == n_asks, (served, bad[:3])
+    return dict(asks_per_s=served / dt, wal_fsyncs_per_tell=c["wal_fsyncs"] / c["wal_tells"],
+                occupancy=float(np.mean(occ)), launches=nl, rounds=len(occ))
+
+
 def phase11(card):
     """The suggestion service as a network process on the card: (a) the
     console script as a process, killed once with SIGKILL and restarted on
@@ -2828,7 +3022,6 @@ def phase11(card):
     faults; (e) the device-metrics twin and the compiled loop's
     ``metrics_registry=``.  Returns the launches by path, the numbers,
     and (f), which runs last of all: a ``device_trace`` of served rounds."""
-    import concurrent.futures
     import signal
     import tempfile
 
@@ -2932,64 +3125,7 @@ def phase11(card):
 
     # -- 11b. the reference's burst protocol, binary frames and JSON lines --
     def burst(binary, tag):
-        broot = tempfile.mkdtemp(dir=tmp, prefix="burst_")
-        svc = SuggestService(mixed_space(), root=broot, background=True, max_batch=64,
-                             n_startup_jobs=3, n_cand=128, snapshot_cadence=1000,
-                             max_queue=4096, study_queue_cap=64, device=P11_DEVICE)
-        bnames = [f"b{i}" for i in range(BURST["n_studies"])]
-        for i, n in enumerate(bnames):
-            svc.create_study(n, seed=i)
-        # warm the service with one in-process round before any client connects
-        warm = [svc._handles[n].ask_async() for n in bnames]
-        for n, fut in zip(bnames, warm):
-            tid, vals = fut.result(timeout=120)
-            svc._handles[n].tell(tid, 0.1 + (tid % 97) / 100.0)
-        srv = spawn_front(svc)
-        addr = srv.server_address[:2]
-        bad = []
-
-        def one_client(i):
-            name = bnames[i % len(bnames)]
-            sock, f = dial(*addr, read_timeout=120)
-            served = 0
-            try:
-                conn = FrameConn(f, negotiate=binary)
-                assert conn.binary is binary
-                futs = [conn.submit({"op": "ask", "study": name, "timeout": 120})
-                        for _ in range(BURST["asks_per_client"])]
-                replies = [conn.drain(fut) for fut in futs]
-                bad.extend(r for r in replies if not r.get("ok"))
-                tells = [conn.submit({"op": "tell", "study": name, "tid": r["tid"],
-                                      "loss": 0.1 + (r["tid"] % 97) / 100.0})
-                         for r in replies if r.get("ok")]
-                for fut in tells:
-                    r = conn.drain(fut)
-                    served += bool(r.get("ok"))
-                    if not r.get("ok"):
-                        bad.append(r)
-                conn.close()
-            finally:
-                sock.close()
-            return served
-
-        def run():
-            t0 = time.perf_counter()
-            with concurrent.futures.ThreadPoolExecutor(BURST["pool_width"]) as pool:
-                served = sum(pool.map(one_client, range(BURST["n_clients"])))
-            return served, time.perf_counter() - t0
-
-        try:
-            occ0 = len(svc.scheduler.occupancy)
-            (served, dt), nl = counted(tag, run)
-            c = svc.counters
-            occ = [float(x) for x in list(svc.scheduler.occupancy)[occ0:]]
-        finally:
-            close_front(srv)
-            svc.shutdown()
-        n_asks = BURST["n_clients"] * BURST["asks_per_client"]
-        assert not bad and served == n_asks, (served, bad[:3])
-        return dict(asks_per_s=served / dt, wal_fsyncs_per_tell=c["wal_fsyncs"] / c["wal_tells"],
-                    occupancy=float(np.mean(occ)), launches=nl, rounds=len(occ))
+        return burst_run(tmp, binary, tag, counted)
 
     bursts = {"binary": [], "json": []}
     for binary in (True, False):  # one pair, in one call
@@ -4020,6 +4156,113 @@ def phase13(card):
     return launches, out
 
 
+LINT_PACKS = (("ast", []), ("trace", ["--trace"]), ("wire", ["--wire"]))
+LOCKDEP_SERVE_ROUNDS = 3  # 7b's protocol at SERVE_STUDIES, armed
+LOCKDEP_BURST = dict(BURST, n_clients=16, pool_width=16)  # 11b's burst, cut
+
+
+class Patches:
+    """``monkeypatch.setattr`` outside pytest: :meth:`undo` restores every
+    attribute set, last first."""
+
+    def __init__(self):
+        self._saved = []
+
+    def setattr(self, target, name, value):
+        self._saved.append((target, name, getattr(target, name)))
+        setattr(target, name, value)
+
+    def undo(self):
+        while self._saved:
+            target, name, value = self._saved.pop()
+            setattr(target, name, value)
+
+
+def phase16(card):
+    """The port's own checks on the card's machine: (a) the lint CLI's
+    three packs over this tree, each clean; (b) lockdep armed on every
+    ``BatchScheduler`` over 7b's serve protocol and 11b's cut burst, then
+    disarmed, with 0 inversions, and the kernel at every launch shape of
+    the two runs.  Returns the launches by path and the numbers."""
+    import contextlib
+    import io
+    import tempfile
+
+    from hyperopt_tpu_torch.analysis import cli, lockdep
+    from hyperopt_tpu_torch.serve.scheduler import BatchScheduler
+
+    t_phase = time.perf_counter()
+    out = {"python": sys.version.split()[0], "lint": {}}
+    # -- 16a. hyperopt-tpu-torch-lint over this tree -----------------------
+    for pack, flags in LINT_PACKS:
+        report = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(report):
+            rc = cli.main(flags + ["--format", "json"])
+        dt = time.perf_counter() - t0
+        summary = json.loads(report.getvalue())["summary"]
+        out["lint"][pack] = dict(exit=rc, findings=summary["total"], seconds=dt,
+                                 suppressed=summary["pragma_suppressed"],
+                                 baseline_size=summary["baseline_size"],
+                                 **({"ops": summary["ops_checked"],
+                                     "crash_points_armed": summary["crash_points_armed"],
+                                     "crash_points": summary["crash_points_total"]}
+                                    if pack == "wire" else {"files": summary["files"]}))
+        log(f"[16a] {card}: hyperopt-tpu-torch-lint {' '.join(flags) or '(AST pack)'} over "
+            f"{os.path.relpath(cli.PACKAGE_DIR, cli.REPO_ROOT)}/ under Python {out['python']}: "
+            f"exit {rc}, {summary['total']} findings, {summary['pragma_suppressed']} suppressed "
+            f"inline, baseline {summary['baseline_size']} entries, {dt:.2f} s"
+            + (f"; {summary['ops_checked']} ops, {summary['crash_points_armed']}/"
+               f"{summary['crash_points_total']} crash points armed" if pack == "wire"
+               else f"; {summary['files']} files"))
+        assert rc == 0 and summary["total"] == 0, (pack, report.getvalue()[-4000:])
+    # -- 16b. lockdep armed over 7b's protocol and 11b's cut burst ---------
+    launches, shapes = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p16_")
+    orig_init = BatchScheduler.__init__
+    patches = Patches()
+    dep = lockdep.arm_scheduler_class(patches)
+    try:
+        t0 = time.perf_counter()
+        svc, handles = open_service(SERVE_STUDIES)
+        try:
+            counted_run(launches, shapes, "lockdep_serve", lambda: [
+                serve_round(svc, handles) for _ in range(LOCKDEP_SERVE_ROUNDS)])
+        finally:
+            svc.shutdown()
+        serve_traced = isinstance(svc.scheduler._lock, lockdep._TracedLock)
+        serve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        burst = burst_run(tmp, True, "lockdep_burst",
+                          lambda path, run: counted_run(launches, shapes, path, run),
+                          LOCKDEP_BURST)
+        burst_s = time.perf_counter() - t0
+    finally:
+        patches.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    orders = dep.orders()
+    out["lockdep"] = dict(inversions=dep.inversions, acquisitions=dep.acquisitions,
+                          orders=len(orders), serve_s=serve_s, burst_s=burst_s,
+                          burst_asks_per_s=burst["asks_per_s"], launches=dict(launches))
+    log(f"[16b] {card}: lockdep armed on every BatchScheduler over 7b's protocol "
+        f"({SERVE_STUDIES} studies, {LOCKDEP_SERVE_ROUNDS} rounds, {serve_s:.2f} s) and 11b's "
+        f"burst ({LOCKDEP_BURST['n_clients']} clients x {LOCKDEP_BURST['asks_per_client']} "
+        f"pipelined asks over {LOCKDEP_BURST['n_studies']} studies, root= background service, "
+        f"binary frames, {burst_s:.2f} s, {burst['asks_per_s']:.1f} asks/s): "
+        f"{dep.inversions} inversions, {dep.acquisitions} traced acquisitions, {len(orders)} "
+        f"distinct lock orders; gmm_llr launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()) + "; sanitizer disarmed")
+    assert BatchScheduler.__init__ is orig_init, "lockdep stayed armed"
+    assert serve_traced and dep.acquisitions > 0, "lockdep saw no acquisition"
+    assert dep.inversions == 0, dep.errors
+    assert all(launches.values()), launches
+    for path, seen in shapes.items():
+        CHECKED_SHAPES[path] = check_shapes(f"16 {path}, {card}", seen, seed=161)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[16] {card}: phase 16 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -4306,6 +4549,10 @@ def main():
     farm_launches, farm = phase13(card)
     launches_by_path.update(farm_launches)
     lap("13")
+    # -- 16. the port's own checks: the lint packs, lockdep on the card -----
+    check_launches, checks = phase16(card)
+    launches_by_path.update(check_launches)
+    lap("16")
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
@@ -4347,6 +4594,7 @@ def main():
         "farm": farm,
         "population": population,
         "baseline": baseline,
+        "checks": checks,
         "checked_shapes": CHECKED_SHAPES,
         "phase_seconds": phase_seconds,
     }]}

@@ -355,7 +355,7 @@ class EngineClient:
                         f"({e.reason}) past the client deadline; last retry_after hint "
                         f"was {wait}s"
                     ) from e
-                time.sleep(wait)
+                time.sleep(wait)  # graftlint: disable=GL303 the backoff IS the server's typed retry_after hint, bounded by the client deadline above -- not an unbounded retry loop
                 continue
             self._queue.append(req)
             return
@@ -638,7 +638,7 @@ class RemoteStudy:
                 self._drop()
                 last = e
                 self.stats["typed:Overloaded"] += 1
-                time.sleep(min(e.retry_after or 0.05, RETRY_AFTER_CAP))
+                time.sleep(min(e.retry_after or 0.05, RETRY_AFTER_CAP))  # graftlint: disable=GL303 the backoff IS the server's typed retry_after hint, capped and bounded by the attempt budget
                 continue
             except SimulatedCrash:
                 # an armed network crash point: this client died in its
@@ -650,7 +650,7 @@ class RemoteStudy:
                 last = e
                 self.stats["transport_errors"] += 1
                 self.stats[f"transport:{type(e).__name__}"] += 1
-                time.sleep(min(0.01 * (attempt + 1), 0.05))
+                time.sleep(min(0.01 * (attempt + 1), 0.05))  # graftlint: disable=GL303 bounded linear backoff under the max_retries attempt budget -- not an unbounded retry loop
                 continue
             if reply.get("ok"):
                 return reply

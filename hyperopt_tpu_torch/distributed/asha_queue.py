@@ -178,7 +178,7 @@ def _cleanup_attachment(transport, delete):
         delete()
     except KeyError:
         pass
-    except Exception as e:  # cleanup must never mask the run's result
+    except Exception as e:  # graftlint: disable=GL302 cleanup must never mask the run's result
         logger.warning(
             "could not delete Domain attachment %s: %s",
             transport.attachment_key, e,

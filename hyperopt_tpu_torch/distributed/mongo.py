@@ -394,7 +394,7 @@ class MongoWorker:
         with _common.claim_heartbeat(_beat, self.heartbeat):
             try:
                 result = domain.evaluate(spec_from_misc(doc["misc"]), ctrl)
-            except Exception as e:  # objective errors become ERROR docs
+            except Exception as e:  # graftlint: disable=GL302 objective errors become ERROR docs
                 logger.error("job %s failed: %s", doc.get("tid"), e)
                 published = self.jobs.complete(
                     doc, error=(str(type(e)), str(e)), require_claim=True
@@ -459,7 +459,7 @@ def main_worker(argv=None):
         try:
             jobs.reap(options.reserve_timeout)
             ran = worker.run_one(owner)
-        except Exception as e:  # crash-loop guard: bounded backoff, then exit 2
+        except Exception as e:  # graftlint: disable=GL302 crash-loop guard: bounded backoff, then exit 2
             if getattr(e, "failed_tid", None) is not None:
                 # a job naming an unloadable Domain: run_one gave it
                 # back and put the tid on cooldown; cool off instead of

@@ -127,7 +127,7 @@ class SparkTrials(Trials):
             result = submit_one_task(
                 sc, task, group, f"trial {trial['tid']}", True
             )
-        except Exception as e:  # a task failure becomes an ERROR doc
+        except Exception as e:  # graftlint: disable=GL302 a task failure becomes an ERROR doc
             with self._lock:
                 if trial["state"] == JOB_STATE_RUNNING:
                     trial["state"] = JOB_STATE_ERROR

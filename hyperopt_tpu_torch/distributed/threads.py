@@ -75,7 +75,7 @@ class ThreadTrials(Trials):
         spec = spec_from_misc(trial["misc"])
         try:
             result = domain.evaluate(spec, ctrl)
-        except Exception as e:  # objective errors become ERROR docs
+        except Exception as e:  # graftlint: disable=GL302 objective errors become ERROR docs
             logger.error("trial %s exception: %s", trial["tid"], e)
             with self._lock:
                 trial["state"] = JOB_STATE_ERROR

@@ -180,7 +180,7 @@ def run_one(queue, owner, exp_key=None, workdir=None, trials=None,
                     result = domain.evaluate(spec, ctrl)
             else:
                 result = domain.evaluate(spec, ctrl)
-        except Exception as e:  # objective errors become ERROR docs
+        except Exception as e:  # graftlint: disable=GL302 objective errors become ERROR docs
             logger.error("job %s failed: %s", doc["tid"], e)
             doc["state"] = JOB_STATE_ERROR
             doc["misc"]["error"] = (str(type(e)), str(e))
@@ -297,7 +297,7 @@ def main_worker_helper(options, drain=None):
         else:
             if (
                 options.last_job_timeout is not None
-                and time.time() - idle_since > options.last_job_timeout
+                and time.time() - idle_since > options.last_job_timeout  # graftlint: disable=GL307 idle-timeout protocol arithmetic (exit decision), not a metric accumulation
             ):
                 logger.info("idle for %.0fs, exiting", options.last_job_timeout)
                 break

@@ -136,7 +136,7 @@ class FlightRecorder:
         return [dict(s) for s in spans]
 
     # -- durable export ----------------------------------------------------
-    def _ensure_open(self):
+    def _ensure_open(self):  # graftlint: disable=GL503 one-time header publish (or torn-tail truncation) when the log is first opened; every later append through here is flush-only
         if self._f is None:
             if not self.fs.exists(self.path):
                 tmp = f"{self.path}.tmp.{os.getpid()}"

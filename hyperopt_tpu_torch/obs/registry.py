@@ -301,7 +301,7 @@ class _LabeledMetric:
         d.pop("_lock", None)
         return d
 
-    def __setstate__(self, d):
+    def __setstate__(self, d):  # graftlint: disable=GL501 unpickle-time: the object is not yet visible to any other thread, and the lock it re-shares is created on this line
         self.__dict__.update(d)
         self._lock = threading.RLock()
         for c in self._children.values():
@@ -379,7 +379,7 @@ class MetricsRegistry:
         d.pop("_lock", None)
         return d
 
-    def __setstate__(self, d):
+    def __setstate__(self, d):  # graftlint: disable=GL501 unpickle-time: the registry is not yet visible to any other thread, and the lock it re-shares is created on this line
         self.__dict__.update(d)
         self._lock = threading.RLock()
         for m in self._metrics.values():

@@ -432,7 +432,7 @@ class BatchScheduler:
             return self._studies[name]
 
     # -- tell --------------------------------------------------------------
-    def tell(self, study, tid, vals, loss, result=None):
+    def tell(self, study, tid, vals, loss, result=None):  # graftlint: disable=GL503 the WAL append IS the tell's durability barrier and must be ordered inside the study's tell linearization (write-ahead-then-apply); moving it outside the lock reorders tells against dedup and delta staging
         """Absorb one completed trial: WAL record first, host buffer
         second, device delta staged third.  Idempotent by tid: a tell a
         restore already replayed is absorbed once.  ``result`` (JSON-able)
@@ -528,7 +528,7 @@ class BatchScheduler:
         floor = self.retry_after()
         if self.drain_deadline is None:
             return floor
-        left = self.drain_deadline - time.perf_counter()
+        left = self.drain_deadline - time.perf_counter()  # graftlint: disable=GL307 deadline arithmetic (time left until the published drain deadline), not an ad-hoc latency metric
         return round(max(left, floor, 0.001), 6)
 
     def _dec_queue(self, req):
@@ -540,7 +540,7 @@ class BatchScheduler:
         else:
             c[name] -= 1
 
-    def submit_ask(self, study, deadline=None, replay=None):
+    def submit_ask(self, study, deadline=None, replay=None):  # graftlint: disable=GL503 the flush-only (no-fsync) ask record must stay ordered with the seed draw and tid allocation it snapshots -- the restored-cursor bitwise contract; the next tell's fsync is its barrier
         """Queue one ask; returns the queued request (``.tid`` /
         ``.future``).  The per-ask seed is drawn HERE, from the study's
         own stream, and logged (flush-only) with the cursor after it.
@@ -710,7 +710,7 @@ class BatchScheduler:
                 arr.fill(0)
         return tmpl
 
-    def _pick_round(self):
+    def _pick_round(self):  # graftlint: disable=GL505 shed futures resolve under the round lock by design: the service API attaches no done-callbacks to ask futures (clients block in Future.result, which waits on the future's own condition, never this lock)
         """At most one queued ask per study this round, FIFO, capped at
         ``max_batch``.  Expired deadlines and closed/quarantined studies
         are shed here; an ask of a study whose ``fresh_window`` is full
@@ -753,7 +753,7 @@ class BatchScheduler:
                            tid=req.tid, **self.span_ids)
         return picked
 
-    def step(self):
+    def step(self):  # graftlint: disable=GL505 the BaseException path fails picked futures before re-raising a simulated/real process death -- reordering outside the lock would let a racing submit observe a dying batcher; no done-callbacks exist (see _pick_round)
         """One dispatch round: returns the number of asks served.  The
         background loop calls this; tests call it directly so crashes
         reach them.
@@ -819,7 +819,7 @@ class BatchScheduler:
         for st in self._slots.values():
             st.dirty = True
 
-    def _recover_round(self, picked, exc):
+    def _recover_round(self, picked, exc):  # graftlint: disable=GL505 failure futures resolve under the round lock: the retry/circuit decision and the picked set must stay atomic wrt racing submits; no done-callbacks exist (see _pick_round)
         """The watchdog's failure path (lock held): retry once on a
         transient fault, else fail the picked requests; trip the circuit
         breaker on repeated failures."""
@@ -858,7 +858,7 @@ class BatchScheduler:
             self.circuit_open = False
             self._round_failures = 0
 
-    def _run_dispatch(self, fn):
+    def _run_dispatch(self, fn):  # graftlint: disable=GL503 serializing dispatch rounds under the scheduler lock IS the continuous-batching design (one round in flight, ever); the watchdog deadline bounds the blocking result() wait
         """Run one device dispatch under the watchdog deadline: inline
         without ``dispatch_timeout``; else on a disposable worker thread,
         where an overrun raises :class:`DispatchTimeout` and the wedged
@@ -886,7 +886,7 @@ class BatchScheduler:
                 f"device dispatch exceeded the {self.dispatch_timeout}s watchdog deadline"
             ) from None
 
-    def _dispatch_round(self, picked):
+    def _dispatch_round(self, picked):  # graftlint: disable=GL505 the round (flush-only served record, acks) is atomic under the lock by design -- acks-last keeps crashes replayable, and no done-callbacks exist (see _pick_round)
         """Serve one picked round (lock held): the stacked step for the
         slotted studies, each ``host_algo`` study's hook for the others,
         then ack every pick -- acks last, so a crash anywhere above
@@ -940,7 +940,7 @@ class BatchScheduler:
             results.append((req, vals))
         return results
 
-    def _served(self, req, vals, now):
+    def _served(self, req, vals, now):  # graftlint: disable=GL503,GL507 same contract as _dispatch_round: the flush-only served record is part of the atomic round under the lock, and a daemon-torn record is re-derived on replay from the ask cursor
         """Record one suggestion as served (lock held, before its ack): the
         flush-only ``served`` record, the outstanding vals its tell may
         default to, and its latency."""
@@ -1030,7 +1030,7 @@ class BatchScheduler:
             results.append((req, vals))
         return results
 
-    def _dispatch_device_metrics(self):
+    def _dispatch_device_metrics(self):  # graftlint: disable=GL503 the metrics twin runs inside the round serialization point by design (one dispatch in flight, ever -- see _run_dispatch); its cost is cadence-bounded
         """The device-metrics twin (lock held, after the round's acks): the
         read-only :func:`~hyperopt_tpu_torch.obs.device.
         build_device_metrics_fn` reduction over the stacked state lands
@@ -1172,7 +1172,7 @@ class BatchScheduler:
                     return
                 deadline = self._asks[0].t_submit + self.max_wait
                 while (not self._stopping and not self._ready()
-                       and (remaining := deadline - time.perf_counter()) > 0):
+                       and (remaining := deadline - time.perf_counter()) > 0):  # graftlint: disable=GL307 max_wait budget arithmetic (how long to keep coalescing), not a metric
                     self._cond.wait(timeout=min(remaining, 0.05))
                 if self._stopping:
                     return

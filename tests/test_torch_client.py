@@ -42,6 +42,20 @@ from hyperopt_tpu_torch.serve import SuggestService
 from test_torch_serve import ALGO_KW, N_STARTUP, NEAR_TIE, SPACE, loss_fn
 from test_torch_serve_batched import J_SPACE, PRIOR_LOG_RTOL, picks_differ, ref_margins
 
+
+@pytest.fixture(autouse=True)
+def _lockdep_armed(monkeypatch):
+    # the runtime lockdep sanitizer rides every scenario here: each
+    # BatchScheduler built runs with its lock and condition wrapped, an
+    # observed lock-order inversion raises where it is acquired, and the
+    # teardown assert catches the non-raising (Condition re-acquire) path
+    from hyperopt_tpu_torch.analysis import lockdep
+
+    dep = lockdep.arm_scheduler_class(monkeypatch)
+    yield dep
+    assert dep.inversions == 0, dep.errors
+
+
 TPE_KW = dict(n_EI_candidates=ALGO_KW["n_cand"], n_EI_candidates_cat=ALGO_KW["n_cand_cat"],
               n_startup_jobs=N_STARTUP)
 CLIENT_TPE = partial(H.tpe.suggest, **TPE_KW)

@@ -41,6 +41,20 @@ from hyperopt_tpu_torch.serve.service import serve_forever
 
 from test_torch_serve import ALGO_KW, SPACE, loss_fn
 
+
+@pytest.fixture(autouse=True)
+def _lockdep_armed(monkeypatch):
+    # the runtime lockdep sanitizer rides every scenario here: each
+    # BatchScheduler built runs with its lock and condition wrapped, an
+    # observed lock-order inversion raises where it is acquired, and the
+    # teardown assert catches the non-raising (Condition re-acquire) path
+    from hyperopt_tpu_torch.analysis import lockdep
+
+    dep = lockdep.arm_scheduler_class(monkeypatch)
+    yield dep
+    assert dep.inversions == 0, dep.errors
+
+
 KW = dict(max_batch=8, n_startup_jobs=2, snapshot_cadence=4, device="cpu", **ALGO_KW)
 REPLICAS = ("r0", "r1", "r2")
 NAMES = tuple(f"s{i:02d}" for i in range(6))

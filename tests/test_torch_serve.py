@@ -43,6 +43,20 @@ from hyperopt_tpu_torch.serve.batched import MIN_SLOTS, slot_capacity
 from hyperopt_tpu_torch.serve.scheduler import QUARANTINE_TRIPS, dense_to_vals
 from hyperopt_tpu_torch.torch_trials import MIN_CAPACITY, ObsBuffer
 
+
+@pytest.fixture(autouse=True)
+def _lockdep_armed(monkeypatch):
+    # the runtime lockdep sanitizer rides every scenario here: each
+    # BatchScheduler built runs with its lock and condition wrapped, an
+    # observed lock-order inversion raises where it is acquired, and the
+    # teardown assert catches the non-raising (Condition re-acquire) path
+    from hyperopt_tpu_torch.analysis import lockdep
+
+    dep = lockdep.arm_scheduler_class(monkeypatch)
+    yield dep
+    assert dep.inversions == 0, dep.errors
+
+
 SPACE = {
     "x": hp.uniform("x", -5, 5),
     "lr": hp.loguniform("lr", -5, 0),

@@ -36,6 +36,19 @@ from hyperopt_tpu_torch.utils.checkpoint import load_obs_buffer_bytes, load_pick
 from hyperopt_tpu_torch.utils.wal import TellWAL
 
 
+@pytest.fixture(autouse=True)
+def _lockdep_armed(monkeypatch):
+    # the runtime lockdep sanitizer rides every scenario here: each
+    # BatchScheduler built runs with its lock and condition wrapped, an
+    # observed lock-order inversion raises where it is acquired, and the
+    # teardown assert catches the non-raising (Condition re-acquire) path
+    from hyperopt_tpu_torch.analysis import lockdep
+
+    dep = lockdep.arm_scheduler_class(monkeypatch)
+    yield dep
+    assert dep.inversions == 0, dep.errors
+
+
 def space(h):
     return {"x": h.uniform("x", -5, 5), "lr": h.loguniform("lr", -5, 0),
             "c": h.choice("c", [0, 1])}

@@ -101,7 +101,7 @@ network.  Every phase asserts, and a failure exits non-zero:
    of all (after it the card's traces came back empty): 9a's model
    brackets under ``torch.profiler``;
 10. (after phase 7) durable fmin on the card, ``mixed_space()`` at
-   ``tpe.suggest``'s defaults, 300 trials: (a) ``fmin(engine=True)`` at
+   ``tpe.suggest``'s defaults, 200 trials: (a) ``fmin(engine=True)`` at
    ``ask_ahead`` 1 and 4 bitwise the solo fused stream from the same
    rstate, one ``gmm_llr`` launch per ask, ms per trial in pairs with the
    solo fused driver; (b) the same run on a ``SuggestService`` over a
@@ -265,14 +265,29 @@ network.  Every phase asserts, and a failure exits non-zero:
    disarmed, and the kernel at every launch shape of the two runs.  Only
    the scheduler's one lock is traced, so 16b is a smoke of the arming
    seam, not evidence about lock order.  No timed phase runs with the
-   sanitizer armed.
+   sanitizer armed;
+17. (after phase 16) the rank-sharded suggest (``parallel.sharded_suggest``):
+   (a) one rank, no process group: a 100-trial ``fmin`` on ``mixed_space()``
+   at the reference's defaults (64 candidates per rank, 24 categorical in
+   all), one ``gmm_llr`` launch per warm ask; a warm step bitwise
+   ``tpe.build_suggest_fn`` at ``fold_in(key, 0)``; the same ``fmin`` on
+   the CPU beside it, parting only at a near-tie (15d's rule); (b) two
+   ranks spawned on the one card (``parallel.dcn_check.launch``, ``gloo``
+   over a ``file://`` store, the packed winners gathered through the
+   host: NCCL refuses two ranks on one card), stages A and B at B=256, 32
+   candidates per rank: one all-gather per step, 3 launches per rank,
+   the KS line, and rank 0's suggestions bitwise two virtual ranks run in
+   this process on the card; (c) the kernel at every launch shape of
+   both (``launches_by_path`` keys ``sharded_1``, ``sharded_2``; numbers
+   under the kernels line's ``sharded``).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
 loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 10's under ``durable``, phase 11's under ``transport``, phase 12's under
 ``fleet``, phase 13's under ``farm``, phase 14's under ``population``,
-phase 15's under ``baseline``, phase 16's under ``checks``,
+phase 15's under ``baseline``, phase 16's under ``checks``, phase 17's
+under ``sharded``,
 each new path's launch shapes with their errors under
 ``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -2515,7 +2530,10 @@ def phase15d(card, card_trials):
     return out
 
 
-PHASE10_TRIALS = 300
+# cut from 300 when the whole script took 1095 s on an H100 (phase 10: 290
+# s of it) against its 1200 s limit; every kill point below still fires
+# before the 200th trial
+PHASE10_TRIALS = 200
 # the hit of each crash point to kill at, past startup: per tell or round
 # for the serve points, per append (an ask and a tell per trial) or per
 # bundle (every 25 tells; the trials pickle and the bundle each fire the
@@ -2592,7 +2610,7 @@ def phase10(card):
         order = ("solo_fused", "engine_k1", "engine_k4")
         for name in (order if rep == 0 else order[::-1]):
             if name == "solo_fused":
-                trials, dt, _ = counted("fmin_fused_300", lambda: fmin(
+                trials, dt, _ = counted(f"fmin_fused_{n}", lambda: fmin(
                     fused, H.TorchTrials(resident=True)))
                 ref = ref or stream(trials)
                 assert stream(trials) == ref
@@ -2603,7 +2621,7 @@ def phase10(card):
                 assert stream(trials) == ref, f"engine at ask_ahead={k} is not the solo stream"
                 assert nl == n, f"engine ask_ahead={k}: {nl} launches for {n} asks"
             walls[name].append(dt)
-    launches["fmin_fused_300"] //= 2
+    launches[f"fmin_fused_{n}"] //= 2
     launches["engine_fmin"] //= 4
     ms = {k: [1e3 * w / n for w in v] for k, v in walls.items()}
     log(f"[10a] {card}: engine-routed fmin, {n} trials of mixed_space: bitwise the solo fused "
@@ -2666,8 +2684,8 @@ def phase10(card):
                 f"the resumed run, {1e3 * rec.seconds_spent / n:.3f} ms of durability per trial")
 
         # -- 10d. ATPE through its host_algo hook --------------------------
-        solo, solo_dt, solo_nl = counted("atpe_300", lambda: fmin(H.atpe.suggest, H.Trials(),
-                                                                  seed=2))
+        solo, solo_dt, solo_nl = counted(f"atpe_{n}", lambda: fmin(H.atpe.suggest, H.Trials(),
+                                                                   seed=2))
         bg = SuggestService(mixed_space(), algo="atpe", max_batch=1, n_startup_jobs=20,
                             finite_check=False)
         names, real = [], G._launch_checked
@@ -4263,6 +4281,131 @@ def phase16(card):
     return launches, out
 
 
+SHARDED_TRIALS = 100  # 17a's fmin: 20 startup trials, then 80 sharded asks
+P17_DEVICE = "cuda"  # where phase 17's ranks compute
+DCN_RESULT = re.compile(r"launches_by_rank=\[([0-9, ]*)\]")
+
+
+def phase17(card):
+    """The rank-sharded suggest (``parallel.sharded_suggest``) on the card:
+    (a) one rank, no process group: a 100-trial ``fmin`` on
+    ``mixed_space()`` at the reference's defaults (64 candidates per rank,
+    24 categorical in all), one launch per warm ask; a warm step bitwise
+    ``tpe.build_suggest_fn`` at ``fold_in(key, 0)``; the same ``fmin`` on
+    the CPU beside it, parting only at a near-tie; (b) two ranks spawned
+    on the one card (``dcn_check.launch``: ``gloo``, the packed winners
+    gathered through the host), stages A and B at B=256: rank 0's
+    suggestions bitwise two virtual ranks in this process on the card,
+    one all-gather per step, the KS line; (c) the kernel at every launch
+    shape of both.  Returns the launches by path and the numbers."""
+    import numpy as np
+    import torch
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch import tpe
+    from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+    from hyperopt_tpu_torch.ops import kernels as TK
+    from hyperopt_tpu_torch.parallel import dcn_check, sharded
+    from hyperopt_tpu_torch.parallel.mesh import default_mesh, virtual_mesh
+    from hyperopt_tpu_torch.torch_trials import obs_buffer_for, packed_space_for
+
+    t_phase = time.perf_counter()
+    launches, shapes, out = {}, {}, {}
+    assert not torch.distributed.is_initialized()
+    n_startup, n_rank, n_cat = (sharded._default_n_startup_jobs, sharded._default_n_EI_per_device,
+                                sharded._default_n_EI_cat_total)
+
+    def run_fmin(device):
+        seeds, trials = [], H.Trials()
+
+        def algo(new_ids, domain, trials_, s):
+            seeds.append(int(s))
+            return sharded.sharded_suggest(new_ids, domain, trials_, s)
+
+        t0 = time.perf_counter()
+        H.fmin(mixed_space_fn, mixed_space(), algo=algo, max_evals=SHARDED_TRIALS,
+               trials=trials, rstate=np.random.default_rng(0), device=device,
+               show_progressbar=False)
+        return trials, seeds, time.perf_counter() - t0
+
+    # -- 17a. one rank, no process group -----------------------------------
+    (card_trials, card_seeds, wall), n = counted_run(launches, shapes, "sharded_1",
+                                                      lambda: run_fmin(P17_DEVICE))
+    losses = card_trials.losses()
+    assert len(losses) == SHARDED_TRIALS and np.all(np.isfinite(losses))
+    assert n == SHARDED_TRIALS - n_startup, n
+    assert min(losses) < min(losses[:n_startup]), "the sharded TPE did not improve on startup"
+    # one warm step: one rank at key k is the unsharded step at fold_in(k, 0)
+    domain = H.Domain(mixed_space_fn, mixed_space(), device=P17_DEVICE)
+    ps = packed_space_for(domain)
+    state = obs_buffer_for(domain, card_trials).device_arrays(pow2_cap=TK.DEFAULT_ABOVE_CAP)
+    key = R.key(card_seeds[-1] % (2**31 - 1), device=ps.device)
+    one = sharded.build_sharded_suggest_fn(ps, default_mesh(), n_rank, 0.25, 25, 1.0,
+                                           n_cand_cat_per_device=n_cat)(key, *state, 1)
+    flat = tpe.build_suggest_fn(ps, n_rank, 0.25, 25, 1.0, n_cand_cat=n_cat)(
+        R.fold_in(key, 0), *state, 1)
+    fold_in_bitwise = all(torch.equal(a, b) for a, b in zip(one, flat))
+    assert fold_in_bitwise, "one rank is not the unsharded step at fold_in(k, 0)"
+    # the same fmin on the CPU: it may part from the card's only at a near-tie
+    cpu_trials, cpu_seeds, cpu_wall = run_fmin("cpu")
+    cpu_domain = H.Domain(mixed_space_fn, mixed_space(), device="cpu")
+    cpu_ps = packed_space_for(cpu_domain)
+    t, labels = departure(cpu_ps, card_trials.trials, cpu_trials.trials)
+    margins = {}
+    if t is not None and t >= n_startup:
+        hist = H.trials_from_docs(cpu_trials.trials[:t])
+        (doc,) = sharded.sharded_suggest([t], cpu_domain, hist, cpu_seeds[t])
+        assert doc["misc"]["vals"] == cpu_trials.trials[t]["misc"]["vals"], t
+        cpu_state = obs_buffer_for(cpu_domain, hist).device_arrays(pow2_cap=TK.DEFAULT_ABOVE_CAP)
+        m = sweep_margins(cpu_ps, cpu_state, R.fold_in(R.key(cpu_seeds[t] % (2**31 - 1)), 0),
+                          0.25, 1.0, n_rank, n_cat, 1, pad_gamma=None)[:, 0]
+        margins = {lab: float(m[cpu_ps.labels.index(lab)]) for lab in labels}
+    worst = max(margins.values(), default=None)
+    out["one_rank"] = dict(trials=SHARDED_TRIALS, launches=n, wall_s=wall,
+                           ms_per_trial=wall / SHARDED_TRIALS * 1e3, best=float(min(losses)),
+                           fold_in_bitwise=fold_in_bitwise, cpu_wall_s=cpu_wall,
+                           first_departure=t, departure_labels=labels, margins=margins)
+    log(f"[17a] {card}: sharded_suggest on one rank, {SHARDED_TRIALS}-trial fmin on "
+        f"mixed_space() ({n_rank} candidates per rank, {n_cat} categorical): {wall:.2f} s "
+        f"({wall / SHARDED_TRIALS * 1e3:.2f} ms per trial), best {min(losses):.6f}, {n} gmm_llr "
+        f"launches; a warm step bitwise tpe.build_suggest_fn at fold_in(k, 0): "
+        f"{fold_in_bitwise}; the CPU stream ({cpu_wall:.2f} s) first parts at trial "
+        f"{'none' if t is None else t}"
+        + ("" if t is None else f" ({', '.join(labels)}; margins on the CPU "
+           + ", ".join(f"{k} {v:.6g}" for k, v in margins.items()) + ")"))
+    assert t is None or (t >= n_startup and worst < NEAR_TIE), (t, labels, margins)
+    # -- 17b. two ranks spawned on the one card, gloo through the host -----
+    t0 = time.perf_counter()
+    report = dcn_check.launch(world=2, timeout=300, device=P17_DEVICE, batch=256)
+    dcn_s = time.perf_counter() - t0
+    result = next(ln for ln in report.splitlines() if ln.startswith("DCN RESULT"))
+    by_rank = [int(x) for x in DCN_RESULT.search(result).group(1).split(",")]
+    launches["sharded_2"] = sum(by_rank)
+    spawned = dcn_check.parse_values(report)
+    # the twin: the same two ranks, in turn, in this process on the card;
+    # its launch shapes are the ranks' (the launches are not counted)
+    with launch_shapes() as seen:
+        virtual, _, _ = dcn_check.run_stages(P17_DEVICE, 256, dcn_check.DEFAULT_N_PER_RANK,
+                                             virtual_mesh(2))
+    shapes["sharded_2"] = seen
+    two_bitwise = spawned == {k: virtual[k] for k in ("A", "B")}
+    out["two_ranks"] = dict(seconds=dcn_s, launches_by_rank=by_rank, bitwise=two_bitwise,
+                            result=result)
+    log(f"[17b] {card}: two gloo ranks on the one card, stages A and B at B=256 "
+        f"({dcn_s:.2f} s with the ranks' start): {result}; rank 0 bitwise two virtual ranks "
+        f"on the card: {two_bitwise}")
+    assert "gathers_per_step=[1, 1, 1]" in result and "ranks_agree=True" in result, result
+    assert by_rank == [3, 3], by_rank
+    assert two_bitwise, "the spawned ranks differ from the virtual ranks"
+    # -- 17c. the kernel at every launch shape of both paths ---------------
+    for path, seen in shapes.items():
+        CHECKED_SHAPES[path] = check_shapes(f"17 {path}, {card}", seen, seed=171)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[17] {card}: phase 17 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -4553,6 +4696,10 @@ def main():
     check_launches, checks = phase16(card)
     launches_by_path.update(check_launches)
     lap("16")
+    # -- 17. the rank-sharded suggest: one rank, two ranks on the one card --
+    sharded_launches, sharded_out = phase17(card)
+    launches_by_path.update(sharded_launches)
+    lap("17")
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
@@ -4595,6 +4742,7 @@ def main():
         "population": population,
         "baseline": baseline,
         "checks": checks,
+        "sharded": sharded_out,
         "checked_shapes": CHECKED_SHAPES,
         "phase_seconds": phase_seconds,
     }]}

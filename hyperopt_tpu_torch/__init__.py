@@ -100,8 +100,8 @@ __all__ = ["AllTrialsFailed", "Ctrl", "Domain", "DuplicateLabel", "FMinIter",
 # cheap: the reference's lazy names that the port has, and its own
 _LAZY = frozenset({
     "anneal_host", "atpe_host", "convert", "criteria", "device_loop", "distributed", "graphviz",
-    "hyperband", "models", "native", "obs", "ops", "pbt", "plotting", "pyll_utils", "rand_host",
-    "random", "serve", "torch_trials", "tpe_host", "utils", "vectorize",
+    "hyperband", "models", "native", "obs", "ops", "parallel", "pbt", "plotting", "pyll_utils",
+    "rand_host", "random", "serve", "torch_trials", "tpe_host", "utils", "vectorize",
 })
 
 

@@ -1,0 +1,180 @@
+"""Rank meshes: how the processes of a ``torch.distributed`` run are arranged.
+
+The counterpart of :mod:`hyperopt_tpu.parallel.mesh`.  In the port one
+rank is one process with one device, so a mesh is an arrangement of
+global ranks, not of devices: :class:`RankMesh` holds the axis names,
+the shape and the ranks in row-major order, and builds the process
+group of a proper sub-mesh of the world when a collective first needs
+it.  A rank's position on the ``cand`` axis plays the part of the
+reference's ``lax.axis_index``.  Axis conventions are the reference's:
+
+  ``cand``  -- candidate-batch sharding (the throughput axis)
+  ``trial`` -- trial-batch sharding for population evaluation
+  ``study`` -- study-slot sharding for the serve engine
+
+:func:`virtual_mesh` arranges ``n`` ranks inside one process: every
+collective over it is computed here, each rank's share in turn (tests
+and the card's checks hold the real ranks against it).
+
+The reference's virtual-device harness has no twin here:
+``force_host_cpu_devices``, ``subprocess_env_with_devices``,
+``registry_cpu_mesh`` and ``REGISTRY_MESH_DEVICES`` force XLA's host
+platform to show several CPU devices.  The port's multi-rank harness is
+:func:`hyperopt_tpu_torch.parallel.dcn_check.launch`, which spawns real
+ranks, one process each.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from .multihost import process_count
+
+__all__ = [
+    "CAND_AXIS",
+    "STUDY_AXIS",
+    "TRIAL_AXIS",
+    "RankMesh",
+    "default_mesh",
+    "device_count",
+    "mesh_from_spec",
+    "rung_submesh",
+    "study_mesh",
+    "virtual_mesh",
+]
+
+CAND_AXIS = "cand"
+TRIAL_AXIS = "trial"
+STUDY_AXIS = "study"
+
+
+class RankMesh:
+    """An N-D arrangement of global ranks.
+
+    ``shape`` maps each axis name to its width (the reference's
+    ``Mesh.shape``), ``ranks`` lists the mesh's global ranks in row-major
+    order and ``devices`` shows them in the mesh's shape.  A ``virtual``
+    mesh holds ``n`` ranks inside one process (:func:`virtual_mesh`).
+    """
+
+    def __init__(self, shape, axis_names, ranks, virtual=False):
+        self.axis_names = tuple(axis_names)
+        self._dims = tuple(int(s) for s in shape)
+        if len(self._dims) != len(self.axis_names):
+            raise ValueError(f"mesh shape {shape} does not match axes {axis_names}")
+        self.ranks = tuple(int(r) for r in ranks)
+        if len(self.ranks) != self.size:
+            raise ValueError(f"mesh shape {shape} needs {self.size} ranks, got {len(ranks)}")
+        self.virtual = bool(virtual)
+        self._groups = {}
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self._dims))
+
+    @property
+    def size(self):
+        return math.prod(self._dims)
+
+    @property
+    def devices(self):
+        return np.asarray(self.ranks).reshape(self._dims)
+
+    def __repr__(self):
+        kind = "virtual " if self.virtual else ""
+        return f"RankMesh({kind}{self.shape}, ranks={list(self.ranks)})"
+
+    def coords(self, rank):
+        """The mesh coordinates of global ``rank``, one per axis."""
+        if rank not in self.ranks:
+            raise ValueError(f"rank {rank} is not on {self!r}")
+        return np.unravel_index(self.ranks.index(rank), self._dims)
+
+    def axis_index(self, axis, rank):
+        """``rank``'s position on ``axis`` (``lax.axis_index``'s twin)."""
+        return int(self.coords(rank)[self.axis_names.index(axis)])
+
+    def axis_ranks(self, axis, rank):
+        """The global ranks of the line along ``axis`` through ``rank``,
+        in axis order: the members of a collective over ``axis``."""
+        at = list(self.coords(rank))
+        a = self.axis_names.index(axis)
+        line = []
+        for i in range(self._dims[a]):
+            at[a] = i
+            line.append(self.ranks[int(np.ravel_multi_index(tuple(at), self._dims))])
+        return tuple(line)
+
+    def group(self, axis, rank):
+        """The process group of the line along ``axis`` through ``rank``:
+        None for the whole world (the default group), else a group built
+        at first use by the line's members alone."""
+        line = self.axis_ranks(axis, rank)
+        if line == tuple(range(process_count())):
+            return None
+        if line not in self._groups:
+            import torch.distributed as dist
+
+            self._groups[line] = dist.new_group(list(line), use_local_synchronization=True)
+        return self._groups[line]
+
+
+def device_count():
+    """Ranks in the run: the default group's world size, or 1 without
+    one (one process, one device)."""
+    return process_count()
+
+
+def default_mesh(axis_name=CAND_AXIS, ranks=None):
+    """1-D mesh over every (or the given) rank -- the workhorse for
+    candidate sharding."""
+    if ranks is None:
+        ranks = range(device_count())
+    ranks = list(ranks)
+    return RankMesh((len(ranks),), (axis_name,), ranks)
+
+
+def mesh_from_spec(shape, axis_names, ranks=None):
+    """N-D mesh over the first ranks, e.g. ``mesh_from_spec((2, 4),
+    ('trial', 'cand'))`` to split a run between trial-batch and
+    candidate-batch parallelism."""
+    if ranks is None:
+        ranks = range(device_count())
+    ranks = list(ranks)
+    n = math.prod(int(s) for s in shape)
+    if n > len(ranks):
+        raise ValueError(f"mesh shape {shape} needs {n} devices, have {len(ranks)}")
+    return RankMesh(shape, axis_names, ranks[:n])
+
+
+def study_mesh(n_devices=None, ranks=None, axis=STUDY_AXIS):
+    """1-D ``study`` mesh over the first ``n_devices`` ranks (None: every
+    rank) -- the serve engine's slot-axis mesh."""
+    if ranks is None:
+        ranks = range(device_count())
+    ranks = list(ranks)
+    if n_devices is not None:
+        n = int(n_devices)
+        if n > len(ranks):
+            raise ValueError(f"study_mesh needs {n} devices, have {len(ranks)}")
+        ranks = ranks[:n]
+    return RankMesh((len(ranks),), (axis,), ranks)
+
+
+def rung_submesh(mesh, axis, members):
+    """The gcd-sized per-rung sub-mesh of the SHA/ASHA seam: a rung
+    shards over the first ``gcd(members, mesh.shape[axis])`` ranks, so a
+    late tiny rung shrinks its sub-mesh instead of breaking divisibility,
+    and a one-rank sub-mesh is the unsharded program.  Returns
+    ``(sub_mesh, n_ranks)``."""
+    k = math.gcd(int(members), int(mesh.shape[axis]))
+    return RankMesh((k,), (axis,), mesh.ranks[:k], virtual=mesh.virtual), k
+
+
+def virtual_mesh(n, axis_name=CAND_AXIS):
+    """A 1-D mesh of ``n`` ranks inside this one process: a collective
+    over it computes every rank's share here, in rank order, and
+    gathers them as the real ranks' collective would."""
+    return RankMesh((int(n),), (axis_name,), range(int(n)), virtual=True)

@@ -495,3 +495,54 @@ def test_no_cuda_means_no_silent_cpu_population_models(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_sharded_suggest_in_a_fresh_process_loads_no_jax():
+    """(a'''''') the rank-sharded suggest on the CPU -- one rank, a
+    40-trial ``fmin`` past its 20 startup trials, and a two-rank virtual
+    mesh -- and afterwards neither jax nor the JAX package is loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import hyperopt_tpu_torch as H
+        from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+        from hyperopt_tpu_torch.parallel import sharded_suggest
+        from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
+        t = H.Trials()
+        H.fmin(mixed_space_fn, mixed_space(), algo=sharded_suggest, max_evals=40, trials=t,
+               rstate=np.random.default_rng(0), device="cpu", show_progressbar=False)
+        assert len(t.trials) == 40
+        d = H.Domain(mixed_space_fn, mixed_space(), device="cpu")
+        docs = sharded_suggest(t.new_trial_ids(2), d, t, seed=1, mesh=virtual_mesh(2))
+        assert len(docs) == 2 and d._sharded_tpe_cache
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_no_cuda_means_no_silent_cpu_sharded_suggest(monkeypatch):
+    """(c'''''') without CUDA, ``fmin(algo=sharded_suggest)``, a direct
+    ``sharded_suggest`` on a Domain with ``device=None`` and a
+    ``dcn_check`` rank without ``--device`` raise rather than run on the
+    CPU, and evaluate nothing."""
+    from hyperopt_tpu_torch.parallel import dcn_check, sharded_suggest
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trials = H.Trials()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.fmin(mixed_space_fn, mixed_space(), algo=sharded_suggest, max_evals=3, trials=trials)
+    assert len(trials.trials) == 0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sharded_suggest([0], H.Domain(mixed_space_fn, mixed_space()), trials, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dcn_check.main(["0", "2", "file:///nowhere"])
+    assert not torch.distributed.is_initialized()

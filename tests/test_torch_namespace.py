@@ -20,11 +20,11 @@ import hyperopt_tpu_torch as H
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_NAMES = {n for n in hyperopt_tpu.__all__ if n.endswith("_jax")}
 NOT_YET_PORTED = set()
-# lazy modules of the reference still to be ported: ROADMAP.md Queue A, item 15a
-LAZY_NOT_YET_PORTED = {"parallel"}
+# lazy modules of the reference still to be ported: none is left
+LAZY_NOT_YET_PORTED = set()
 LAZY = ("device_loop", "hyperband", "pbt", "models", "distributed", "ops", "utils", "progress",
         "atpe", "vectorize", "pyll_utils", "criteria", "plotting", "graphviz", "mix",
-        "tpe_host", "anneal_host", "atpe_host", "native")
+        "tpe_host", "anneal_host", "atpe_host", "native", "parallel")
 
 
 def test_all_equals_the_references_less_the_listed_names():
@@ -72,7 +72,7 @@ def test_import_loads_no_lazy_module():
         import hyperopt_tpu_torch
         lazy = ("device_loop", "hyperband", "pbt", "models", "serve", "convert", "rand_host",
                 "tpe_host", "anneal_host", "atpe_host", "native", "criteria", "plotting",
-                "graphviz")
+                "graphviz", "parallel")
         print("LOADED", sorted(m for m in lazy if f"hyperopt_tpu_torch.{m}" in sys.modules))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

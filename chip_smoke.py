@@ -279,7 +279,23 @@ network.  Every phase asserts, and a failure exits non-zero:
    the KS line, and rank 0's suggestions bitwise two virtual ranks run in
    this process on the card; (c) the kernel at every launch shape of
    both (``launches_by_path`` keys ``sharded_1``, ``sharded_2``; numbers
-   under the kernels line's ``sharded``).
+   under the kernels line's ``sharded``);
+18. (after phase 17) the study and population axes inside one process,
+   every shard on the one card: (a) phase 7b's serve protocol (64 studies
+   of ``mixed_space()``, n_cand 128, 3 startup asks, a warm-up and 6
+   timed rounds) unsharded and on 2- and 4-shard study meshes
+   (``virtual_mesh``), then one out-of-order tell and a NaN tenant: every
+   stream bitwise the unsharded run's, one ``gmm_llr`` launch per shard
+   per round, the out-of-order tell rebuilding one shard
+   (``shard_restacks``) with fewer upload bytes than the unsharded full
+   rebuild, the NaN tenant evicted, ms per round in pairs (unsharded, 4
+   shards, 4 shards, unsharded); (b) ``compile_pbt`` (9b's population MLP,
+   pop 32 x 10 steps x 20 rounds) and ``compile_sha`` (9b's 16 configs x 2
+   replicas) with ``shard_mode="shard_map"`` at 2 and 4 shards against the
+   unsharded schedules, captured against eager, two gathers per exploit;
+   (c) the kernel at every per-shard fold (``launches_by_path`` and
+   ``checked_shapes`` keys ``serve_shard_2``, ``serve_shard_4``; numbers
+   under the kernels line's ``study_mesh``).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
@@ -287,7 +303,7 @@ loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 10's under ``durable``, phase 11's under ``transport``, phase 12's under
 ``fleet``, phase 13's under ``farm``, phase 14's under ``population``,
 phase 15's under ``baseline``, phase 16's under ``checks``, phase 17's
-under ``sharded``,
+under ``sharded``, phase 18's under ``study_mesh``,
 each new path's launch shapes with their errors under
 ``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -724,6 +740,11 @@ def ask_window(it, n, in_suggest, buf):
             (buf.transfer_bytes_total - b0) / n)
 
 
+# 6d's and 6e's trials: cut from 300 to make room for phase 18 (the whole
+# script took 1095 s of its 1200 s limit in one run); the checks are unchanged
+PHASE6_TRIALS = 150
+
+
 def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
     """Drive every suggest path besides phase 4's on the card; returns the
     kernel launches of each, counted from 0 just before it.
@@ -868,10 +889,11 @@ def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
     # -- 6d. annealing, resident and not -----------------------------------
     streams = {}
     for resident in (None, True):
-        n, it, atrials, wall = run(H.partial(H.anneal.suggest, resident=resident), 300, seed=3)
+        n, it, atrials, wall = run(H.partial(H.anneal.suggest, resident=resident),
+                                   PHASE6_TRIALS, seed=3)
         launches["anneal" + ("_resident" if resident else "")] = n
         streams[resident] = atrials.losses()
-        log(f"[6d] anneal fmin 300 trials (resident={resident}): wall {wall:.2f} s, "
+        log(f"[6d] anneal fmin {PHASE6_TRIALS} trials (resident={resident}): wall {wall:.2f} s, "
             f"best loss {min(atrials.losses()):.6f}, kernel launches {n}")
         assert n == 0, n
     assert streams[None] == streams[True], "the resident anneal stream differs"
@@ -880,11 +902,12 @@ def phase6(domain, cpu_domain, hist_trials, plain_losses, plain_window):
         + ", ".join(f"{m} {c / 5:.1f}" for m, c in ops.most_common()))
 
     # -- 6e. ATPE: the sequential driver, and the device fn at B=64 --------
-    n, it, ttrials, wall = run(H.atpe.suggest, 300, seed=4)
+    n, it, ttrials, wall = run(H.atpe.suggest, PHASE6_TRIALS, seed=4)
     launches["atpe"] = n
-    log(f"[6e] atpe fmin 300 trials: wall {wall:.2f} s ({wall / 300 * 1e3:.2f} ms per trial), "
+    log(f"[6e] atpe fmin {PHASE6_TRIALS} trials: wall {wall:.2f} s "
+        f"({wall / PHASE6_TRIALS * 1e3:.2f} ms per trial), "
         f"best loss {min(ttrials.losses()):.6f}, kernel launches {n}")
-    assert n == 300 - n_startup, n
+    assert n == PHASE6_TRIALS - n_startup, n
     picks = {}
     for name, d in (("cuda", domain), ("cpu", cpu_domain)):
         ps = packed_space_for(d)
@@ -963,14 +986,15 @@ def serve_histories(ps, n_studies, n_obs, seed):
     return out
 
 
-def open_service(n_studies, histories=None):
+def open_service(n_studies, histories=None, mesh=None):
     """A service on the card at the bench's serve settings, ``n_studies``
-    studies (seeds 0..n-1), each first told its history, if any."""
+    studies (seeds 0..n-1), each first told its history, if any; ``mesh``
+    shards its study slots."""
     from hyperopt_tpu_torch.models.synthetic import mixed_space
     from hyperopt_tpu_torch.serve import SuggestService
 
     svc = SuggestService(mixed_space(), max_batch=max(n_studies, 4), background=False,
-                         n_startup_jobs=3, n_cand=128)
+                         n_startup_jobs=3, n_cand=128, mesh=mesh)
     handles = [svc.create_study(f"bench{i:03d}", seed=i) for i in range(n_studies)]
     for h, hist in zip(handles, histories or ()):
         for tid, vals in enumerate(hist):
@@ -4406,6 +4430,359 @@ def phase17(card):
     return launches, out
 
 
+SHARD_COUNTS = (2, 4)  # 18's study and trial meshes, every shard on the one card
+# 18b: the population MLP's sharded PBT loss history against the unsharded
+# one, relative (the card's batched products pick other kernels for a
+# block than for the whole population; 1.49e-5 measured, PERF.md)
+MLP_SHARD_RTOL = 1e-4
+SERVE18_ROUNDS = 6  # 7b's timed rounds, after one warm-up
+
+
+def p18_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def serve_protocol(mesh):
+    """Phase 7b's serve protocol on a service whose study slots ``mesh``
+    shards (None: unsharded), then one out-of-order tell (study 0 tells
+    its next two tids in reverse) and a NaN tenant (the last study tells a
+    NaN loss and asks until it is evicted) while every other study asks
+    and tells on.  The kernel's launches are counted from 0 at the first
+    round; returns the streams, ms per timed round, the launches and their
+    shapes, and the out-of-order round's upload bytes and shard restacks."""
+    from hyperopt_tpu_torch.exceptions import StudyPoisoned, StudyQuarantined
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.serve.scheduler import QUARANTINE_TRIPS
+
+    svc, handles = open_service(SERVE_STUDIES, mesh=mesh)
+    streams, rounds = {}, 0
+    p18_sync()
+    G.KERNEL.launches = 0
+    with launch_shapes() as seen:
+        serve_round(svc, handles, streams)  # warm-up: the first materialization
+        p18_sync()
+        t0 = time.perf_counter()
+        for _ in range(SERVE18_ROUNDS):
+            serve_round(svc, handles, streams)
+        p18_sync()
+        round_ms = (time.perf_counter() - t0) / SERVE18_ROUNDS * 1e3
+        rounds += 1 + SERVE18_ROUNDS
+        timed_launches = G.KERNEL.launches
+        # one out-of-order tell: the slot is rebuilt from host truth
+        before = svc.counters
+        h0 = handles[0]
+        st0 = svc.scheduler.study(h0.name)
+        t_hi = st0.next_tid
+        h0.tell(t_hi + 1, 0.9, vals=streams[h0.name][-1])
+        h0.tell(t_hi, 0.7, vals=streams[h0.name][-2])
+        st0.next_tid = t_hi + 2
+        assert st0.dirty, "the out-of-order tell did not dirty its slot"
+        serve_round(svc, handles, streams)
+        rounds += 1
+        after = svc.counters
+        # a NaN tenant: trips the finite check until it is evicted
+        bad, rest = handles[-1], handles[:-1]
+        st_bad = svc.scheduler.study(bad.name)
+        bad.tell(st_bad.next_tid, float("nan"), vals=streams[bad.name][-1])
+        st_bad.next_tid += 1
+        refusals = []
+        for _ in range(QUARANTINE_TRIPS + 1):
+            futs = [(h, h.ask_async()) for h in rest]
+            bad_fut = None if st_bad.quarantined else bad.ask_async()
+            svc.pump()
+            rounds += 1
+            for h, f in futs:
+                tid, vals = f.result(timeout=120)
+                streams[h.name].append(vals)
+                h.tell(tid, serve_loss(vals))
+            if bad_fut is not None:
+                refusals.append(type(bad_fut.exception(timeout=120)).__name__)
+        p18_sync()
+    out = dict(streams=streams, round_ms=round_ms, timed_launches=timed_launches,
+               launches=G.KERNEL.launches, rounds=rounds, seen=seen,
+               ooo_upload_bytes=after["upload_bytes"] - before["upload_bytes"],
+               ooo_restacks=after["shard_restacks"] - before["shard_restacks"],
+               quarantined=st_bad.quarantined, refusals=refusals, counters=svc.counters)
+    svc.shutdown()
+    assert all(r in (StudyPoisoned.__name__, StudyQuarantined.__name__) for r in refusals)
+    return out
+
+
+def tree_max_diff(a, b):
+    """The largest absolute difference over the leaves of two pytrees of
+    tensors (NaN where one side is not finite and the other is)."""
+    import torch
+
+    from hyperopt_tpu_torch.utils import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if torch.equal(x, y):
+            continue
+        worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst
+
+
+def block_probe(train_fn, state0, bounds, n_shards, mlp_seed=None):
+    """One ``train_fn`` step of the whole population against the same step
+    over ``n_shards`` member blocks, joined: the largest difference of the
+    states and of the losses; with ``mlp_seed`` (the population MLP's data
+    seed), also of each of the MLP's operations alone under ``vmap``: the
+    forward products ``x @ w1`` (a matrix product) and ``h @ w2`` (a
+    matrix-vector product), the MSE's mean over the 256 rows, and the
+    gradient of each parameter (``torch.func.grad``)."""
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.models.synthetic import _regression_data
+    from hyperopt_tpu_torch.utils import tree_leaves, tree_map
+
+    P = tree_leaves(state0)[0].shape[0]
+    dev = tree_leaves(state0)[0].device
+    hyp = {n: torch.exp(torch.linspace(float(np.log(lo)), float(np.log(hi)), P, device=dev))
+           for n, (lo, hi) in bounds.items()}
+    key = R.key(5, device=dev)
+    p = P // n_shards
+    blk = lambda t, k: tree_map(lambda x: x[k * p:(k + 1) * p], t)  # noqa: E731
+    cat = lambda trees: tree_map(lambda *xs: torch.cat(xs), *trees)  # noqa: E731
+
+    def whole_vs_blocks(fn, *trees):
+        return tree_max_diff(fn(*trees), cat([fn(*(blk(t, k) for t in trees))
+                                              for k in range(n_shards)]))
+
+    out = dict(state=whole_vs_blocks(lambda st, hy: train_fn(st, hy, key)[0], state0, hyp),
+               losses=whole_vs_blocks(lambda st, hy: train_fn(st, hy, key)[1], state0, hyp))
+    if mlp_seed is not None:
+        x, y = _regression_data(256, state0[0]["w1"].shape[1], mlp_seed)(dev)
+        h_of = lambda q: torch.tanh(x @ q["w1"] + q["b1"])  # noqa: E731
+        mse = lambda q: torch.mean((h_of(q) @ q["w2"] + q["b2"] - y) ** 2)  # noqa: E731
+        ops = {"x @ w1": lambda q: x @ q["w1"], "h @ w2": lambda q: h_of(q) @ q["w2"],
+               "mse mean": mse, "grad": torch.func.grad(mse)}
+        for name, fn in ops.items():
+            out[name] = whole_vs_blocks(lambda q, fn=fn: torch.func.vmap(fn)(q), state0[0])
+    return out
+
+
+def elementwise_population(n_members):
+    """The reference's graftmesh ``train_fn`` (``tests/test_graftmesh.py``):
+    noise shared by every member from the step key, per-member elementwise
+    math, on the card."""
+    import torch
+
+    from hyperopt_tpu_torch import random as R
+
+    def train_fn(state, hypers, key):
+        noise = R.normal(key, ()) * 0.01
+        theta = state["theta"] - hypers["lr"] * 2.0 * (state["theta"] - 0.7) + noise
+        return {"theta": theta}, (theta - 0.7) ** 2
+
+    state0 = {"theta": torch.linspace(0.0, 5.0, n_members, device="cuda")}
+    return train_fn, state0, {"lr": (1e-3, 1.0)}
+
+
+def schedule_shards(card, model, what):
+    """18b: ``compile_pbt`` (``what="pbt"``: pop 32 x 10 steps x 20
+    rounds) or ``compile_sha`` (16 configs x 2 replicas, 10 steps per
+    rung on the MLP, 2 on the elementwise model) on ``model`` ("mlp": 9b's population MLP; "elementwise":
+    :func:`elementwise_population`), unsharded and with
+    ``shard_mode="shard_map"`` on 2 and 4 shards: each captured run against
+    its eager run, the sharded against the unsharded, PBT's gathers (counted
+    in the eager run) and SHA's shards per rung.  The elementwise model
+    must be bitwise; the MLP's PBT must keep its hypers bitwise and its
+    loss history within ``MLP_SHARD_RTOL``, and its SHA the unsharded best
+    hypers.  Where a sharded run is not the unsharded one's bits, one step
+    of the model over the whole population is held against the same step
+    over the blocks (:func:`block_probe`).  Returns the record and the
+    faults."""
+    import math
+
+    import numpy as np
+
+    from hyperopt_tpu_torch import hyperband as HB
+    from hyperopt_tpu_torch import pbt as PBT
+    from hyperopt_tpu_torch.parallel.mesh import TRIAL_AXIS, virtual_mesh
+    from hyperopt_tpu_torch.pbt import compile_pbt
+    from hyperopt_tpu_torch.utils import tree_map
+
+    pop = PBT_POP if what == "pbt" else SHA_REPLICAS * SHA_CONFIGS
+    make = population_mlp if model == "mlp" else elementwise_population
+    train_fn, state0, bounds = make(pop) if what == "pbt" or model != "mlp" else make(pop, seed=2)
+    runs, rec, faults = {}, {}, []
+    for n in (None,) + SHARD_COUNTS:
+        kw = {} if n is None else dict(mesh=virtual_mesh(n, TRIAL_AXIS), trial_axis=TRIAL_AXIS,
+                                       shard_mode="shard_map")
+        if what == "pbt":
+            runner = compile_pbt(train_fn, state0, bounds, pop_size=PBT_POP,
+                                 exploit_every=PBT_EXPLOIT_EVERY, n_rounds=PBT_ROUNDS, **kw)
+        else:
+            runner = HB.compile_sha(train_fn, state0, bounds, n_configs=SHA_CONFIGS, eta=2,
+                                    steps_per_rung=SHA_STEPS if model == "mlp" else 2,
+                                    replicas=SHA_REPLICAS, **kw)
+        t0 = time.perf_counter()
+        runner(seed=0)  # warm-up and capture
+        p18_sync()
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = runner(seed=1)
+        p18_sync()
+        wall = time.perf_counter() - t0
+        # the eager run's gathers, each with the number of blocks it joins
+        joined, gather = [], PBT._gather
+        PBT._gather = lambda dst, blocks: joined.append(len(blocks)) or gather(dst, blocks)
+        try:
+            eager = runner._run(1, None, eager=True)
+        finally:
+            PBT._gather = gather
+        gathers = len(joined) if what == "pbt" else None
+        if what == "pbt" and joined != [n or 1] * (2 * PBT_ROUNDS):
+            faults.append(f"pbt/{model} on {n} shards: gathers joined {joined}")
+        if what == "pbt":
+            captured = (np.array_equal(eager["loss_history"], res["loss_history"])
+                        and np.array_equal(eager["log_hypers"], res["log_hypers"]))
+            shards = None
+        else:
+            captured = (eager["rungs"] == res["rungs"]
+                        and tree_max_diff(eager["state"], res["state"]) == 0.0)
+            shards = None if n is None else [m.size for m in runner._rung_meshes]
+        runs[n] = dict(res=res, seconds=wall, capture_s=capture_s, gathers=gathers,
+                       captured_bitwise_eager=captured, rung_shards=shards)
+    base = runs[None]["res"]
+    for n in SHARD_COUNTS:
+        run = runs[n]
+        res = run.pop("res")
+        if what == "pbt":
+            gap = np.abs(res["loss_history"] - base["loss_history"])
+            diff = dict(loss_history=float(gap.max()),
+                        loss_history_rel=float((gap / np.maximum(
+                            np.abs(base["loss_history"]), 1e-30)).max()),
+                        log_hypers=float(np.abs(res["log_hypers"] - base["log_hypers"]).max()),
+                        state=tree_max_diff(res["state"], base["state"]))
+            blocks = [(PBT_POP, n)]
+        else:
+            diff = dict(rungs_equal=res["rungs"] == base["rungs"],
+                        best_hypers_equal=res["best_hypers"] == base["best_hypers"],
+                        state=tree_max_diff(res["state"], base["state"]))
+            blocks = sorted({(pop // 2**r, math.gcd(pop // 2**r, n))
+                             for r in range(len(base["rungs"]))})
+        bitwise = all(v is True or v == 0.0 for v in diff.values())
+        probe = None
+        if not bitwise:
+            # each (members, blocks) of the run: one step, whole against blocks
+            probe = {f"{m}/{k}": block_probe(train_fn, tree_map(lambda x: x[:m], state0),
+                                             bounds, k, mlp_seed=None if model != "mlp"
+                                             else 0 if what == "pbt" else 2)
+                     for m, k in blocks}
+        run.update(bitwise=bitwise, diff=diff, probe=probe,
+                   plain_seconds=runs[None]["seconds"])
+        rec[str(n)] = run
+        log(f"[18b] {card}: {what} on the {model} population, shard_map on {n} shards: "
+            f"{run['seconds']:.3f} s (unsharded {runs[None]['seconds']:.3f} s), capture "
+            f"{run['capture_s']:.2f} s"
+            + ("" if what != "pbt" else f", {run['gathers']} gathers in {PBT_ROUNDS} rounds")
+            + ("" if what != "sha" else f", shards per rung {run['rung_shards']}")
+            + f"; captured bitwise eager: {run['captured_bitwise_eager']}; bitwise the "
+            f"unsharded schedule: {bitwise} ({diff})"
+            + ("" if probe is None else f"; one step, whole population against its blocks "
+               f"(members/blocks: largest differences of state and losses, and of each "
+               f"MLP operation alone under vmap): {probe}"))
+        if not run["captured_bitwise_eager"]:
+            faults.append(f"{what}/{model} on {n} shards: captured runs differ from eager")
+        if model == "mlp" and what == "pbt" and not (
+                diff["log_hypers"] == 0.0 and diff["loss_history_rel"] <= MLP_SHARD_RTOL):
+            faults.append(f"pbt/mlp on {n} shards: hypers not bitwise or loss history past "
+                          f"{MLP_SHARD_RTOL} relative ({diff})")
+        if model == "mlp" and what == "sha" and not diff["best_hypers_equal"]:
+            faults.append(f"sha/mlp on {n} shards: best hypers differ ({diff})")
+        if what == "sha":
+            want = [math.gcd(pop // 2**r, n) for r in range(len(base["rungs"]))]
+            if run["rung_shards"] != want:
+                faults.append(f"sha/{model} on {n} shards: rung shards {run['rung_shards']}")
+        # a sharded schedule may part from the unsharded one only where one
+        # step of the model itself gives a block other bits than the whole
+        if not bitwise and (model != "mlp" or not any(
+                v["state"] or v["losses"] for v in probe.values())):
+            faults.append(f"{what}/{model} on {n} shards: not bitwise the unsharded "
+                          f"schedule ({diff}) and the model's step is block-invariant")
+    return rec, faults
+
+
+def phase18(card):
+    """The study and population axes inside one process, every shard on
+    the one card: (a) 7b's serve protocol unsharded and on 2- and 4-shard
+    study meshes, streams bitwise, one launch per shard per round, the
+    out-of-order tell's shard-local rebuild, the NaN tenant, ms per round
+    in pairs; (b) ``compile_pbt`` and ``compile_sha`` with
+    ``shard_mode="shard_map"`` against their unsharded schedules; (c) the
+    kernel at every per-shard fold.  Returns the launches by path and the
+    numbers."""
+    from hyperopt_tpu_torch.parallel.mesh import STUDY_AXIS, virtual_mesh
+
+    t_phase = time.perf_counter()
+    launches, out = {}, {"serve": {}, "pbt": {}, "sha": {}}
+    # -- 18a. the serve protocol: unsharded, 2, 4, 4, unsharded -------------
+    order = (None, 2, 4, 4, None)
+    runs = [serve_protocol(None if n is None else virtual_mesh(n, STUDY_AXIS)) for n in order]
+    plain = runs[0]
+    full_rebuild = plain["ooo_upload_bytes"]
+    faults = []
+    for n, run in zip(order, runs):
+        shards = 1 if n is None else n
+        bitwise = run["streams"] == plain["streams"]
+        rec = dict(round_ms=run["round_ms"], launches=run["launches"], rounds=run["rounds"],
+                   launches_per_round=run["launches"] / run["rounds"],
+                   ooo_upload_bytes=run["ooo_upload_bytes"], ooo_restacks=run["ooo_restacks"],
+                   quarantined=run["quarantined"], refusals=run["refusals"],
+                   evictions=run["counters"]["evictions"], bitwise=bitwise,
+                   upload_bytes=run["counters"]["upload_bytes"],
+                   shard_restacks=run["counters"]["shard_restacks"])
+        out["serve"].setdefault(str(shards), []).append(rec)
+        log(f"[18a] {card}: 7b's protocol ({SERVE_STUDIES} studies of mixed_space(), n_cand "
+            f"128, 3 startup asks) on {shards} shard(s): {run['round_ms']:.3f} ms per timed "
+            f"round; gmm_llr launches {run['launches']} in {run['rounds']} rounds "
+            f"({run['timed_launches']} in the warm-up and {SERVE18_ROUNDS} timed rounds); the "
+            f"out-of-order tell's round uploaded {run['ooo_upload_bytes']} bytes in "
+            f"{run['ooo_restacks']} shard restack(s) (the unsharded full rebuild: "
+            f"{full_rebuild}); the NaN tenant refused {run['refusals']}, evicted "
+            f"{run['quarantined']}; every stream bitwise the unsharded run's: {bitwise}; "
+            f"counters {run['counters']}")
+        if not bitwise:
+            faults.append(f"{shards} shards: streams differ from the unsharded run")
+        if run["launches"] != shards * run["rounds"]:
+            faults.append(f"{shards} shards: {run['launches']} launches in {run['rounds']} rounds")
+        if not (run["quarantined"] and run["counters"]["evictions"] == 1):
+            faults.append(f"{shards} shards: the NaN tenant was not evicted")
+        if n is not None and not (run["ooo_restacks"] == 1
+                                  and run["ooo_upload_bytes"] < full_rebuild):
+            faults.append(f"{shards} shards: the out-of-order tell was not shard-local")
+        if n is not None:
+            launches[f"serve_shard_{n}"] = launches.get(f"serve_shard_{n}", 0) + run["launches"]
+    pairs = [(runs[0]["round_ms"], runs[2]["round_ms"]), (runs[4]["round_ms"], runs[3]["round_ms"])]
+    out["serve"]["pairs_ms_unsharded_4"] = pairs
+    log(f"[18a] {card}: ms per round in pairs (unsharded, 4 shards): "
+        + ", ".join(f"({a:.3f}, {b:.3f})" for a, b in pairs)
+        + f"; 4 shards over unsharded {statistics.median(b / a for a, b in pairs):.3f}x")
+    # -- 18b. compile_pbt and compile_sha, shard_map at 2 and 4 shards ---------
+    # on 9b's population MLP, and on the reference's elementwise train_fn,
+    # whose per-member math cannot depend on the block a member trains in
+    for model in ("mlp", "elementwise"):
+        for what in ("pbt", "sha"):
+            rec, why = schedule_shards(card, model, what)
+            out[what][model] = rec
+            faults.extend(why)
+    # -- 18c. the kernel at every per-shard fold -------------------------------
+    for n in SHARD_COUNTS:
+        seen = set().union(*(r["seen"] for m, r in zip(order, runs) if m == n))
+        CHECKED_SHAPES[f"serve_shard_{n}"] = check_shapes(f"18 serve_shard_{n}, {card}", seen,
+                                                          seed=181)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[18] {card}: phase 18 took {out['seconds']:.1f} s")
+    assert not faults, faults
+    return launches, out
+
+
 def main():
     import torch
 
@@ -4700,6 +5077,10 @@ def main():
     sharded_launches, sharded_out = phase17(card)
     launches_by_path.update(sharded_launches)
     lap("17")
+    # -- 18. the study and population axes inside one process ---------------
+    mesh_launches, study_mesh_out = phase18(card)
+    launches_by_path.update(mesh_launches)
+    lap("18")
     results["mlp"] = mlp_result
     results["asha"] = asha_result
     profile_9d()
@@ -4743,6 +5124,7 @@ def main():
         "baseline": baseline,
         "checks": checks,
         "sharded": sharded_out,
+        "study_mesh": study_mesh_out,
         "checked_shapes": CHECKED_SHAPES,
         "phase_seconds": phase_seconds,
     }]}

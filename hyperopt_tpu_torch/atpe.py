@@ -45,7 +45,7 @@ CAT_DISTS = ("randint", "categorical", "randint_via_categorical")
 _LOG_DISTS = ("loguniform", "qloguniform", "lognormal", "qlognormal")
 
 _NO_MESH = ("mesh sharding of the ATPE sweep is not ported yet "
-            "(ROADMAP.md Queue A, item 15)")
+            "(ROADMAP.md Queue A, item 15c)")
 
 
 def _ok_trials(trials):

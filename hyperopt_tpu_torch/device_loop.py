@@ -520,7 +520,7 @@ def compile_fmin(
             raise ValueError(
                 "artifact_callback rides the chunked scan path; pass chunk_size= to enable it")
     if mesh is not None or cand_axis is not None:
-        raise _not_ported("mesh" if mesh is not None else "cand_axis", 15,
+        raise _not_ported("mesh" if mesh is not None else "cand_axis", "15c",
                           "sharding the loop over several cards")
     if algo not in ("tpe", "anneal", "rand", "atpe"):
         raise ValueError(f"unknown algo {algo!r}: expected tpe|anneal|rand|atpe")

@@ -45,6 +45,7 @@ from .pyll.base import Literal, dfs
 from .utils import capture_graph, host_copy, resolve_device, tree_leaves, tree_map
 from .utils.population import (copy_into, hypers_dict, log_bounds, log_uniform_start,
                                refuse_sharding, to_device)
+from .pbt import _gather, _resolve_shard_mode, _scatter, _train_blocks
 
 logger = logging.getLogger(__name__)
 
@@ -513,8 +514,19 @@ def compile_sha(
     within each bracket); ``init_state`` leaves then lead with ``K *
     n_configs``.  ``init_state`` may be a callable (``init_state(seed)``
     when it takes a required argument, else ``init_state()``), called
-    once per run.  ``mesh``/``shard_mode`` (sharding) are not ported and
-    raise.
+    once per run.
+
+    ``mesh`` (a 1-D mesh along ``trial_axis`` inside this process) with
+    ``shard_mode`` ``"shard_map"`` or ``"constraint"`` (the default with a
+    mesh; the same program here) shards every rung over the gcd-sized
+    sub-mesh of :func:`~hyperopt_tpu_torch.parallel.mesh.rung_submesh`:
+    the rung's member blocks train on their own, the rung's losses are
+    gathered once for the ranking, and the survivors are gathered into
+    the next rung's blocks (a rung on one shard is the unsharded rung:
+    one block, the rung's population itself).  The ladder is bitwise the unsharded one for
+    a ``train_fn`` whose per-member math does not depend on the member's
+    place in the batch.  ``runner._rung_meshes`` holds each rung's
+    sub-mesh.
 
     On the card every rung is built once and captured as one graph at the
     first run; a run replays the chain back to back and reads the
@@ -529,8 +541,8 @@ def compile_sha(
     (its crash points: ``SHA_CRASH_POINTS`` and the writer's torn-publish
     window).
     """
-    refuse_sharding(mesh, shard_mode, "compile_sha")
     fs = REAL_FS if fs is None else fs
+    mode = _resolve_shard_mode(shard_mode, mesh)
     dev = resolve_device(device)
     P0 = int(n_configs)
     Rn = int(replicas)
@@ -539,6 +551,13 @@ def compile_sha(
     eta = int(eta)
     ladder = rung_schedule(P0, eta, n_rungs, steps_per_rung)
     n_rungs = len(ladder)
+    rung_meshes = [None] * n_rungs
+    if mode is not None:
+        from .parallel.mesh import in_process_shards, rung_submesh
+
+        # rung r's members shard over the first gcd(members, n) shards
+        in_process_shards(mesh, trial_axis, "compile_sha", dev)
+        rung_meshes = [rung_submesh(mesh, trial_axis, Rn * p)[0] for p, _, _ in ladder]
 
     def _validate_leading(state):
         leading = {x.shape[0] for x in tree_leaves(state)}
@@ -573,34 +592,43 @@ def compile_sha(
                           template)
         bufs["member"] = member
         bufs["st"], bufs["lh"], bufs["key"], bufs["losses"], bufs["order"] = [], [], [], [], []
-        for p, _, _ in ladder:
+        bufs["blocks"] = []
+        for (p, _, _), sub in zip(ladder, rung_meshes):
             m = Rn * p
-            bufs["st"].append(tree_map(
-                lambda spec: torch.zeros((m,) + spec.shape, dtype=spec.dtype, device=dev),
-                member))
+            k = 1 if sub is None else sub.size
+            st = tree_map(lambda spec: torch.zeros((m,) + spec.shape, dtype=spec.dtype,
+                                                   device=dev), member)
+            bufs["st"].append(st)
+            # the rung's member blocks: its population itself on one
+            # shard, else k blocks that ``st`` gathers
+            bufs["blocks"].append([st] if k == 1 else [
+                tree_map(lambda spec: torch.zeros((m // k,) + spec.shape, dtype=spec.dtype,
+                                                  device=dev), member) for _ in range(k)])
             bufs["lh"].append(torch.zeros((m, H), dtype=torch.float32, device=dev))
             bufs["key"].append(torch.zeros((2,), dtype=torch.int64, device=dev))
             bufs["losses"].append(torch.zeros((m,), dtype=torch.float32, device=dev))
             bufs["order"].append(torch.zeros((Rn, p), dtype=torch.int64, device=dev))
 
     def rung_step(r):
-        """Rung ``r``: train, rank, and gather the survivors into rung
-        ``r + 1``'s tensors (the last rung keeps its trained state)."""
+        """Rung ``r``: train every member block on its own with its slice
+        of the hypers, rank on the gathered losses, and gather the
+        survivors into rung ``r + 1``'s blocks (the last rung keeps its
+        trained population)."""
         p, n_steps_r, _ = ladder[r]
         lh = bufs["lh"][r]
-        keys = R.split(bufs["key"][r], n_steps_r)
-        hypers = hypers_dict(lh, names)
-        st = bufs["st"][r]
-        for j in range(n_steps_r):
-            st, losses = train_fn(st, hypers, keys[j])
-        losses = losses.to(torch.float32)
+        trained, blk_losses = _train_blocks(train_fn, bufs["blocks"][r], hypers_dict(lh, names),
+                                            R.split(bufs["key"][r], n_steps_r))
+        losses = _gather(bufs["losses"][r], blk_losses)
         order = rung_rank(losses, Rn, p)
+        # each copy_ below is a no-op where the gather already wrote there
         bufs["losses"][r].copy_(losses)
         bufs["order"][r].copy_(order)
+        st = _gather(bufs["st"][r], trained)
         if r < n_rungs - 1:
             keep = order[:, : p // eta].reshape(-1)
             copy_into(bufs["st"][r + 1], tree_map(lambda x: x.index_select(0, keep), st))
             bufs["lh"][r + 1].copy_(lh.index_select(0, keep))
+            _scatter(bufs["blocks"][r + 1], bufs["st"][r + 1])
         else:
             copy_into(bufs["st"][r], st)
 
@@ -679,7 +707,7 @@ def compile_sha(
             state0 = to_device(_materialize(seed), dev)
         if start < n_rungs:
             _ensure(state0, eager)
-            copy_into(bufs["st"][start], state0)
+            _scatter(bufs["blocks"][start], state0)
             bufs["lh"][start].copy_(log_h0)
             for r in range(n_rungs):
                 bufs["key"][r].copy_(keys[r + 1])
@@ -736,6 +764,7 @@ def compile_sha(
     runner._graphs = graphs
     runner._rung_step = rung_step
     runner._ladder = list(ladder)
+    runner._rung_meshes = rung_meshes
     return runner
 
 
@@ -768,8 +797,7 @@ def compile_hyperband(
     spread resumes bitwise."""
     if s_max < 0:
         raise ValueError(f"s_max={s_max} must be >= 0")
-    if mesh is not None:
-        refuse_sharding(mesh, None, "compile_hyperband")
+    refuse_sharding(mesh, "compile_hyperband")
     dev = resolve_device(device)
     bracket_runners = []
     for s in range(int(s_max), -1, -1):

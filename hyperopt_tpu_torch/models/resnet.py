@@ -161,7 +161,7 @@ def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="
     batch, the losses taken before it, under cuDNN's deterministic
     algorithms.  The tensors live on ``device`` (None = the card);
     ``mesh`` is not ported and raises."""
-    refuse_sharding(mesh, None, "make_population_train_step")
+    refuse_sharding(mesh, "make_population_train_step")
     resolve_device(device)
 
     def loss_fn(params, images, labels):

@@ -159,7 +159,7 @@ def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="
     next-token step of every member, the losses taken before it.  The
     tensors live on ``device`` (None = the card); ``mesh`` is not
     ported and raises."""
-    refuse_sharding(mesh, None, "make_population_train_step")
+    refuse_sharding(mesh, "make_population_train_step")
     resolve_device(device)
     return _population_step(model)
 

@@ -26,7 +26,7 @@ Rank 0 then checks the winners' distribution against the unsharded
 (a two-sample KS distance per dim) and prints ``DCN VALUES`` (its
 suggestions, as JSON) and the ``DCN RESULT`` line.  The reference's
 stages C-E (a sharded ``compile_fmin``, ``compile_sha`` and
-``compile_pbt``) come with the ``mesh=`` plumbing, ROADMAP item 15b.
+``compile_pbt`` across processes) are ROADMAP item 15c.
 
 :func:`launch` spawns the ranks and returns rank 0's output.
 """

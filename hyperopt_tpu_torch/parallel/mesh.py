@@ -16,6 +16,11 @@ reference's ``lax.axis_index``.  Axis conventions are the reference's:
 collective over it is computed here, each rank's share in turn (tests
 and the card's checks hold the real ranks against it).
 
+The study axis of the serve engine and the trial axis of ``compile_pbt``
+and ``compile_sha`` need no collective inside a step, so there a shard
+is a block of slots or members owned by this one process
+(:func:`in_process_shards`), placed by :func:`shard_devices`.
+
 The reference's virtual-device harness has no twin here:
 ``force_host_cpu_devices``, ``subprocess_env_with_devices``,
 ``registry_cpu_mesh`` and ``REGISTRY_MESH_DEVICES`` force XLA's host
@@ -39,8 +44,10 @@ __all__ = [
     "RankMesh",
     "default_mesh",
     "device_count",
+    "in_process_shards",
     "mesh_from_spec",
     "rung_submesh",
+    "shard_devices",
     "study_mesh",
     "virtual_mesh",
 ]
@@ -171,6 +178,48 @@ def rung_submesh(mesh, axis, members):
     ``(sub_mesh, n_ranks)``."""
     k = math.gcd(int(members), int(mesh.shape[axis]))
     return RankMesh((k,), (axis,), mesh.ranks[:k], virtual=mesh.virtual), k
+
+
+def in_process_shards(mesh, axis, what, device=None):
+    """The number of shards ``mesh`` lays along ``axis`` inside this
+    process: a virtual mesh, or a mesh of one rank.  A 1-D mesh is
+    required; a mesh over several processes is refused (the study and
+    trial axes across processes are ROADMAP.md Queue A item 15c).  With
+    ``device``, the shards must all land on it (:func:`shard_devices`)."""
+    if axis not in mesh.shape:
+        raise ValueError(f"{what}: mesh {mesh!r} has no {axis!r} axis")
+    if len(mesh.shape) != 1:
+        raise NotImplementedError(
+            f"{what}: a mesh of more than one axis ({mesh!r}) is not ported yet "
+            "(ROADMAP.md Queue A, item 15c)"
+        )
+    if mesh.size > 1 and not mesh.virtual:
+        raise NotImplementedError(
+            f"{what}: the {axis!r} axis over {mesh.size} processes is not ported yet; "
+            "shard inside one process with virtual_mesh (ROADMAP.md Queue A, item 15c)"
+        )
+    n = int(mesh.shape[axis])
+    if device is not None:
+        shard_devices(n, device, what)
+    return n
+
+
+def shard_devices(n, device, what="sharding"):
+    """Where the ``n`` in-process shards of a caller on ``device`` live:
+    every shard on ``device``.  When ``device`` is a card and this process
+    sees at least ``n`` cards, the placement is shard ``k`` on ``cuda:k``;
+    shards on several cards have no check yet and are refused (ROADMAP.md
+    Queue A, item 15c)."""
+    import torch
+
+    device = torch.device(device)
+    n = int(n)
+    if device.type == "cuda" and n > 1 and torch.cuda.device_count() >= n:
+        raise NotImplementedError(
+            f"{what}: {n} shards on {n} cards (shard k on cuda:k) are not ported yet; "
+            "show this process fewer cards than shards (ROADMAP.md Queue A, item 15c)"
+        )
+    return [device] * n
 
 
 def virtual_mesh(n, axis_name=CAND_AXIS):

@@ -125,7 +125,7 @@ def fetch_global(tree):
     In the port every tensor lives on its own process's device, so the
     fetch is local.  Leaves sharded across processes, which the
     reference assembles with ``process_allgather``, come with the
-    sharded populations of the ``mesh=`` plumbing (ROADMAP item 15b).
+    populations sharded across processes (ROADMAP item 15c).
     """
     import torch
 

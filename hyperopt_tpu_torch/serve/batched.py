@@ -28,8 +28,17 @@ widest study's bucket) and one pow2 slot capacity.  The state is written
 IN PLACE (the reference donates it instead): a re-materialization always
 allocates new tensors.
 
-``mesh=`` (the study axis sharded over several cards) raises until
-``ROADMAP.md`` Queue A item 15.
+``mesh=`` shards the slot axis over a 1-D ``study`` mesh inside this
+process (:func:`~hyperopt_tpu_torch.parallel.mesh.virtual_mesh`, or a
+mesh of one rank): the capacity rounds up to a multiple of the shard
+count (:func:`slot_capacity` ``shards=``), and each shard is its own
+:class:`StudyBatchState` over its block of slots, all on the engine's
+device (:class:`ShardedBatchState`; shards on several cards are refused,
+:func:`~hyperopt_tpu_torch.parallel.mesh.shard_devices`).  A round runs the unsharded step over every
+block in turn -- one ``gmm_llr_stacked`` launch per shard -- and slots
+never interact, so every slot's bits are the unsharded engine's.
+:func:`restack_shards` rebuilds only dirty shards: a clean shard keeps
+its very tensors.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from ..ops import kernels as K
 
 __all__ = [
     "MIN_SLOTS",
+    "ShardedBatchState",
     "StudyBatchState",
     "build_batched_delta_fn",
     "build_batched_step_fn",
@@ -57,14 +67,6 @@ __all__ = [
 MIN_SLOTS = 4
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the serve engine's mesh= (the study axis sharded over several "
-            "cards) is not ported yet: ROADMAP.md Queue A item 15"
-        )
-
-
 class StudyBatchState(NamedTuple):
     """N stacked :class:`~hyperopt_tpu_torch.ops.kernels.HistoryState`\\ s:
     the four dense history tensors with a leading study axis.  Slot ``i``
@@ -77,13 +79,50 @@ class StudyBatchState(NamedTuple):
     valid: torch.Tensor   # [S, cap] slot occupancy (per-study prefix mask)
 
 
-def slot_capacity(n_studies, max_batch):
+class ShardedBatchState(NamedTuple):
+    """A :class:`StudyBatchState` whose slot axis is cut into equal
+    blocks, one per shard: each field holds the shards' tensors in shard
+    order, and :meth:`shard` is shard ``k``'s own
+    :class:`StudyBatchState` (slots ``k * blk`` to ``(k + 1) * blk``)."""
+
+    values: tuple
+    active: tuple
+    losses: tuple
+    valid: tuple
+
+    @property
+    def n_shards(self):
+        return len(self.values)
+
+    def shard(self, k):
+        return StudyBatchState(*(field[k] for field in self))
+
+    def gathered(self, field):
+        """One field's shards joined along the slot axis."""
+        return torch.cat(getattr(self, field))
+
+
+def slot_capacity(n_studies, max_batch, shards=1):
     """The slot capacity a batch of ``n_studies`` runs at: pow2 doubling
-    from :data:`MIN_SLOTS`, clamped to ``max_batch``."""
+    from :data:`MIN_SLOTS`, clamped to ``max_batch``, then rounded UP to a
+    multiple of ``shards`` (the study axis's shard count), so the slots
+    always split evenly; the rounding pads dead slots behind the active
+    mask and never drops live ones."""
     cap = MIN_SLOTS
     while cap < n_studies and cap < max_batch:
         cap <<= 1
-    return min(cap, max_batch)
+    cap = min(cap, max_batch)
+    m = max(1, int(shards))
+    return -(-cap // m) * m
+
+
+def mesh_shards(mesh, axis=None, device=None):
+    """``(axis, n_shards)`` of a study ``mesh`` inside this process
+    (``axis`` None: the mesh's one axis), every shard on ``device``."""
+    from ..parallel.mesh import STUDY_AXIS, in_process_shards
+
+    ax = axis or (next(iter(mesh.shape)) if len(mesh.shape) == 1 else STUDY_AXIS)
+    return ax, in_process_shards(mesh, ax, "the serve engine's mesh=", device)
 
 
 def _host_stack(buffers, slot_cap, bucket, n_dims):
@@ -105,26 +144,54 @@ def _host_stack(buffers, slot_cap, bucket, n_dims):
     return values, active, losses, valid
 
 
-def stack_states(buffers, slot_cap, bucket, device):
+def stack_states(buffers, slot_cap, bucket, device, mesh=None, axis=None):
     """Stack per-study host buffers into a :class:`StudyBatchState` on
     ``device``: ``buffers`` maps slot index -> ObsBuffer (missing slots
     are zero history).  One upload per tensor, into NEW tensors that
     share no memory with the host arrays or with any earlier state.
-    Returns ``(state, nbytes)``."""
+    With ``mesh=`` the slots split into the mesh's blocks, each uploaded
+    on its own (a :class:`ShardedBatchState`).  Returns ``(state,
+    nbytes)``."""
     d = next((buf.space.n_dims for buf in buffers.values()), None)
     if d is None:
         raise ValueError("stack_states needs at least one study buffer")
-    arrays = _host_stack(buffers, slot_cap, bucket, d)
-    nbytes = sum(a.nbytes for a in arrays)
-    return StudyBatchState(*(torch.tensor(a, device=device) for a in arrays)), nbytes
+    if mesh is None:
+        arrays = _host_stack(buffers, slot_cap, bucket, d)
+        nbytes = sum(a.nbytes for a in arrays)
+        return StudyBatchState(*(torch.tensor(a, device=device) for a in arrays)), nbytes
+    _, n = mesh_shards(mesh, axis, device)
+    blk = int(slot_cap) // n
+    shards, nbytes = [], 0
+    for k in range(n):
+        lo = k * blk
+        sub = {i - lo: buf for i, buf in buffers.items() if lo <= i < lo + blk}
+        arrays = _host_stack(sub, blk, bucket, d)
+        nbytes += sum(a.nbytes for a in arrays)
+        shards.append([torch.tensor(a, device=device) for a in arrays])
+    return ShardedBatchState(*(tuple(f) for f in zip(*shards))), nbytes
 
 
-def restack_shards(*args, **kwargs):
-    """Shard-local re-materialization of a sharded batch: not ported."""
-    raise NotImplementedError(
-        "restack_shards (shard-local re-materialization of a mesh-sharded "
-        "batch) is not ported yet: ROADMAP.md Queue A item 15"
-    )
+def restack_shards(state, buffers, slot_cap, bucket, n_dims, mesh, axis, dirty_shards):
+    """Shard-local re-materialization: rebuild ONLY the ``dirty_shards``
+    (shard ordinals) of the :class:`ShardedBatchState` ``state`` from host
+    truth, into new tensors; every clean shard
+    keeps its very tensors, so its slots' bits cannot move.  ``buffers``
+    maps GLOBAL slot index -> ObsBuffer.  Returns ``(state,
+    nbytes_uploaded)``."""
+    _, n = mesh_shards(mesh, axis)
+    if state.n_shards != n:
+        raise ValueError(f"state has {state.n_shards} shards, the mesh {n}")
+    blk = int(slot_cap) // n
+    fields = [list(f) for f in state]
+    nbytes = 0
+    for k in sorted(dirty_shards):
+        lo = k * blk
+        sub = {i - lo: buf for i, buf in buffers.items() if lo <= i < lo + blk}
+        dev = state.values[k].device
+        for f, a in enumerate(_host_stack(sub, blk, bucket, n_dims)):
+            fields[f][k] = torch.tensor(a, device=dev)
+            nbytes += a.nbytes
+    return ShardedBatchState(*(tuple(f) for f in fields)), nbytes
 
 
 def _dummy_delta(ps, slot_cap):
@@ -142,7 +209,7 @@ def _dummy_delta(ps, slot_cap):
 
 def build_batched_step_fn(ps, algo="tpe", n_cand=16, gamma=0.25, lf=25.0,
                           prior_weight=1.0, n_cand_cat=None, above_cap=None,
-                          avg_best_idx=2.0, shrink_coef=0.1, mesh=None):
+                          avg_best_idx=2.0, shrink_coef=0.1, mesh=None, mesh_axis=None):
     """The batched fused tell+ask step for a PackedSpace (built once per
     parameterization, cached on the space).
 
@@ -161,8 +228,19 @@ def build_batched_step_fn(ps, algo="tpe", n_cand=16, gamma=0.25, lf=25.0,
     ``algo`` is ``"tpe"`` (:func:`hyperopt_tpu_torch.tpe.build_suggest_fn`,
     factorized) or ``"anneal"``
     (:func:`hyperopt_tpu_torch.anneal.build_anneal_fn`).
+
+    ``mesh=`` (a 1-D study mesh inside this process, ``mesh_axis`` its
+    axis) takes the state as a :class:`ShardedBatchState` and runs this
+    step, unsharded, over every shard's block of slots in shard order;
+    the suggestion columns come back joined.  The slot
+    count must divide by the shard count (:func:`slot_capacity`
+    ``shards=`` sees to it).
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        return _sharded_step(ps, mesh, mesh_axis, dict(
+            algo=algo, n_cand=n_cand, gamma=gamma, lf=lf, prior_weight=prior_weight,
+            n_cand_cat=n_cand_cat, above_cap=above_cap, avg_best_idx=avg_best_idx,
+            shrink_coef=shrink_coef))
     cache_key = (
         str(algo), int(n_cand), float(gamma), float(lf), float(prior_weight),
         None if n_cand_cat is None else int(n_cand_cat),
@@ -206,29 +284,72 @@ def build_batched_step_fn(ps, algo="tpe", n_cand=16, gamma=0.25, lf=25.0,
     return step
 
 
+def _sharded_step(ps, mesh, mesh_axis, kw):
+    mesh_shards(mesh, mesh_axis, ps.device)
+    fn = build_batched_step_fn(ps, **kw)
+
+    def step(keys, values, active, losses, valid, vcol, acol, loss, idx, apply, warm,
+             batch):
+        outs = [fn(k, *st, *rows, w, batch) for st, (k, *rows, w) in _blocks(
+            (values, active, losses, valid), (keys, vcol, acol, loss, idx, apply, warm))]
+        return tuple(tuple(o[f] for o in outs) for f in range(4)) + tuple(
+            torch.cat([o[f] for o in outs]) for f in (4, 5))
+
+    return step
+
+
 def _finite_check(values, active, losses, valid, new_v):
+    new_v = torch.as_tensor(new_v, device=values.device)
     v_ok = torch.isfinite(torch.where(active, values, 0.0)).flatten(1).all(dim=1)
     l_ok = torch.isfinite(torch.where(valid, losses, 0.0)).all(dim=1)
     s_ok = torch.isfinite(new_v).flatten(1).all(dim=1)
     return ~(v_ok & l_ok & s_ok)
 
 
-def build_finite_check_fn(mesh=None):
+def _blocks(state_fields, per_slot):
+    """Per shard, in shard order: its state tensors, and its block of each
+    per-slot row array (host arrays or tensors, cut along the slot
+    axis)."""
+    n = len(state_fields[0])
+    blk = len(per_slot[0]) // n
+    return [(tuple(f[k] for f in state_fields),
+             tuple(a[k * blk:(k + 1) * blk] for a in per_slot)) for k in range(n)]
+
+
+def _sharded_finite_check(values, active, losses, valid, new_v):
+    return torch.cat([_finite_check(*st, v)
+                      for st, (v,) in _blocks((values, active, losses, valid), (new_v,))])
+
+
+def _sharded_delta(values, active, losses, valid, vcol, acol, loss, idx, apply):
+    for st, rows in _blocks((values, active, losses, valid), (vcol, acol, loss, idx, apply)):
+        K.apply_delta_stacked(*st, *rows)
+    return ShardedBatchState(values, active, losses, valid)
+
+
+def build_finite_check_fn(mesh=None, mesh_axis=None):
     """The poisoned-slot detector: ``fn(values, active, losses, valid,
     new_v) -> poisoned [S] bool``.  A slot is poisoned when any active
     history value, any valid loss, or any of this round's suggestion
-    columns is non-finite; masked positions (inactive dims, empty
-    history slots) are exempt, so a freed slot's garbage never trips a
-    healthy tenant.  Read-only."""
-    _no_mesh(mesh)
+    columns (``new_v``, a host array or a tensor) is non-finite; masked
+    positions (inactive dims, empty history slots) are exempt, so a freed
+    slot's garbage never trips a healthy tenant.  Read-only.  ``mesh=``
+    checks every shard's block on its own (the verdicts come back
+    joined)."""
+    if mesh is not None:
+        mesh_shards(mesh, mesh_axis)
+        return _sharded_finite_check
     return _finite_check
 
 
-def build_batched_delta_fn(mesh=None):
+def build_batched_delta_fn(mesh=None, mesh_axis=None):
     """The stacked twin of the O(D) delta tell: ``fn(values, active,
     losses, valid, vcol, acol, loss, idx, apply)`` writes at most one
     staged delta per slot, each at its own index, in one gather/scatter
     per state tensor (in place) -- the backlog drain for a study that
-    told more than once between asks."""
-    _no_mesh(mesh)
+    told more than once between asks.  ``mesh=`` writes every shard's
+    block in place."""
+    if mesh is not None:
+        mesh_shards(mesh, mesh_axis)
+        return _sharded_delta
     return K.apply_delta_stacked

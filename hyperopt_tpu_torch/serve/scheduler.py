@@ -40,8 +40,13 @@ the round, on the round's thread, and holds no slot.  With
 ``device_metrics_every=k`` a read-only metrics twin
 (:func:`~hyperopt_tpu_torch.obs.device.build_device_metrics_fn`) reads
 the stacked state every ``k`` rounds, after the round's futures are
-resolved; at 0 it is never built.  Not ported yet: ``mesh=``
-(``ROADMAP.md`` Queue A item 15).
+resolved; at 0 it is never built.
+
+``mesh=`` (a 1-D ``study`` mesh inside this process) shards the slot
+axis: slots stripe over the shards (a new study takes a free slot on the
+least occupied shard), a dirty slot rebuilds only its own shard when the
+geometry holds (``shard_restacks``), and the finite check and quarantine
+stay shard-local.  Every slot's stream is the unsharded engine's.
 """
 
 from __future__ import annotations
@@ -81,10 +86,11 @@ from ..ops.gmm_scores import KERNEL
 from ..torch_trials import MAX_PENDING_DELTAS, MIN_CAPACITY, ObsBuffer
 from .batched import (
     _dummy_delta,
-    _no_mesh,
     build_batched_delta_fn,
     build_batched_step_fn,
     build_finite_check_fn,
+    mesh_shards,
+    restack_shards,
     slot_capacity,
     stack_states,
 )
@@ -221,7 +227,8 @@ class BatchScheduler:
 
     Deterministic counters (never timing): ``dispatch_count``,
     ``delta_drain_dispatches`` (included in ``dispatch_count``),
-    ``upload_events`` / ``upload_bytes``, ``joins``, ``rebuckets``, the
+    ``upload_events`` / ``upload_bytes``, ``joins``, ``rebuckets``,
+    ``shard_restacks`` (shard-local re-materializations on a mesh), the
     guard's counters, ``host_algo_served`` (asks a study's hook served;
     not part of ``dispatch_count``), ``group_commit_barriers`` (round
     fsyncs) and ``device_metric_dispatches`` (the metrics twin's runs,
@@ -253,6 +260,8 @@ class BatchScheduler:
     upload_bytes = CounterAttr("serve_upload_bytes_total", "bytes re-uploaded to device")
     joins = CounterAttr("serve_joins_total", "studies joined")
     rebuckets = CounterAttr("serve_rebuckets_total", "slot/obs geometry growth events")
+    shard_restacks = CounterAttr("serve_shard_restacks_total",
+                                 "shard-local re-materializations (study mesh)")
     admitted_count = CounterAttr("serve_admitted_total", "asks admitted past admission control")
     shed_count = CounterAttr("serve_shed_total", "Overloaded + DeadlineExpired refusals")
     guard_checks = CounterAttr("serve_guard_checks_total", "finite checks run")
@@ -287,7 +296,6 @@ class BatchScheduler:
                  circuit_threshold=CIRCUIT_THRESHOLD, mesh=None, recorder=None,
                  device_metrics_every=0, retry_jitter=0.25, retry_jitter_seed=0,
                  group_commit=True, **algo_kw):
-        _no_mesh(mesh)
         self.metrics = MetricsRegistry("serve")
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.span_ids = {}  # stamped on every span (a fleet replica's id)
@@ -304,6 +312,19 @@ class BatchScheduler:
         self.max_wait = float(max_wait)
         self.n_startup_jobs = int(n_startup_jobs)
         self.fs = fs
+        # a 1-D study mesh shards the slot axis: capacity rounds to a
+        # multiple of the shard count, and re-materialization and the
+        # quarantine stay shard-local
+        self.mesh = mesh
+        if mesh is not None:
+            axes = list(mesh.shape)
+            if len(axes) != 1:
+                raise ValueError(
+                    f"BatchScheduler mesh must be 1-D (the study axis); got axes {axes}")
+            self._mesh_axis, self._n_shards = mesh_shards(mesh, axes[0], ps.device)
+        else:
+            self._mesh_axis = None
+            self._n_shards = 1
         self.max_queue = 4 * self.max_batch if max_queue is None else int(max_queue)
         # fairness: one tenant may hold at most this many queued asks
         # (default: an even share, floored at 2)
@@ -334,9 +355,11 @@ class BatchScheduler:
         else:
             self._pow2_cap = None
         engine_kw = {} if self.algo == "atpe" else self.algo_kw
-        self._step_fn = build_batched_step_fn(ps, algo=self._engine_algo, **engine_kw)
-        self._delta_fn = build_batched_delta_fn()
-        self._finite_fn = build_finite_check_fn()
+        mesh_kw = dict(mesh=mesh, mesh_axis=self._mesh_axis)
+        self._step_fn = build_batched_step_fn(ps, algo=self._engine_algo, **mesh_kw,
+                                              **engine_kw)
+        self._delta_fn = build_batched_delta_fn(**mesh_kw)
+        self._finite_fn = build_finite_check_fn(**mesh_kw)
 
         self._lock = threading.RLock()
         self._cond = threading.Condition(self._lock)
@@ -359,7 +382,8 @@ class BatchScheduler:
         self._abandoned = []  # dispatch threads the watchdog gave up on
         # touch every series so a scrape of an idle scheduler is complete
         for attr in ("dispatch_count", "delta_drain_dispatches", "upload_events",
-                     "upload_bytes", "joins", "rebuckets", "admitted_count", "shed_count",
+                     "upload_bytes", "joins", "rebuckets", "shard_restacks", "admitted_count",
+                     "shed_count",
                      "guard_checks", "quarantine_count", "evictions", "watchdog_timeouts",
                      "watchdog_retries", "watchdog_recoveries", "device_metric_dispatches",
                      "host_algo_served", "group_commit_barriers", "ask_latencies", "occupancy",
@@ -384,11 +408,24 @@ class BatchScheduler:
 
     # -- tenancy -----------------------------------------------------------
     def _alloc_slot(self):
-        """The next study's slot (lock held): the lowest freed slot,
-        else the next new one."""
-        if self._free:
-            return self._free.pop()
-        return len(self._studies)
+        """The next study's slot (lock held).  Unsharded: the lowest freed
+        slot, else the next new one.  On a mesh: the free slot on the
+        shard that holds the fewest studies (lowest index on ties), so
+        tenants stripe over the shards and each shard's rebuilds stay
+        small."""
+        if self._n_shards == 1:
+            if self._free:
+                return self._free.pop()
+            return len(self._studies)
+        cap = max(self._slot_cap, slot_capacity(len(self._studies) + 1, self.max_batch,
+                                                shards=self._n_shards))
+        blk = max(1, cap // self._n_shards)
+        occ = collections.Counter(s // blk for s in self._slots)
+        slot = min((s for s in range(cap) if s not in self._slots),
+                   key=lambda s: (occ.get(s // blk, 0), s))
+        if slot in self._free:
+            self._free.remove(slot)
+        return slot
 
     def open_study(self, name, seed=0, study=None):
         """Join a (new or restored) study to the slotted batch; a study
@@ -649,29 +686,54 @@ class BatchScheduler:
         if not buffers:
             self._state = None
             return
-        self._state, nbytes = stack_states(buffers, slot_cap, bucket, self.device)
+        self._state, nbytes = stack_states(buffers, slot_cap, bucket, self.device,
+                                           mesh=self.mesh, axis=self._mesh_axis)
         self.upload_events += 1
         self.upload_bytes += nbytes
         for st in self._slots.values():
             st.dirty = False
             st.pending.clear()  # host truth already includes them
 
+    def _restack_dirty_shards(self):
+        """Shard-local re-materialization (lock held, geometry unchanged):
+        only the shards holding a dirty slot are rebuilt from host truth;
+        every other shard keeps its tensors, so its slots' bits cannot
+        move.  The rebuilt shards' pending deltas clear (host truth holds
+        them); other shards keep their staged backlogs."""
+        blk = self._slot_cap // self._n_shards
+        dirty_shards = {st.slot // blk for st in self._slots.values() if st.dirty}
+        buffers = {st.slot: st.buf for st in self._slots.values()}
+        self._state, nbytes = restack_shards(
+            self._state, buffers, self._slot_cap, self._bucket, self.ps.n_dims, self.mesh,
+            self._mesh_axis, dirty_shards)
+        self.upload_events += 1
+        self.upload_bytes += nbytes
+        self.shard_restacks += 1
+        for st in self._slots.values():
+            if st.slot // blk in dirty_shards:
+                st.dirty = False
+                st.pending.clear()
+
     def _maintain(self):
         """Bring the stacked state up to date with tenancy and host
         truth: slot-capacity growth, bucket growth, joins and dirty slots
-        are absorbed by ONE re-materialization; then any multi-delta
-        backlog drains down to one staged tell per slot (the step
-        absorbs the last one)."""
+        are absorbed by ONE re-materialization (shard-local on a mesh when
+        the geometry holds); then any multi-delta backlog drains down to
+        one staged tell per slot (the step absorbs the last one)."""
         # size from the HIGHEST occupied slot, not the study count:
         # churn can leave survivors on slots >= len(self._studies)
         top_slot = max(self._slots, default=-1)
-        slot_cap = max(slot_capacity(top_slot + 1, self.max_batch), self._slot_cap)
+        slot_cap = max(slot_capacity(top_slot + 1, self.max_batch, shards=self._n_shards),
+                       self._slot_cap)
         bucket = self._compute_bucket()
         if slot_cap != self._slot_cap or bucket != self._bucket:
             if self._state is not None:
                 self.rebuckets += 1
             self._materialize = True
-        if any(st.dirty for st in self._slots.values()):
+        dirty = any(st.dirty for st in self._slots.values())
+        if dirty and not self._materialize and self._n_shards > 1 and self._state is not None:
+            self._restack_dirty_shards()
+        elif dirty:
             self._materialize = True
         if self._materialize:
             self._slot_cap, self._bucket = slot_cap, bucket
@@ -902,6 +964,7 @@ class BatchScheduler:
             results = self._serve_host_picks(host_picked, True)
         served = 0
         rec = self.recorder
+        blk = max(1, max(self._slot_cap, 1) // self._n_shards)
         now = time.perf_counter()
         for req, vals in results:
             if isinstance(vals, Exception):
@@ -910,8 +973,10 @@ class BatchScheduler:
                 req.future.set_result((req.tid, vals))
                 served += 1
                 if rec.enabled:
+                    slot = req.study.slot
                     rec.record("ask.delivered", req.t_submit, now, study=req.study.name,
-                               tid=req.tid, slot=req.study.slot, **self.span_ids)
+                               tid=req.tid, slot=slot,
+                               shard=None if slot is None else slot // blk, **self.span_ids)
         return served
 
     def _serve_host_picks(self, host_picked, fire_crashpoint):
@@ -990,8 +1055,7 @@ class BatchScheduler:
                 faults.corrupt_outputs(new_v, slot_of)
             poisoned = None
             if self.finite_check:
-                v = torch.as_tensor(new_v, device=new_state[0].device)
-                poisoned = self._finite_fn(*new_state, v).cpu().numpy()
+                poisoned = self._finite_fn(*new_state, new_v).cpu().numpy()
             return new_state, new_v, new_a, poisoned
 
         t_disp = time.perf_counter() if self.recorder.enabled else 0.0
@@ -1005,7 +1069,8 @@ class BatchScheduler:
             self.guard_checks += 1
         if self.recorder.enabled:
             self.recorder.record("serve.dispatch", t_disp, time.perf_counter(),
-                                 n_picked=len(picked), slots=s, **self.span_ids)
+                                 n_picked=len(picked), slots=s, shards=self._n_shards,
+                                 **self.span_ids)
         bad_slots = self._quarantine(poisoned)
         self.fs.crashpoint("serve_after_dispatch_before_ack")
         now = time.perf_counter()
@@ -1066,7 +1131,10 @@ class BatchScheduler:
             return
         active = np.zeros(self._slot_cap, dtype=bool)
         active[list(self._slots)] = True
-        self._device_metrics_fn(state.losses, state.valid, active)
+        if self.mesh is None:
+            self._device_metrics_fn(state.losses, state.valid, active)
+        else:
+            self._device_metrics_fn(state.gathered("losses"), state.gathered("valid"), active)
         self.device_metric_dispatches += 1
 
     def _quarantine(self, poisoned):

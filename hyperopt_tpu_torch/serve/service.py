@@ -35,9 +35,10 @@ file bytes), so a replica whose study was taken over
 (:meth:`SuggestService.handoff_study`) gets :class:`~hyperopt_tpu_torch.
 exceptions.OwnershipLost` instead of serving it twice.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-``ROADMAP.md`` Queue A item that brings it: ``mesh=`` (item 15) by the
-scheduler and ``main``'s ``--mesh-devices``.
+``mesh=`` (a 1-D ``study`` mesh inside this process,
+:func:`~hyperopt_tpu_torch.parallel.mesh.virtual_mesh`) shards the slot
+axis of the scheduler (:mod:`.scheduler`); ``main``'s ``--mesh-devices``
+builds it.
 """
 
 from __future__ import annotations
@@ -82,12 +83,6 @@ RETRY_AFTER_CAP = 5.0
 #: ask keys a study remembers (the most recent): a resubmitted ask that
 #: carries its key is served as the tid its first copy drew
 ASK_KEYS_KEPT = 256
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue A item {item}"
-    )
 
 
 def _study_guard(algo, space):
@@ -377,7 +372,8 @@ class SuggestService:
     one fsync per round cover its tells.  ``owner`` is a fleet replica's
     id: with a ``root`` each study is claimed for it and every ask and
     tell is fenced by the claim; every metric series and span carries it
-    as the ``replica`` label.
+    as the ``replica`` label.  ``mesh`` shards the study slots
+    (:class:`~hyperopt_tpu_torch.serve.scheduler.BatchScheduler`).
     """
 
     def __init__(self, space, algo="tpe", root=None, max_batch=64, max_wait_ms=2.0,
@@ -671,6 +667,9 @@ class SuggestService:
             "upload_bytes": s.upload_bytes,
             "joins": s.joins,
             "rebuckets": s.rebuckets,
+            # the study mesh: shard-local rebuilds, and the shard count
+            "shard_restacks": s.shard_restacks,
+            "mesh_shards": s._n_shards,
             "admitted_count": s.admitted_count,
             "shed_count": s.shed_count,
             "guard_checks": s.guard_checks,
@@ -1055,8 +1054,10 @@ def main(argv=None):
                         help="watchdog deadline (seconds) per device dispatch; 0 disables "
                         "the watchdog")
     parser.add_argument("--mesh-devices", type=int, default=0,
-                        help="shard the study slot axis over this many devices (not ported "
-                        "yet: only 0, the single-card engine)")
+                        help="shard the study slot axis into this many shards inside this "
+                        "process (0 = unsharded, -1 = one shard per visible card); every "
+                        "shard runs on --device (shards spread over several cards are "
+                        "refused)")
     parser.add_argument("--owner", default=None,
                         help="fleet replica identity: with --root, every study is fenced by a "
                         "per-study claim/epoch token (hyperopt-tpu-torch-router fronts such "
@@ -1081,13 +1082,25 @@ def main(argv=None):
                         help="the torch device to serve on (default: the CUDA card; 'cpu' "
                         "must be asked for)")
     args = parser.parse_args(argv)
+    if args.mesh_devices < -1:
+        parser.error(f"--mesh-devices {args.mesh_devices}: expected 0, -1 or a shard count")
 
-    if args.mesh_devices:
-        raise _not_ported("--mesh-devices other than 0 (the sharded study axis)", "15")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         parser.exit(2, f"{parser.prog}: {e}\n")
+    mesh = None
+    if args.mesh_devices:
+        import torch
+
+        from ..parallel.mesh import STUDY_AXIS, virtual_mesh
+
+        n = args.mesh_devices
+        if n < 0:
+            if device.type != "cuda":
+                parser.error(f"--mesh-devices -1 counts cards; --device {device} is none")
+            n = torch.cuda.device_count()
+        mesh = virtual_mesh(n, axis_name=STUDY_AXIS)
     recorder = None
     if args.flight_log:
         from ..obs import FlightRecorder
@@ -1097,8 +1110,8 @@ def main(argv=None):
         _load_space(args.space), algo=args.algo, root=args.root, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, n_startup_jobs=args.n_startup_jobs,
         max_queue=args.max_queue, dispatch_timeout=args.dispatch_timeout or None,
-        owner=args.owner, recorder=recorder, device_metrics_every=args.device_metrics_every,
-        device=device,
+        mesh=mesh, owner=args.owner, recorder=recorder,
+        device_metrics_every=args.device_metrics_every, device=device,
     )
     server = serve_forever(service, host=args.host, port=args.port,
                            idle_timeout=args.idle_timeout, max_conns=args.max_conns)

@@ -2,7 +2,8 @@
 (:func:`hyperopt_tpu_torch.pbt.compile_pbt`,
 :func:`hyperopt_tpu_torch.hyperband.compile_sha`): log-space hyper
 bounds and draws, population pytrees moved and copied in place, and the
-sharding refusal."""
+refusal of the sharding that is not ported yet (the models'
+``mesh=``, ``compile_hyperband(mesh=)``)."""
 
 from __future__ import annotations
 
@@ -43,11 +44,13 @@ def log_uniform_start(key, shape, log_lo, log_hi):
     return R._fma(u, log_hi - log_lo, log_lo)
 
 
-def refuse_sharding(mesh, shard_mode, what):
-    if mesh is not None or shard_mode is not None:
+def refuse_sharding(mesh, what):
+    """Refuse ``mesh=`` where the port does not shard yet: the models'
+    GSPMD population step and ``compile_hyperband``."""
+    if mesh is not None:
         raise NotImplementedError(
-            f"{what}(mesh=/shard_mode=): sharding the population over several cards is not "
-            "ported yet (ROADMAP.md Queue A, item 15)"
+            f"{what}(mesh=): sharding the population over a mesh is not ported yet "
+            "(ROADMAP.md Queue A, item 15c)"
         )
 
 

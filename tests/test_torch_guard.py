@@ -546,3 +546,74 @@ def test_no_cuda_means_no_silent_cpu_sharded_suggest(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dcn_check.main(["0", "2", "file:///nowhere"])
     assert not torch.distributed.is_initialized()
+
+
+def test_sharded_service_and_schedules_in_a_fresh_process_load_no_jax():
+    """(a''''''') a SuggestService on a two-shard study mesh, three rounds,
+    and ``compile_pbt``/``compile_sha`` with ``shard_mode="shard_map"`` on
+    a two-shard trial mesh, all on the CPU; afterwards neither jax nor
+    the JAX package is loaded."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from hyperopt_tpu_torch.hyperband import compile_sha
+        from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn
+        from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
+        from hyperopt_tpu_torch.pbt import compile_pbt
+        from hyperopt_tpu_torch.serve import SuggestService
+        svc = SuggestService(mixed_space(), max_batch=4, background=False, n_startup_jobs=2,
+                             n_cand=16, mesh=virtual_mesh(2, "study"), device="cpu")
+        hs = [svc.create_study(f"s{i}", seed=i) for i in range(4)]
+        for _ in range(3):
+            futs = [h.ask_async() for h in hs]
+            svc.pump()
+            for h, f in zip(hs, futs):
+                tid, vals = f.result(timeout=60)
+                h.tell(tid, mixed_space_fn(vals))
+        assert svc.counters["mesh_shards"] == 2
+        svc.shutdown()
+
+        def train_fn(state, hypers, key):
+            theta = state["theta"] - hypers["lr"] * 2.0 * (state["theta"] - 0.7)
+            return {"theta": theta}, (theta - 0.7) ** 2
+
+        init = {"theta": np.linspace(0.0, 5.0, 8, dtype=np.float32)}
+        kw = dict(mesh=virtual_mesh(2, "trial"), shard_mode="shard_map", device="cpu")
+        compile_pbt(train_fn, init, {"lr": (1e-3, 1.0)}, 8, n_rounds=2, **kw)(seed=0)
+        compile_sha(train_fn, init, {"lr": (1e-3, 1.0)}, 8, steps_per_rung=1, **kw)(seed=0)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hyperopt_tpu"))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_no_cuda_means_no_silent_cpu_sharded_service(monkeypatch):
+    """(c''''''') without CUDA, a sharded SuggestService, the console
+    script's ``--mesh-devices`` and the sharded schedules not asked for
+    the CPU raise rather than run there."""
+    from hyperopt_tpu_torch.hyperband import compile_sha
+    from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
+    from hyperopt_tpu_torch.pbt import compile_pbt
+    from hyperopt_tpu_torch.serve import SuggestService
+    from hyperopt_tpu_torch.serve.service import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SuggestService(mixed_space(), background=False, mesh=virtual_mesh(2, "study"))
+    with pytest.raises(SystemExit) as exc:
+        main(["--space", "hyperopt_tpu_torch.models.synthetic:mixed_space",
+              "--mesh-devices", "2"])
+    assert exc.value.code == 2
+    init = {"theta": torch.zeros(8)}
+    kw = dict(mesh=virtual_mesh(2, "trial"), shard_mode="shard_map")
+    for compile_fn in (compile_pbt, compile_sha):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            compile_fn(lambda s, h, k: (s, s["theta"]), init, {"lr": (1e-3, 1.0)}, 8, **kw)

@@ -22,6 +22,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from jax.sharding import Mesh
 
 import hyperopt_tpu as J
 from hyperopt_tpu import hyperband as JH
@@ -36,6 +37,7 @@ from hyperopt_tpu_torch.distributed.faults import (CHECKPOINT_CRASH_POINTS, SHA_
                                                    FaultPlan, SimulatedCrash)
 from hyperopt_tpu_torch.models.synthetic import budgeted_quadratic_fn
 from hyperopt_tpu_torch.models.synthetic import budgeted_quadratic_space as t_space
+from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
 
 # a hyper's exp differs by an ulp between XLA and PyTorch; 16 steps of
 # the quadratic carry it to some 1e-6 relative in a loss
@@ -207,12 +209,23 @@ def test_compile_sha_validates_and_refuses_sharding():
     with pytest.raises(ValueError, match="power of eta"):
         TH.compile_sha(quad_train_fn, {"theta": np.zeros(6, np.float32)}, {"lr": (1e-3, 1.0)},
                        6, device="cpu")
+    # the sharding options fail as the reference's do, with its texts
+    for n_shards, mode, match in ((None, "shard_map", "requires mesh"),
+                                  (4, "nonsense", "shard_mode")):
+        with pytest.raises(ValueError, match=match) as t_err:
+            TH.compile_sha(quad_train_fn, init, {"lr": (1e-3, 1.0)}, 8, shard_mode=mode,
+                           mesh=None if n_shards is None else virtual_mesh(n_shards, "trial"),
+                           device="cpu")
+        with pytest.raises(ValueError, match=match) as j_err:
+            JH.compile_sha(quad_train_fn, {"theta": jnp.zeros(8, jnp.float32)},
+                           {"lr": (1e-3, 1.0)}, 8, shard_mode=mode,
+                           mesh=None if n_shards is None else Mesh(
+                               np.asarray(jax.devices()[:n_shards]), ("trial",)))
+        assert str(t_err.value) == str(j_err.value)
+    # compile_hyperband's mesh= still waits for its item
     with pytest.raises(NotImplementedError, match="item 15"):
-        TH.compile_sha(quad_train_fn, init, {"lr": (1e-3, 1.0)}, 8, mesh=object(),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TH.compile_sha(quad_train_fn, init, {"lr": (1e-3, 1.0)}, 8, shard_mode="shard_map",
-                       device="cpu")
+        TH.compile_hyperband(quad_train_fn, lambda key, n: init, {"lr": (1e-3, 1.0)}, 1,
+                             mesh=virtual_mesh(2, "trial"), device="cpu")
     # a callable init that takes the seed sees the runner's seed
     seen = []
     runner = TH.compile_sha(quad_train_fn, lambda seed: seen.append(seed) or init,

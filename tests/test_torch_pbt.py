@@ -21,6 +21,7 @@ import torch
 
 from hyperopt_tpu.pbt import compile_pbt as j_compile_pbt
 from hyperopt_tpu_torch import convert
+from hyperopt_tpu_torch.parallel.mesh import TRIAL_AXIS, virtual_mesh
 from hyperopt_tpu_torch.pbt import compile_pbt
 
 LOSS_RTOL = 1e-5
@@ -40,6 +41,14 @@ def nan_train_fn(state, hypers, key):
     st, losses = quad_train_fn(state, hypers, key)
     keep = hypers["lr"] < 0.2
     return st, losses * keep / keep  # 0 / False is NaN
+
+
+def j_mesh(n):
+    """The reference's ``trial`` mesh over the first ``n`` forced host
+    devices."""
+    from jax.sharding import Mesh
+
+    return Mesh(np.asarray(jax.devices()[:n]), (TRIAL_AXIS,))
 
 
 def _both(train_fn, P=8, seed=3, init=None, **kw):
@@ -118,10 +127,18 @@ def test_pbt_exploit_copies_params_from_the_top():
 
 def test_pbt_refusals():
     init = {"theta": np.zeros(8, np.float32)}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        compile_pbt(quad_train_fn, init, BOUNDS, 8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        compile_pbt(quad_train_fn, init, BOUNDS, 8, shard_mode="shard_map", device="cpu")
+    # the sharding options fail as the reference's do, with its texts
+    for n_shards, mode, match in ((None, "shard_map", "requires mesh"),
+                                  (4, "nonsense", "shard_mode"), (3, "shard_map", "divide")):
+        t_mesh = None if n_shards is None else virtual_mesh(n_shards, TRIAL_AXIS)
+        with pytest.raises(ValueError, match=match) as t_err:
+            compile_pbt(quad_train_fn, init, BOUNDS, 8, mesh=t_mesh, trial_axis=TRIAL_AXIS,
+                        shard_mode=mode, device="cpu")
+        with pytest.raises(ValueError, match=match) as j_err:
+            j_compile_pbt(quad_train_fn, {"theta": jnp.zeros(8, jnp.float32)}, BOUNDS, 8,
+                          mesh=None if n_shards is None else j_mesh(n_shards),
+                          trial_axis=TRIAL_AXIS, shard_mode=mode)
+        assert str(t_err.value) == str(j_err.value)
     with pytest.raises(ValueError, match="overlap"):
         compile_pbt(quad_train_fn, init, BOUNDS, 8, exploit_quantile=0.75, device="cpu")
     with pytest.raises(ValueError, match="0 < low < high"):

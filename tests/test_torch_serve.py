@@ -38,6 +38,7 @@ from hyperopt_tpu_torch.exceptions import (
 from hyperopt_tpu_torch.ops import gmm_scores as G
 from hyperopt_tpu_torch.ops import kernels as K
 from hyperopt_tpu_torch.ops.compile import compile_space
+from hyperopt_tpu_torch.parallel.mesh import STUDY_AXIS, RankMesh, virtual_mesh
 from hyperopt_tpu_torch.serve import SuggestService
 from hyperopt_tpu_torch.serve.batched import MIN_SLOTS, slot_capacity
 from hyperopt_tpu_torch.serve.scheduler import QUARANTINE_TRIPS, dense_to_vals
@@ -583,7 +584,8 @@ def test_front_health_metrics_and_shutdown():
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"owner": "r0"}, "12d"), ({"mesh": object()}, "15"), ({"device_metrics_every": 1}, "16"),
+    ({"owner": "r0"}, "12d"), ({"mesh": virtual_mesh(2, STUDY_AXIS)}, "15"),
+    ({"device_metrics_every": 1}, "16"),
 ])
 def test_unported_options_raise(kw, item):
     """What waits for a later slice raises naming its item; item 16's
@@ -591,7 +593,17 @@ def test_unported_options_raise(kw, item):
     (``tests/test_torch_obs_device.py`` holds it to the reference), and
     so is item 12d's ``owner=``: its series and spans carry the replica's
     id (``tests/test_torch_fleet.py`` holds the claims to the
-    reference's)."""
+    reference's).  Item 15's ``mesh=`` inside one process is ported
+    (``tests/test_torch_graftmesh.py``); a study mesh over several
+    processes still names its item."""
+    if item == "15":
+        svc = service(**kw)
+        h = svc.create_study("s0", seed=1)
+        tid, vals = h.ask()
+        h.tell(tid, loss_fn(vals))
+        assert svc.counters["mesh_shards"] == 2
+        svc.shutdown()
+        kw = {"mesh": RankMesh((2,), (STUDY_AXIS,), (0, 1))}
     if item == "12d":
         svc = service(**kw)
         h = svc.create_study("s0", seed=1)

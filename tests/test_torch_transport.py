@@ -563,7 +563,15 @@ def test_the_refusals_name_their_items(tmp_path):
     """The fleet's wire ops (item 12d) answer as the reference's: without
     an owner, ``takeover`` opens the study and ``handoff_study`` releases
     it (the console script's ``--owner`` runs in ``test_torch_fleet.py``);
-    what waits for a later slice still names its item."""
+    the console script's ``--mesh-devices 2``, once refused, serves two
+    in-process study shards (the ``health`` op's ``mesh_shards``) and
+    scrapes the shard-local rebuild counter; a count below -1, and -1 (a
+    shard per card) on the CPU, are usage errors."""
+    for bad in ("-5", "-1"):
+        with pytest.raises(SystemExit) as exc:
+            main(["--space", "hyperopt_tpu_torch.models.synthetic:mixed_space",
+                  "--mesh-devices", bad, "--device", "cpu"])
+        assert exc.value.code == 2
     svc = service(background=False)
     srv = spawn(svc)
     try:
@@ -579,9 +587,29 @@ def test_the_refusals_name_their_items(tmp_path):
             f.close()
     finally:
         teardown(svc, srv)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        main(["--space", "hyperopt_tpu_torch.models.synthetic:mixed_space",
-              "--mesh-devices", "2", "--device", "cpu"])
+    proc = _script("--space", "hyperopt_tpu_torch.models.synthetic:mixed_space", "--port", "0",
+                   "--n-startup-jobs", "2", "--mesh-devices", "2", "--device", "cpu")
+    try:
+        line = proc.stdout.readline()
+        assert "listening on 127.0.0.1:" in line, (line, proc.stderr.read() if
+                                                   proc.poll() is not None else "")
+        port = int(line.split("127.0.0.1:")[1].split()[0])
+        c = RemoteStudy("127.0.0.1", port, "m", seed=2, read_timeout=60)
+        for _ in range(3):
+            tid, vals = c.ask(timeout=60)
+            c.tell(tid, mixed_space_fn(vals), vals)
+        c.close()
+        with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+            rpc, f = json_rpc(sock)
+            counters = rpc(op="health")["counters"]
+            assert (counters["mesh_shards"], counters["dispatch_count"]) == (2, 3)
+            assert "serve_shard_restacks_total" in rpc(op="metrics")["text"]
+            f.close()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def _script(*args, timeout=120):

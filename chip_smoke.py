@@ -296,6 +296,29 @@ network.  Every phase asserts, and a failure exits non-zero:
    (c) the kernel at every per-shard fold (``launches_by_path`` and
    ``checked_shapes`` keys ``serve_shard_2``, ``serve_shard_4``; numbers
    under the kernels line's ``study_mesh``).
+19. (after phase 15, before any profiler) the compiled loop's and ATPE's
+   ``mesh=``, every virtual rank on the one card: (a) phase 8a's
+   ``compile_fmin`` at 256 trials with ``mesh=virtual_mesh(4),
+   cand_axis="cand"``: 4 ``gmm_llr`` launches per model step inside the
+   captured step, the 20 startup trials bitwise the unsharded run's, two
+   runs bitwise, the first 64 replayed steps bitwise the eager steps, and
+   ms per step in pairs with the unsharded program; (b) the same with
+   ``algo="atpe"``; (c) the trial axis (a placement axis, which inside one
+   process runs the unsharded body) at 2 and 4 virtual ranks (B=4)
+   bitwise the unsharded stream with its launch count, and the 2 x 4
+   trial x cand mesh bitwise the cand-only program; (d) ASHA with
+   ``trial_axis`` on 1, 2 and 4 virtual ranks on phase 9a's bracket (8
+   brackets), on ``mlp_tune`` and on an elementwise trainable: the rung
+   sub-mesh (1, 2, 4), each run bitwise the unsharded brackets with
+   their launch count; (e) a 60-trial ``fmin`` with
+   ``atpe.suggest(mesh=virtual_mesh(4))``, 4 launches per warm ask; (f)
+   the kernel at every launch shape of those paths, the per-rank B=1,
+   Dg=12, S=32 among them (``launches_by_path`` and ``checked_shapes``
+   keys ``compiled_tpe_cand_4``, ``compiled_atpe_cand_4``,
+   ``compiled_trial_2``, ``compiled_trial_4``, ``compiled_trial_cand``,
+   ``asha_mlp_trial_{1,2,4}``, ``asha_elementwise_trial_{1,2,4}``,
+   ``atpe_mesh_fmin``; numbers under the kernels line's
+   ``compiled_mesh``).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
@@ -303,7 +326,8 @@ loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 10's under ``durable``, phase 11's under ``transport``, phase 12's under
 ``fleet``, phase 13's under ``farm``, phase 14's under ``population``,
 phase 15's under ``baseline``, phase 16's under ``checks``, phase 17's
-under ``sharded``, phase 18's under ``study_mesh``,
+under ``sharded``, phase 18's under ``study_mesh``, phase 19's under
+``compiled_mesh``,
 each new path's launch shapes with their errors under
 ``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -4783,6 +4807,305 @@ def phase18(card):
     return launches, out
 
 
+MESH_RANKS = 4  # 19's cand axis: virtual ranks on the one card
+MESH_TRIALS = 256  # 19a/19b: phase 8a's configuration cut to 256 trials
+MESH_EAGER = 64  # 19a/19b: the first steps run eagerly against the replays
+TRIAL_BATCH = 4  # 19c: the batch the trial axis places
+ASHA_MESH_TRIALS = 128  # 19d: 8 of phase 9a's brackets (2 from the prior)
+ATPE_MESH_TRIALS = 60  # 19e
+P19_DEVICE = "cuda"  # where phase 19 computes
+
+
+def p19_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def bare_replay_ms(runner, n_steps, seed):
+    """ms per step of ``n_steps`` bare replays of ``runner``'s program from
+    a cold carry (the host loop of ``compile_fmin``'s runner, nothing
+    read back)."""
+    prog = runner._program()
+    prog.reset(seed, None, 0, float("inf"))
+    p19_sync()
+    t0 = time.perf_counter()
+    for j in range(n_steps):
+        prog.run(prog.loop.regime(j, 0))
+    p19_sync()
+    return (time.perf_counter() - t0) / n_steps * 1e3
+
+
+def same_stream(a, b, fields=("values", "active", "losses")):
+    import numpy as np
+
+    return all(np.array_equal(a[f], b[f]) for f in fields)
+
+
+def cand_mesh_loop(card, algo, launches, shapes):
+    """19a (``algo="tpe"``) and 19b (``"atpe"``): phase 8a's compiled loop
+    at ``MESH_TRIALS`` trials with the candidate sweep over
+    ``MESH_RANKS`` virtual ranks, against the unsharded loop: startup
+    bitwise, two runs bitwise, the first ``MESH_EAGER`` replayed steps
+    bitwise the eager steps, ``MESH_RANKS`` launches per model step, ms
+    per step in pairs with the unsharded program."""
+    import numpy as np
+
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models.synthetic import mixed_space, mixed_space_fn_torch
+    from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
+
+    tag = "19a" if algo == "tpe" else "19b"
+    path = f"compiled_{algo}_cand_{MESH_RANKS}"
+    n, n_startup = MESH_TRIALS, 20
+    kw = dict(n_EI_candidates=128, n_EI_candidates_cat=24, algo=algo, device=P19_DEVICE)
+    t0 = time.perf_counter()
+    plain = compile_fmin(mixed_space_fn_torch, mixed_space(), n, **kw)
+    base = plain(seed=7)
+    sharded = compile_fmin(mixed_space_fn_torch, mixed_space(), n,
+                           mesh=virtual_mesh(MESH_RANKS), cand_axis="cand", **kw)
+    with launch_shapes() as seen:
+        first = sharded(seed=7)  # the warm call: both steps warmed up and captured
+    warm_s = time.perf_counter() - t0
+    shapes[path] = seen
+    again = sharded(seed=7)
+    prog = sharded._program()
+    launches[path] = compiled_launches(prog)
+    per_replay = dict(prog.launches_per_replay)
+    startup = all(np.array_equal(first[f][..., :n_startup], base[f][..., :n_startup])
+                  for f in ("values", "active", "losses"))
+    two_runs = same_stream(first, again)
+    prog.reset(7, None, 0, float("inf"))
+    for j in range(MESH_EAGER):
+        prog.step(prog.loop.regime(j, 0))
+    ev, ea, el, _ = prog.host_state()
+    m = MESH_EAGER
+    eager = (np.array_equal(ev[:, :m], first["values"][:, :m])
+             and np.array_equal(ea[:, :m], first["active"][:, :m])
+             and np.array_equal(el[:m], first["losses"][:m]))
+    a = bare_replay_ms(plain, n, 7)
+    b = bare_replay_ms(sharded, n, 7)
+    c = bare_replay_ms(sharded, n, 7)
+    d = bare_replay_ms(plain, n, 7)
+    pairs = [(a, b), (d, c)]
+    ratio = statistics.median(b / a for a, b in pairs)
+    rec = dict(trials=n, ranks=MESH_RANKS, launches=launches[path],
+               launches_per_replay=per_replay, plain_launches_per_replay=dict(
+                   plain._program().launches_per_replay),
+               startup_bitwise=startup, two_runs_bitwise=two_runs,
+               eager_steps_bitwise=eager, pairs_ms_per_step_unsharded_sharded=pairs,
+               sharded_over_unsharded=ratio, warm_s=warm_s,
+               best=first["best_loss"], plain_best=base["best_loss"])
+    log(f"[{tag}] {card}: compile_fmin(mixed_space_fn_torch, mixed_space(), {n}, algo={algo!r}, "
+        f"n_cand 128, cat 24) with the sweep over {MESH_RANKS} virtual ranks on the card: warm "
+        f"calls {warm_s:.2f} s; gmm_llr launches {launches[path]} (captured per replay "
+        f"{per_replay}; unsharded {rec['plain_launches_per_replay']}); the first {n_startup} "
+        f"trials bitwise the unsharded run's: {startup}; two runs bitwise: {two_runs}; the "
+        f"first {m} replayed steps bitwise the eager steps: {eager}; best {first['best_loss']:.6f}"
+        f" (unsharded {base['best_loss']:.6f}); ms per step in pairs (unsharded, sharded): "
+        + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in pairs)
+        + f"; sharded over unsharded {ratio:.3f}x")
+    faults = []
+    if per_replay != {"prior": 0, "model": MESH_RANKS}:
+        faults.append(f"{tag}: launches per replay {per_replay}")
+    if launches[path] != MESH_RANKS * (n - n_startup):
+        faults.append(f"{tag}: {launches[path]} launches")
+    for what, ok in (("startup", startup), ("two runs", two_runs), ("eager", eager)):
+        if not ok:
+            faults.append(f"{tag}: {what} not bitwise")
+    if not np.all(np.isfinite(first["losses"])):
+        faults.append(f"{tag}: a loss is not finite")
+    return rec, faults
+
+
+def elementwise_trainable():
+    """A per-trial trainable over ``mlp_tune_space()`` whose math is
+    elementwise (no product, no reduction over the batch), as the
+    reference's bitwise sharding tests' trainables are."""
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.device_loop import TrainableObjective
+
+    def init(k, cfg):
+        return {"w": R.uniform(k, (3,)) * cfg["init_scale"]}
+
+    def step(s, cfg, epoch):
+        return {"w": s["w"] - cfg["lr"] * (s["w"] - cfg["momentum"])}
+
+    def loss(s, cfg):
+        return (s["w"][0] - 0.5) ** 2 + cfg["wd"]
+
+    return TrainableObjective(init, step, loss)
+
+
+def phase19(card):
+    """The compiled loop's mesh and ATPE's mesh, every rank on the one
+    card: (a) the cand-sharded TPE loop and (b) ATPE's (see
+    :func:`cand_mesh_loop`); (c) the trial axis at 2 and 4 ranks and the
+    2 x 4 trial x cand mesh at B=4 on ``mixed_space_fn_torch``, bitwise
+    the unsharded and the cand-only streams, with the unsharded launch
+    count; (d) ASHA with ``trial_axis`` at 1, 2 and 4 ranks on phase 9a's
+    bracket, on ``mlp_tune`` and an elementwise trainable: the sub-mesh
+    sizes, every run bitwise the unsharded bracket with its launch
+    count; (e) ``fmin`` with ``atpe.suggest(mesh=virtual_mesh(4))``;
+    (f) the kernel at every new launch shape.  Returns the launches by
+    path and the numbers."""
+    import functools
+
+    import numpy as np
+
+    import hyperopt_tpu_torch as H
+    from hyperopt_tpu_torch import atpe
+    from hyperopt_tpu_torch.device_loop import compile_fmin
+    from hyperopt_tpu_torch.models.synthetic import (mixed_space, mixed_space_fn,
+                                                     mixed_space_fn_torch, mlp_tune_objective,
+                                                     mlp_tune_space)
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
+
+    t_phase = time.perf_counter()
+    launches, shapes, out, faults = {}, {}, {}, []
+    # -- 19a, 19b. the cand axis inside the captured step --------------------
+    for algo in ("tpe", "atpe"):
+        out[algo], why = cand_mesh_loop(card, algo, launches, shapes)
+        faults += why
+    # -- 19c. the trial axis and the 2-D mesh at B=4 --------------------------
+    kw = dict(batch_size=TRIAL_BATCH, n_EI_candidates=128, n_EI_candidates_cat=24,
+              device=P19_DEVICE)
+    run = lambda **m: compile_fmin(mixed_space_fn_torch, mixed_space(), MESH_TRIALS,  # noqa: E731
+                                   **m, **kw)
+    plain_runner = run()
+    plain = plain_runner(seed=3)
+    plain_launches = compiled_launches(plain_runner._program())
+    trial = {}
+    for n in (2, 4):
+        runner = run(mesh=virtual_mesh(n, "trial"))
+        path = f"compiled_trial_{n}"
+        with launch_shapes() as seen:
+            trial[str(n)] = same_stream(runner(seed=3), plain)
+        shapes[path] = seen
+        launches[path] = compiled_launches(runner._program())
+        if launches[path] != plain_launches:
+            faults.append(f"19c: {path}: {launches[path]} launches, unsharded {plain_launches}")
+    cand_only = run(mesh=virtual_mesh(MESH_RANKS), trial_axis=None, cand_axis="cand")
+    two_d = run(mesh=virtual_mesh((2, MESH_RANKS), ("trial", "cand")), cand_axis="cand")
+    with launch_shapes() as seen:
+        two_d_out = two_d(seed=3)
+    shapes["compiled_trial_cand"] = seen
+    launches["compiled_trial_cand"] = compiled_launches(two_d._program())
+    two_d_bitwise = same_stream(two_d_out, cand_only(seed=3))
+    out["trial"] = dict(batch=TRIAL_BATCH, trials=MESH_TRIALS, trial_axis_bitwise=trial,
+                        launches={n: launches[f"compiled_trial_{n}"] for n in (2, 4)},
+                        plain_launches=plain_launches,
+                        two_d_bitwise_cand_only=two_d_bitwise,
+                        two_d_launches=launches["compiled_trial_cand"],
+                        two_d_launches_per_replay=dict(two_d._program().launches_per_replay))
+    log(f"[19c] {card}: B={TRIAL_BATCH}, {MESH_TRIALS} trials: the trial axis on 2 and 4 "
+        f"virtual ranks bitwise the unsharded stream: {trial}, gmm_llr launches "
+        f"{out['trial']['launches']} (unsharded {plain_launches}); trial 2 x cand {MESH_RANKS} bitwise "
+        f"the cand-only program: {two_d_bitwise}, {launches['compiled_trial_cand']} launches "
+        f"(per replay {out['trial']['two_d_launches_per_replay']})")
+    if not all(trial.values()) or not two_d_bitwise:
+        faults.append(f"19c: not bitwise ({out['trial']})")
+    # -- 19d. ASHA with the trial axis ------------------------------------------
+    total_ep = ASHA["rung_epochs"] * (ASHA["eta"] ** ASHA["n_rungs"] - 1) // (ASHA["eta"] - 1)
+    B = ASHA_BATCH
+    asha = {}
+    for model in ("mlp", "elementwise"):
+        fn = (mlp_tune_objective(n_epochs=total_ep) if model == "mlp"
+              else elementwise_trainable())
+        runs = {}
+        for n in (None, 1, 2, 4):
+            m = {} if n is None else dict(mesh=virtual_mesh(n, "trial"), trial_axis="trial")
+            runner = compile_fmin(fn, mlp_tune_space(), ASHA_MESH_TRIALS, batch_size=B,
+                                  asha=ASHA, device=P19_DEVICE, **m)
+            t0 = time.perf_counter()
+            with launch_shapes() as seen:
+                runner(seed=0)  # warm-up and capture
+            p19_sync()
+            capture_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = runner(seed=1)
+            p19_sync()
+            runs[n] = dict(res=res, seconds=time.perf_counter() - t0, capture_s=capture_s,
+                           submesh=getattr(runner, "_asha_submesh_devices", None),
+                           launches=compiled_launches(runner._program()))
+            if n is not None:
+                shapes[f"asha_{model}_trial_{n}"] = seen
+                launches[f"asha_{model}_trial_{n}"] = runs[n]["launches"]
+        base = runs[None]["res"]
+        rec = {}
+        for n in (1, 2, 4):
+            r = runs[n]
+            res = r.pop("res")
+            bitwise = same_stream(res, base, ("values", "active", "losses", "rung_of"))
+            r.update(bitwise=bitwise, best=res["best_loss"], plain_best=base["best_loss"],
+                     plain_seconds=runs[None]["seconds"], plain_launches=runs[None]["launches"])
+            rec[str(n)] = r
+            log(f"[19d] {card}: ASHA on {model}, brackets of {B} ({ASHA}), {ASHA_MESH_TRIALS} "
+                f"trials, trial axis on {n} virtual rank(s): rung sub-mesh {r['submesh']}; "
+                f"{r['seconds']:.3f} s (unsharded {r['plain_seconds']:.3f} s), capture "
+                f"{r['capture_s']:.2f} s; gmm_llr launches {r['launches']} (unsharded "
+                f"{r['plain_launches']}); bitwise the unsharded brackets: {bitwise}; best "
+                f"{r['best']:.6f} (unsharded {r['plain_best']:.6f})")
+            if r["submesh"] != min(n, ASHA_BATCH // ASHA["eta"] ** (ASHA["n_rungs"] - 1)):
+                faults.append(f"19d: {model} on {n}: rung sub-mesh {r['submesh']}")
+            if not bitwise:
+                faults.append(f"19d: {model} on {n} ranks is not bitwise the unsharded run")
+            if not 0 < r["launches"] == r["plain_launches"]:
+                faults.append(f"19d: {model} on {n}: {r['launches']} launches, unsharded "
+                              f"{r['plain_launches']}")
+        asha[model] = rec
+    out["asha"] = asha
+    # -- 19e. atpe.suggest with the warm sweep over 4 virtual ranks ------------
+    walls, streams, counted = {}, {}, {}
+    for name, mesh in (("sharded", virtual_mesh(MESH_RANKS)), ("unsharded", None)):
+        trials = H.Trials()
+        p19_sync()
+        before = G.KERNEL.launches
+        t0 = time.perf_counter()
+        with launch_shapes() as seen:
+            H.fmin(mixed_space_fn, mixed_space(), algo=functools.partial(atpe.suggest, mesh=mesh),
+                   max_evals=ATPE_MESH_TRIALS, trials=trials, rstate=np.random.default_rng(0),
+                   device=P19_DEVICE, show_progressbar=False)
+        p19_sync()
+        walls[name] = time.perf_counter() - t0
+        counted[name] = G.KERNEL.launches - before
+        streams[name] = trials
+        if name == "sharded":
+            shapes["atpe_mesh_fmin"] = seen
+            launches["atpe_mesh_fmin"] = counted[name]
+    losses = streams["sharded"].losses()
+    startup = ([t["misc"]["vals"] for t in streams["sharded"].trials[:20]]
+               == [t["misc"]["vals"] for t in streams["unsharded"].trials[:20]])
+    out["atpe_fmin"] = dict(trials=ATPE_MESH_TRIALS, launches=counted, walls_s=walls,
+                            ms_per_trial={k: v / ATPE_MESH_TRIALS * 1e3 for k, v in walls.items()},
+                            best=float(min(losses)),
+                            plain_best=float(min(streams["unsharded"].losses())),
+                            startup_equal=startup)
+    log(f"[19e] {card}: fmin(mixed_space_fn, mixed_space(), algo=partial(atpe.suggest, "
+        f"mesh=virtual_mesh({MESH_RANKS}))), {ATPE_MESH_TRIALS} trials: {walls['sharded']:.2f} s "
+        f"(unsharded {walls['unsharded']:.2f} s), gmm_llr launches {counted} (sharded, "
+        f"unsharded), best {min(losses):.6f} (unsharded {out['atpe_fmin']['plain_best']:.6f}); "
+        f"the 20 startup trials equal: {startup}")
+    if counted != {"sharded": MESH_RANKS * (ATPE_MESH_TRIALS - 20),
+                   "unsharded": ATPE_MESH_TRIALS - 20}:
+        faults.append(f"19e: launches {counted}")
+    if not (startup and np.all(np.isfinite(losses))):
+        faults.append("19e: the startup trials differ or a loss is not finite")
+    # -- 19f. the kernel at every new launch shape ----------------------------
+    want = (1, 12, 128 // MESH_RANKS)
+    if not any(s[:3] == want for s in shapes[f"compiled_tpe_cand_{MESH_RANKS}"]):
+        faults.append(f"19f: no launch at {want}: {shapes}")
+    out["checked"] = {}
+    for path, seen in shapes.items():
+        CHECKED_SHAPES[path] = out["checked"][path] = check_shapes(f"19 {path}, {card}", seen,
+                                                                   seed=191)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[19] {card}: phase 19 took {out['seconds']:.1f} s")
+    assert not faults, faults
+    return launches, out
+
+
 def main():
     import torch
 
@@ -4864,6 +5187,10 @@ def main():
     baseline_launches, baseline, north_star = phase15(card)
     compiled_launches_by_path.update(baseline_launches)
     lap("15")
+    # -- 19. the compiled loop's mesh and ATPE's mesh, before any profiler
+    mesh_loop_launches, compiled_mesh = phase19(card)
+    compiled_launches_by_path.update(mesh_loop_launches)
+    lap("19")
     # then the kernel's timings at both shapes and the profiled window of
     # the compiled loop (the ASHA brackets' window runs last of all)
     profile_8f()
@@ -5125,6 +5452,7 @@ def main():
         "checks": checks,
         "sharded": sharded_out,
         "study_mesh": study_mesh_out,
+        "compiled_mesh": compiled_mesh,
         "checked_shapes": CHECKED_SHAPES,
         "phase_seconds": phase_seconds,
     }]}

@@ -13,7 +13,10 @@ the decision layer it uses, :class:`hyperopt_tpu.atpe.ATPEOptimizer`
   the history (the body of the reference's compiled device loop): the
   settings and the lock set stay on the device, no host sync.
 
-Sharding the sweep over a mesh (``mesh=``/``cand_axis=``) is not ported.
+Both shard the candidate sweep over a mesh's ``cand`` axis on request
+(``suggest(mesh=)``, ``build_atpe_device_fn(mesh=, cand_axis=)``), through
+:mod:`hyperopt_tpu_torch.parallel.sharded`: the adapted candidate count
+is the TOTAL over the ranks.
 """
 
 from __future__ import annotations
@@ -43,10 +46,6 @@ _MAX_ADAPTIVE_GAMMA = 0.35
 # the categorical dim family as named by the domain helper's dist field
 CAT_DISTS = ("randint", "categorical", "randint_via_categorical")
 _LOG_DISTS = ("loguniform", "qloguniform", "lognormal", "qlognormal")
-
-_NO_MESH = ("mesh sharding of the ATPE sweep is not ported yet "
-            "(ROADMAP.md Queue A, item 15c)")
-
 
 def _ok_trials(trials):
     return [t for t in trials.trials if posterior_state(t) == "ok"]
@@ -214,11 +213,15 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
     lock rolls.  Keys ``[S, 2]`` with a history of the same leading axis
     (``values [S, D, cap]``) run S experiments at once, the seed sweep of
     the compiled loop: seed ``s``'s slice is computed by the same
-    operations as its solo call.  ``mesh``/``cand_axis`` (sharding) are
-    not ported.
+    operations as its solo call.
+
+    ``mesh``/``cand_axis`` shard the EI candidate sweep over the mesh's
+    ranks (:func:`hyperopt_tpu_torch.parallel.sharded.build_sharded_sweep`
+    over the fits computed here): the adapted candidate count stays the
+    TOTAL sweep width, each rank drawing ``ceil(total / ranks)``.  The
+    settings and the lock set do not depend on the ranks, so the sharded
+    and unsharded steps differ only in the sweep's key folding.
     """
-    if mesh is not None or cand_axis is not None:
-        raise NotImplementedError(_NO_MESH)
     K.check_prior_weight(prior_weight)
     if base_n_ei is None:
         base_n_ei = tpe._default_n_EI_candidates
@@ -243,6 +246,17 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
         base_gamma = float(np.clip(0.20 + 0.01 * D, 0.15, _MAX_ADAPTIVE_GAMMA))
         n_ei = int(np.clip(base_n_ei * (1 + D / 20), base_n_ei, max(256, 2 * base_n_ei)))
     n_cat = max(1, int(n_cand_cat))
+
+    sharded_sweep = None
+    if cand_axis is not None:
+        if mesh is None:
+            raise ValueError("cand_axis requires a mesh")
+        from .parallel.sharded import build_sharded_sweep, per_device_count
+
+        n_ranks = int(mesh.shape[cand_axis])
+        sharded_sweep = build_sharded_sweep(
+            ps, mesh, per_device_count(n_ei, n_ranks), axis=cand_axis,
+            n_cand_cat_per_device=per_device_count(n_cat, n_ranks))
 
     # per-cont-dim latent prior width for lock convergence (bounded dims:
     # high - low; unbounded: 2 sigma)
@@ -361,19 +375,10 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
         fits = K.fit_all_dims(c, values, active, losses, valid, gamma, lf_f, pw,
                               pad_gamma=_MAX_ADAPTIVE_GAMMA, above_cap=a_cap)
 
-        new_values = torch.zeros(lead + (D, batch), dtype=torch.float32, device=dev)
-        keys = R.split(k_tpe, max(batch * (Dc + Dk), 1))
-        if fits["cont"] is not None:
-            cont_keys = keys[..., : batch * Dc, :].reshape(lead + (batch, Dc, 2))
-            cont_vals, _ = K.ei_sweep_cont(ps.q, c, cont_keys, fits["cont"], n_ei)
-            new_values[..., c["cont_idx"], :] = cont_vals.transpose(-1, -2)
-        if fits["cat"] is not None:
-            pb, pa = fits["cat"]
-            if lead:  # a seed's posteriors broadcast against its trial axis
-                pb, pa = pb.unsqueeze(len(lead)), pa.unsqueeze(len(lead))
-            cat_keys = keys[..., batch * Dc: batch * (Dc + Dk), :].reshape(lead + (batch, Dk, 2))
-            cat_vals, _ = K.ei_sweep_cat(cat_keys, pb, pa, n_cat)
-            new_values[..., c["cat_idx"], :] = cat_vals.transpose(-1, -2) + c["int_low"][:, None]
+        if sharded_sweep is not None:
+            new_values, _ = sharded_sweep(k_tpe, fits, batch)
+        else:
+            new_values = _sweep(k_tpe, fits, lead, batch)
 
         if pure_categorical:
             return new_values, ps.active_fn(new_values)
@@ -390,6 +395,24 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
         apply = lock_mask[..., :, None] & lock_col[..., None, :]
         new_values = torch.where(apply, lock_vals[..., :, None], new_values)
         return new_values, ps.active_fn(new_values)
+
+    def _sweep(k_tpe, fits, lead, batch):
+        """The unsharded sweep: every dim's best of ``n_ei`` (``n_cat``)
+        candidates."""
+        new_values = torch.zeros(lead + (D, batch), dtype=torch.float32, device=dev)
+        keys = R.split(k_tpe, max(batch * (Dc + Dk), 1))
+        if fits["cont"] is not None:
+            cont_keys = keys[..., : batch * Dc, :].reshape(lead + (batch, Dc, 2))
+            cont_vals, _ = K.ei_sweep_cont(ps.q, c, cont_keys, fits["cont"], n_ei)
+            new_values[..., c["cont_idx"], :] = cont_vals.transpose(-1, -2)
+        if fits["cat"] is not None:
+            pb, pa = fits["cat"]
+            if lead:  # a seed's posteriors broadcast against its trial axis
+                pb, pa = pb.unsqueeze(len(lead)), pa.unsqueeze(len(lead))
+            cat_keys = keys[..., batch * Dc: batch * (Dc + Dk), :].reshape(lead + (batch, Dk, 2))
+            cat_vals, _ = K.ei_sweep_cat(cat_keys, pb, pa, n_cat)
+            new_values[..., c["cat_idx"], :] = cat_vals.transpose(-1, -2) + c["int_low"][:, None]
+        return new_values
 
     # the two decision stages, for inspection: settings(losses, valid) and
     # lock_set(values, active, losses, ok, n)
@@ -409,9 +432,31 @@ def _optimizer_for(domain, lock_fraction, elite_count):
     return opt
 
 
-def _dense_draw(domain, trials, opt, rng, batch, n_startup_jobs, linear_forgetting):
+def _sharded_dense(domain, buf, seed, batch, mesh, kw, linear_forgetting):
+    """The warm draw with the candidate sweep sharded over ``mesh``'s
+    ``cand`` axis: the optimizer's per-step settings feed
+    :func:`hyperopt_tpu_torch.parallel.sharded.sharded_draw`, whose built
+    step is cached per settings tuple (gamma and the prior weight take two
+    adaptive values each, so at most four builds per mesh)."""
+    from .parallel.mesh import CAND_AXIS
+    from .parallel.sharded import per_device_count, sharded_draw
+
+    ps = packed_space_for(domain)
+    key = R.key(int(seed) % (2**31 - 1), device=ps.device)
+    n_ranks = int(mesh.shape[CAND_AXIS])
+    return sharded_draw(
+        domain, buf, mesh, "_atpe_sharded_cache",
+        per_device_count(kw["n_EI_candidates"], n_ranks), kw["gamma"], linear_forgetting,
+        kw["prior_weight"], per_device_count(kw["n_EI_candidates_cat"], n_ranks), key, batch,
+        above_cap=kw.get("above_cap"),
+    )
+
+
+def _dense_draw(domain, trials, opt, rng, batch, n_startup_jobs, linear_forgetting,
+                mesh=None):
     """The adaptive draw for a batch: the device sweep under the
-    optimizer's per-step settings, then per-column restart/lock rolls."""
+    optimizer's per-step settings (sharded over ``mesh`` when given), then
+    per-column restart/lock rolls."""
     ps = packed_space_for(domain)
     buf = obs_buffer_for(domain, trials)
     warm = buf.count >= n_startup_jobs
@@ -421,10 +466,14 @@ def _dense_draw(domain, trials, opt, rng, batch, n_startup_jobs, linear_forgetti
     if warm:
         kw = dict(opt.tpe_settings(domain, trials))
         explore_fraction = kw.pop("explore_fraction", 0.0)
-    values, active = tpe.suggest_dense(
-        domain, trials, int(rng.integers(0, 2**31 - 1)), batch,
-        n_startup_jobs=n_startup_jobs, linear_forgetting=linear_forgetting, **kw,
-    )
+    if warm and mesh is not None:
+        values, active = _sharded_dense(domain, buf, int(rng.integers(0, 2**31 - 1)), batch,
+                                        mesh, kw, linear_forgetting)
+    else:
+        values, active = tpe.suggest_dense(
+            domain, trials, int(rng.integers(0, 2**31 - 1)), batch,
+            n_startup_jobs=n_startup_jobs, linear_forgetting=linear_forgetting, **kw,
+        )
     values = np.array(values)
 
     if warm:
@@ -475,10 +524,12 @@ def suggest(
     ``resident=True`` keeps the history on the device: the sweep goes
     through :func:`hyperopt_tpu_torch.tpe.suggest_dense`, so its warm
     draws take the O(D) delta tells and fused asks unchanged.
-    ``mesh`` (sharding the sweep) is not ported.
+    ``mesh`` (a :class:`~hyperopt_tpu_torch.parallel.mesh.RankMesh` with a
+    ``cand`` axis, e.g. ``virtual_mesh(4)``) shards the warm draws'
+    candidate sweep over its ranks, the adaptive candidate count being the
+    TOTAL over them, as :func:`hyperopt_tpu_torch.parallel.sharded.
+    sharded_suggest` does for plain TPE.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     rng = ensure_rng(seed)
     opt = _optimizer_for(domain, lock_fraction, elite_count)
     ps = packed_space_for(domain)
@@ -500,16 +551,17 @@ def suggest(
         params = (
             "atpe", float(lock_fraction), int(elite_count), int(n_startup_jobs),
             int(linear_forgetting), id(trials), int(speculative),
-            int(speculative) - 1 if max_stale is None else int(max_stale), 0,
+            int(speculative) - 1 if max_stale is None else int(max_stale),
+            0 if mesh is None else mesh,
         )
         values, active = tpe._speculative_cols(
             domain, trials, seed, int(speculative), max_stale, params, n_startup_jobs,
             lambda s, k: _dense_draw(domain, trials, opt, ensure_rng(s), k,
-                                     n_startup_jobs, linear_forgetting),
+                                     n_startup_jobs, linear_forgetting, mesh=mesh),
         )
     else:
         values, active = _dense_draw(domain, trials, opt, rng, B, n_startup_jobs,
-                                     linear_forgetting)
+                                     linear_forgetting, mesh=mesh)
 
     idxs, vals = dense_to_idxs_vals(new_ids, ps.labels, values, active)
     return docs_from_idxs_vals(new_ids, domain, trials, *tpe._cast_vals(ps, idxs, vals))

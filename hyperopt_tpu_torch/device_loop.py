@@ -33,6 +33,17 @@ of the prior draw -- so every seed's stream is bitwise its solo run.  On
 the CPU the same step function runs eagerly; on the card there is no
 eager path in the public API, and a failed capture raises.
 
+``mesh=`` (a :class:`~hyperopt_tpu_torch.parallel.mesh.RankMesh` inside
+this process, :func:`~hyperopt_tpu_torch.parallel.mesh.virtual_mesh`)
+shards the step as the reference's mesh does, every shard on the one
+device and inside the one captured graph: ``cand_axis`` splits the EI
+candidate sweep over its ranks
+(:func:`~hyperopt_tpu_torch.parallel.sharded.build_sharded_suggest_fn`,
+each rank's sweep in turn, then the argmax over ranks).  ``trial_axis``
+is a placement axis: it is checked as the reference checks it, and
+inside one process, where every block would share the one device and
+the one graph, the batch runs as the unsharded body.
+
 With ``asha=`` one step is one ASHA bracket: B fresh configs, then the
 unrolled ladder of :func:`~hyperopt_tpu_torch.hyperband.rung_schedule`
 -- each rung trains its survivors through the
@@ -140,10 +151,49 @@ def _round_up(n, m):
     return (n + m - 1) // m * m
 
 
-def _not_ported(option, item, what):
-    return NotImplementedError(
-        f"compile_fmin({option}=...): {what} is not ported yet (ROADMAP.md Queue A, item {item})"
-    )
+def _mesh_layout(mesh, trial_axis, cand_axis, algo, joint_ei, B, asha):
+    """The reference's checks of ``mesh``/``trial_axis``/``cand_axis``,
+    with its messages; returns whether the trial axis is in use."""
+    if cand_axis is not None and mesh is None:
+        raise ValueError("cand_axis requires a mesh")
+    if mesh is None:
+        return False
+    from .parallel.mesh import RankMesh
+
+    if not isinstance(mesh, RankMesh):
+        raise TypeError(
+            f"mesh= takes a parallel.mesh.RankMesh (virtual_mesh, mesh_from_spec); got "
+            f"{type(mesh).__name__}")
+    if cand_axis is not None:
+        if cand_axis not in mesh.shape:
+            raise ValueError(
+                f"cand_axis {cand_axis!r} is not an axis of the mesh (axes: {tuple(mesh.shape)})")
+        if algo not in ("tpe", "atpe"):
+            raise ValueError(
+                "cand_axis shards the (adaptive) TPE candidate sweep; "
+                f"algo={algo!r} has no candidate sweep to shard")
+        if joint_ei:
+            raise ValueError(
+                "cand_axis supports only the factorized EI argmax (joint_ei scores whole "
+                "configurations on one device)")
+    if cand_axis is not None and B == 1:
+        # a 1-wide batch cannot shard: the cand axis carries the mesh
+        return False
+    if trial_axis is None:
+        if cand_axis is None:
+            raise ValueError("mesh given with trial_axis=None and no cand_axis: nothing to shard")
+        return False
+    if trial_axis not in mesh.shape:
+        # a typo must never silently unshard the batch
+        raise ValueError(
+            f"trial_axis {trial_axis!r} is not an axis of the mesh (axes: "
+            f"{tuple(mesh.shape)}); pass trial_axis=None to opt out of population sharding")
+    n = int(mesh.shape[trial_axis])
+    # asha= trains each rung over a gcd-sized sub-mesh, so shrinking rung
+    # widths need not divide the axis
+    if B % n and asha is None:
+        raise ValueError(f"batch_size={B} must be a multiple of mesh axis {trial_axis!r} size {n}")
+    return True
 
 
 def _is_seed_list(seed):
@@ -478,8 +528,29 @@ def compile_fmin(
     :class:`~hyperopt_tpu_torch.obs.MetricsRegistry`, with ``chunk_size``
     and no ``progress_callback``) lands each progress row on the
     registry (:func:`~hyperopt_tpu_torch.obs.device.progress_to_registry`).
-    ``mesh=``/``cand_axis=`` are not ported yet and raise
-    ``NotImplementedError``.
+
+    ``mesh`` (a :class:`~hyperopt_tpu_torch.parallel.mesh.RankMesh`;
+    :func:`~hyperopt_tpu_torch.parallel.mesh.virtual_mesh` puts every rank
+    in this process) shards each step, with the reference's checks and
+    messages.  ``cand_axis`` (``algo='tpe'``/``'atpe'``, factorized EI)
+    splits the EI candidate sweep over that axis's ranks: each rank draws
+    ``ceil(n_EI_candidates / ranks)`` candidates from the step key folded
+    by its position and scores them (one ``gmm_llr`` launch per rank per
+    model step), and the argmax over the ranks' winners picks each dim's
+    value -- the ranks' bodies and the reduction run in turn inside the
+    one captured graph, with no host read.  The prior steps are
+    untouched, so startup draws are the unsharded program's bits.
+    ``trial_axis`` (when it names an axis of the mesh; at ``batch_size``
+    1 with a ``cand_axis`` it is ignored) is a placement axis: its width
+    must divide ``batch_size``, as in the reference, and with ``asha=``
+    ``runner._asha_submesh_devices`` reports the reference's rung
+    sub-mesh, ``gcd(smallest rung width, width)``.  Inside one process
+    every block would share the one device and the one captured graph,
+    so the batch and the rungs run as the unsharded body and the stream
+    is the unsharded one, bit for bit (blocks on cards of their own are
+    ROADMAP.md Queue A, item 15c).  A mesh over several processes is
+    refused (``NotImplementedError``): its collective cannot run inside
+    the captured step.
 
     The result dict has ``best`` (``{label: value}``, the index form
     ``fmin`` returns), ``best_loss``, ``best_index``, ``losses [N]``,
@@ -489,6 +560,17 @@ def compile_fmin(
     highest rung each trial reached, -1 for warm slots) and the ``asha``
     ladder, and ``best`` ranks full-fidelity trials only.
     """
+    if algo not in ("tpe", "anneal", "rand", "atpe"):
+        raise ValueError(f"unknown algo {algo!r}: expected tpe|anneal|rand|atpe")
+    if algo == "atpe" and joint_ei:
+        raise ValueError(
+            "algo='atpe' supports only the factorized EI argmax (the adaptive layer has "
+            "no joint-scoring path); drop joint_ei or use algo='tpe'"
+        )
+    B = int(batch_size)
+    if B < 1:
+        raise ValueError("batch_size must be a positive integer")
+    shard_trials = _mesh_layout(mesh, trial_axis, cand_axis, algo, joint_ei, B, asha)
     trainable = isinstance(fn, TrainableObjective)
     if asha is not None:
         if not isinstance(asha, dict):
@@ -519,16 +601,6 @@ def compile_fmin(
         if chunk_size is None:
             raise ValueError(
                 "artifact_callback rides the chunked scan path; pass chunk_size= to enable it")
-    if mesh is not None or cand_axis is not None:
-        raise _not_ported("mesh" if mesh is not None else "cand_axis", "15c",
-                          "sharding the loop over several cards")
-    if algo not in ("tpe", "anneal", "rand", "atpe"):
-        raise ValueError(f"unknown algo {algo!r}: expected tpe|anneal|rand|atpe")
-    if algo == "atpe" and joint_ei:
-        raise ValueError(
-            "algo='atpe' supports only the factorized EI argmax (the adaptive layer has "
-            "no joint-scoring path); drop joint_ei or use algo='tpe'"
-        )
     from .fmin import _validate_stopping
 
     _validate_stopping(None, loss_threshold)
@@ -564,9 +636,17 @@ def compile_fmin(
 
     ps = compile_space(space, device=device)
     D = ps.n_dims
-    B = int(batch_size)
-    if B < 1:
-        raise ValueError("batch_size must be a positive integer")
+    n_ranks = None
+    if mesh is not None:
+        from .parallel.mesh import in_process_shards
+
+        # every shard inside this process, on ps.device: a collective
+        # between processes cannot run inside the captured step
+        what = "compile_fmin(mesh=...)"
+        if shard_trials:
+            in_process_shards(mesh, trial_axis, what, ps.device, one_axis=False)
+        if cand_axis is not None:
+            n_ranks = in_process_shards(mesh, cand_axis, what, ps.device, one_axis=False)
     n_steps = -(-int(max_evals) // B)
     W = int(warm_capacity)
     cap = _round_up(W + n_steps * B, 128)
@@ -575,7 +655,16 @@ def compile_fmin(
     lf_f = float(linear_forgetting)
     pw = float(prior_weight)
 
-    if algo == "tpe":
+    if algo == "tpe" and cand_axis is not None:
+        from .parallel.sharded import build_sharded_suggest_fn, per_device_count
+
+        # n_EI_candidates is the TOTAL sweep width: each rank draws
+        # ceil(total / ranks), so the executed total may exceed it by < ranks
+        model = build_sharded_suggest_fn(
+            ps, mesh, per_device_count(n_cand, n_ranks), float(gamma), lf_f, pw, axis=cand_axis,
+            n_cand_cat_per_device=per_device_count(n_cand if n_cand_cat is None else n_cand_cat,
+                                                   n_ranks))
+    elif algo == "tpe":
         from .tpe import build_suggest_fn
 
         model = build_suggest_fn(ps, n_cand, float(gamma), lf_f, pw, joint_ei=joint_ei,
@@ -588,7 +677,9 @@ def compile_fmin(
         from .atpe import build_atpe_device_fn
 
         model = build_atpe_device_fn(ps, lf_f, prior_weight=pw, base_n_ei=n_cand,
-                                     n_cand_cat=n_cand_cat)
+                                     n_cand_cat=n_cand_cat,
+                                     mesh=mesh if cand_axis is not None else None,
+                                     cand_axis=cand_axis)
     else:
         model = None
 
@@ -652,6 +743,16 @@ def compile_fmin(
 
         def init_states(keys, values, active):
             return torch.func.vmap(init_one, in_dims=(0, 1, 1))(keys, values, active)
+
+        # ONE sub-mesh for the whole program, sized by the smallest rung:
+        # every wider rung is a power-of-eta multiple of it, so one gcd
+        # covers the ladder (reported only: inside one process the rungs
+        # train as the unsharded body)
+        a_k = 1
+        if shard_trials:
+            from .parallel.mesh import rung_submesh
+
+            a_k = rung_submesh(mesh, trial_axis, ladder[-1][0])[1]
 
         def rung_trainer(n_ep, e0):
             """Rung training at a static width: every survivor advances
@@ -914,6 +1015,8 @@ def compile_fmin(
     runner._packed_space = ps
     if a_spec is not None:
         runner._asha_ladder = list(a_spec.ladder)
+        # the reference's rung sub-mesh size
+        runner._asha_submesh_devices = a_k
     if chunked:
         runner._chunk_geometry = {
             "chunk_steps": chunk_steps,

@@ -12,14 +12,18 @@ reference's ``lax.axis_index``.  Axis conventions are the reference's:
   ``trial`` -- trial-batch sharding for population evaluation
   ``study`` -- study-slot sharding for the serve engine
 
-:func:`virtual_mesh` arranges ``n`` ranks inside one process: every
-collective over it is computed here, each rank's share in turn (tests
-and the card's checks hold the real ranks against it).
+:func:`virtual_mesh` arranges ranks inside one process, on one axis or
+several (``virtual_mesh((2, 4), ("trial", "cand"))``): every collective
+over it is computed here, each rank's share in turn (tests and the
+card's checks hold the real ranks against it).
 
 The study axis of the serve engine and the trial axis of ``compile_pbt``
 and ``compile_sha`` need no collective inside a step, so there a shard
-is a block of slots or members owned by this one process
-(:func:`in_process_shards`), placed by :func:`shard_devices`.
+is a block of slots or members owned by this one process; the ``cand``
+axis of ``compile_fmin`` runs each virtual rank's sweep in turn inside
+the one captured step, and its ``trial`` axis is checked and placed
+only.  :func:`in_process_shards` gives a named axis's width inside this
+process, and :func:`shard_devices` places the shards.
 
 The reference's virtual-device harness has no twin here:
 ``force_host_cpu_devices``, ``subprocess_env_with_devices``,
@@ -180,15 +184,18 @@ def rung_submesh(mesh, axis, members):
     return RankMesh((k,), (axis,), mesh.ranks[:k], virtual=mesh.virtual), k
 
 
-def in_process_shards(mesh, axis, what, device=None):
+def in_process_shards(mesh, axis, what, device=None, one_axis=True):
     """The number of shards ``mesh`` lays along ``axis`` inside this
-    process: a virtual mesh, or a mesh of one rank.  A 1-D mesh is
-    required; a mesh over several processes is refused (the study and
-    trial axes across processes are ROADMAP.md Queue A item 15c).  With
-    ``device``, the shards must all land on it (:func:`shard_devices`)."""
+    process: the axis's width on a virtual mesh, or 1 on a mesh of one
+    rank.  A 1-D mesh is required unless ``one_axis=False`` (the other
+    axes then replicate; ``compile_fmin``'s ``trial`` x ``cand`` mesh).
+    A mesh over several processes is refused: its shards would meet in a
+    collective, and a captured step cannot hold one (ROADMAP.md Queue A,
+    item 15c).  With ``device``, the shards must all land on it
+    (:func:`shard_devices`)."""
     if axis not in mesh.shape:
         raise ValueError(f"{what}: mesh {mesh!r} has no {axis!r} axis")
-    if len(mesh.shape) != 1:
+    if one_axis and len(mesh.shape) != 1:
         raise NotImplementedError(
             f"{what}: a mesh of more than one axis ({mesh!r}) is not ported yet "
             "(ROADMAP.md Queue A, item 15c)"
@@ -223,7 +230,13 @@ def shard_devices(n, device, what="sharding"):
 
 
 def virtual_mesh(n, axis_name=CAND_AXIS):
-    """A 1-D mesh of ``n`` ranks inside this one process: a collective
-    over it computes every rank's share here, in rank order, and
-    gathers them as the real ranks' collective would."""
+    """A mesh of ranks inside this one process: ``n`` ranks on the one
+    axis ``axis_name``, or, with a shape and one name per axis
+    (``virtual_mesh((2, 4), ("trial", "cand"))``), an N-D mesh.  A
+    collective over it computes every rank's share here, in rank order,
+    and gathers them as the real ranks' collective would."""
+    if isinstance(n, (tuple, list)):
+        shape = tuple(int(s) for s in n)
+        names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        return RankMesh(shape, names, range(math.prod(shape)), virtual=True)
     return RankMesh((int(n),), (axis_name,), range(int(n)), virtual=True)

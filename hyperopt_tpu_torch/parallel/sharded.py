@@ -20,6 +20,14 @@ give the same bits.  Under ``gloo`` the packed pairs (``B x D x 2``
 floats, a few hundred bytes) go through the host for the gather and
 back to the device: every draw and score still runs on the rank's
 device.
+
+The sweep is also the model step of ``compile_fmin(mesh=,
+cand_axis=)`` and of ``atpe.build_atpe_device_fn(mesh=, cand_axis=)``:
+there the mesh is virtual, so the ranks' bodies and the reduction run
+in turn inside the one captured step, with no host read.  Keys with a
+leading seed axis (``[S, 2]``, a history ``[S, D, cap]``) sweep S
+experiments at once, each seed's slice by the same operations as its
+solo call.
 """
 
 from __future__ import annotations
@@ -68,38 +76,43 @@ def build_local_best(ps, n_cand_per_device, n_cand_cat_per_device=None):
              else max(1, int(n_cand_cat_per_device)))
 
     def local_best(key, fits, batch, rank):
+        lead = key.shape[:-1]  # () for one history, (S,) for a seed sweep
         keys = R.split(R.fold_in(key, int(rank)), max(batch * (Dc + Dk), 1))
         vals, scores = [], []
         if Dc:
-            cont_keys = keys[: batch * Dc].reshape(batch, Dc, 2)
+            cont_keys = keys[..., : batch * Dc, :].reshape(lead + (batch, Dc, 2))
             v, s = K.ei_sweep_cont(ps.q, c, cont_keys, fits["cont"], n_cand_per_device)
             vals.append(v)
             scores.append(s)
         if Dk:
-            cat_keys = keys[batch * Dc: batch * (Dc + Dk)].reshape(batch, Dk, 2)
-            v, s = K.ei_sweep_cat(cat_keys, *fits["cat"], n_cat)
+            pb, pa = fits["cat"]
+            if lead:  # a seed's posteriors broadcast against its trial axis
+                pb, pa = pb.unsqueeze(len(lead)), pa.unsqueeze(len(lead))
+            cat_keys = keys[..., batch * Dc: batch * (Dc + Dk), :].reshape(lead + (batch, Dk, 2))
+            v, s = K.ei_sweep_cat(cat_keys, pb, pa, n_cat)
             vals.append(v)
             scores.append(s)
-        return torch.stack([torch.cat(vals, dim=1), torch.cat(scores, dim=1)], dim=-1)
+        return torch.stack([torch.cat(vals, dim=-1), torch.cat(scores, dim=-1)], dim=-1)
 
     return local_best
 
 
 def reduce_best(ps, gathered):
-    """Every rank's packed winners ``[W, B, Dc+Dk, 2]`` (in rank order)
-    -> ``(new_values [D, B], active [D, B])``: the argmax over ranks, the
-    first rank winning a tie, with ``int_low`` added back on the
+    """Every rank's packed winners ``[W, ..., B, Dc+Dk, 2]`` (in rank
+    order) -> ``(new_values [..., D, B], active)``: the argmax over ranks,
+    the first rank winning a tie, with ``int_low`` added back on the
     categorical dims."""
     c = ps.consts
     Dc = len(ps.cont_idx)
-    win = torch.argmax(gathered[..., 1], dim=0)  # [B, Dc+Dk]
+    win = torch.argmax(gathered[..., 1], dim=0)  # [..., B, Dc+Dk]
     best = torch.gather(gathered[..., 0], 0, win[None])[0]
-    new_values = torch.zeros((ps.n_dims, best.shape[0]), dtype=torch.float32,
-                             device=best.device)
+    new_values = torch.zeros(best.shape[:-2] + (ps.n_dims, best.shape[-2]),
+                             dtype=torch.float32, device=best.device)
     if Dc:
-        new_values[c["cont_idx"]] = best[:, :Dc].T
+        new_values[..., c["cont_idx"], :] = best[..., :Dc].transpose(-1, -2)
     if len(ps.cat_idx):
-        new_values[c["cat_idx"]] = best[:, Dc:].T + c["int_low"][:, None]
+        new_values[..., c["cat_idx"], :] = (best[..., Dc:].transpose(-1, -2)
+                                            + c["int_low"][:, None])
     return new_values, ps.active_fn(new_values)
 
 

@@ -226,8 +226,54 @@ def test_atpe_resident_parity():
 
 
 def test_mesh_raises():
-    domain = H.Domain(mixed_space_fn, t_mixed_space(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        A.suggest([0], domain, H.Trials(), 1, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """What the ATPE mesh options still refuse, as the reference does: a
+    ``cand_axis`` without a mesh; a mesh over two processes when no
+    process group joins them, at the first warm draw (startup draws need
+    no mesh)."""
+    from hyperopt_tpu_torch.parallel.mesh import RankMesh
+
+    with pytest.raises(ValueError, match="requires a mesh"):
+        atpe_jax.build_atpe_device_fn(j_compile(j_mixed_space()), 25.0, cand_axis="cand")
+    with pytest.raises(ValueError, match="requires a mesh"):
         A.build_atpe_device_fn(t_compile(t_mixed_space(), device="cpu"), 25.0, cand_axis="cand")
+    trials = H.Trials()
+    algo = H.partial(A.suggest, mesh=RankMesh((2,), ("cand",), (0, 1)), n_startup_jobs=3)
+    with pytest.raises(RuntimeError, match="virtual_mesh"):
+        H.fmin(mixed_space_fn, t_mixed_space(), algo=algo, max_evals=4, trials=trials,
+               rstate=np.random.default_rng(0), device="cpu", show_progressbar=False)
+    assert len(trials.trials) == 3
+
+
+def _mesh_fmin(fmin, trials_cls, suggest, hp, mesh, fmin_kw=(), **kw):
+    trials = trials_cls()
+    fmin(lambda x: (x - 3.0) ** 2, hp.uniform("x", -10, 10),
+         algo=H.partial(suggest, mesh=mesh, **kw), max_evals=40, trials=trials,
+         rstate=np.random.default_rng(2), show_progressbar=False, **dict(fmin_kw))
+    return trials
+
+
+@pytest.mark.parametrize("speculative", [0, 4])
+def test_suggest_mesh_matches_reference(speculative):
+    """``atpe.suggest(mesh=virtual_mesh(4))`` through ``fmin`` against
+    ``atpe_jax.suggest(mesh=)`` on a 4-device ``cand`` mesh (the
+    reference's ``test_sharding.py`` case, cut to 40 trials): every value
+    within CONT_RTOL/CONT_ATOL and every loss close; the sharded warm
+    draws part from the unsharded stream; the speculative cache keys on
+    the mesh."""
+    from hyperopt_tpu.parallel.mesh import mesh_from_spec as j_mesh_from_spec
+    from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
+
+    kw = dict(speculative=speculative) if speculative else {}
+    jt = _mesh_fmin(J.fmin, J.Trials, atpe_jax.suggest, J.hp,
+                    j_mesh_from_spec((4,), ("cand",), devices=jax.devices()[:4]), **kw)
+    mesh = virtual_mesh(4)
+    tt = _mesh_fmin(H.fmin, H.Trials, A.suggest, H.hp, mesh, {"device": "cpu"}, **kw)
+    jx = np.array([t["misc"]["vals"]["x"][0] for t in jt.trials])
+    tx = np.array([t["misc"]["vals"]["x"][0] for t in tt.trials])
+    assert len(tx) == 40
+    np.testing.assert_allclose(tx, jx, rtol=CONT_RTOL, atol=CONT_ATOL)
+    np.testing.assert_allclose(tt.losses(), jt.losses(), rtol=1e-5, atol=2e-5)
+    assert min(tt.losses()) < 1.0
+    plain = _mesh_fmin(H.fmin, H.Trials, A.suggest, H.hp, None, {"device": "cpu"}, **kw)
+    px = np.array([t["misc"]["vals"]["x"][0] for t in plain.trials])
+    assert np.array_equal(px[:20], tx[:20]) and not np.array_equal(px[20:], tx[20:])

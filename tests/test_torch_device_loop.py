@@ -15,8 +15,9 @@ Also: ``fold_in`` bitwise ``jax.random.fold_in``; the conditional space
 with ``joint_ei`` on and off; NaN losses masked and all-failed runs
 raising; the early-stop rules' ``n_evals``; warm starts through ``init=``
 and ``history_from_trials``; the seed sweep of every algorithm (ATPE and
-joint EI included) bitwise each solo run; and every option that waits
-for a later slice raising ``NotImplementedError``.
+joint EI included) bitwise each solo run; and the options of later
+slices (ASHA, the metrics registry, the mesh) refusing what they cannot
+run.
 """
 
 import numpy as np
@@ -280,14 +281,16 @@ def test_seed_sweep_with_early_stop_and_the_axes_not_ported():
     ("metrics_registry", MetricsRegistry("dl"), "16"),
 ])
 def test_deferred_options_raise(option, value, item):
-    """What waits for a later slice raises ``NotImplementedError`` naming
-    its item; items 14's and 16's options are ported, and without what
-    they need they raise the reference's ``ValueError`` (ASHA needs a
+    """The options of items 14, 15 and 16 are ported, and without what
+    they need they raise as the reference does: ASHA needs a
     ``TrainableObjective``, the artifact stream needs ``asha=``, the
-    registry's progress rows need ``chunk_size``)."""
+    registry's progress rows need ``chunk_size``, ``cand_axis`` needs a
+    mesh, and ``mesh`` must be a ``RankMesh`` (where the reference needs a
+    ``jax.sharding.Mesh``); ``tests/test_torch_device_loop_mesh.py`` runs
+    the mesh options against the reference."""
     if item in ("14", "16"):
         with pytest.raises(ValueError, match="TrainableObjective|requires asha=|chunk_size"):
             compile_fmin(t_quad, quad_space(thp), max_evals=8, device="cpu", **{option: value})
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises((TypeError, ValueError), match="RankMesh|requires a mesh"):
         compile_fmin(t_quad, quad_space(thp), max_evals=8, device="cpu", **{option: value})

@@ -394,7 +394,9 @@ def test_a_clean_shard_keeps_its_tensors_across_a_restack(n_shards):
 def test_the_mesh_helpers():
     """In-process shards: a virtual or one-rank 1-D mesh; a mesh over
     several processes or of several axes is refused naming its item; on
-    the CPU every shard shares the caller's device."""
+    the CPU every shard shares the caller's device.  With
+    ``one_axis=False`` (``compile_fmin``'s trial x cand mesh) a virtual
+    mesh of several axes gives its named axis's width."""
     assert in_process_shards(virtual_mesh(3, STUDY_AXIS), STUDY_AXIS, "x") == 3
     assert in_process_shards(RankMesh((1,), (TRIAL_AXIS,), (0,)), TRIAL_AXIS, "x") == 1
     with pytest.raises(NotImplementedError, match="item 15c"):
@@ -402,6 +404,14 @@ def test_the_mesh_helpers():
     with pytest.raises(NotImplementedError, match="item 15c"):
         in_process_shards(RankMesh((2, 2), ("trial", "cand"), range(4), virtual=True),
                           TRIAL_AXIS, "x")
+    with pytest.raises(NotImplementedError, match="item 15c"):
+        in_process_shards(RankMesh((2, 2), ("trial", "cand"), range(4)), TRIAL_AXIS, "x",
+                          one_axis=False)
+    two_d = virtual_mesh((2, 4), ("trial", "cand"))
+    assert two_d.shape == RankMesh((2, 4), ("trial", "cand"), range(8), virtual=True).shape
+    assert two_d.virtual and two_d.ranks == tuple(range(8))
+    assert in_process_shards(two_d, TRIAL_AXIS, "x", one_axis=False) == 2
+    assert in_process_shards(two_d, "cand", "x", one_axis=False) == 4
     with pytest.raises(ValueError, match="no 'study' axis"):
         in_process_shards(virtual_mesh(2, TRIAL_AXIS), STUDY_AXIS, "x")
     assert shard_devices(4, "cpu") == [torch.device("cpu")] * 4

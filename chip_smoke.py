@@ -101,7 +101,7 @@ network.  Every phase asserts, and a failure exits non-zero:
    of all (after it the card's traces came back empty): 9a's model
    brackets under ``torch.profiler``;
 10. (after phase 7) durable fmin on the card, ``mixed_space()`` at
-   ``tpe.suggest``'s defaults, 200 trials: (a) ``fmin(engine=True)`` at
+   ``tpe.suggest``'s defaults, 120 trials: (a) ``fmin(engine=True)`` at
    ``ask_ahead`` 1 and 4 bitwise the solo fused stream from the same
    rstate, one ``gmm_llr`` launch per ask, ms per trial in pairs with the
    solo fused driver; (b) the same run on a ``SuggestService`` over a
@@ -200,13 +200,14 @@ network.  Every phase asserts, and a failure exits non-zero:
    (``models.transformer``, ``models.resnet``) at their full widths: (a)
    ``bench.py``'s ``bench_pbt`` protocol on TinyLM (vocab 32, d_model 32,
    2 heads, 2 layers, sequences of 32, batches of 32; ``PBT_STUDY_CONFIG``:
-   pop 32, ``exploit_every`` 10, 20 rounds, lr in (1e-4, 1), wd in (1e-7,
-   1e-2)): a warm runner (seed 99), then ``runner(seed=0)`` timed:
+   pop 32, ``exploit_every`` 10, cut to 10 rounds of its 20, lr in (1e-4,
+   1), wd in (1e-7, 1e-2)): a warm runner (seed 99), then ``runner(seed=0)`` timed:
    member-steps/s, ms per round, the population's nanmedian loss, the
    captured rounds bitwise the eager rounds and the last round's median
    below the first's; (b) ``compile_sha`` on the same TinyLM (32 configs,
-   eta 2, 10 steps per rung, 5 rungs down to 2 survivors: a sixth rung of
-   320 steps is a graph of some 670,000 kernels to capture): ms per rung
+   eta 2, 10 steps per rung, 3 rungs down to 8 survivors: a fourth rung of
+   80 steps took half the capture, a sixth of 320 steps is a graph of
+   some 670,000 kernels): ms per rung
    replay (CUDA events),
    member-steps/s, captured bitwise eager, the best loss at most rung 0's
    best; (c) ``compile_fmin(transformer.device_objective(n_steps=4))`` at
@@ -242,7 +243,7 @@ network.  Every phase asserts, and a failure exits non-zero:
    library against the numpy oracle at every shape (a) gave it (1e-12
    for the fit, 1e-9 for the log-density); (d) the same ``fmin`` streams
    of ``tpe.suggest`` on the CPU beside the card's, every configuration
-   and seed:
+   at seeds 0 and 1:
    the first trial at which the two part (a categorical pick differs, or
    a continuous one beyond rtol 1e-4, atol 1e-5), whether it is a startup
    trial, and the pick margin there of each dimension that differs, from
@@ -319,6 +320,25 @@ network.  Every phase asserts, and a failure exits non-zero:
    ``asha_mlp_trial_{1,2,4}``, ``asha_elementwise_trial_{1,2,4}``,
    ``atpe_mesh_fmin``; numbers under the kernels line's
    ``compiled_mesh``).
+20. (after phase 19, before any profiler) populations across processes
+   and the models' ``mesh=``: (a) ``dcn_check.launch(world=2)``, stages
+   A-E on two ``gloo`` ranks sharing the card: C ``compile_fmin`` with
+   its ``trial`` axis over the ranks (64 evaluations at B=2, each rank
+   evaluating its column, one host gather of the losses per step between
+   the step's two graphs), D ``compile_sha`` and E ``compile_pbt`` over
+   the ranks (one gather of the losses and one of the states per rung and
+   per exploit): each stage run twice, bitwise its unsharded run in the
+   ranks and in this process, the gathers per stage, each stage's wall,
+   and each rank's ``gmm_llr`` launches in stage C (one per model step);
+   (b) TinyLM at ``bench_pbt``'s width (pop 32) and ResNet-20 at 14e's
+   (8 members, batch 128) through ``make_population_train_step(mesh=
+   virtual_mesh((2, 4), ("trial", "cand")))``, bitwise the step without
+   a mesh, ms per step in pairs; (c) ``compile_hyperband(mesh=
+   virtual_mesh(4, "trial"))`` (s_max 3, eta 2, 5 steps per rung) on
+   9b's population MLP, bitwise the spread without a mesh; (d) the
+   kernel at stage C's launch shape B=2, Dg=2, S=24 (``launches_by_path``
+   and ``checked_shapes`` key ``dcn_loop_2``; numbers under the kernels
+   line's ``population_mesh``).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
@@ -327,7 +347,7 @@ loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 ``fleet``, phase 13's under ``farm``, phase 14's under ``population``,
 phase 15's under ``baseline``, phase 16's under ``checks``, phase 17's
 under ``sharded``, phase 18's under ``study_mesh``, phase 19's under
-``compiled_mesh``,
+``compiled_mesh``, phase 20's under ``population_mesh``,
 each new path's launch shapes with their errors under
 ``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -1870,7 +1890,7 @@ def phase9(sfu_per_s):
     sha_s = time.perf_counter() - t0
     # each rung's replay alone, by CUDA events
     rung_ms = []
-    for r, graph in enumerate(sha._graphs):
+    for r, (graph,) in enumerate(sha._graphs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
@@ -1996,7 +2016,11 @@ def phase9d(asha, out):
 LM = dict(vocab=32, d_model=32, n_heads=2, n_layers=2, max_len=32)
 LM_DATA = dict(batch_size=32, seq_len=32, vocab=32)
 LM_BOUNDS = {"lr": (1e-4, 1.0), "wd": (1e-7, 1e-2)}
-LM_SHA = dict(n_configs=32, eta=2, steps_per_rung=10, n_rungs=5)
+# 14a runs bench_pbt's population and window for 10 rounds of its 20, 14b
+# three rungs (widths 32-8) of five, and 15d the CPU streams of seeds 0
+# and 1: room for phase 20 in the script's time
+LM_PBT_ROUNDS = 10
+LM_SHA = dict(n_configs=32, eta=2, steps_per_rung=10, n_rungs=3)
 LM_FMIN = dict(n_steps=4, max_evals=256, batch_size=16)
 LM_ASHA = dict(max_budget=27, eta=3, max_jobs=40, workers=4)
 RESNET_POP, RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 8, 128, 32, 10
@@ -2042,7 +2066,7 @@ def phase14():
     torch.cuda.reset_peak_memory_stats()
     train_fn = TT.make_pbt_train_fn(model, **LM_DATA)
     pbt = compile_pbt(train_fn, lm_state(PBT_POP, 0), LM_BOUNDS, pop_size=PBT_POP,
-                      exploit_every=PBT_EXPLOIT_EVERY, n_rounds=PBT_ROUNDS)
+                      exploit_every=PBT_EXPLOIT_EVERY, n_rounds=LM_PBT_ROUNDS)
     t0 = time.perf_counter()
     pbt(seed=99)  # warm-up and capture
     torch.cuda.synchronize()
@@ -2059,16 +2083,16 @@ def phase14():
                  and same_state(p_eager["state"][0], p_out["state"][0]))
     hist = p_out["loss_history"]
     med_first, med_last = float(np.nanmedian(hist[0])), float(np.nanmedian(hist[-1]))
-    member_steps = PBT_POP * PBT_EXPLOIT_EVERY * PBT_ROUNDS
+    member_steps = PBT_POP * PBT_EXPLOIT_EVERY * LM_PBT_ROUNDS
     pop.update(pbt_seconds=pbt_s, pbt_member_steps_per_s=member_steps / pbt_s,
-               pbt_ms_per_round=pbt_s / PBT_ROUNDS * 1e3, pbt_median_loss=med_last,
+               pbt_ms_per_round=pbt_s / LM_PBT_ROUNDS * 1e3, pbt_median_loss=med_last,
                pbt_first_round_median_loss=med_first, pbt_best_loss=p_out["best_loss"],
                pbt_warm_seconds=warm_s, pbt_eager_seconds=eager_s, pbt_peak_gb=peak_gb())
     log(f"[14a] bench_pbt on TinyLM {LM}, batch {LM_DATA['batch_size']} x "
         f"{LM_DATA['seq_len']}, pop {PBT_POP}, exploit_every {PBT_EXPLOIT_EVERY}, "
-        f"{PBT_ROUNDS} rounds, bounds {LM_BOUNDS}: warm-up and capture {warm_s:.3f} s; timed "
+        f"{LM_PBT_ROUNDS} rounds, bounds {LM_BOUNDS}: warm-up and capture {warm_s:.3f} s; timed "
         f"runner(seed=0) {pbt_s:.4f} s, {member_steps / pbt_s:.1f} member-steps/s, "
-        f"{pbt_s / PBT_ROUNDS * 1e3:.4f} ms per round (one replay each); population median "
+        f"{pbt_s / LM_PBT_ROUNDS * 1e3:.4f} ms per round (one replay each); population median "
         f"loss (nanmedian) of the last round {med_last:.6f}, of the first {med_first:.6f}; "
         f"best {p_out['best_loss']:.6f}; the eager twin {eager_s:.3f} s, captured bitwise "
         f"eager: {pbt_equal}; peak memory "
@@ -2088,7 +2112,7 @@ def phase14():
     s_out = sha(seed=1)
     sha_s = time.perf_counter() - t0
     rung_ms = []
-    for graph in sha._graphs:
+    for (graph,) in sha._graphs:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
@@ -2274,6 +2298,7 @@ def phase14():
 BASELINE_SEEDS = (0, 1, 2, 3, 4)
 BASELINE_THRESHOLDS = ("quadratic1", "branin", "hartmann6")
 BASELINE_TRIALS = 100  # the surrogate's and NAS-Bench-201's evaluations
+CPU_STREAM_SEEDS = (0, 1)  # 15d: the seeds of (a) whose streams rerun on the CPU
 NORTH_STAR_ASKS = 15  # bench.py's bench_host_tpe: one warm-up ask, then 15 timed
 NATIVE_RTOL = {"adaptive_parzen": 1e-12, "gmm_lpdf": 1e-9}  # tests/test_native.py:38, :83
 
@@ -2515,7 +2540,7 @@ def departure(ps, card_docs, cpu_docs):
 
 def phase15d(card, card_trials):
     """(d): each configuration's ``fmin`` stream of ``tpe.suggest`` on the
-    CPU at every seed of (a), beside the card's:
+    CPU at the seeds :data:`CPU_STREAM_SEEDS` of (a), beside the card's:
     the first departure, and there, on the CPU's history, the pick margin
     of each dimension that differs (:func:`sweep_margins` at TPE's
     defaults and the ask's own seed).  A departure at a startup trial,
@@ -2531,7 +2556,7 @@ def phase15d(card, card_trials):
 
     t_phase, out, faults = time.perf_counter(), {}, []
     for name, fn, space, n, _target, _gmin in baseline_domains():
-        for seed in BASELINE_SEEDS:
+        for seed in CPU_STREAM_SEEDS:
             seeds = []
 
             def algo(new_ids, domain, trials, s):
@@ -2579,17 +2604,18 @@ def phase15d(card, card_trials):
 
 
 # cut from 300 when the whole script took 1095 s on an H100 (phase 10: 290
-# s of it) against its 1200 s limit; every kill point below still fires
-# before the 200th trial
-PHASE10_TRIALS = 200
+# s of it) against its 1200 s limit, and from 200 when it took 1030-1035 s
+# (phase 10: 170-172 s); every kill point below fires at the 100th trial,
+# so each resumed run still has trials to ask
+PHASE10_TRIALS = 120
 # the hit of each crash point to kill at, past startup: per tell or round
 # for the serve points, per append (an ask and a tell per trial) or per
 # bundle (every 25 tells; the trials pickle and the bundle each fire the
-# tmp point) for the driver's
-SERVE_KILL_AT = 150
-DRIVER_KILL_AT = {"before_wal_append": 300, "after_wal_append_before_tell": 300,
-                  "after_tell_before_ask_ahead": 150, "after_ckpt_tmp_before_rename": 9,
-                  "after_ckpt_publish_before_wal_reset": 5}
+# tmp point) for the driver's: the 100th trial, or its bundle
+SERVE_KILL_AT = 100
+DRIVER_KILL_AT = {"before_wal_append": 200, "after_wal_append_before_tell": 200,
+                  "after_tell_before_ask_ahead": 100, "after_ckpt_tmp_before_rename": 7,
+                  "after_ckpt_publish_before_wal_reset": 4}
 PHASE10_CONTAINMENT_TRIALS = 100
 
 
@@ -4331,7 +4357,7 @@ def phase16(card):
 
 SHARDED_TRIALS = 100  # 17a's fmin: 20 startup trials, then 80 sharded asks
 P17_DEVICE = "cuda"  # where phase 17's ranks compute
-DCN_RESULT = re.compile(r"launches_by_rank=\[([0-9, ]*)\]")
+DCN_RESULT = re.compile(r"\blaunches_by_rank=\[([0-9, ]*)\]")
 
 
 def phase17(card):
@@ -4425,7 +4451,8 @@ def phase17(card):
     assert t is None or (t >= n_startup and worst < NEAR_TIE), (t, labels, margins)
     # -- 17b. two ranks spawned on the one card, gloo through the host -----
     t0 = time.perf_counter()
-    report = dcn_check.launch(world=2, timeout=300, device=P17_DEVICE, batch=256)
+    report = dcn_check.launch(world=2, timeout=300, device=P17_DEVICE, batch=256,
+                              stages="AB")
     dcn_s = time.perf_counter() - t0
     result = next(ln for ln in report.splitlines() if ln.startswith("DCN RESULT"))
     by_rank = [int(x) for x in DCN_RESULT.search(result).group(1).split(",")]
@@ -5106,6 +5133,188 @@ def phase19(card):
     return launches, out
 
 
+P20_DEVICE = "cuda"  # where phase 20's ranks and models compute
+MESH_MODEL_STEPS = 6  # 20b: timed steps of each model, in pairs with its mesh=None twin
+HB_MESH = dict(s_max=3, eta=2, steps_per_rung=5)  # 20c: brackets of 8, 4, 2 and 1 configs
+DCN_LOOP = re.compile(r"loop_launches_by_rank=\[([0-9, ]*)\]")
+
+
+def p20_sync():
+    import torch
+
+    if P20_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def mesh_pairs(steps, args, n):
+    """``n`` steps of each of ``steps`` (name -> ``step(params, momentum,
+    lr, wd, *data)``) from the same start, in turn, each timed by CUDA
+    events (the host clock on the CPU): the ms per step of each, and
+    whether every step's params, momenta and losses are equal bit for bit."""
+    import torch
+
+    params, momentum, lr, wd, data = args
+    state = {k: (params, momentum) for k in steps}
+    ms = {k: [] for k in steps}
+    bitwise = True
+    for _ in range(n):
+        outs = {}
+        for k, step in steps.items():
+            p20_sync()
+            t0 = time.perf_counter()
+            if P20_DEVICE != "cpu":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+            p, m, loss = step(*state[k], lr, wd, *data)
+            if P20_DEVICE != "cpu":
+                end.record()
+                end.synchronize()
+                ms[k].append(start.elapsed_time(end))
+            else:
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+            state[k] = (p, m)
+            outs[k] = (p, m, loss)
+        (p0, m0, l0), (p1, m1, l1) = outs.values()
+        bitwise = bitwise and torch.equal(l0, l1) and all(
+            torch.equal(p0[n_], p1[n_]) and torch.equal(m0[n_], m1[n_]) for n_ in p0)
+    return {k: statistics.median(v) for k, v in ms.items()}, bitwise
+
+
+def phase20(card):
+    """Populations across processes and the models' ``mesh=``, on the one
+    card: (a) ``dcn_check.launch(world=2)`` with stages A-E, two ``gloo``
+    ranks sharing the card (each rank's captured graphs, the host gathers
+    between them): stage C's ``compile_fmin`` over the ``trial`` axis
+    (64 evaluations at B=2), D's ``compile_sha`` and E's ``compile_pbt``
+    over the ranks, each bitwise its unsharded run (in the ranks, and
+    here against the same runs in this process), the gathers per stage,
+    each stage's wall and each rank's ``gmm_llr`` launches in stage C;
+    (b) TinyLM at ``bench_pbt``'s width (pop 32) and ResNet-20 at 14e's
+    (8 members, batch 128) through ``make_population_train_step(mesh=
+    virtual_mesh((2, 4), ("trial", "cand")))``, bitwise the step without
+    a mesh, ms per step in pairs; (c) ``compile_hyperband(mesh=
+    virtual_mesh(4, "trial"))`` on 9b's population MLP, bitwise the
+    spread without a mesh; (d) the kernel against its plain version at
+    stage C's launch shape.  Returns the launches by path and the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch import hyperband as HB
+    from hyperopt_tpu_torch import random as R
+    from hyperopt_tpu_torch.models import resnet as TR
+    from hyperopt_tpu_torch.models import transformer as TT
+    from hyperopt_tpu_torch.models.synthetic import _mlp_pieces
+    from hyperopt_tpu_torch.parallel import dcn_check
+    from hyperopt_tpu_torch.parallel.mesh import TRIAL_AXIS, virtual_mesh
+
+    t_phase = time.perf_counter()
+    launches, shapes, out = {}, {}, {}
+    assert not torch.distributed.is_initialized()
+    # -- 20a. stages A-E on two gloo ranks sharing the card -----------------
+    t0 = time.perf_counter()
+    report = dcn_check.launch(world=2, timeout=400, device=P20_DEVICE)
+    dcn_s = time.perf_counter() - t0
+    result = next(ln for ln in report.splitlines() if ln.startswith("DCN RESULT"))
+    loop_by_rank = [int(x) for x in DCN_LOOP.search(result).group(1).split(",")]
+    ab_by_rank = [int(x) for x in DCN_RESULT.search(result).group(1).split(",")]
+    launches["dcn_loop_2"] = sum(loop_by_rank)
+    spawned = dcn_check.parse_values(report)
+    # the twin: stages C-E unsharded in this process on the card; stage C's
+    # launch shapes are the ranks' (each rank runs the same suggestion)
+    with launch_shapes() as seen:
+        plain = dcn_check.unsharded_population(P20_DEVICE, 2)
+    shapes["dcn_loop_2"] = seen
+    pop_bitwise = all(spawned[st] == plain[st] for st in "CDE")
+    n_model = (dcn_check.LOOP_EVALS - 20) // 2  # model steps of a run: 20 startup trials
+    out["ranks"] = dict(seconds=dcn_s, result=result, loop_launches_by_rank=loop_by_rank,
+                        ab_launches_by_rank=ab_by_rank, bitwise_unsharded_here=pop_bitwise)
+    log(f"[20a] {card}: two gloo ranks on the one card, stages A-E ({dcn_s:.2f} s with the "
+        f"ranks' start): {result}; stages C-E bitwise their unsharded runs in this process "
+        f"on the card: {pop_bitwise}")
+    for field in ("gathers_per_step=[1, 1, 1]", "loop_matches_unsharded=True",
+                  "sha_matches_unsharded=True", "pbt_matches_unsharded=True",
+                  "boundaries={'C': 32, 'D': 2, 'E': 4}",
+                  "gathers_by_stage={'C': 32, 'D': 4, 'E': 8}", "ranks_agree=True"):
+        assert field in result, (field, result)
+    # stage C: one launch per model step in each of its two runs, per rank
+    assert loop_by_rank == [2 * n_model] * 2, loop_by_rank
+    assert ab_by_rank == [3, 3], ab_by_rank
+    assert pop_bitwise, "the ranks' stages C-E differ from the unsharded runs here"
+
+    # -- 20b. the models' mesh=: placement, the unsharded step -------------
+    dev = torch.device(P20_DEVICE)
+    mesh = virtual_mesh((2, 4), (TRIAL_AXIS, "cand"))
+    model = TT.TinyLM(**LM)
+    params = TT.init_population(model, PBT_POP, R.key(0, device=dev), seq_len=LM["max_len"],
+                                device=dev)
+    tokens = TT.synthetic_token_batch(R.key(1, device=dev), LM_DATA["batch_size"],
+                                      LM_DATA["seq_len"], LM_DATA["vocab"], n_deltas=8)
+    lr = torch.exp(torch.linspace(np.log(0.3), np.log(0.003), PBT_POP, device=dev))
+    wd = torch.full((PBT_POP,), 1e-5, device=dev)
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    lm_ms, lm_bitwise = mesh_pairs(
+        {"plain": TT.make_population_train_step(model, device=dev),
+         "mesh": TT.make_population_train_step(model, mesh=mesh, device=dev)},
+        (params, zeros, lr, wd, (tokens,)), MESH_MODEL_STEPS)
+    net = TR.resnet20()
+    rparams = TR.init_population(net, RESNET_POP, R.key(0, device=dev), device=dev)
+    images, labels = TR.synthetic_cifar_batch(R.key(1, device=dev), RESNET_BATCH, RESNET_IMAGE)
+    rlr = torch.exp(torch.linspace(np.log(0.3), np.log(0.003), RESNET_POP, device=dev))
+    rwd = torch.full((RESNET_POP,), 1e-4, device=dev)
+    rzeros = {k: torch.zeros_like(v) for k, v in rparams.items()}
+    rn_ms, rn_bitwise = mesh_pairs(
+        {"plain": TR.make_population_train_step(net, device=dev),
+         "mesh": TR.make_population_train_step(net, mesh=mesh, device=dev)},
+        (rparams, rzeros, rlr, rwd, (images, labels)), MESH_MODEL_STEPS)
+    out["models"] = dict(tinylm_ms=lm_ms, tinylm_bitwise=lm_bitwise, resnet_ms=rn_ms,
+                         resnet_bitwise=rn_bitwise, steps=MESH_MODEL_STEPS)
+    log(f"[20b] {card}: make_population_train_step(mesh={mesh!r}) against mesh=None, "
+        f"{MESH_MODEL_STEPS} steps each in pairs: TinyLM {LM} pop {PBT_POP}, batch "
+        f"{LM_DATA['batch_size']} x {LM_DATA['seq_len']}: median ms per step {lm_ms}, bitwise "
+        f"{lm_bitwise}; ResNet-20 x {RESNET_POP} at batch {RESNET_BATCH} of {RESNET_IMAGE}x"
+        f"{RESNET_IMAGE}: {rn_ms}, bitwise {rn_bitwise}")
+    assert lm_bitwise and rn_bitwise, "a model's step on a mesh is not its step without one"
+    del params, zeros, rparams, rzeros
+
+    # -- 20c. compile_hyperband(mesh=) on 9b's population MLP -------------
+    init, _, _ = _mlp_pieces(256, 8, 32, 0)
+    train_fn, _, bounds = population_mlp(2)
+
+    def mlp_population(key, n):
+        return torch.func.vmap(lambda k: init(k, 0.3))(R.split(key, n))
+
+    spreads = {}
+    for name, kw in (("plain", {}), ("mesh", dict(mesh=virtual_mesh(4, TRIAL_AXIS),
+                                                  trial_axis=TRIAL_AXIS))):
+        runner = HB.compile_hyperband(train_fn, mlp_population, bounds, device=dev, **HB_MESH,
+                                      **kw)
+        runner(seed=0)  # warm-up and capture of every bracket's rungs
+        p20_sync()
+        t0 = time.perf_counter()
+        spreads[name] = (runner(seed=1), time.perf_counter() - t0,
+                         [[m.size for m in run._rung_meshes] if kw else None
+                          for _, run in runner._brackets])
+    hb_bitwise = spreads["mesh"][0] == spreads["plain"][0]
+    out["hyperband"] = dict(config=HB_MESH, seconds={k: v[1] for k, v in spreads.items()},
+                            bitwise=hb_bitwise, rung_shards=spreads["mesh"][2],
+                            best_loss=spreads["plain"][0]["best_loss"])
+    log(f"[20c] {card}: compile_hyperband({HB_MESH}) on 9b's population MLP, "
+        f"mesh=virtual_mesh(4, 'trial') against none: rung sub-meshes by bracket "
+        f"{spreads['mesh'][2]}, timed run {spreads['plain'][1]:.3f} s plain and "
+        f"{spreads['mesh'][1]:.3f} s on the mesh, best {spreads['plain'][0]['best_loss']:.6f} "
+        f"(bracket {spreads['plain'][0]['best_bracket']}), bitwise {hb_bitwise}")
+    assert hb_bitwise, "compile_hyperband on a mesh is not the spread without one"
+
+    # -- 20d. the kernel at stage C's launch shape --------------------------
+    for path, seen in shapes.items():
+        CHECKED_SHAPES[path] = check_shapes(f"20 {path}, {card}", seen, seed=201)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[20] {card}: phase 20 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -5191,6 +5400,11 @@ def main():
     mesh_loop_launches, compiled_mesh = phase19(card)
     compiled_launches_by_path.update(mesh_loop_launches)
     lap("19")
+    # -- 20. populations across processes and the models' mesh, before any
+    # profiler too ----------------------------------------------------------
+    population_mesh_launches, population_mesh = phase20(card)
+    compiled_launches_by_path.update(population_mesh_launches)
+    lap("20")
     # then the kernel's timings at both shapes and the profiled window of
     # the compiled loop (the ASHA brackets' window runs last of all)
     profile_8f()
@@ -5453,6 +5667,7 @@ def main():
         "sharded": sharded_out,
         "study_mesh": study_mesh_out,
         "compiled_mesh": compiled_mesh,
+        "population_mesh": population_mesh,
         "checked_shapes": CHECKED_SHAPES,
         "phase_seconds": phase_seconds,
     }]}

@@ -40,9 +40,14 @@ device and inside the one captured graph: ``cand_axis`` splits the EI
 candidate sweep over its ranks
 (:func:`~hyperopt_tpu_torch.parallel.sharded.build_sharded_suggest_fn`,
 each rank's sweep in turn, then the argmax over ranks).  ``trial_axis``
-is a placement axis: it is checked as the reference checks it, and
-inside one process, where every block would share the one device and
-the one graph, the batch runs as the unsharded body.
+is a placement axis inside one process: it is checked as the reference
+checks it, and, where every block would share the one device and the
+one graph, the batch runs as the unsharded body.  Over real ranks, one
+process each, rank ``r`` evaluates block ``r`` of the batch: every rank
+runs the same suggestion (the same key and history give the same
+batch), evaluates its ``B / n`` columns (the first graph), the host
+gathers the ``[B]`` losses in one ``all_gather``, and every rank writes
+the same history (the second graph).
 
 With ``asha=`` one step is one ASHA bracket: B fresh configs, then the
 unrolled ladder of :func:`~hyperopt_tpu_torch.hyperband.rung_schedule`
@@ -208,7 +213,11 @@ class _Program:
     over a leading seed axis.  ``launches_per_replay`` counts the
     ``gmm_llr`` launches captured in each regime's graph (the kernel's
     wrapper counts at capture, not at replay); ``replays`` counts the
-    replays of the current run, per regime."""
+    replays of the current run, per regime.  Over real ranks (the
+    ``trial`` axis across processes) a step is two graphs, the regime's
+    :meth:`ask` and the one :meth:`tell`, with the host gather between
+    them: ``replays`` counts steps, each two graph replays and one
+    ``all_gather``."""
 
     def __init__(self, loop, n_seeds):
         self.loop = loop
@@ -229,30 +238,40 @@ class _Program:
             self.best = torch.full(lead, math.inf, dtype=torch.float32, device=dev)
             self.stale = torch.zeros(lead, dtype=torch.int64, device=dev)
             self.n_done = torch.zeros(lead, dtype=torch.int64, device=dev)
+        if lp.ranks is not None:
+            # the step's suggestions, this rank's block losses and the
+            # gathered losses, between the two graphs of a rank's step
+            self.pend_v = torch.zeros(lead + (lp.D, lp.B), dtype=torch.float32, device=dev)
+            self.pend_a = torch.zeros(lead + (lp.D, lp.B), dtype=torch.bool, device=dev)
+            self.blk_l = torch.zeros(lead + (lp.block[1],), dtype=torch.float32, device=dev)
+            self.full_l = torch.zeros(lead + (lp.B,), dtype=torch.float32, device=dev)
         self.rung_of = self.win = None
         if lp.asha is not None:
             # the highest rung each slot reached; -1: warm or untouched
             self.rung_of = torch.full((lp.cap,), -1, dtype=torch.int32, device=dev)
             if lp.asha.collect:
                 self.win = lp.asha.winner_buffers(dev)
-        self.graphs = {}
+        self.graphs, self.tell_graph = {}, None
         self.launches_per_replay = {}
         self.replays = {r: 0 for r in lp.regimes}
         if dev.type == "cuda":
             for regime in lp.regimes:
                 self._capture(regime)
+            if lp.ranks is not None:
+                self.tell_graph = capture_graph(self.tell, self.values.device)
 
     def state(self):
         return HistoryState(self.values, self.active, self.losses, self.valid)
 
-    def _evaluate(self, key, values, active):
-        """Losses ``[..., B]`` of one step's suggestions; a seed axis is
-        evaluated seed by seed, so each seed's objective runs the same
-        operations at the same shapes as its solo run."""
+    def _evaluate(self, key, values, active, lo=0):
+        """Losses ``[..., b]`` of one step's suggestions (``values [..., D,
+        b]``, the batch's columns from ``lo`` on); a seed axis is evaluated
+        seed by seed, so each seed's objective runs the same operations at
+        the same shapes as its solo run."""
         lp = self.loop
         if not self.lead:
-            return lp.evaluate(key, values, active)
-        return torch.stack([lp.evaluate(key[s], values[s], active[s])
+            return lp.evaluate(key, values, active, lo)
+        return torch.stack([lp.evaluate(key[s], values[s], active[s], lo)
                             for s in range(self.lead[0])])
 
     def _suggest(self, regime, key):
@@ -264,13 +283,47 @@ class _Program:
     def step(self, regime):
         """One step, eagerly: fold the key, draw ``B`` suggestions, evaluate
         them, write them into the carry, advance the counter (with
-        ``asha=``: one bracket, :meth:`bracket`)."""
+        ``asha=``: one bracket, :meth:`bracket`; over real ranks
+        :meth:`ask`, :meth:`gather` and :meth:`tell`)."""
         lp = self.loop
         if lp.asha is not None:
             return self.bracket(regime)
+        if lp.ranks is not None:
+            self.ask(regime)
+            self.gather()
+            return self.tell()
         key = R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
         new_v, new_a = self._suggest(regime, key)
-        new_l = self._evaluate(key, new_v, new_a)
+        self._write(new_v, new_a, self._evaluate(key, new_v, new_a))
+
+    def ask(self, regime):
+        """Over real ranks, a step's first graph: every rank draws the same
+        ``B`` suggestions and evaluates its own block of them."""
+        key = R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
+        new_v, new_a = self._suggest(regime, key)
+        lo, b = self.loop.block
+        self.pend_v.copy_(new_v)
+        self.pend_a.copy_(new_a)
+        self.blk_l.copy_(self._evaluate(key, new_v[..., lo:lo + b], new_a[..., lo:lo + b], lo))
+
+    def gather(self):
+        """Over real ranks, on the host: every rank's block losses, one
+        all_gather, joined in rank order along the batch."""
+        from .parallel.multihost import fetch_global
+
+        joined = fetch_global(self.blk_l.movedim(-1, 0), sharded=True, group=self.loop.ranks[2])
+        self.full_l.copy_(torch.from_numpy(joined).movedim(0, -1))
+
+    def tell(self):
+        """Over real ranks, a step's second graph: every rank writes the
+        same suggestions and gathered losses into its carry."""
+        self._write(self.pend_v, self.pend_a, self.full_l)
+
+    def _write(self, new_v, new_a, new_l):
+        """Write one step's suggestions and losses at ``c0 + i*B +
+        arange(B)`` (a stopped experiment writes nothing) and advance the
+        counter."""
+        lp = self.loop
         idx = self.c0 + self.i * lp.B + self.slots
         if lp.early:
             go = ~self.stop
@@ -341,24 +394,32 @@ class _Program:
         """Warm the step up once on a side stream (the kernel's build, the
         launch-config cache, the cached constants), then capture it; the
         kernel's launches of the captured call are the replay's.  The
-        warm-up writes the zero carry; :meth:`reset` refills it."""
+        warm-up writes the zero carry; :meth:`reset` refills it.  Over
+        real ranks the captured step is :meth:`ask` (the host gather and
+        the ``tell`` graph follow it at every replay)."""
         launches = []
+        body = self.step if self.loop.ranks is None else self.ask
 
         def counted_step():
             before = G.KERNEL.launches
-            self.step(regime)
+            body(regime)
             launches.append(G.KERNEL.launches - before)
 
         self.graphs[regime] = capture_graph(counted_step, self.values.device)
         self.launches_per_replay[regime] = launches[-1]
 
     def run(self, regime):
-        """One step: a graph replay on the card, the eager step on the CPU."""
+        """One step: a graph replay on the card (over real ranks two, with
+        the host gather between them), the eager step on the CPU."""
         graph = self.graphs.get(regime)
-        if graph is not None:
+        if graph is None:
+            self.step(regime)
+        elif self.loop.ranks is None:
             graph.replay()
         else:
-            self.step(regime)
+            graph.replay()
+            self.gather()
+            self.tell_graph.replay()
         self.replays[regime] += 1
 
     def reset(self, seeds, state, c0, best0, start_step=0, rung_of=None):
@@ -449,8 +510,12 @@ class _Loop:
     geometry, the model step and the objective."""
 
     def __init__(self, ps, D, B, cap, n_startup_jobs, algo, model, evaluate, early, thr,
-                 stale_cap, asha=None):
+                 stale_cap, asha=None, ranks=None):
         self.ps, self.D, self.B, self.cap = ps, D, B, cap
+        # over real ranks: (n, index, group) of the trial axis, and this
+        # rank's block of the batch, (first column, width)
+        self.ranks = ranks
+        self.block = None if ranks is None else (ranks[1] * (B // ranks[0]), B // ranks[0])
         self.n_startup_jobs = n_startup_jobs
         self.algo = algo
         self.model = model
@@ -548,9 +613,18 @@ def compile_fmin(
     every block would share the one device and the one captured graph,
     so the batch and the rungs run as the unsharded body and the stream
     is the unsharded one, bit for bit (blocks on cards of their own are
-    ROADMAP.md Queue A, item 15c).  A mesh over several processes is
-    refused (``NotImplementedError``): its collective cannot run inside
-    the captured step.
+    ROADMAP.md Queue A, item 15c, part 6).  On a 1-D ``trial`` mesh of
+    real ranks (:func:`~hyperopt_tpu_torch.parallel.mesh.default_mesh`
+    after :func:`~hyperopt_tpu_torch.parallel.multihost.initialize`) each
+    rank evaluates its ``B / n`` columns of every step's batch: a step is
+    two captured graphs (the suggestion and this rank's evaluation; the
+    history write) with one host ``all_gather`` of the losses between
+    them, since a ``gloo`` collective cannot sit inside a graph, and
+    every rank ends with the same history.  On an objective whose
+    per-trial math does not depend on its place in the batch the stream
+    is bitwise the unsharded one.  A ``cand`` axis or ``asha=`` over
+    processes is refused (``NotImplementedError``): their gathers would
+    sit inside the sweep or the bracket.
 
     The result dict has ``best`` (``{label: value}``, the index form
     ``fmin`` returns), ``best_loss``, ``best_index``, ``losses [N]``,
@@ -636,17 +710,31 @@ def compile_fmin(
 
     ps = compile_space(space, device=device)
     D = ps.n_dims
-    n_ranks = None
+    n_ranks = trial_ranks = None
     if mesh is not None:
-        from .parallel.mesh import in_process_shards
+        from .parallel.mesh import in_process_shards, over_processes, process_block
 
-        # every shard inside this process, on ps.device: a collective
-        # between processes cannot run inside the captured step
         what = "compile_fmin(mesh=...)"
-        if shard_trials:
-            in_process_shards(mesh, trial_axis, what, ps.device, one_axis=False)
-        if cand_axis is not None:
-            n_ranks = in_process_shards(mesh, cand_axis, what, ps.device, one_axis=False)
+        if over_processes(mesh):
+            # over real ranks a step's blocks meet in a host gather between
+            # two graphs; a gather inside the sweep or the bracket cannot
+            if cand_axis is not None:
+                raise NotImplementedError(
+                    f"{what}: the {cand_axis!r} axis over {mesh.size} processes would gather "
+                    "inside the candidate sweep, which a captured step cannot hold over gloo "
+                    "(ROADMAP.md Queue A, item 15c, part 6)")
+            if asha is not None:
+                raise NotImplementedError(
+                    f"{what}: asha= over {mesh.size} processes would gather inside the "
+                    "bracket, which a captured step cannot hold over gloo (ROADMAP.md Queue "
+                    "A, item 15c, part 6)")
+            trial_ranks = process_block(mesh, trial_axis, what)
+        else:
+            # every shard inside this process, on ps.device
+            if shard_trials:
+                in_process_shards(mesh, trial_axis, what, ps.device, one_axis=False)
+            if cand_axis is not None:
+                n_ranks = in_process_shards(mesh, cand_axis, what, ps.device, one_axis=False)
     n_steps = -(-int(max_evals) // B)
     W = int(warm_capacity)
     cap = _round_up(W + n_steps * B, 128)
@@ -687,23 +775,25 @@ def compile_fmin(
     init_accepts_active = trainable and "active" in inspect.signature(fn.init_fn).parameters
     labels = ps.labels
 
-    def eval_plain(key, values, active):
-        """values/active [D, B] -> losses [B] through the user's objective."""
+    def eval_plain(key, values, active, lo=0):
+        """values/active [D, b] (the batch's columns from ``lo`` on) ->
+        losses [b] through the user's objective."""
         cfg = {label: values[d] for d, label in enumerate(labels)}
         if accepts_active:
             out = fn(cfg, active={label: active[d] for d, label in enumerate(labels)})
         else:
             out = fn(cfg)
-        return torch.broadcast_to(torch.as_tensor(out).to(torch.float32), (B,))
+        return torch.broadcast_to(torch.as_tensor(out).to(torch.float32), values.shape[-1:])
 
     def _trial_cfg(vcol, acol):
         # inactive-branch dims pinned to 0.0, as the host driver omits them
         return {label: torch.where(acol[d], vcol[d], 0.0) for d, label in enumerate(labels)}
 
-    def eval_trainable(key, values, active):
+    def eval_trainable(key, values, active, lo=0):
         """Per-trial init, ``n_epochs`` training epochs and loss, mapped
-        over the trial batch with ``torch.func.vmap``."""
-        ekeys = R.split(R.fold_in(key, _TRAIN_TAG), B)
+        over the trial batch (its columns from ``lo`` on) with
+        ``torch.func.vmap``."""
+        ekeys = R.split(R.fold_in(key, _TRAIN_TAG), B)[lo:lo + values.shape[-1]]
 
         def one(vcol, acol, k):
             cfg = _trial_cfg(vcol, acol)
@@ -780,7 +870,7 @@ def compile_fmin(
         eval_trainable if trainable else eval_plain, early,
         -math.inf if loss_threshold is None else float(loss_threshold),
         n_steps + 1 if no_progress_steps is None else int(no_progress_steps),
-        asha=a_spec,
+        asha=a_spec, ranks=trial_ranks,
     )
     programs = {}
 

@@ -21,7 +21,8 @@ the survivors.
   narrower static tensors.  Each rung is one captured
   ``torch.cuda.CUDAGraph``; the chain of replays runs back to back and
   the host reads the bookkeeping once at the end (once per rung when
-  checkpointing).
+  checkpointing).  Over real ranks a rung is two graphs with a host
+  gather between them (:func:`compile_sha`).
 
 :func:`rung_schedule` and :func:`rung_rank` are the geometry and the
 promotion rule shared with the compiled loop's fused ASHA brackets
@@ -43,9 +44,8 @@ from . import random as R
 from .distributed.faults import REAL_FS
 from .pyll.base import Literal, dfs
 from .utils import capture_graph, host_copy, resolve_device, tree_leaves, tree_map
-from .utils.population import (copy_into, hypers_dict, log_bounds, log_uniform_start,
-                               refuse_sharding, to_device)
-from .pbt import _gather, _resolve_shard_mode, _scatter, _train_blocks
+from .utils.population import copy_into, hypers_dict, log_bounds, log_uniform_start, to_device
+from .pbt import _gather, _gather_ranks, _play, _resolve_shard_mode, _scatter, _train_blocks
 
 logger = logging.getLogger(__name__)
 
@@ -517,16 +517,29 @@ def compile_sha(
     once per run.
 
     ``mesh`` (a 1-D mesh along ``trial_axis`` inside this process) with
-    ``shard_mode`` ``"shard_map"`` or ``"constraint"`` (the default with a
-    mesh; the same program here) shards every rung over the gcd-sized
+    ``shard_mode="shard_map"`` shards every rung over the gcd-sized
     sub-mesh of :func:`~hyperopt_tpu_torch.parallel.mesh.rung_submesh`:
     the rung's member blocks train on their own, the rung's losses are
     gathered once for the ranking, and the survivors are gathered into
     the next rung's blocks (a rung on one shard is the unsharded rung:
     one block, the rung's population itself).  The ladder is bitwise the unsharded one for
     a ``train_fn`` whose per-member math does not depend on the member's
-    place in the batch.  ``runner._rung_meshes`` holds each rung's
-    sub-mesh.
+    place in the batch.  ``"constraint"`` (the default with a mesh, as in
+    the reference, where GSPMD computes the unsharded math) checks the
+    mesh and runs the unsharded rungs, bit for bit the ladder without a
+    mesh.  ``runner._rung_meshes`` holds each rung's sub-mesh.
+
+    On a 1-D ``trial`` mesh of real ranks, one process each, rank ``i``
+    owns block ``i`` of every rung whose sub-mesh holds it (the others
+    wait out that rung).  A ``gloo`` gather cannot sit inside a captured
+    graph, so a rung is two graphs with the host between them: the
+    rank's block trains (one graph), the host gathers every rank's block
+    losses and block states (one
+    :func:`~hyperopt_tpu_torch.parallel.multihost.fetch_global` each: one
+    ``all_gather`` of the losses, one of the states), and the ranking
+    and the survivor gather run over the whole rung, replicated on every
+    rank (the second graph).  ``checkpoint=`` is single-process, as in
+    the reference, and is refused there.
 
     On the card every rung is built once and captured as one graph at the
     first run; a run replays the chain back to back and reads the
@@ -552,11 +565,15 @@ def compile_sha(
     ladder = rung_schedule(P0, eta, n_rungs, steps_per_rung)
     n_rungs = len(ladder)
     rung_meshes = [None] * n_rungs
+    ranks = None
     if mode is not None:
-        from .parallel.mesh import in_process_shards, rung_submesh
+        from .parallel.mesh import in_process_shards, over_processes, process_block, rung_submesh
 
         # rung r's members shard over the first gcd(members, n) shards
-        in_process_shards(mesh, trial_axis, "compile_sha", dev)
+        if over_processes(mesh):
+            ranks = process_block(mesh, trial_axis, "compile_sha")
+        else:
+            in_process_shards(mesh, trial_axis, "compile_sha", dev)
         rung_meshes = [rung_submesh(mesh, trial_axis, Rn * p)[0] for p, _, _ in ladder]
 
     def _validate_leading(state):
@@ -586,59 +603,115 @@ def compile_sha(
     bufs = {}
     graphs = []
 
+    def _owner_block(r):
+        """Over real ranks, rung ``r``'s block of this rank: (its first
+        member, its width, whether this rank trains it)."""
+        m, k = Rn * ladder[r][0], rung_meshes[r].size
+        return ranks[1] * (m // k), m // k, ranks[1] < k
+
     def _build(template):
         # one member's leaves, as shapes and dtypes only
         member = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"),
                           template)
         bufs["member"] = member
         bufs["st"], bufs["lh"], bufs["key"], bufs["losses"], bufs["order"] = [], [], [], [], []
-        bufs["blocks"] = []
-        for (p, _, _), sub in zip(ladder, rung_meshes):
+        bufs["blocks"], bufs["blk_loss"] = [], []
+
+        def zeros(m):
+            return tree_map(lambda spec: torch.zeros((m,) + spec.shape, dtype=spec.dtype,
+                                                     device=dev), member)
+
+        for r, ((p, _, _), sub) in enumerate(zip(ladder, rung_meshes)):
             m = Rn * p
-            k = 1 if sub is None else sub.size
-            st = tree_map(lambda spec: torch.zeros((m,) + spec.shape, dtype=spec.dtype,
-                                                   device=dev), member)
+            # in-process blocks under shard_map only: "constraint" places
+            k = sub.size if ranks is not None or mode == "shard_map" else 1
+            st = zeros(m)
             bufs["st"].append(st)
             # the rung's member blocks: its population itself on one
-            # shard, else k blocks that ``st`` gathers
-            bufs["blocks"].append([st] if k == 1 else [
-                tree_map(lambda spec: torch.zeros((m // k,) + spec.shape, dtype=spec.dtype,
-                                                  device=dev), member) for _ in range(k)])
+            # shard, else k blocks that ``st`` gathers; over real ranks
+            # this rank's block alone (an idle rank's sends zeros)
+            if ranks is not None:
+                bufs["blocks"].append([zeros(m // k)])
+                bufs["blk_loss"].append(torch.zeros((m // k,), dtype=torch.float32, device=dev))
+            else:
+                bufs["blocks"].append([st] if k == 1 else [zeros(m // k) for _ in range(k)])
             bufs["lh"].append(torch.zeros((m, H), dtype=torch.float32, device=dev))
             bufs["key"].append(torch.zeros((2,), dtype=torch.int64, device=dev))
             bufs["losses"].append(torch.zeros((m,), dtype=torch.float32, device=dev))
             bufs["order"].append(torch.zeros((Rn, p), dtype=torch.int64, device=dev))
+
+    def _place(r, full):
+        """Copy rung ``r``'s population ``full`` into its member blocks
+        (over real ranks, this rank's block, if it trains one)."""
+        if ranks is None:
+            _scatter(bufs["blocks"][r], full)
+            return
+        lo, n, owner = _owner_block(r)
+        if owner:
+            copy_into(bufs["blocks"][r][0], tree_map(lambda x: x[lo:lo + n], full))
+
+    def _train(r):
+        """Rung ``r``'s blocks, each trained on its own with its slice of
+        the hypers: the trained blocks and their losses."""
+        lo = 0 if ranks is None else _owner_block(r)[0]
+        return _train_blocks(train_fn, bufs["blocks"][r], hypers_dict(bufs["lh"][r], names),
+                             R.split(bufs["key"][r], ladder[r][1]), lo=lo)
+
+    def _promote(r, losses, st):
+        """Rank rung ``r`` on its gathered ``losses`` and gather the
+        survivors of the population ``st`` into rung ``r + 1``'s blocks
+        (the last rung keeps its trained population)."""
+        p = ladder[r][0]
+        order = rung_rank(losses, Rn, p)
+        # each copy_ below is a no-op where the gather already wrote there
+        bufs["losses"][r].copy_(losses)
+        bufs["order"][r].copy_(order)
+        if r < n_rungs - 1:
+            keep = order[:, : p // eta].reshape(-1)
+            copy_into(bufs["st"][r + 1], tree_map(lambda x: x.index_select(0, keep), st))
+            bufs["lh"][r + 1].copy_(bufs["lh"][r].index_select(0, keep))
+            _place(r + 1, bufs["st"][r + 1])
+        else:
+            copy_into(bufs["st"][r], st)
 
     def rung_step(r):
         """Rung ``r``: train every member block on its own with its slice
         of the hypers, rank on the gathered losses, and gather the
         survivors into rung ``r + 1``'s blocks (the last rung keeps its
         trained population)."""
-        p, n_steps_r, _ = ladder[r]
-        lh = bufs["lh"][r]
-        trained, blk_losses = _train_blocks(train_fn, bufs["blocks"][r], hypers_dict(lh, names),
-                                            R.split(bufs["key"][r], n_steps_r))
-        losses = _gather(bufs["losses"][r], blk_losses)
-        order = rung_rank(losses, Rn, p)
-        # each copy_ below is a no-op where the gather already wrote there
-        bufs["losses"][r].copy_(losses)
-        bufs["order"][r].copy_(order)
-        st = _gather(bufs["st"][r], trained)
-        if r < n_rungs - 1:
-            keep = order[:, : p // eta].reshape(-1)
-            copy_into(bufs["st"][r + 1], tree_map(lambda x: x.index_select(0, keep), st))
-            bufs["lh"][r + 1].copy_(lh.index_select(0, keep))
-            _scatter(bufs["blocks"][r + 1], bufs["st"][r + 1])
-        else:
-            copy_into(bufs["st"][r], st)
+        trained, blk_losses = _train(r)
+        _promote(r, _gather(bufs["losses"][r], blk_losses), _gather(bufs["st"][r], trained))
+
+    def rank_train(r):
+        """Over real ranks, rung ``r``'s first graph: this rank's block
+        trains (a rank the rung's sub-mesh leaves out has no such graph)."""
+        (trained,), (losses,) = _train(r)
+        copy_into(bufs["blocks"][r][0], trained)
+        bufs["blk_loss"][r].copy_(losses)
+
+    def rank_promote(r):
+        """Over real ranks, rung ``r``'s second graph: the ranking and the
+        survivor gather over the whole rung, replicated on every rank."""
+        _promote(r, bufs["losses"][r], bufs["st"][r])
+
+    # each rung's steps: one graph, or over real ranks two with the host
+    # gather between them (None: a rung this rank does not train)
+    rung_steps = ([[functools.partial(rung_step, r)] for r in range(n_rungs)] if ranks is None
+                  else [[functools.partial(rank_train, r) if _owner_block(r)[2] else None,
+                         functools.partial(rank_promote, r)] for r in range(n_rungs)])
+
+    def play_rung(r, replay):
+        _play(rung_steps[r], graphs[r] if replay else None,
+              lambda: _gather_ranks(bufs["losses"][r], bufs["st"][r], bufs["blk_loss"][r],
+                                    bufs["blocks"][r][0], ranks[2]), replay)
 
     def _ensure(template, eager):
         if not bufs:
             _build(template)
         if dev.type == "cuda" and not eager and not graphs:
             # the warm-ups write the buffers; every run fills them again
-            graphs.extend(capture_graph(functools.partial(rung_step, r), dev)
-                          for r in range(n_rungs))
+            graphs.extend([None if step is None else capture_graph(step, dev) for step in steps]
+                          for steps in rung_steps)
 
     def _pop_after(rung):
         return Rn * (P0 // eta ** min(rung, n_rungs - 1))
@@ -691,10 +764,16 @@ def compile_sha(
             zip(snap["rungs"]["losses"], snap["rungs"]["order"]))
 
     def _host_rung(r):
-        return (host_copy(bufs["losses"][r]),
-                host_copy(bufs["order"][r].to(torch.int32)))
+        # replicated on every rank: fetched locally
+        from .parallel.multihost import fetch_global
+
+        return fetch_global((bufs["losses"][r], bufs["order"][r].to(torch.int32)))
 
     def _run(seed, checkpoint, eager):
+        if checkpoint is not None and ranks is not None:
+            raise ValueError(
+                f"compile_sha: checkpoint= (durable mode) is single-process, as in the "
+                f"reference; this ladder's trial axis spans {mesh.size} processes")
         keys = R.split(R.key(int(seed) % 2**32, device=dev), n_rungs + 1)
         start = 0
         per_rung_host = []
@@ -707,15 +786,12 @@ def compile_sha(
             state0 = to_device(_materialize(seed), dev)
         if start < n_rungs:
             _ensure(state0, eager)
-            _scatter(bufs["blocks"][start], state0)
+            _place(start, state0)
             bufs["lh"][start].copy_(log_h0)
             for r in range(n_rungs):
                 bufs["key"][r].copy_(keys[r + 1])
             for r in range(start, n_rungs):
-                if graphs and not eager:
-                    graphs[r].replay()
-                else:
-                    rung_step(r)
+                play_rung(r, bool(graphs) and not eager)
                 if checkpoint is not None:
                     # durable mode: one host read and one snapshot per rung
                     nxt = min(r + 1, n_rungs - 1)
@@ -762,7 +838,7 @@ def compile_sha(
     # rungs are held against it), the captured rungs, and one rung
     runner._run = _run
     runner._graphs = graphs
-    runner._rung_step = rung_step
+    runner._rung_step = lambda r: play_rung(r, False)
     runner._ladder = list(ladder)
     runner._rung_meshes = rung_meshes
     return runner
@@ -794,10 +870,10 @@ def compile_hyperband(
     "best_hypers", "brackets": [...], "best_bracket"}``; ``checkpoint`` (a
     directory) holds one rung-boundary snapshot per bracket
     (``bracket_<s>.npz``, through the file seam ``fs``), so a killed
-    spread resumes bitwise."""
+    spread resumes bitwise.  ``mesh`` and ``trial_axis`` go to every
+    bracket's :func:`compile_sha`, as in the reference."""
     if s_max < 0:
         raise ValueError(f"s_max={s_max} must be >= 0")
-    refuse_sharding(mesh, "compile_hyperband")
     dev = resolve_device(device)
     bracket_runners = []
     for s in range(int(s_max), -1, -1):
@@ -813,6 +889,8 @@ def compile_hyperband(
             eta=eta,
             steps_per_rung=int(steps_per_rung) * eta ** (int(s_max) - s),
             replicas=replicas,
+            mesh=mesh,
+            trial_axis=trial_axis,
             device=dev,
             fs=fs,
         )))

@@ -16,6 +16,12 @@ kernels; ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)`` for
 embeddings; zeros for biases; ones and zeros for the norms).  Its bits
 are not flax's, which folds module paths into its keys: only the
 distribution is the reference's.
+
+A step on a mesh (:func:`on_mesh`) is the reference's GSPMD placement
+read for the port: the population on the ``trial`` axis and the data
+batch on ``data_axis``, checked as the reference's sharding constraints
+check them, and the unsharded step computed, so it is bitwise the step
+without a mesh.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from torch import nn
 from .. import random as R
 from ..utils import resolve_device
 
-__all__ = ["apply", "deterministic_kernels", "init_members", "member_train_step",
+__all__ = ["apply", "deterministic_kernels", "init_members", "member_train_step", "on_mesh",
            "sgd_update", "zeros_like"]
 
 # lecun_normal: a normal truncated to [-2, 2] scaled by this back to unit variance
@@ -141,3 +147,49 @@ def deterministic_kernels():
         yield
     finally:
         cudnn.deterministic, cudnn.benchmark = prev
+
+
+def on_mesh(step, mesh, trial_axis, data_axis, what):
+    """``step(pop_params, pop_momentum, lr, wd, *data)`` placed on
+    ``mesh`` as the reference constrains it: the population along
+    ``trial_axis``, each data tensor's leading (batch) axis along
+    ``data_axis`` (None replicates it).  GSPMD computes the unsharded
+    math, and so does the port: the axes must exist and the widths
+    divide, and then the unsharded step runs.  On a mesh of real ranks
+    (:func:`~hyperopt_tpu_torch.parallel.mesh.over_processes`) each rank
+    passes its own block of members; a ``data_axis`` over processes would
+    need a gradient all-reduce inside the captured step, which ``gloo``
+    cannot join, and is refused.  None returns ``step``."""
+    if mesh is None:
+        return step
+    from ..parallel.mesh import RankMesh, over_processes
+
+    if not isinstance(mesh, RankMesh):
+        raise TypeError(
+            f"{what}: mesh= takes a parallel.mesh.RankMesh (virtual_mesh, mesh_from_spec); got "
+            f"{type(mesh).__name__}")
+    for name, axis in (("trial_axis", trial_axis), ("data_axis", data_axis)):
+        if axis is not None and axis not in mesh.shape:
+            raise ValueError(
+                f"{what}: {name} {axis!r} is not an axis of the mesh (axes: {tuple(mesh.shape)})")
+    n_trial = int(mesh.shape[trial_axis]) if trial_axis is not None else 1
+    n_data = int(mesh.shape[data_axis]) if data_axis is not None else 1
+    if over_processes(mesh):
+        if n_data > 1:
+            raise NotImplementedError(
+                f"{what}: the data axis {data_axis!r} over {n_data} processes needs a gradient "
+                "all-reduce inside the captured step, which gloo cannot join (ROADMAP.md Queue "
+                "A, item 15c, part 6: nccl, a card per rank)")
+        n_trial = 1  # each rank passes its own block of members
+
+    def placed(pop_params, pop_momentum, lr, wd, *data):
+        for label, x, n, axis in [("population", next(iter(pop_params.values())), n_trial,
+                                   trial_axis)] + [("data batch", d, n_data, data_axis)
+                                                   for d in data]:
+            if x.shape[0] % n:
+                raise ValueError(
+                    f"{what}: the {label}'s dimension 0 ({x.shape[0]}) must divide by the "
+                    f"{axis!r} mesh axis size {n} (full shape: {tuple(x.shape)})")
+        return step(pop_params, pop_momentum, lr, wd, *data)
+
+    return placed

@@ -25,7 +25,10 @@ so a captured step is bitwise its eager step.
 threefry, not flax's bits: parity with the reference holds on weights
 carried over by :func:`hyperopt_tpu_torch.convert.resnet_params_from_numpy`.
 Entry points compute on the card unless the caller passes
-``device="cpu"``; sharding (``mesh=``) is not ported and raises.
+``device="cpu"``.  ``mesh=`` places the population step as the
+reference's sharding constraints place it
+(:func:`~hyperopt_tpu_torch.models._population.on_mesh`): bitwise the
+step without a mesh.
 """
 
 from __future__ import annotations
@@ -37,9 +40,8 @@ from torch import nn
 
 from .. import random as R
 from ..utils import resolve_device
-from ..utils.population import refuse_sharding
 from ._population import (apply, deterministic_kernels, init_members, member_train_step,
-                          zeros_like)
+                          on_mesh, zeros_like)
 
 __all__ = [
     "ResNet",
@@ -159,9 +161,11 @@ def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="
     labels) -> (params, momentum, losses [P])``: one SGD(+momentum,
     +weight decay) cross-entropy step of every member on the shared
     batch, the losses taken before it, under cuDNN's deterministic
-    algorithms.  The tensors live on ``device`` (None = the card);
-    ``mesh`` is not ported and raises."""
-    refuse_sharding(mesh, "make_population_train_step")
+    algorithms.  The tensors live on ``device`` (None = the card).
+    ``mesh`` places the population on ``trial_axis`` and the images and
+    labels on ``data_axis``, as the reference's sharding constraints do
+    (:func:`~hyperopt_tpu_torch.models._population.on_mesh`): the same
+    step, bit for bit."""
     resolve_device(device)
 
     def loss_fn(params, images, labels):
@@ -178,7 +182,7 @@ def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="
         with deterministic_kernels():
             return pop_step(pop_params, pop_momentum, lr, wd, images, labels)
 
-    return train_step
+    return on_mesh(train_step, mesh, trial_axis, data_axis, "make_population_train_step")
 
 
 def init_population(model, pop_size, key, image_size=32, device=None):

@@ -25,7 +25,10 @@ parity with the reference holds on weights carried over by
 :func:`hyperopt_tpu_torch.convert.tinylm_params_from_numpy`.
 
 Entry points compute on the card unless the caller passes
-``device="cpu"``; sharding (``mesh=``) is not ported and raises.
+``device="cpu"``.  ``mesh=`` places the population step as the
+reference's sharding constraints place it
+(:func:`~hyperopt_tpu_torch.models._population.on_mesh`): bitwise the
+step without a mesh.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ from torch import nn
 
 from .. import random as R
 from ..utils import capture_graph, resolve_device
-from ..utils.population import refuse_sharding
-from ._population import apply, init_members, member_train_step, sgd_update, zeros_like
+from ._population import (apply, init_members, member_train_step, on_mesh, sgd_update,
+                          zeros_like)
 
 __all__ = [
     "TinyLM",
@@ -157,11 +160,14 @@ def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="
     """``train_step(pop_params, pop_momentum, lr [P], wd [P], tokens) ->
     (params, momentum, losses [P])``: one SGD(+momentum, +weight decay)
     next-token step of every member, the losses taken before it.  The
-    tensors live on ``device`` (None = the card); ``mesh`` is not
-    ported and raises."""
-    refuse_sharding(mesh, "make_population_train_step")
+    tensors live on ``device`` (None = the card).  ``mesh`` places the
+    population on ``trial_axis`` and the token batch on ``data_axis``, as
+    the reference's sharding constraints do
+    (:func:`~hyperopt_tpu_torch.models._population.on_mesh`): the same
+    step, bit for bit."""
     resolve_device(device)
-    return _population_step(model)
+    return on_mesh(_population_step(model), mesh, trial_axis, data_axis,
+                   "make_population_train_step")
 
 
 def make_pbt_train_fn(model, batch_size=16, seq_len=16, vocab=16):

@@ -25,6 +25,12 @@ the one captured step, and its ``trial`` axis is checked and placed
 only.  :func:`in_process_shards` gives a named axis's width inside this
 process, and :func:`shard_devices` places the shards.
 
+Over real ranks, one process each, the ``trial`` axis of
+``compile_pbt``, ``compile_sha`` and ``compile_fmin`` gives rank ``r``
+member block ``r`` (:func:`process_block`): each rank runs its block's
+captured graph, and the blocks meet in a host gather between graphs
+(:func:`~.multihost.fetch_global`), never inside one.
+
 The reference's virtual-device harness has no twin here:
 ``force_host_cpu_devices``, ``subprocess_env_with_devices``,
 ``registry_cpu_mesh`` and ``REGISTRY_MESH_DEVICES`` force XLA's host
@@ -39,7 +45,7 @@ import math
 
 import numpy as np
 
-from .multihost import process_count
+from .multihost import process_count, process_index
 
 __all__ = [
     "CAND_AXIS",
@@ -50,6 +56,8 @@ __all__ = [
     "device_count",
     "in_process_shards",
     "mesh_from_spec",
+    "over_processes",
+    "process_block",
     "rung_submesh",
     "shard_devices",
     "study_mesh",
@@ -189,21 +197,22 @@ def in_process_shards(mesh, axis, what, device=None, one_axis=True):
     process: the axis's width on a virtual mesh, or 1 on a mesh of one
     rank.  A 1-D mesh is required unless ``one_axis=False`` (the other
     axes then replicate; ``compile_fmin``'s ``trial`` x ``cand`` mesh).
-    A mesh over several processes is refused: its shards would meet in a
-    collective, and a captured step cannot hold one (ROADMAP.md Queue A,
-    item 15c).  With ``device``, the shards must all land on it
+    A mesh over several processes is refused here: its shards would meet
+    in a collective inside a captured step (the callers that take one
+    ask :func:`process_block` first; the rest is ROADMAP.md Queue A, item
+    15c, part 6).  With ``device``, the shards must all land on it
     (:func:`shard_devices`)."""
     if axis not in mesh.shape:
         raise ValueError(f"{what}: mesh {mesh!r} has no {axis!r} axis")
     if one_axis and len(mesh.shape) != 1:
         raise NotImplementedError(
             f"{what}: a mesh of more than one axis ({mesh!r}) is not ported yet "
-            "(ROADMAP.md Queue A, item 15c)"
+            "(ROADMAP.md Queue A, item 15c, part 6)"
         )
-    if mesh.size > 1 and not mesh.virtual:
+    if over_processes(mesh):
         raise NotImplementedError(
             f"{what}: the {axis!r} axis over {mesh.size} processes is not ported yet; "
-            "shard inside one process with virtual_mesh (ROADMAP.md Queue A, item 15c)"
+            "shard inside one process with virtual_mesh (ROADMAP.md Queue A, item 15c, part 6)"
         )
     n = int(mesh.shape[axis])
     if device is not None:
@@ -211,12 +220,41 @@ def in_process_shards(mesh, axis, what, device=None, one_axis=True):
     return n
 
 
+def over_processes(mesh):
+    """Whether ``mesh`` spans several processes: real ranks, not a
+    :func:`virtual_mesh`."""
+    return mesh is not None and not mesh.virtual and mesh.size > 1
+
+
+def process_block(mesh, axis, what):
+    """The member block of this process on a 1-D ``axis`` mesh of real
+    ranks: ``(n, index, group)``, the axis's width, this rank's position
+    on it (rank ``r`` owns block ``r``) and the process group its blocks
+    meet in (None: every process).  The run must have joined a process
+    group holding the mesh's ranks (:func:`~.multihost.initialize`)."""
+    if axis not in mesh.shape:
+        raise ValueError(f"{what}: mesh {mesh!r} has no {axis!r} axis")
+    if len(mesh.shape) != 1:
+        raise NotImplementedError(
+            f"{what}: a mesh of more than one axis over processes ({mesh!r}) is not ported "
+            "yet (ROADMAP.md Queue A, item 15c, part 6)"
+        )
+    if process_count() < mesh.size or process_index() not in mesh.ranks:
+        raise RuntimeError(
+            f"{what}: {mesh!r} spans {mesh.size} processes, but this process (rank "
+            f"{process_index()} of {process_count()}) is not one of its ranks: join a process "
+            "group with parallel.multihost.initialize, or shard inside this process with "
+            "parallel.mesh.virtual_mesh")
+    rank = process_index()
+    return int(mesh.shape[axis]), mesh.axis_index(axis, rank), mesh.group(axis, rank)
+
+
 def shard_devices(n, device, what="sharding"):
     """Where the ``n`` in-process shards of a caller on ``device`` live:
     every shard on ``device``.  When ``device`` is a card and this process
     sees at least ``n`` cards, the placement is shard ``k`` on ``cuda:k``;
     shards on several cards have no check yet and are refused (ROADMAP.md
-    Queue A, item 15c)."""
+    Queue A, item 15c, part 6)."""
     import torch
 
     device = torch.device(device)
@@ -224,7 +262,7 @@ def shard_devices(n, device, what="sharding"):
     if device.type == "cuda" and n > 1 and torch.cuda.device_count() >= n:
         raise NotImplementedError(
             f"{what}: {n} shards on {n} cards (shard k on cuda:k) are not ported yet; "
-            "show this process fewer cards than shards (ROADMAP.md Queue A, item 15c)"
+            "show this process fewer cards than shards (ROADMAP.md Queue A, item 15c, part 6)"
         )
     return [device] * n
 

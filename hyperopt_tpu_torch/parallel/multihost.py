@@ -5,7 +5,10 @@ of a run joins one default process group, one rank per process and one
 device per rank; the sharded suggest step spans the ranks (its one
 collective a gather of the per-rank bests), and suggested configs are
 replicated from rank 0 with a broadcast, so each process evaluates its
-share of trials.
+share of trials; :func:`fetch_global` assembles the member blocks of a
+population sharded over the processes (``compile_pbt``, ``compile_sha``
+and ``compile_fmin``'s ``trial`` axis over real ranks gather through
+it at their boundaries).
 
 A single process degenerates gracefully: ``initialize()`` is a no-op,
 ``broadcast_configs`` is the identity, ``process_index() == 0``.
@@ -118,27 +121,59 @@ def broadcast_configs(values, active):
     return _broadcast(values), _broadcast(active)
 
 
-def fetch_global(tree):
-    """Host-fetch a nested structure of tensors: every tensor leaf as
-    numpy, other leaves through ``np.asarray`` (None stays None).
-
-    In the port every tensor lives on its own process's device, so the
-    fetch is local.  Leaves sharded across processes, which the
-    reference assembles with ``process_allgather``, come with the
-    populations sharded across processes (ROADMAP item 15c).
-    """
+def _gather_blocks(blocks, group=None):
+    """ONE ``all_gather`` over ``group`` (None: every process) of this
+    process's member ``blocks`` (tensors or arrays; every rank's of the
+    same shapes and dtypes), packed into one byte buffer: each block's
+    gathered rows, joined along the leading axis in rank order, as
+    numpy."""
     import torch
+    import torch.distributed as dist
 
-    from ..utils import tree_map
+    ts = [b.detach() if torch.is_tensor(b) else torch.from_numpy(np.ascontiguousarray(b))
+          for b in blocks]
+    wire = torch.device("cuda") if dist.get_backend(group) == "nccl" else torch.device("cpu")
+    parts = [t.to(wire).contiguous().reshape(-1).view(torch.uint8) for t in ts]
+    buf = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.uint8, device=wire)
+    recv = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(recv, buf, group=group)
+    out, at = [], 0
+    for t, part in zip(ts, parts):
+        n = part.numel()
+        rows = [r[at:at + n].clone().view(t.dtype).reshape(t.shape) for r in recv]
+        out.append(torch.cat(rows).cpu().numpy())
+        at += n
+    return out
 
-    def fetch(x):
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            return x.detach().cpu().numpy()
-        return np.asarray(x)
 
-    return tree_map(fetch, tree)
+def fetch_global(tree, sharded=False, group=None):
+    """Host-fetch a nested structure of tensors: every tensor leaf as numpy
+    in new memory, other leaves through ``np.asarray`` (None stays None).
+
+    The leaves that ``sharded`` marks hold this process's block of a
+    population sharded over the processes of ``group`` (None: every
+    process), rank ``r`` holding block ``r``.  Across processes they are
+    assembled as the reference assembles them with
+    ``process_allgather(x, tiled=True)``: one ``all_gather`` of every
+    marked leaf, packed into one byte buffer, each leaf's blocks joined
+    along the leading axis in rank order, so every rank receives the same
+    arrays.  ``sharded`` is True (every leaf), False (none) or a tree of
+    bools shaped like ``tree``: a tensor does not record that it is
+    sharded, as a ``jax.Array`` does.  Every other leaf, and every leaf
+    in a single process, is fetched locally.
+    """
+    from ..utils import host_copy, tree_map
+
+    def local(x):
+        return None if x is None else host_copy(x)
+
+    if sharded is False or process_count() == 1:
+        return tree_map(local, tree)
+    marks = tree_map(lambda _: bool(sharded), tree) if isinstance(sharded, bool) else sharded
+    mine = []
+    tree_map(lambda x, m: mine.append(x) if m else None, tree, marks)
+    gathered = iter(_gather_blocks(mine, group))
+    return tree_map(lambda x, m: next(gathered) if m else local(x), tree, marks)
 
 
 def shard_ids_for_host(new_ids, index=None, count=None):

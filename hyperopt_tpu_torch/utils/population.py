@@ -1,9 +1,7 @@
 """Population plumbing shared by the training schedulers on the card
 (:func:`hyperopt_tpu_torch.pbt.compile_pbt`,
 :func:`hyperopt_tpu_torch.hyperband.compile_sha`): log-space hyper
-bounds and draws, population pytrees moved and copied in place, and the
-refusal of the sharding that is not ported yet (the models'
-``mesh=``, ``compile_hyperband(mesh=)``)."""
+bounds and draws, and population pytrees moved and copied in place."""
 
 from __future__ import annotations
 
@@ -13,8 +11,7 @@ import torch
 from .. import random as R
 from . import tree_map
 
-__all__ = ["copy_into", "hypers_dict", "log_bounds", "log_uniform_start", "refuse_sharding",
-           "to_device"]
+__all__ = ["copy_into", "hypers_dict", "log_bounds", "log_uniform_start", "to_device"]
 
 
 def log_bounds(hyper_bounds, device):
@@ -42,16 +39,6 @@ def log_uniform_start(key, shape, log_lo, log_hi):
     u * (log_hi - log_lo)`` rounded once, as XLA contracts it to an FMA."""
     u = R.uniform(key, shape)
     return R._fma(u, log_hi - log_lo, log_lo)
-
-
-def refuse_sharding(mesh, what):
-    """Refuse ``mesh=`` where the port does not shard yet: the models'
-    GSPMD population step and ``compile_hyperband``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=): sharding the population over a mesh is not ported yet "
-            "(ROADMAP.md Queue A, item 15c)"
-        )
 
 
 def to_device(tree, device):

@@ -341,13 +341,18 @@ def test_mesh_options_the_reference_accepts():
 
 def test_a_mesh_over_processes_is_refused():
     """A collective between processes cannot run inside the captured
-    step: a ``cand`` or ``trial`` axis over several processes raises
-    naming its item, as does a mesh that is not a RankMesh."""
+    step: a ``cand`` axis, or ``asha=``, over several processes raises
+    naming its part of item 15c, as does a mesh that is not a RankMesh.
+    The ``trial`` axis over processes runs (two graphs per step, the host
+    gather between them), given the process group that holds its ranks."""
     procs = RankMesh((2,), ("cand",), (0, 1))
-    with pytest.raises(NotImplementedError, match="item 15c"):
+    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
         compile_fmin(DL.t_quad, DL.quad_space(thp), max_evals=8, mesh=procs, cand_axis="cand",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15c"):
+    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+        compile_fmin(AS.t_objective(), AS.space(thp), mesh=RankMesh((2,), ("trial",), (0, 1)),
+                     device="cpu", **AS.KW)
+    with pytest.raises(RuntimeError, match="multihost.initialize"):
         compile_fmin(DL.t_quad, DL.quad_space(thp), max_evals=8, batch_size=2,
                      mesh=RankMesh((2,), ("trial",), (0, 1)), device="cpu")
     one_rank = compile_fmin(DL.t_quad, DL.quad_space(thp), max_evals=24,

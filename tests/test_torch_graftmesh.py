@@ -399,12 +399,12 @@ def test_the_mesh_helpers():
     mesh of several axes gives its named axis's width."""
     assert in_process_shards(virtual_mesh(3, STUDY_AXIS), STUDY_AXIS, "x") == 3
     assert in_process_shards(RankMesh((1,), (TRIAL_AXIS,), (0,)), TRIAL_AXIS, "x") == 1
-    with pytest.raises(NotImplementedError, match="item 15c"):
+    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
         in_process_shards(RankMesh((2,), (STUDY_AXIS,), (0, 1)), STUDY_AXIS, "x")
-    with pytest.raises(NotImplementedError, match="item 15c"):
+    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
         in_process_shards(RankMesh((2, 2), ("trial", "cand"), range(4), virtual=True),
                           TRIAL_AXIS, "x")
-    with pytest.raises(NotImplementedError, match="item 15c"):
+    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
         in_process_shards(RankMesh((2, 2), ("trial", "cand"), range(4)), TRIAL_AXIS, "x",
                           one_axis=False)
     two_d = virtual_mesh((2, 4), ("trial", "cand"))
@@ -426,9 +426,9 @@ def test_shards_on_several_cards_are_refused(monkeypatch):
     cuda = torch.device("cuda", 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     for n in (2, 4):
-        with pytest.raises(NotImplementedError, match="item 15c"):
+        with pytest.raises(NotImplementedError, match="item 15c, part 6"):
             shard_devices(n, cuda)
-        with pytest.raises(NotImplementedError, match="item 15c"):
+        with pytest.raises(NotImplementedError, match="item 15c, part 6"):
             in_process_shards(virtual_mesh(n, STUDY_AXIS), STUDY_AXIS, "x", cuda)
     assert shard_devices(1, cuda) == [cuda]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -591,8 +591,10 @@ def test_pbt_graftmesh_train_fn_parts_from_the_reference_as_unsharded(cpu_mesh):
 
 
 def test_constraint_mode_runs_the_same_blocks():
-    """PyTorch has no GSPMD: a mesh with the default ``shard_mode`` is the
-    reference's ``"constraint"``, which runs the per-block program."""
+    """A mesh with the default ``shard_mode`` is the reference's
+    ``"constraint"``: GSPMD computes the unsharded math, and inside one
+    process the port runs the unsharded round on the placed population,
+    one block, bitwise the unsharded schedule."""
     runner = compile_pbt(t_train_fn, {"theta": THETA0}, device="cpu",
                          mesh=virtual_mesh(2, TRIAL_AXIS), trial_axis=TRIAL_AXIS, **PBT_KW)
     assert runner._shard_mode == "constraint"

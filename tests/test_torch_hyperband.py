@@ -9,6 +9,9 @@ reference's ``hyperopt_tpu.hyperband`` on the CPU.
   PyTorch's ``exp`` of a hyper differ in the last bit); a kill between
   rungs, and a crash at every rung-boundary crash point of the file
   seam, resumes bitwise;
+* ``compile_hyperband(mesh=)`` on a ``virtual_mesh`` bitwise its run
+  without a mesh (and the reference's 4-device run within LOSS_RTOL);
+  the reference's SHA-under-a-mesh tests on ``virtual_mesh(8)``;
 * the host drivers with the default host random search: the trial docs
   and the best bitwise; resume at every kill point bitwise; with the
   port's ``tpe.suggest`` against ``tpe_jax.suggest`` the streams agree
@@ -37,7 +40,7 @@ from hyperopt_tpu_torch.distributed.faults import (CHECKPOINT_CRASH_POINTS, SHA_
                                                    FaultPlan, SimulatedCrash)
 from hyperopt_tpu_torch.models.synthetic import budgeted_quadratic_fn
 from hyperopt_tpu_torch.models.synthetic import budgeted_quadratic_space as t_space
-from hyperopt_tpu_torch.parallel.mesh import virtual_mesh
+from hyperopt_tpu_torch.parallel.mesh import RankMesh, virtual_mesh
 
 # a hyper's exp differs by an ulp between XLA and PyTorch; 16 steps of
 # the quadratic carry it to some 1e-6 relative in a loss
@@ -200,6 +203,67 @@ def test_compile_hyperband_matches_the_reference(tmp_path):
     assert t_run(seed=3, checkpoint=str(tmp_path / "hb"))["brackets"] == t["brackets"]
 
 
+def _hb_init(key, n):
+    return {"theta": 3.0 * R.uniform(key, (n,))}
+
+
+@pytest.mark.parametrize("n_shards,replicas", [(2, 2), (4, 1)])
+def test_compile_hyperband_on_a_mesh_is_bitwise_unsharded(n_shards, replicas):
+    """``mesh=`` and ``trial_axis=`` reach every bracket's ``compile_sha``
+    (the reference's ``hyperband.py:1088-1092``): each bracket shards over
+    its gcd sub-mesh, and the spread is bitwise the unsharded one.  At 2
+    shards the reference's spread on 2 devices agrees; at 4 it refuses
+    the 1- and 2-member brackets' placement, which the port's gcd
+    sub-mesh takes."""
+    kw = dict(s_max=2, eta=2, steps_per_rung=1, replicas=replicas, device="cpu")
+    bounds = {"lr": (1e-3, 1.2)}
+    mesh = virtual_mesh(n_shards, "trial")
+    sharded = TH.compile_hyperband(quad_train_fn, _hb_init, bounds, mesh=mesh, **kw)
+    plain = TH.compile_hyperband(quad_train_fn, _hb_init, bounds, **kw)
+    got, want = sharded(seed=3), plain(seed=3)
+    assert got == want
+    for (s, run_s), (_, plain_s) in zip(sharded._brackets, plain._brackets):
+        assert [m.size for m in run_s._rung_meshes] == [
+            np.gcd(replicas * p, n_shards) for p, _, _ in run_s._ladder], s
+        a, b = run_s(seed=3), plain_s(seed=3)
+        assert torch.equal(a["state"]["theta"], b["state"]["theta"]), s
+    if n_shards == 2:
+        j = JH.compile_hyperband(quad_train_fn,
+                                 lambda k, n: {"theta": 3.0 * jax.random.uniform(k, (n,))},
+                                 bounds, s_max=2, eta=2, steps_per_rung=1, replicas=replicas,
+                                 mesh=Mesh(np.asarray(jax.devices()[:2]), ("trial",)))(seed=3)
+        assert got["best_bracket"] == j["best_bracket"]
+        assert got["best_hypers"] == j["best_hypers"]
+        for tb, jb in zip(got["brackets"], j["brackets"]):
+            np.testing.assert_allclose(tb["replica_bests"], jb["replica_bests"],
+                                       rtol=LOSS_RTOL, atol=1e-12)
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_compile_sha_mesh_sharded_rungs(replicas):
+    """The reference's ``test_compile_sha_mesh_sharded_rungs`` and
+    ``test_compile_sha_replicas_compose_with_mesh`` on
+    ``virtual_mesh(8, "trial")``: the rungs shrink below the axis (8 -> 4
+    -> 2 -> 1 configs), each on its gcd sub-mesh, every bracket ranks on
+    its own, the best converges, and the ladder is bitwise the unsharded
+    one."""
+    P = 8
+    init = {"theta": np.full((replicas * P,), 5.0, np.float32)}
+    kw = dict(n_configs=P, eta=2, steps_per_rung=3, replicas=replicas, device="cpu")
+    runner = TH.compile_sha(quad_train_fn, init, {"lr": (1e-3, 1.0)},
+                            mesh=virtual_mesh(8, "trial"), **kw)
+    out = runner(seed=0)
+    assert [r["n"] for r in out["rungs"]] == [8, 4, 2, 1]
+    assert [m.size for m in runner._rung_meshes] == [
+        np.gcd(replicas * n, 8) for n in (8, 4, 2, 1)]
+    assert len(out["replica_bests"]) == replicas
+    assert out["best_loss"] < 1e-3
+    plain = TH.compile_sha(quad_train_fn, init, {"lr": (1e-3, 1.0)}, **kw)(seed=0)
+    assert {k: v for k, v in out.items() if k != "state"} == {
+        k: v for k, v in plain.items() if k != "state"}
+    assert torch.equal(out["state"]["theta"], plain["state"]["theta"])
+
+
 def test_compile_sha_validates_and_refuses_sharding():
     init = {"theta": np.zeros(8, np.float32)}
     with pytest.raises(ValueError, match="replicas"):
@@ -222,10 +286,11 @@ def test_compile_sha_validates_and_refuses_sharding():
                            mesh=None if n_shards is None else Mesh(
                                np.asarray(jax.devices()[:n_shards]), ("trial",)))
         assert str(t_err.value) == str(j_err.value)
-    # compile_hyperband's mesh= still waits for its item
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # compile_hyperband's mesh= reaches every bracket's compile_sha: a
+    # trial mesh of real ranks needs the process group that holds them
+    with pytest.raises(RuntimeError, match="multihost.initialize"):
         TH.compile_hyperband(quad_train_fn, lambda key, n: init, {"lr": (1e-3, 1.0)}, 1,
-                             mesh=virtual_mesh(2, "trial"), device="cpu")
+                             mesh=RankMesh((2,), ("trial",), (0, 1)), device="cpu")
     # a callable init that takes the seed sees the runner's seed
     seen = []
     runner = TH.compile_sha(quad_train_fn, lambda seed: seen.append(seed) or init,

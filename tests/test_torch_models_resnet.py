@@ -30,6 +30,7 @@ from hyperopt_tpu.models import resnet as JR
 from hyperopt_tpu_torch import convert
 from hyperopt_tpu_torch import random as R
 from hyperopt_tpu_torch.models import resnet as TR
+from hyperopt_tpu_torch.parallel.mesh import RankMesh, virtual_mesh
 
 NET = dict(stage_sizes=(1, 1, 1), width=8)
 ACT_ATOL = 1e-5
@@ -139,9 +140,10 @@ def test_cross_entropy_loss(ref, batch):
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
 
 
-def _steps(ref, batch, n_members, n_steps, lr, wd, momentum_scale=0.0):
-    """Both packages' population steps from the same members: the last
-    losses and the final parameters and momenta, in the port's names."""
+def _steps(ref, batch, n_members, n_steps, lr, wd, momentum_scale=0.0, mesh=None):
+    """Both packages' population steps from the same members (the port's
+    placed on ``mesh``): the last losses and the final parameters and
+    momenta, in the port's names."""
     jm, pop = ref
     images, labels = batch
     jp = jax.tree.map(lambda x: x[:n_members], pop)
@@ -149,7 +151,7 @@ def _steps(ref, batch, n_members, n_steps, lr, wd, momentum_scale=0.0):
     tp = convert.resnet_params_from_numpy(jp, device="cpu")
     tmom = convert.resnet_params_from_numpy(jmom, device="cpu")
     jstep = JR.make_population_train_step(jm)
-    tstep = TR.make_population_train_step(TR.ResNet(**NET), device="cpu")
+    tstep = TR.make_population_train_step(TR.ResNet(**NET), mesh=mesh, device="cpu")
     timg, tlbl = _t(images), _t(labels, torch.int64)
     for _ in range(n_steps):
         jp, jmom, jloss = _np(jstep(jp, jmom, lr, wd, images, labels))
@@ -204,10 +206,46 @@ def test_init_statistics_match_the_reference(ref):
 
 
 def test_sharding_is_refused():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TR.make_population_train_step(TR.ResNet(**NET), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """What ``mesh=`` still refuses: a data axis over processes (its
+    gradient all-reduce would sit inside the captured step), a mesh that
+    is not a RankMesh, an axis the mesh lacks, and widths that do not
+    divide (the reference's sharding constraints refuse those too)."""
+    net = TR.ResNet(**NET)
+    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+        TR.make_population_train_step(net, mesh=RankMesh((2, 2), ("trial", "cand"), range(4)),
+                                      device="cpu")
+    with pytest.raises(TypeError, match="RankMesh"):
         TR.population_objective(mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="data_axis 'cand' is not an axis"):
+        TR.make_population_train_step(net, mesh=virtual_mesh(2, "trial"), device="cpu")
+    # a population of one does not divide over two trial ranks
+    with pytest.raises(ValueError, match="divide by the 'trial' mesh axis size 2"):
+        TR.population_objective(n_steps=1, batch_size=16, image_size=8, device="cpu",
+                                mesh=virtual_mesh((2, 4), ("trial", "cand")))({"lr": 0.05,
+                                                                              "wd": 1e-4})
+
+
+def test_population_step_on_a_mesh(ref, batch):
+    """``mesh=virtual_mesh((2, 4), ("trial", "cand"))`` places four members
+    on two trial ranks and the 8 images on four data ranks, as the
+    reference's GSPMD constraints do: the step is bitwise the step without
+    a mesh, and both hold the reference's unsharded step within the
+    file's tolerances (``population_objective(mesh=)`` runs this step:
+    its placement is checked in ``test_sharding_is_refused``)."""
+    lr = np.array([0.3, 0.1, 0.03, 0.01], np.float32)
+    wd = np.array([1e-5, 1e-4, 1e-3, 1e-2], np.float32)
+    mesh = virtual_mesh((2, 4), ("trial", "cand"))
+    _, (want, got), (_, got_mom) = _steps(ref, batch, 4, 1, lr, wd, mesh=mesh)
+    # the same step without a mesh, the port alone
+    plain = convert.resnet_params_from_numpy(jax.tree.map(lambda x: x[:4], ref[1]), device="cpu")
+    plain_mom = {n: torch.zeros_like(v) for n, v in plain.items()}
+    step = TR.make_population_train_step(TR.ResNet(**NET), device="cpu")
+    plain, plain_mom, _ = step(plain, plain_mom, _t(lr), _t(wd), _t(batch[0]),
+                               _t(batch[1], torch.int64))
+    for n in want:
+        assert torch.equal(got[n], plain[n]) and torch.equal(got_mom[n], plain_mom[n]), n
+        np.testing.assert_allclose(got[n].detach().numpy(), want[n].numpy(), rtol=0,
+                                   atol=10 * PARAM_ATOL, err_msg=n)
 
 
 def test_population_objective_trains():

@@ -32,6 +32,7 @@ from hyperopt_tpu_torch import convert
 from hyperopt_tpu_torch import random as R
 from hyperopt_tpu_torch.models import _population as TP
 from hyperopt_tpu_torch.models import transformer as TT
+from hyperopt_tpu_torch.parallel.mesh import RankMesh, virtual_mesh
 
 KW = dict(vocab=16, d_model=16, n_heads=2, n_layers=1, max_len=16)
 LOGIT_ATOL = 1e-5
@@ -297,10 +298,62 @@ def test_compile_pbt_on_tinylm_from_carried_state(ref):
 
 
 def test_sharding_is_refused():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TT.make_population_train_step(TT.TinyLM(**KW), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """What ``mesh=`` still refuses: a data axis over processes (its
+    gradient all-reduce would sit inside the captured step), a mesh that
+    is not a RankMesh, an axis the mesh lacks, and widths that do not
+    divide (the reference's sharding constraints refuse those too)."""
+    model = TT.TinyLM(**KW)
+    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+        TT.make_population_train_step(model, mesh=RankMesh((2, 2), ("trial", "cand"), range(4)),
+                                      device="cpu")
+    with pytest.raises(TypeError, match="RankMesh"):
         TT.population_objective(mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="trial_axis 'pop' is not an axis"):
+        TT.make_population_train_step(model, mesh=virtual_mesh(2, "trial"), trial_axis="pop",
+                                      data_axis=None, device="cpu")
+    step = TT.make_population_train_step(model, mesh=virtual_mesh((2, 3), ("trial", "cand")),
+                                         device="cpu")
+    pop = TP.init_members(model, 4, R.key(0), "cpu")
+    tokens = TT.synthetic_token_batch(R.key(1), 16, 16, 16, n_deltas=8)
+    with pytest.raises(ValueError, match="data batch's dimension 0 \\(16\\) must divide"):
+        step(pop, TP.zeros_like(pop), torch.ones(4), torch.ones(4), tokens)
+
+
+def test_population_step_on_a_mesh(ref, tokens):
+    """``mesh=virtual_mesh((2, 4), ("trial", "cand"))`` places four members
+    on two trial ranks and the 16 sequences on four data ranks, as the
+    reference's ``test_transformer_population_sharded_step`` does: the
+    step is bitwise the step without a mesh, and both hold the
+    reference's unsharded step within the file's tolerances."""
+    jm, pop = ref
+    jp = _members(pop, 4)
+    jmom = jax.tree.map(np.zeros_like, jp)
+    lr = np.array([0.3, 0.1, 0.03, 0.01], np.float32)
+    wd = np.full((4,), 1e-5, np.float32)
+    jstep = JT.make_population_train_step(jm)
+    model = TT.TinyLM(**KW)
+    placed = TT.make_population_train_step(
+        model, mesh=virtual_mesh((2, 4), ("trial", "cand")), device="cpu")
+    plain = TT.make_population_train_step(model, device="cpu")
+    tp = pp = _port(jp)
+    tmom = pmom = _port(jmom)
+    ttok = _t(tokens, torch.int64)
+    for _ in range(2):
+        jp, jmom, jloss = _np(jstep(jp, jmom, lr, wd, tokens))
+        tp, tmom, tloss = placed(tp, tmom, _t(lr), _t(wd), ttok)
+        pp, pmom, ploss = plain(pp, pmom, _t(lr), _t(wd), ttok)
+        assert torch.equal(tloss, ploss)
+        np.testing.assert_allclose(tloss.detach().numpy(), jloss, rtol=LOSS_RTOL)
+    want = _port(jp)
+    for n in want:
+        assert torch.equal(tp[n], pp[n]) and torch.equal(tmom[n], pmom[n]), n
+        np.testing.assert_allclose(tp[n].detach().numpy(), want[n].numpy(), rtol=0,
+                                   atol=10 * PARAM_ATOL, err_msg=n)
+    # the fmin objective on a (1, 4) mesh: the same losses, bit for bit
+    cfg = {"lr": 0.3, "wd": 1e-5}
+    on_mesh = TT.population_objective(n_steps=2, device="cpu",
+                                      mesh=virtual_mesh((1, 4), ("trial", "cand")))
+    assert on_mesh(cfg) == TT.population_objective(n_steps=2, device="cpu")(cfg)
 
 
 def test_population_objective_trains(ref):

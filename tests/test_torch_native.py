@@ -45,9 +45,22 @@ def needs_native():
         pytest.skip("no C++ toolchain / native build failed")
 
 
+def reference_library():
+    """Whether the reference's library loads, loaded once more if this
+    worker lost a build race: every xdist worker builds it while it
+    collects ``tests/test_native.py`` (a module-level ``skipif``), each
+    build writes the one ``<library>.tmp``, and a worker whose build
+    failed there keeps no library for the rest of the run.  By the time a test
+    runs, the build that won is in place, and the retry loads it (strict
+    mode keeps its failure)."""
+    if not j_native.available() and j_native._STATE["strict_error"] is None:
+        j_native._STATE.update(lib=None, tried=False)
+    return j_native.available()
+
+
 @pytest.fixture
 def both_libraries(needs_native):
-    if not j_native.available():
+    if not reference_library():
         pytest.skip("no C++ toolchain / the reference's native build failed")
 
 

@@ -25,13 +25,21 @@ history.
 * ``fmin`` with ``algo=sharded_suggest``: plain, speculative, and the
   saturation warning on an all-categorical space.
 * One spawned two-rank ``gloo`` run (``dcn_check.launch``, a ``file://``
-  store under ``tmp_path``): rank 0's suggestions bitwise the two
-  virtual ranks', one ``all_gather`` and no other collective per step,
-  and nothing of ``torch.distributed`` left in this process.  The full
-  check at B=256 with its KS line runs under ``-m slow``.
+  store under ``tmp_path``) of stages A and B: rank 0's suggestions
+  bitwise the two virtual ranks', one ``all_gather`` and no other
+  collective per step, and nothing of ``torch.distributed`` left in this
+  process.  A second of stages C-E (``compile_fmin``'s ``trial`` axis,
+  ``compile_sha`` and ``compile_pbt`` over the two ranks): every stage
+  bitwise its unsharded run in this process, one gather of the losses
+  (and one of the states) per boundary.  The full check (B=256, the KS
+  line, stages C-E) runs under ``-m slow``.
+* ``fetch_global`` across two spawned ranks: the marked leaves tiled in
+  rank order by one ``all_gather``, the others local; in one process,
+  the local fetch whatever is marked.
 """
 
 import copy
+import json
 import os
 import warnings
 from functools import partial
@@ -296,7 +304,7 @@ def test_two_spawned_ranks_are_bitwise_the_virtual_ranks(tmp_path):
     group or rendezvous variable left in this process."""
     assert _no_distributed_state()
     out = t_dcn.launch(world=2, timeout=120, device="cpu", batch=16, n_per_rank=8,
-                       workdir=tmp_path)
+                       workdir=tmp_path, stages="AB")
     assert "gathers_per_step=[1, 1, 1]" in out and "ranks_agree=True" in out, out[-2000:]
     spawned = t_dcn.parse_values(out)
     virtual, _, _ = t_dcn.run_stages("cpu", 16, 8, TM.virtual_mesh(2))
@@ -307,11 +315,113 @@ def test_two_spawned_ranks_are_bitwise_the_virtual_ranks(tmp_path):
     assert _no_distributed_state()
 
 
+def test_two_spawned_ranks_run_the_populations_bitwise(tmp_path):
+    """Stages C-E on two ``gloo`` ranks at the reference's sizes (every
+    population two wide): ``compile_fmin``'s trial axis (64 evaluations,
+    each rank one column of every batch), ``compile_sha`` and
+    ``compile_pbt`` over the ranks, each run twice and bitwise the
+    unsharded run of the same program in this process; one all_gather
+    of the losses per loop step, one of the losses and one of the states
+    per rung and per exploit, and no other collective (counted inside
+    the ranks); nothing of ``torch.distributed`` left here."""
+    assert _no_distributed_state()
+    out = t_dcn.launch(world=2, timeout=180, device="cpu", workdir=tmp_path, stages="CDE")
+    result = next(ln for ln in out.splitlines() if ln.startswith("DCN RESULT"))
+    for field in ("loop_matches_unsharded=True", "sha_matches_unsharded=True",
+                  "pbt_matches_unsharded=True", "loop_deterministic=True",
+                  "sha_deterministic=True", "pbt_deterministic=True", "ranks_agree=True",
+                  "boundaries={'C': 32, 'D': 2, 'E': 4}",
+                  "gathers_by_stage={'C': 32, 'D': 4, 'E': 8}", "loop_launches_by_rank=[0, 0]"):
+        assert field in result, (field, result)
+    assert "ks=" not in result  # stages A and B did not run
+    spawned = t_dcn.parse_values(out)
+    assert spawned == t_dcn.unsharded_population("cpu", 2)
+    # the PBT schedule really exploited across the ranks: both members
+    # end on the rank-0 or rank-1 member that won
+    assert len(set(spawned["E"]["state"])) == 1
+    assert _no_distributed_state()
+
+
+FETCH_RANK = """
+import json, sys
+import torch
+from hyperopt_tpu_torch.parallel import dcn_check, multihost
+
+rank = int(sys.argv[1])
+assert multihost.initialize(sys.argv[2], num_processes=2, process_id=rank)
+tree = {"a": torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * rank,
+        "b": [torch.tensor([rank == 0, True]), torch.full((2,), float(rank))],
+        "c": None, "d": 1.5, "e": torch.arange(3, dtype=torch.int64)[None] * (rank + 1)}
+marks = {"a": True, "b": [True, False], "c": False, "d": False, "e": True}
+counter = dcn_check.CollectiveCounter().install()
+out, counts = counter.step(lambda: multihost.fetch_global(tree, sharded=marks))
+local, local_counts = counter.step(lambda: multihost.fetch_global(tree))
+counter.uninstall()
+print("FETCH " + json.dumps({
+    "a": out["a"].tolist(), "b0": out["b"][0].tolist(), "b1": out["b"][1].tolist(),
+    "c": out["c"], "d": float(out["d"]), "e": out["e"].tolist(), "e_dtype": str(out["e"].dtype),
+    "counts": counts, "local_a": local["a"].tolist(), "local_counts": local_counts}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_fetch_global_tiles_the_marked_leaves_across_two_spawned_ranks(tmp_path):
+    """Two ``gloo`` ranks each fetch a tree of their blocks: the marked
+    leaves come back joined along the leading axis in rank order (float,
+    bool and int64 blocks through one ``all_gather`` of one byte buffer),
+    the unmarked leaves are the rank's own, None and scalars pass
+    through, and a fetch with nothing marked makes no collective."""
+    import subprocess
+    import sys
+
+    script = tmp_path / "fetch_rank.py"
+    script.write_text(FETCH_RANK)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    store = f"file://{tmp_path / 'store'}"
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), store], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        finally:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    got = [json.loads(next(ln for ln in o.splitlines() if ln.startswith("FETCH "))[6:])
+           for o in outs]
+    blocks = [np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * r for r in range(2)]
+    for rank, g in enumerate(got):
+        assert g["a"] == np.concatenate(blocks).tolist()
+        assert g["b0"] == [True, True, False, True]
+        assert g["b1"] == [float(rank)] * 2  # unmarked: the rank's own
+        assert g["c"] is None and g["d"] == 1.5
+        assert g["e"] == [[0, 1, 2], [0, 2, 4]] and g["e_dtype"] == "int64"
+        assert g["counts"] == [1, 0] and g["local_counts"] == [0, 0]
+        assert g["local_a"] == blocks[rank].tolist()
+
+
+def test_fetch_global_in_one_process_is_the_local_fetch():
+    """With no process group every leaf is fetched locally, marked or not,
+    in new memory."""
+    tree = {"a": torch.arange(4.0), "b": [torch.ones(2, dtype=torch.bool), 2.5], "c": None}
+    for sharded in (True, {"a": True, "b": [True, False], "c": False}):
+        got = TMH.fetch_global(tree, sharded=sharded)
+        assert np.array_equal(got["a"], tree["a"].numpy()) and got["c"] is None
+        assert np.array_equal(got["b"][0], [True, True]) and got["b"][1] == 2.5
+        got["a"][0] = 7.0
+        assert tree["a"][0] == 0.0  # not an alias of the tensor
+
+
 @pytest.mark.slow
 def test_two_spawned_ranks_full_check():
-    """``dcn_check.launch()`` at the reference's size: B=256, 32
-    candidates per rank, the KS distances against the unsharded path
-    under 0.2."""
+    """``dcn_check.launch()`` at the reference's size: stages A and B at
+    B=256, 32 candidates per rank, the KS distances against the
+    unsharded path under 0.2; stages C-E bitwise their unsharded runs."""
     out = t_dcn.launch(world=2, timeout=300, device="cpu")
-    assert "DCN RESULT procs=2 mesh={cand: 2} batch=256" in out, out[-2000:]
+    assert "DCN RESULT procs=2 stages=ABCDE mesh={cand: 2} batch=256" in out, out[-2000:]
     assert "ks=" in out and "mixed_ks=" in out and "deterministic=True" in out
+    for field in ("loop_matches_unsharded=True", "sha_matches_unsharded=True",
+                  "pbt_matches_unsharded=True"):
+        assert field in out, field

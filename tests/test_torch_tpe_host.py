@@ -31,6 +31,8 @@ from hyperopt_tpu_torch import tpe_host as tt
 from hyperopt_tpu_torch.models.synthetic import DOMAINS as T_DOMAINS
 from hyperopt_tpu_torch.models.synthetic import mixed_space as t_mixed_space
 
+from test_torch_native import reference_library
+
 EQ = np.testing.assert_array_equal
 
 
@@ -234,7 +236,7 @@ def test_fmin_stream_numpy_mode(numpy_mode, space):
 def test_fmin_stream_native_library():
     """Each package on its own native library: the same source and flags
     on the same host, so the stream is bitwise."""
-    if not (j_native.available() and t_native.available()):
+    if not (reference_library() and t_native.available()):
         pytest.skip("no C++ toolchain: the native libraries did not build")
     assert jt._native() is j_native and tt._native() is t_native
     j = _stream(J, jt.suggest, j_mixed_space(), mixed_space_fn, 40)

@@ -4272,10 +4272,12 @@ class Patches:
 
 def phase16(card):
     """The port's own checks on the card's machine: (a) the lint CLI's
-    three packs over this tree, each clean; (b) lockdep armed on every
-    ``BatchScheduler`` over 7b's serve protocol and 11b's cut burst, then
-    disarmed, with 0 inversions, and the kernel at every launch shape of
-    the two runs.  Returns the launches by path and the numbers."""
+    three source packs over this tree (the AST pack with GL1xx/GL2xx),
+    each clean; (b) lockdep armed on every ``BatchScheduler`` over 7b's
+    serve protocol and 11b's cut burst, then disarmed, with 0
+    inversions, and the kernel at every launch shape of the two runs;
+    (c) the main-path programs' contracts and their runs on the card
+    (:func:`phase16c`).  Returns the launches by path and the numbers."""
     import contextlib
     import io
     import tempfile
@@ -4350,9 +4352,179 @@ def phase16(card):
     assert all(launches.values()), launches
     for path, seen in shapes.items():
         CHECKED_SHAPES[path] = check_shapes(f"16 {path}, {card}", seen, seed=161)
+    # -- 16c. the program contracts, and the main-path programs on the card --
+    out["ir"] = phase16c(card, launches)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[16] {card}: phase 16 took {out['seconds']:.1f} s")
     return launches, out
+
+
+#: 16c's programs: the main path's registrations (the prior's startup
+#: asks, the TPE ask, the fused tell+ask, the kernel's own)
+IR_MAIN_PROGRAMS = ("compile.sample_prior", "tpe.suggest", "tpe.fused_tell_ask",
+                    "gmm_scores.gmm_llr")
+#: launches of one run of each: the two TPE asks and the kernel program
+IR_REGISTRY_LAUNCHES = 3
+#: 16c (i), the checker's process: started at phase 1, read in 16c
+IR_CHECK = []
+IR_CHECK_TIMEOUT = 600
+
+
+def start_ir_check():
+    """Start 16c (i): ``ir.check_programs`` over the main-path programs
+    against the committed manifest, in a process of its own (tracing is
+    CPU work: it overlaps the card's phases), one intra-op thread and no
+    card visible; its JSON report on stdout.  Stopped at exit if it
+    outlives the script."""
+    import atexit
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import json, time\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from hyperopt_tpu_torch.analysis import ir\n"
+        "t0 = time.perf_counter()\n"
+        f"res = ir.check_programs(names={IR_MAIN_PROGRAMS!r})\n"
+        "print(json.dumps(dict(findings=[f.to_dict() for f in res.findings],\n"
+        "    programs=res.programs_checked, drift=res.contract_drift,\n"
+        "    contracts=res.contracts_path, seconds=time.perf_counter() - t0)))\n"
+    )
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, env=env,
+                            stdout=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and (proc.kill(), proc.wait()))
+    IR_CHECK[:] = [proc]
+    return proc
+#: float32 ulps between the card's expf and the CPU's exp of one value
+PRIOR_ULPS = 2
+
+
+def ulps(a, b):
+    """Elementwise distance of two float32 arrays in units in the last
+    place (0 where bitwise equal)."""
+    import numpy as np
+
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return np.abs(ordered(a) - ordered(b))
+
+
+def phase16c(card, launches):
+    """(i) ``ir.check_capture`` (through ``check_programs``) over the
+    main-path programs against the committed manifest, on the CPU as
+    the checker always runs (the process :func:`start_ir_check` started
+    at phase 1; read here): 0 findings; (ii) each built at the
+    registry's params on the card and run once: output shapes and dtypes
+    the manifest's, the prior's bits the CPU run's (a log-space dim within
+    ``PRIOR_ULPS``: the card's expf), the TPE suggestions the CPU run's
+    under phase 5's rule (a continuous pick within rtol 1e-4, a
+    categorical one equal) or parting at a near-tie (a CPU pick margin
+    below ``NEAR_TIE``), the fused program's state bits the CPU's; (iii)
+    the kernel against its plain version at the registry's launch shape
+    (B=4, Dg=2, S=128) and at every shape the runs launched.  Returns the
+    numbers; adds the runs' launches under ``ir_registry``."""
+    import numpy as np
+    import torch
+
+    from hyperopt_tpu_torch.analysis import ir
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.ops.compile import default_program_params, registered_programs
+    from hyperopt_tpu_torch.tpe import (_default_gamma, _default_n_EI_candidates,
+                                        _default_n_EI_candidates_cat, _default_prior_weight)
+
+    t_phase = time.perf_counter()
+    proc = IR_CHECK[0]
+    report, _ = proc.communicate(timeout=IR_CHECK_TIMEOUT)
+    wait_s = time.perf_counter() - t_phase
+    assert proc.returncode == 0, f"the program check exited {proc.returncode}"
+    res = json.loads(report.strip().splitlines()[-1])
+    log(f"[16c] {card}: ir.check_programs over {', '.join(IR_MAIN_PROGRAMS)} (traced on "
+        f"the CPU, in a process of its own started at phase 1 with no card visible) "
+        f"against {os.path.relpath(res['contracts'])}: {len(res['findings'])} findings, "
+        f"{res['drift']} with contract drift, {res['seconds']:.2f} s in that process, "
+        f"{wait_s:.2f} s waited for here")
+    assert not res["findings"] and res["programs"] == len(IR_MAIN_PROGRAMS), res["findings"]
+    manifest = ir.load_contracts(res["contracts"])["programs"]
+    specs = registered_programs()
+    cpu_p, card_p = default_program_params(), default_program_params(device="cuda")
+    shapes, run_launches, parts, outputs, unequal = {}, {}, {}, {}, {}
+    for name in IR_MAIN_PROGRAMS:
+        on_cpu, on_card = specs[name].build(cpu_p), specs[name].build(card_p)
+        want = on_cpu.fn(*on_cpu.args, **on_cpu.kwargs)
+        got, n = counted_run(launches, shapes, "ir_registry",
+                             lambda c=on_card: c.fn(*c.args, **c.kwargs))
+        run_launches[name] = n
+        got_l = [t.cpu() for t in torch.utils._pytree.tree_leaves(got)]
+        want_l = torch.utils._pytree.tree_leaves(want)
+        outputs[name] = [ir._val_str(t) for t in got_l]
+        assert outputs[name] == manifest[name]["outputs"], (name, outputs[name])
+        if name == "compile.sample_prior":
+            # the draws' bits are the CPU's; a log-space dim goes through
+            # the card's expf, within PRIOR_ULPS of the CPU's exp
+            assert torch.equal(got_l[1], want_l[1]), "prior active masks differ"
+            d = ulps(got_l[0].numpy(), want_l[0].numpy())
+            logspace = np.zeros(cpu_p.space.n_dims, bool)
+            logspace[cpu_p.space.cont_idx] = cpu_p.space.logspace
+            unequal[name] = dict(elements=int((d > 0).sum()), max_ulps=int(d.max()),
+                                 off_log=int((d[~logspace] > 0).sum()))
+            assert unequal[name]["off_log"] == 0 and d.max() <= PRIOR_ULPS, unequal[name]
+            parts[name] = 0
+        elif name == "gmm_scores.gmm_llr":
+            plain = G.gmm_llr_plain(*on_card.args)
+            kernel_err = float((got - plain).abs().max())
+            assert bool(torch.isfinite(got).all()) and torch.allclose(
+                got, plain, rtol=G.KERNEL_RTOL, atol=G.KERNEL_ATOL), kernel_err
+        else:
+            fused = name == "tpe.fused_tell_ask"
+            if fused:  # the tell is data movement: the state's bits are the CPU's
+                assert all(torch.equal(a, b) for a, b in zip(got_l[:4], want_l[:4])), \
+                    "the fused tell's state differs"
+            state = tuple(want_l[:4]) if fused else on_cpu.args[1:5]
+            batch = on_cpu.kwargs["batch"]
+            gv, cv = got_l[-2].numpy(), want_l[-2].numpy()
+            assert torch.equal(got_l[-1], want_l[-1]), f"{name}: active masks differ"
+            # phase 5's rule: a continuous pick within rtol 1e-4 is the CPU's
+            # candidate drawn through the card's transcendentals (a log-space
+            # draw's last bits grow through exp), a categorical one is
+            # equal; any other must be a near-tie
+            cont = np.zeros(cpu_p.space.n_dims, bool)
+            cont[cpu_p.space.cont_idx] = True
+            diff = np.where(cont[:, None], ~np.isclose(gv, cv, rtol=1e-4, atol=1e-5),
+                            gv != cv)
+            unequal[name] = dict(elements=int((gv != cv).sum()))
+            margins = sweep_margins(cpu_p.space, state, on_cpu.args[0], _default_gamma,
+                                    _default_prior_weight, _default_n_EI_candidates,
+                                    _default_n_EI_candidates_cat, batch, pad_gamma=None)
+            parts[name] = int(diff.sum())
+            where = [(cpu_p.space.labels[d], int(b), float(gv[d, b]), float(cv[d, b]),
+                      float(margins[d, b])) for d, b in zip(*np.nonzero(diff))]
+            if where:
+                log(f"[16c] {card}: {name}'s picks parting from the CPU's (label, trial, "
+                    f"card, CPU, CPU pick margin): {where}")
+            assert not (diff & (margins >= NEAR_TIE)).any(), (name, where)
+    total = sum(run_launches.values())
+    assert total == IR_REGISTRY_LAUNCHES and run_launches["gmm_scores.gmm_llr"] == 1, \
+        run_launches
+    CHECKED_SHAPES["ir_registry"] = check_shapes(f"16c ir_registry, {card}",
+                                                 shapes["ir_registry"], seed=162)
+    out = dict(programs=list(IR_MAIN_PROGRAMS), findings=len(res["findings"]),
+               check_s=res["seconds"], wait_s=wait_s, outputs=outputs,
+               launches=run_launches, parted=parts,
+               unequal=unequal,
+               kernel_max_abs_err=kernel_err, shape=dict(G.REGISTRY_SHAPE),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[16c] {card}: the four programs built on the card at the registry's params: "
+        f"outputs {outputs} (the manifest's); elements unlike the CPU's {unequal} "
+        f"(the prior's only in log-space dims, within {PRIOR_ULPS} ulp; the TPE picks' "
+        f"continuous ones within rtol 1e-4); TPE picks parting from the CPU's at {parts} "
+        f"places (each a near-tie); gmm_llr launches "
+        f"{run_launches}; the kernel at {G.REGISTRY_SHAPE} max_abs_err {kernel_err:.3e} "
+        f"against the plain version; 16c took {out['seconds']:.1f} s")
+    return out
 
 
 SHARDED_TRIALS = 100  # 17a's fmin: 20 startup trials, then 80 sharded asks
@@ -5344,6 +5516,7 @@ def main():
         log(f"[{name}] took {phase_seconds[name]:.1f} s")
 
     # -- 1. the card; build the kernel ------------------------------------
+    start_ir_check()  # 16c (i), on the CPU beside the card's phases
     card = smi("name,power.limit")
     log(f"[1] card: {card}")
     props = torch.cuda.get_device_properties(0)

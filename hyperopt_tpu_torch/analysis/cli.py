@@ -21,6 +21,12 @@ the file's directory.
 the same path arguments, with the identical exit-code contract,
 ``--format json``, pragma, and baseline workflow as the default pack.
 
+``--ir`` switches to the graftir program-contract pack (GL4xx, see
+:mod:`.ir`): it traces the REGISTERED programs on the CPU, not the path
+arguments, and diffs them against the committed
+``hyperopt_tpu_torch/analysis/program_contracts.json``.  Accept
+deliberate contract changes with ``--ir --update-contracts``.
+
 ``--wire`` switches to the graftwire wire-protocol pack (GL6xx, see
 :mod:`.wire`): it checks the FIXED protocol surfaces (service/router
 dispatch, client call sites, typed-error mapping, crash-point
@@ -37,7 +43,14 @@ import sys
 
 from . import baseline as baseline_mod
 from .engine import lint_paths
-from .report import format_json, format_text, format_wire_json, format_wire_text
+from .report import (
+    format_ir_json,
+    format_ir_text,
+    format_json,
+    format_text,
+    format_wire_json,
+    format_wire_text,
+)
 from .rules import RULES
 
 __all__ = ["main"]
@@ -50,15 +63,17 @@ DEFAULT_BASELINE = os.path.join(PACKAGE_DIR, "analysis", "lint_baseline.json")
 def _build_parser():
     p = argparse.ArgumentParser(
         prog="hyperopt-tpu-torch-lint",
-        description="AST-based invariant checker for the port's crash "
-        "consistency (graftlint), lock discipline (graftrace, --trace) "
-        "and wire contracts (graftwire, --wire).",
+        description="AST-based invariant checker for the port's capture "
+        "discipline and crash consistency (graftlint), program contracts "
+        "over traced aten graphs (graftir, --ir), lock discipline "
+        "(graftrace, --trace) and wire contracts (graftwire, --wire).",
     )
     p.add_argument(
         "paths", nargs="*", default=[PACKAGE_DIR],
         help="files or directories to lint (default: the "
-        "hyperopt_tpu_torch package; ignored under --wire, which checks "
-        "the fixed protocol surfaces)",
+        "hyperopt_tpu_torch package; ignored under --ir, which checks the "
+        "registered programs, and --wire, which checks the fixed protocol "
+        "surfaces)",
     )
     p.add_argument(
         "--format", choices=("text", "json"), default="text",
@@ -85,6 +100,11 @@ def _build_parser():
         "cwd",
     )
     p.add_argument(
+        "--ir", action="store_true",
+        help="run the graftir program-contract pack (GL4xx) over the "
+        "registered programs, traced to aten graphs on the CPU",
+    )
+    p.add_argument(
         "--trace", action="store_true",
         help="run the graftrace concurrency pack (GL5xx: lock-domain "
         "inference, lock-order cycles, blocking/dispatch under lock) "
@@ -100,13 +120,14 @@ def _build_parser():
     )
     p.add_argument(
         "--contracts", default=None, metavar="FILE",
-        help="contracts manifest for --wire (default: the package's "
-        "committed analysis/wire_contracts.json)",
+        help="contracts manifest for --ir / --wire (default: the "
+        "package's committed analysis/program_contracts.json / "
+        "analysis/wire_contracts.json)",
     )
     p.add_argument(
         "--update-contracts", action="store_true",
-        help="with --wire: re-pin the manifest to the current reply "
-        "shapes instead of diffing against it",
+        help="with --ir or --wire: re-pin the manifest to the current "
+        "programs / reply shapes instead of diffing against it",
     )
     p.add_argument(
         "--list-rules", action="store_true",
@@ -130,6 +151,35 @@ def _baseline_and_root(args):
             else REPO_ROOT
         )
     return baseline_path, root
+
+
+def _main_ir(args):
+    from . import ir as ir_mod
+
+    try:
+        result = ir_mod.check_programs(
+            contracts_path=args.contracts, update=args.update_contracts,
+        )
+    except (FileNotFoundError, ValueError, OSError) as e:
+        print(f"hyperopt-tpu-torch-lint: error: {e}", file=sys.stderr)
+        return 2
+    except Exception as e:  # internal failure is 2, never a traceback
+        print(
+            f"hyperopt-tpu-torch-lint: internal error: {type(e).__name__}: {e}",
+            file=sys.stderr,
+        )
+        return 2
+    if result.updated:
+        print(
+            f"pinned {result.programs_checked} program contract(s) to "
+            f"{result.contracts_path}",
+            file=sys.stderr,
+        )
+    print(
+        format_ir_json(result) if args.format == "json"
+        else format_ir_text(result)
+    )
+    return 0 if result.clean else 1
 
 
 def _main_wire(args):
@@ -186,15 +236,15 @@ def main(argv=None):
             print(f"{r.id}  {r.name:28s} {r.summary}")
         return 0
 
-    if args.update_contracts and not args.wire:
+    if args.update_contracts and not (args.ir or args.wire):
         print(
             "hyperopt-tpu-torch-lint: error: --update-contracts requires "
-            "--wire",
+            "--ir or --wire",
             file=sys.stderr,
         )
         return 2
     packs = [f for f, on in (
-        ("--trace", args.trace), ("--wire", args.wire),
+        ("--ir", args.ir), ("--trace", args.trace), ("--wire", args.wire),
     ) if on]
     if len(packs) > 1:
         print(
@@ -203,6 +253,8 @@ def main(argv=None):
             file=sys.stderr,
         )
         return 2
+    if args.ir:
+        return _main_ir(args)
     if args.wire:
         return _main_wire(args)
 

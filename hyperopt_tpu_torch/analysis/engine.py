@@ -1,4 +1,5 @@
-"""graftlint core: file context, thread-target resolution, suppressions.
+"""graftlint core: file context, captured-scope and thread-target
+resolution, suppressions.
 
 The engine is stdlib-only (``ast`` + ``tokenize``): it runs in the fast
 tier on a bare CPU container and never imports ``torch`` (linting must
@@ -6,11 +7,28 @@ not build a program or touch a device).
 
 Scope model
 -----------
-Rules are lexical and single-file.  The engine resolves THREAD ENTRY
-POINTS (``threading.Thread(target=...)`` and ``executor.submit(fn,
-...)``, through a ``functools.partial`` wrapper) so the concurrency
-pack can treat them as roots that enter with no lock held.  The fixture
-corpus under ``tests/lint_fixtures/`` pins the behavior.
+Rules are lexical and single-file.  A function is in *captured scope*
+(the port's counterpart of the reference's jitted scope) when it is
+
+* the step handed to a capture: the first argument of
+  ``capture_graph(step, device)`` or ``torch.cuda.make_graphed_callables``,
+  resolved through a ``functools.partial``, a conditional expression, a
+  local alias, and a list, tuple or comprehension the step is drawn
+  from (``capture_graph(step, dev) for step in steps``);
+* called from the body of a ``with torch.cuda.graph(...)`` block;
+* a same-file callee of a captured function (``self.method(...)`` of
+  the enclosing class, or a name that resolves to a def of this file),
+  or lexically nested inside one.
+
+A CUDA graph records the launches of one call and replays only them:
+host code inside a captured step runs once, at capture, and never again.
+
+The engine also resolves THREAD ENTRY POINTS
+(``threading.Thread(target=...)`` and ``executor.submit(fn, ...)``,
+through a ``functools.partial`` wrapper) so the concurrency pack can
+treat them as roots that enter with no lock held.  The fixture corpora
+under ``tests/lint_fixtures/`` and ``tests/lint_fixtures_torch/`` pin
+the behavior.
 
 Suppressions
 ------------
@@ -31,6 +49,7 @@ import re
 import tokenize
 
 __all__ = [
+    "CAPTURE_CALLS",
     "Finding",
     "LintResult",
     "FileContext",
@@ -47,6 +66,10 @@ _PRAGMA_RE = re.compile(
 
 _FUNC_NODES = (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
 _SCOPE_NODES = _FUNC_NODES + (ast.ClassDef,)
+_COMPREHENSIONS = (ast.ListComp, ast.SetComp, ast.GeneratorExp)
+
+#: calls that capture their first argument, a step, into a CUDA graph
+CAPTURE_CALLS = frozenset({"capture_graph", "make_graphed_callables"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +146,15 @@ def unwrap_partial(node):
     return node
 
 
+def is_graph_context(expr):
+    """Whether a ``with`` item opens a CUDA graph capture
+    (``torch.cuda.graph(g)``, ``cuda.graph(g)``)."""
+    if not isinstance(expr, ast.Call):
+        return False
+    dn = dotted_name(expr.func) or ""
+    return dn == "cuda.graph" or dn.endswith(".cuda.graph")
+
+
 def walk_scope(node):
     """Yield ``node``'s descendants WITHOUT descending into nested
     function/lambda bodies -- a function's own statements only."""
@@ -163,6 +195,161 @@ class FileContext:
     @functools.cached_property
     def thread_targets(self):
         return self._resolve_thread_targets()
+
+    @functools.cached_property
+    def graph_blocks(self):
+        """``with torch.cuda.graph(...)`` statements: their bodies are
+        captured."""
+        if ".graph(" not in self.source:
+            return []
+        return [
+            n for n in ast.walk(self.tree)
+            if isinstance(n, (ast.With, ast.AsyncWith))
+            and any(is_graph_context(i.context_expr) for i in n.items)
+        ]
+
+    @functools.cached_property
+    def captured(self):
+        """The function nodes in captured scope (see the module
+        docstring): the steps handed to a capture, the callees of a
+        ``with torch.cuda.graph`` body, and their same-file callees."""
+        if not self.graph_blocks and not any(c in self.source for c in CAPTURE_CALLS):
+            return set()
+        roots = []
+        for node in ast.walk(self.tree):
+            if (
+                isinstance(node, ast.Call)
+                and terminal_name(node.func) in CAPTURE_CALLS
+                and node.args
+            ):
+                roots.extend(self.resolve_callables(node.args[0], node))
+        for block in self.graph_blocks:
+            for st in block.body:
+                for n in [st, *walk_scope(st)]:
+                    if isinstance(n, ast.Call):
+                        roots.extend(self.resolve_callables(n.func, n))
+        seen = set()
+        stack = list(roots)
+        while stack:
+            fn = stack.pop()
+            if fn in seen:
+                continue
+            seen.add(fn)
+            for n in walk_scope(fn):
+                if isinstance(n, ast.Call):
+                    stack.extend(self.resolve_callables(n.func, n))
+        return seen
+
+    def in_captured_scope(self, node):
+        if not self.captured and not self.graph_blocks:
+            return False
+        if isinstance(node, _FUNC_NODES) and node in self.captured:
+            return True
+        blocks = self.graph_blocks
+        for a in self.ancestors(node):
+            if isinstance(a, _FUNC_NODES) and a in self.captured:
+                return True
+            if blocks and a in blocks:
+                return True
+        return False
+
+    # -- callable resolution -------------------------------------------------
+
+    def _scopes(self, site):
+        """The function scopes enclosing ``site``, innermost first, then
+        the module."""
+        out = [a for a in self.ancestors(site) if isinstance(a, _FUNC_NODES)]
+        return out + [self.tree]
+
+    def resolve_callables(self, expr, site, elem=0, _seen=None):
+        """The defs (or lambdas) of this file that ``expr`` evaluated at
+        ``site`` may call.  ``elem`` counts pending "an element of"
+        levels: ``for step in steps`` resolves ``step`` as an element of
+        ``steps``.  Unresolvable expressions give nothing."""
+        seen = set() if _seen is None else _seen
+        key = (id(expr), elem)
+        if key in seen:
+            return []
+        seen.add(key)
+
+        def again(e, n=elem, at=site):
+            return self.resolve_callables(e, at, n, seen)
+
+        if isinstance(expr, ast.IfExp):
+            return again(expr.body) + again(expr.orelse)
+        if isinstance(expr, ast.Name):
+            return self._resolve_name(expr.id, site, elem, seen)
+        if elem:
+            if isinstance(expr, (ast.List, ast.Tuple, ast.Set)):
+                return [f for e in expr.elts for f in again(e, elem - 1)]
+            if isinstance(expr, _COMPREHENSIONS):
+                return again(expr.elt, elem - 1, expr.elt)
+            return []
+        if isinstance(expr, ast.Lambda):
+            return [expr]
+        if isinstance(expr, ast.Call) and terminal_name(expr.func) == "partial":
+            return again(expr.args[0]) if expr.args else []
+        if (
+            isinstance(expr, ast.Attribute)
+            and isinstance(expr.value, ast.Name)
+            and expr.value.id == "self"
+        ):
+            cls = next((a for a in self.ancestors(site)
+                        if isinstance(a, ast.ClassDef)), None)
+            if cls is None:
+                return []
+            return [m for m in cls.body
+                    if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    and m.name == expr.attr]
+        return []
+
+    def _resolve_name(self, name, site, elem, seen):
+        """``name`` at ``site``: the innermost scope that binds it decides
+        -- a def of that name, an assignment's value, or a loop or
+        comprehension target (an element of its iterable), and for an
+        element, what is appended to it.  A parameter
+        binds it to something unknown."""
+        for scope in self._scopes(site):
+            own = list(walk_scope(scope)) if scope is not self.tree else [
+                n for st in self.tree.body for n in [st, *walk_scope(st)]
+            ]
+            if scope is not self.tree and isinstance(scope, _FUNC_NODES):
+                a = scope.args
+                params = a.posonlyargs + a.args + a.kwonlyargs + [
+                    p for p in (a.vararg, a.kwarg) if p is not None
+                ]
+                if any(p.arg == name for p in params):
+                    return []
+            defs = [n for n in own
+                    if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    and n.name == name]
+            out = [] if elem else list(defs)
+            bound = bool(defs)
+            for n in own:
+                if isinstance(n, ast.Assign) and any(
+                    isinstance(t, ast.Name) and t.id == name for t in n.targets
+                ):
+                    bound = True
+                    out.extend(self.resolve_callables(n.value, n, elem, seen))
+                elif isinstance(n, (ast.For, ast.AsyncFor, ast.comprehension)) and (
+                    isinstance(n.target, ast.Name) and n.target.id == name
+                ):
+                    bound = True
+                    out.extend(self.resolve_callables(n.iter, n.iter, elem + 1, seen))
+                elif (
+                    elem
+                    and isinstance(n, ast.Call)
+                    and isinstance(n.func, ast.Attribute)
+                    and n.func.attr == "append"
+                    and isinstance(n.func.value, ast.Name)
+                    and n.func.value.id == name
+                    and n.args
+                ):
+                    # steps.append(step): an element of ``steps``
+                    out.extend(self.resolve_callables(n.args[0], n, elem - 1, seen))
+            if bound:
+                return out
+        return []
 
     # -- scope helpers -----------------------------------------------------
 

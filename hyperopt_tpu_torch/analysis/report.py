@@ -9,6 +9,7 @@ from .rules import RULES
 
 __all__ = [
     "format_text", "format_json", "result_summary",
+    "ir_summary", "format_ir_text", "format_ir_json",
     "wire_summary", "format_wire_text", "format_wire_json",
 ]
 
@@ -44,6 +45,44 @@ def format_json(result):
     return json.dumps(
         {
             "summary": result_summary(result),
+            "findings": [f.to_dict() for f in result.findings],
+        },
+        indent=2,
+        sort_keys=True,
+    )
+
+
+def ir_summary(result):
+    """Summary block of an :class:`~.ir.IRResult`."""
+    return {
+        "total": len(result.findings),
+        "programs_checked": result.programs_checked,
+        "contract_drift": result.contract_drift,
+        "contracts": result.contracts_path,
+        "updated": result.updated,
+    }
+
+
+def format_ir_text(result):
+    lines = []
+    for f in result.findings:
+        rule = RULES.get(f.rule)
+        name = f" ({rule.name})" if rule else ""
+        lines.append(f"{f.path}:{f.line}: {f.rule}{name} {f.message}")
+    s = ir_summary(result)
+    lines.append(
+        f"graftir: {s['total']} finding(s) across "
+        f"{s['programs_checked']} program(s), "
+        f"{s['contract_drift']} with contract drift"
+        + (" [contracts updated]" if result.updated else "")
+    )
+    return "\n".join(lines)
+
+
+def format_ir_json(result):
+    return json.dumps(
+        {
+            "summary": ir_summary(result),
             "findings": [f.to_dict() for f in result.findings],
         },
         indent=2,

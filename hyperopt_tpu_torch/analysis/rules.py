@@ -1,12 +1,17 @@
-"""The graftlint rule pack: the port's durability and fault-routing
-invariants as AST checks, plus the rule table of the concurrency
-(GL5xx, :mod:`.trace`) and wire (GL6xx, :mod:`.wire`) packs.
+"""The graftlint rule pack: the port's capture discipline (GL1xx),
+dispatch hygiene (GL2xx), durability and fault-routing (GL3xx)
+invariants as AST checks, plus the rule table of the program-contract
+(GL4xx, :mod:`.ir`), concurrency (GL5xx, :mod:`.trace`) and wire
+(GL6xx, :mod:`.wire`) packs.
 
 Every checker is a function ``check(ctx) -> iterable[Finding]`` over a
 :class:`~.engine.FileContext`; registration order is reporting order.
 Rules are heuristic by design -- lexical, single-file, no type
 inference -- and every rule's true-positive and near-miss behavior is
-pinned by a fixture pair in ``tests/lint_fixtures/``.  Where a rule
+pinned by a fixture pair in ``tests/lint_fixtures/`` (GL1xx/GL2xx:
+``tests/lint_fixtures_torch/``, torch twins of the reference's JAX
+pairs).  GL1xx/GL2xx read "captured scope" where the reference read
+"jitted scope" (:class:`~.engine.FileContext`'s ``captured``).  Where a rule
 names a seam (the durable savers of ``utils/checkpoint.py``,
 ``distributed/_common.with_retries``, the ``obs/registry.py`` metric
 registry) it is this package's twin of the same name.
@@ -17,7 +22,9 @@ from __future__ import annotations
 import ast
 import dataclasses
 
-from .engine import dotted_name, terminal_name, walk_scope
+import re
+
+from .engine import CAPTURE_CALLS, dotted_name, terminal_name, walk_scope
 
 __all__ = ["RULES", "CHECKERS", "Rule"]
 
@@ -52,6 +59,36 @@ RULES["GL001"] = Rule(
 RULES["GL002"] = Rule(
     "GL002", "parse-error", "file does not parse (syntax error)"
 )
+
+# GL4xx -- the program-contract pack (hyperopt-tpu-torch-lint --ir):
+# checked over the TRACED aten graphs of registered programs, not the
+# AST, so no checker here walks a tree (see analysis/ir.py; the rule
+# metadata lives in this table so --list-rules and pragma validation
+# cover the whole pack without importing torch)
+for _id, _name, _summary in (
+    ("GL401", "ir-host-sync",
+     "a host read (Tensor.item/tolist/numpy/cpu, a tensor's truth value, "
+     "torch.cuda.synchronize) or an aten._local_scalar_dense/nonzero "
+     "node inside a registered program"),
+    ("GL402", "ir-f64-promotion",
+     "a float64/complex128 node appears when the program is traced "
+     "under torch.set_default_dtype(torch.float64) (an un-dtyped "
+     "factory widening silently)"),
+    ("GL403", "ir-mutation-contract",
+     "the inputs a registered program mutates in place differ from the "
+     "static carry its registration declares"),
+    ("GL404", "ir-oversized-constant",
+     "a closed-over tensor constant >= the byte threshold is baked into "
+     "the traced program"),
+    ("GL405", "ir-mid-program-transfer",
+     "a device transfer (.to(device), .cuda(), .cpu()) inside the "
+     "program body"),
+    ("GL406", "ir-contract-drift",
+     "output shapes/dtypes, mutated inputs, allowed syncs, aten node "
+     "count, FLOPs or constant bytes drifted from the committed "
+     "analysis/program_contracts.json"),
+):
+    RULES[_id] = Rule(_id, _name, _summary)
 
 # GL5xx -- the graftrace concurrency pack (hyperopt-tpu-torch-lint --trace):
 # static lock-discipline and race analysis over the serve/distributed
@@ -133,6 +170,363 @@ def _is_test_file(ctx):
 
 
 _NUMPY_MODULES = frozenset({"np", "numpy", "onp"})
+
+
+def _call_args_all_constant(call):
+    return all(isinstance(a, ast.Constant) for a in call.args)
+
+
+# ---------------------------------------------------------------------------
+# GL1xx -- capture discipline: what a captured CUDA graph cannot hold
+# ---------------------------------------------------------------------------
+
+_HOST_SYNC_METHODS = frozenset({"item", "tolist", "cpu", "numpy"})
+_HOST_MATERIALIZERS = frozenset({"asarray", "array"})
+_SCALAR_BUILTINS = frozenset({"float", "int", "bool"})
+_BUILD_FN = re.compile(r"^build_\w*_fn$")
+
+
+def _is_cuda_synchronize(call):
+    dn = dotted_name(call.func) or ""
+    return dn == "torch.cuda.synchronize" or dn == "cuda.synchronize"
+
+
+@register(
+    "GL101", "capture-host-sync",
+    ".item()/.tolist()/.cpu()/.numpy(), float()/int()/bool() of a "
+    "non-literal, np.asarray/np.array, nonzero or torch.cuda.synchronize "
+    "inside a captured step -- a host read that breaks capture, or runs "
+    "once at capture and is baked into every replay",
+)
+def check_capture_host_sync(ctx):
+    for node in ast.walk(ctx.tree):
+        if not isinstance(node, ast.Call):
+            continue
+        func = node.func
+        if isinstance(func, ast.Attribute):
+            dn = dotted_name(func)
+            if func.attr in _HOST_SYNC_METHODS and not node.args:
+                what = f".{func.attr}()"
+            elif func.attr == "nonzero":
+                what = f"{dn}()" if dn and dn.startswith("torch.") else ".nonzero()"
+            elif (
+                func.attr in _HOST_MATERIALIZERS
+                and dn is not None
+                and dn.split(".")[0] in _NUMPY_MODULES
+            ):
+                what = f"{dn}()"
+            elif _is_cuda_synchronize(node):
+                what = "torch.cuda.synchronize()"
+            else:
+                continue
+        elif (
+            isinstance(func, ast.Name)
+            and func.id in _SCALAR_BUILTINS
+            and node.args
+            and not _call_args_all_constant(node)
+        ):
+            what = f"{func.id}()"
+        else:
+            continue
+        if ctx.in_captured_scope(node):
+            yield ctx.finding(
+                "GL101", node,
+                f"{what} inside a captured step reads the card from the "
+                "host: capture breaks, or the value read at capture is "
+                "baked into every replay; keep it on the card and read it "
+                "after the replay",
+            )
+
+
+@register(
+    "GL102", "print-in-capture",
+    "print/breakpoint inside a captured step -- it runs once, at "
+    "capture, and never on replay",
+)
+def check_capture_print(ctx):
+    for node in ast.walk(ctx.tree):
+        if not isinstance(node, ast.Call):
+            continue
+        dn = dotted_name(node.func)
+        if dn in ("print", "breakpoint", "pdb.set_trace") and (
+            ctx.in_captured_scope(node)
+        ):
+            yield ctx.finding(
+                "GL102", node,
+                f"{dn}() inside a captured step runs once at capture and "
+                "never on replay; print outside the graph",
+            )
+
+
+@register(
+    "GL103", "loop-var-capture-closure",
+    "a captured step defined inside a loop closes over the loop "
+    "variable -- every graph bakes the value the variable held at "
+    "capture",
+)
+def check_capture_loop_closure(ctx):
+    # the steps themselves, not the lambdas a step defines and applies
+    # within one capture; and only loops of host code, outside capture
+    for fn in ctx.captured:
+        # names (re)bound by For/While loops that lexically enclose fn
+        loop_names = set()
+        for anc in ctx.ancestors(fn):
+            if isinstance(anc, (ast.For, ast.While)) and not ctx.in_captured_scope(anc):
+                for t in ast.walk(getattr(anc, "target", anc)):
+                    if isinstance(t, ast.Name):
+                        loop_names.add(t.id)
+                for st in walk_scope(anc):
+                    if isinstance(st, ast.Name) and isinstance(st.ctx, ast.Store):
+                        loop_names.add(st.id)
+        if not loop_names:
+            continue
+        args = fn.args
+        local = {
+            a.arg for a in (
+                args.args + args.posonlyargs + args.kwonlyargs
+                + ([args.vararg] if args.vararg else [])
+                + ([args.kwarg] if args.kwarg else [])
+            )
+        }
+        body = fn.body if isinstance(fn.body, list) else [fn.body]
+        for st in body:
+            for n in ast.walk(st):
+                if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store):
+                    local.add(n.id)
+        for st in body:
+            for n in ast.walk(st):
+                if (
+                    isinstance(n, ast.Name)
+                    and isinstance(n.ctx, ast.Load)
+                    and n.id in loop_names
+                    and n.id not in local
+                ):
+                    yield ctx.finding(
+                        "GL103", n,
+                        f"captured step closes over loop-carried {n.id!r}: "
+                        "each graph holds the value of its capture; pass it "
+                        "in a static tensor or bind it as a default",
+                    )
+
+
+def _is_program_construction(call):
+    t = terminal_name(call.func)
+    return t in ("capture_graph", "CUDAGraph", "make_graphed_callables") or bool(
+        t and _BUILD_FN.match(t)
+    )
+
+
+@register(
+    "GL104", "capture-in-loop",
+    "capture_graph/torch.cuda.CUDAGraph()/build_*_fn(...) inside a loop "
+    "-- a fresh graph or program per iteration; build it once or route "
+    "through ops/compile.py's caches",
+)
+def check_capture_in_loop(ctx):
+    if "compile.py" == (ctx.parts[-1] if ctx.parts else ""):
+        return
+    for node in ast.walk(ctx.tree):
+        if not (isinstance(node, ast.Call) and _is_program_construction(node)):
+            continue
+        # the loop must enclose the call within the same function: a
+        # def inside a loop capturing at ITS top level is regime GL103
+        for anc in ctx.ancestors(node):
+            if isinstance(anc, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                break
+            if isinstance(anc, (ast.For, ast.While)):
+                yield ctx.finding(
+                    "GL104", node,
+                    "graph or program constructed inside a loop: every "
+                    "iteration captures or builds it again; hoist it or "
+                    "use ops/compile.py's cache",
+                )
+                break
+
+
+# ---------------------------------------------------------------------------
+# GL2xx -- dispatch hygiene: static buffers, syncs, one build per program
+# ---------------------------------------------------------------------------
+
+#: tensor methods whose result shares the receiver's memory
+_VIEW_METHODS = frozenset({
+    "view", "view_as", "reshape", "expand", "expand_as", "squeeze",
+    "unsqueeze", "select", "narrow", "unbind", "split", "chunk",
+    "transpose", "permute", "movedim", "detach", "flatten", "t",
+    "diagonal", "as_strided", "unflatten",
+})
+
+
+def _alias_root(expr):
+    """The dotted name whose memory ``expr`` aliases (through
+    subscripts and view methods), or None."""
+    while True:
+        if isinstance(expr, ast.Subscript):
+            expr = expr.value
+        elif (
+            isinstance(expr, ast.Call)
+            and isinstance(expr.func, ast.Attribute)
+            and expr.func.attr in _VIEW_METHODS
+        ):
+            expr = expr.func.value
+        else:
+            return dotted_name(expr)
+
+
+def _static_buffers(ctx):
+    """Names and ``self.`` chains a replay writes: the names stored
+    inside a ``with torch.cuda.graph`` body (its static outputs), and the
+    free names and ``self.`` chains a captured function writes in place
+    (``x.copy_(...)``, ``x.index_copy_(...)``, ``x[i] = ...``: its
+    static carry)."""
+    out = set()
+    for block in ctx.graph_blocks:
+        for st in block.body:
+            for n in [st, *walk_scope(st)]:
+                if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store):
+                    out.add(n.id)
+    for fn in ctx.captured:
+        args = fn.args
+        local = {a.arg for a in args.args + args.posonlyargs + args.kwonlyargs}
+        own = list(walk_scope(fn))
+        local |= {n.id for n in own
+                  if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store)}
+        for n in own:
+            root = None
+            if (
+                isinstance(n, ast.Call)
+                and isinstance(n.func, ast.Attribute)
+                and n.func.attr.endswith("_")
+                and not n.func.attr.startswith("_")
+            ):
+                root = _alias_root(n.func.value)
+            elif isinstance(n, (ast.Assign, ast.AugAssign)):
+                tgts = n.targets if isinstance(n, ast.Assign) else [n.target]
+                for t in tgts:
+                    if isinstance(t, ast.Subscript):
+                        root = _alias_root(t)
+            if root and (root.startswith("self.") or root.split(".")[0] not in local):
+                out.add(root)
+    return out
+
+
+def _is_replay(node):
+    return (
+        isinstance(node, ast.Call)
+        and isinstance(node.func, ast.Attribute)
+        and node.func.attr == "replay"
+        and not node.args
+    )
+
+
+@register(
+    "GL201", "read-after-replay",
+    "a name bound to a captured graph's static output (or to a static "
+    "carry tensor) is read after a later replay() without .clone() -- "
+    "the replay overwrote its memory",
+)
+def check_read_after_replay(ctx):
+    has_replay = any(_is_replay(n) for n in ast.walk(ctx.tree))
+    if not has_replay:
+        return
+    static = _static_buffers(ctx)
+    if not static:
+        return
+
+    def is_static(root):
+        return root is not None and (
+            root in static or any(root.startswith(s + ".") for s in static)
+        )
+
+    def _stmt_end(n):
+        cur = n
+        while cur is not None and not isinstance(cur, ast.stmt):
+            cur = ctx.parents.get(cur)
+        if cur is not None and getattr(cur, "end_lineno", None) is not None:
+            return (cur.end_lineno, cur.end_col_offset, 1)
+        return (n.lineno, n.col_offset, 1)
+
+    for scope in list(ctx.functions) + [ctx.tree]:
+        nodes = [n for n in walk_scope(scope) if hasattr(n, "lineno")]
+        if not any(_is_replay(n) for n in nodes):
+            continue
+        events = []
+        for n in nodes:
+            if isinstance(n, ast.Assign):
+                names = []
+                for t in n.targets:
+                    elts = t.elts if isinstance(t, (ast.Tuple, ast.List)) else [t]
+                    names.extend(e.id for e in elts if isinstance(e, ast.Name))
+                events.append((_stmt_end(n), "bind", (names, is_static(_alias_root(n.value)))))
+            elif _is_replay(n):
+                events.append(((n.end_lineno, n.end_col_offset, 0), "replay", None))
+            elif isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load):
+                parent = ctx.parents.get(n)
+                if isinstance(parent, ast.Attribute) and parent.attr == "replay":
+                    continue
+                events.append(((n.lineno, n.col_offset, 0), "load", n))
+        bound, stale = set(), set()
+        for _, kind, what in sorted(events, key=lambda e: e[0]):
+            if kind == "bind":
+                names, alias = what
+                for name in names:
+                    stale.discard(name)
+                    (bound.add if alias else bound.discard)(name)
+            elif kind == "replay":
+                stale |= bound
+            elif what.id in stale:
+                yield ctx.finding(
+                    "GL201", what,
+                    f"{what.id!r} aliases a static buffer of a captured "
+                    "graph and a replay() since overwrote it; .clone() it "
+                    "before the replay",
+                )
+                stale.discard(what.id)
+                bound.discard(what.id)  # one finding per binding
+
+
+@register(
+    "GL202", "sync-outside-bench",
+    "torch.cuda.synchronize / Event.synchronize / Stream.synchronize "
+    "outside bench/profiling modules -- product paths must stay "
+    "launch-async",
+)
+def check_synchronize(ctx):
+    name = ctx.parts[-1] if ctx.parts else ""
+    if "bench" in name or "profiling" in name or _is_test_file(ctx):
+        return
+    for node in ast.walk(ctx.tree):
+        if isinstance(node, ast.Call) and terminal_name(node.func) == "synchronize":
+            yield ctx.finding(
+                "GL202", node,
+                "synchronize in a product path holds the host until the "
+                "card drains; only bench/profiling code may sync (a host "
+                "read of the result syncs on its own)",
+            )
+
+
+@register(
+    "GL203", "per-call-capture",
+    "capture_graph(f, dev).replay() or build_*_fn(...)(args) in one "
+    "expression -- a fresh graph or program per call",
+)
+def check_per_call_capture(ctx):
+    for node in ast.walk(ctx.tree):
+        if not isinstance(node, ast.Call):
+            continue
+        inner = node.func
+        if _is_replay(node) and isinstance(inner.value, ast.Call) and (
+            terminal_name(inner.value.func) in CAPTURE_CALLS
+        ):
+            what = "capture-then-replay"
+        elif isinstance(inner, ast.Call) and _is_program_construction(inner):
+            what = "build-then-call"
+        else:
+            continue
+        yield ctx.finding(
+            "GL203", node,
+            f"{what} in one expression builds a fresh program per "
+            "invocation; bind the graph or program once and reuse it",
+        )
 
 
 # ---------------------------------------------------------------------------

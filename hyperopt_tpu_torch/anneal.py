@@ -189,3 +189,36 @@ def suggest(
         idxs, vals = suggest_batch(new_ids, domain, trials, seed,
                                    avg_best_idx=avg_best_idx, shrink_coef=shrink_coef)
     return docs_from_idxs_vals(new_ids, domain, trials, idxs, vals)
+
+
+# ---------------------------------------------------------------------------
+# Program registrations (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from .ops.compile import ProgramCapture, register_program  # noqa: E402
+
+_ANNEAL_FAMILIES = ("hyperopt_tpu_torch.anneal:build_anneal_fn",
+                    "hyperopt_tpu_torch.tpe:fused_state_io")
+
+
+@register_program("anneal.suggest", families=_ANNEAL_FAMILIES)
+def _registry_anneal_suggest(p):
+    return ProgramCapture(
+        fn=build_anneal_fn(p.space, _default_avg_best_idx, _default_shrink_coef),
+        args=(p.key_spec(),) + p.history_specs(), kwargs={"batch": p.batch},
+    )
+
+
+@register_program("anneal.fused_tell_ask", families=_ANNEAL_FAMILIES)
+def _registry_anneal_fused(p):
+    """The annealing twin of ``tpe.fused_tell_ask`` (the same in-place
+    state contract, the shared ``_state_dispatch`` driver)."""
+    return ProgramCapture(
+        fn=build_anneal_fn(p.space, _default_avg_best_idx, _default_shrink_coef,
+                           state_io=True),
+        args=(p.key_spec(),) + p.history_specs(),
+        kwargs={**p.delta_specs(), "batch": 1}, mutates=(1, 2, 3, 4),
+        # the suggest closure of anneal.suggest behind the delta write of
+        # torch_trials.apply_delta: both pin their GL402 behavior
+        x64_check=False,
+    )

@@ -565,3 +565,23 @@ def suggest(
 
     idxs, vals = dense_to_idxs_vals(new_ids, ps.labels, values, active)
     return docs_from_idxs_vals(new_ids, domain, trials, *tpe._cast_vals(ps, idxs, vals))
+
+
+# ---------------------------------------------------------------------------
+# Program registration (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from .ops.compile import ProgramCapture, register_program  # noqa: E402
+
+
+@register_program(
+    "atpe.device_step",
+    families=("hyperopt_tpu_torch.atpe:build_atpe_device_fn",),
+)
+def _registry_atpe_device(p):
+    """The adaptive suggest step (settings and locks decided on the card),
+    the ``algo='atpe'`` body of ``device_loop.compile_fmin``'s step."""
+    return ProgramCapture(
+        fn=build_atpe_device_fn(p.space, 25.0),
+        args=(p.key_spec(),) + p.history_specs(), kwargs={"batch": p.batch},
+    )

@@ -1163,3 +1163,145 @@ def _to_trials(ps, values, active, losses, trials=None):
     trials.insert_trial_docs(docs)
     trials.refresh()
     return trials
+
+
+# ---------------------------------------------------------------------------
+# Program registrations (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+#
+# The reference registers its whole-experiment scans; the port's loop is
+# one captured step per regime, replayed once per step, so each step (and
+# the chunk boundary's summary) is a program of its own.  A registration
+# runs the step over the carry handed in as arguments, so the static
+# carry it writes in place is the program's declared ``mutates``.
+
+from .ops.compile import ProgramCapture, ProgramParams, register_program  # noqa: E402
+
+_LOOP_FAMILIES = ("hyperopt_tpu_torch.device_loop:compile_fmin",
+                  "hyperopt_tpu_torch.device_loop:_Program._capture",
+                  "hyperopt_tpu_torch.device_loop:_Program.step",
+                  "hyperopt_tpu_torch.device_loop:_Program.tell")
+#: the carry a step reads and writes, and the fields it writes
+_CARRY = ("values", "active", "losses", "valid", "base_key", "c0", "i")
+_WRITES = ("values", "active", "losses", "valid", "i", "rung_of")
+
+
+def _registry_quadratic(cfg):
+    """The registry's objective (sum of squared offsets), the reference's."""
+    return sum((cfg[label] - 1.0) ** 2 for label in sorted(cfg))
+
+
+def _registry_runner(**kw):
+    from .ops.compile import reference_space
+
+    return compile_fmin(_registry_quadratic, reference_space(), max_evals=4, batch_size=1,
+                        algo="tpe", n_startup_jobs=2, n_EI_candidates=24, device="cpu", **kw)
+
+
+def _asha_registry_runner(**kw):
+    """A small mlp-tune bracket (B=4, eta=2, two rungs), the reference's."""
+    from .models.synthetic import mlp_tune_objective, mlp_tune_space
+
+    return compile_fmin(mlp_tune_objective(n_epochs=1, n_train=32, in_dim=4, hidden=8),
+                        mlp_tune_space(), max_evals=8, batch_size=4, algo="tpe",
+                        n_startup_jobs=2, n_EI_candidates=8, device="cpu",
+                        asha={"eta": 2, "rung_epochs": 1, "n_rungs": 2}, **kw)
+
+
+def _loaded_program(runner):
+    """The runner's program with its carry filled: half the capacity told
+    (the registry's history on the runner's space), the next step
+    writing into the first free slot."""
+    prog = runner._program()
+    cap = prog.values.shape[-1]
+    hist = ProgramParams(space=runner._packed_space, n_obs=cap).history_specs()
+    rung_of = None
+    if prog.rung_of is not None:
+        rung_of = np.where(host_copy(hist[3]), 1, -1).astype(np.int32)
+    prog.reset(0, [host_copy(t) for t in hist], cap // 2, math.inf, rung_of=rung_of)
+    return prog
+
+
+def _carry_capture(prog, body):
+    """``body()`` over the program's carry handed in as arguments (each
+    set on the program, then the step runs); returns the carry."""
+    names = _CARRY + (("rung_of",) if prog.rung_of is not None else ())
+
+    def step(*carry):
+        for name, t in zip(names, carry):
+            setattr(prog, name, t)
+        out = body()
+        return tuple(getattr(prog, name) for name in names) if out is None else out
+
+    return names, step
+
+
+def _step_capture(runner, regime):
+    prog = _loaded_program(runner)
+    names, step = _carry_capture(prog, lambda: prog.step(regime))
+    return ProgramCapture(
+        fn=step, args=tuple(getattr(prog, n).clone() for n in names),
+        mutates=tuple(i for i, n in enumerate(names) if n in _WRITES),
+    )
+
+
+def _summary_capture(runner):
+    prog = _loaded_program(runner)
+    names, step = _carry_capture(prog, prog.summary)
+    return ProgramCapture(fn=step, args=tuple(getattr(prog, n).clone() for n in names))
+
+
+@register_program("device_loop.step_prior", families=_LOOP_FAMILIES)
+def _registry_step_prior(p):
+    """The compiled loop's captured step in the startup regime: prior
+    draws, the objective, the carry written at ``c0 + i*B``."""
+    return _step_capture(_registry_runner(), "prior")
+
+
+@register_program("device_loop.step_model", families=_LOOP_FAMILIES)
+def _registry_step_model(p):
+    """The captured step in the model regime (TPE's fits, sweep and
+    kernel launch inside the graph) -- the step that stands for the
+    reference's whole-experiment scan."""
+    return _step_capture(_registry_runner(), "model")
+
+
+@register_program("device_loop.chunk_summary", families=_LOOP_FAMILIES)
+def _registry_chunk_summary(p):
+    """The chunk boundary's progress row (best finite loss, written
+    slots), read-only."""
+    return _summary_capture(_registry_runner(chunk_size=2))
+
+
+@register_program("device_loop.train_step", families=_LOOP_FAMILIES)
+def _registry_train_step(p):
+    """The stateful-objective step: a ``TrainableObjective`` (per-trial
+    MLP training, its epochs and loss) over the trial batch inside the
+    captured step."""
+    from .models.synthetic import mlp_tune_objective, mlp_tune_space
+
+    runner = compile_fmin(mlp_tune_objective(n_epochs=2, n_train=32, in_dim=4, hidden=8),
+                          mlp_tune_space(), max_evals=4, batch_size=2, algo="tpe",
+                          n_startup_jobs=2, n_EI_candidates=8, device="cpu")
+    return _step_capture(runner, "model")
+
+
+@register_program("device_loop.asha_bracket_prior", families=_LOOP_FAMILIES)
+def _registry_asha_prior(p):
+    """One fused-ASHA bracket in the startup regime: prior draws, the
+    compacting rung ladder (train, rank, gather the survivors) and the
+    ``rung_of`` record."""
+    return _step_capture(_asha_registry_runner(), "prior")
+
+
+@register_program("device_loop.asha_bracket_model", families=_LOOP_FAMILIES)
+def _registry_asha_model(p):
+    """One fused-ASHA bracket in the model regime."""
+    return _step_capture(_asha_registry_runner(), "model")
+
+
+@register_program("device_loop.asha_chunk_summary", families=_LOOP_FAMILIES)
+def _registry_asha_summary(p):
+    """The fused-ASHA chunk boundary's progress row: the best counts
+    full-fidelity trials only."""
+    return _summary_capture(_asha_registry_runner(chunk_size=4))

@@ -1176,3 +1176,31 @@ def _space_fingerprint(expr):
             kw = ",".join(sorted(k for k, _ in node.named_args))
             parts.append(f"A:{node.name}/{len(node.pos_args)}/{kw}")
     return hashlib.sha256("|".join(parts).encode()).hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# Program registration (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from .ops.compile import ProgramCapture, register_program  # noqa: E402
+
+
+@register_program(
+    "hyperband.sha_rung_mesh",
+    families=("hyperopt_tpu_torch.hyperband:compile_sha",),
+)
+def _registry_sha_rung_mesh(p):
+    """One captured SHA rung with ``shard_mode="shard_map"`` over four
+    in-process member blocks: the blocks train apart and meet in ONE
+    loss gather at the rung boundary (rung 0 of an 8-config ladder)."""
+    from .parallel.mesh import TRIAL_AXIS, virtual_mesh
+    from .pbt import _registry_train_fn
+
+    runner = compile_sha(
+        _registry_train_fn, {"theta": torch.zeros(8, dtype=torch.float32)},
+        {"lr": (1e-3, 1.0)}, n_configs=8, eta=2, steps_per_rung=2,
+        mesh=virtual_mesh(4, TRIAL_AXIS), trial_axis=TRIAL_AXIS, shard_mode="shard_map",
+        device="cpu",
+    )
+    runner._run(0, None, eager=True)
+    return ProgramCapture(fn=lambda: runner._rung_step(0), args=())

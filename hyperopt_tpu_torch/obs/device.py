@@ -80,3 +80,26 @@ def progress_to_registry(registry, recorder=None, t0=None):
             recorder.event("device.chunk", **row)
 
     return callback
+
+
+# ---------------------------------------------------------------------------
+# Program registration (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from ..ops.compile import ProgramCapture, register_program  # noqa: E402
+
+
+@register_program(
+    "obs.device_metrics",
+    families=("hyperopt_tpu_torch.obs.device:build_device_metrics_fn",),
+)
+def _registry_device_metrics(p):
+    """The serve metrics twin over the stacked study axis: a read-only
+    reduction and ONE declared read of its three-value row (the
+    reference's ordered ``io_callback``)."""
+    values, active, losses, valid = p.study_history_specs()
+    return ProgramCapture(
+        fn=build_device_metrics_fn(lambda row: None),
+        args=(losses, valid, p.study_mask_spec()),
+        allowed_syncs=("cpu", "tolist"),
+    )

@@ -15,7 +15,10 @@ reference's bit for bit before the float math.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import importlib
+import os
 
 import numpy as np
 import torch
@@ -26,7 +29,10 @@ from ..pyll.base import as_apply
 from ..pyll_utils import expr_to_config
 from ..utils import resolve_device
 
-__all__ = ["PackedSpace", "compile_space"]
+__all__ = [
+    "PackedSpace", "ProgramCapture", "ProgramParams", "ProgramSpec", "compile_space",
+    "program_family", "reference_space", "register_program", "registered_programs",
+]
 
 _CONT_DISTS = {
     "uniform": (False, False),  # (logspace, quantized)
@@ -266,3 +272,265 @@ def compile_space(space, device=None):
     if not labels:
         raise CompileError("space has no hyperparameters")
     return PackedSpace(labels, hps, device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# The program registry: the programs the port launches on its hot paths
+# ---------------------------------------------------------------------------
+#
+# graftlint (analysis/rules.py) sees source text only; what ends up
+# inside a program -- a host read smuggled in through a helper, an
+# un-dtyped factory that widens to float64, an input written in place
+# that nobody declared, a megabyte constant baked into a captured graph
+# -- is invisible to it.  Every hot program registers a builder here
+# that rebuilds it on the CPU over small concrete inputs, so the program
+# checker (analysis/ir.py, ``hyperopt-tpu-torch-lint --ir``) can trace
+# each one to an aten graph and audit it.  The contracts are pinned in
+# ``analysis/program_contracts.json``.
+
+
+def program_family(fn):
+    """The program-FAMILY identity of a callable: ``module:qualname``
+    with any ``<locals>`` suffix stripped, so every closure a builder
+    makes maps back to the builder that owns the family
+    (``build_suggest_fn.<locals>.fn_factorized`` ->
+    ``hyperopt_tpu_torch.tpe:build_suggest_fn``).  ``functools.partial``
+    wrappers and bound methods resolve to the wrapped function.  The
+    registry-completeness test records these for the steps handed to
+    ``capture_graph`` and the closures the ``build_*_fn`` builders
+    return, and asserts each family is claimed by a registration."""
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    fn = getattr(fn, "__func__", fn)
+    fn = getattr(fn, "__wrapped__", fn)
+    mod = getattr(fn, "__module__", None) or "<unknown>"
+    qn = getattr(fn, "__qualname__", None) or getattr(fn, "__name__", "<anonymous>")
+    return f"{mod}:{qn.split('.<locals>')[0]}"
+
+
+@dataclasses.dataclass
+class ProgramParams:
+    """The knobs every registered builder is parameterized by: the
+    compiled reference space plus history width, suggestion batch,
+    speculative draw width and study-axis width.  The helpers build the
+    inputs the history-shaped programs share as concrete tensors on the
+    space's device (the checker traces in real mode, on the CPU): half the history told with prior
+    draws and their squared-norm losses, the rest empty, so the traced
+    fits see both occupied and free slots."""
+
+    space: PackedSpace
+    n_obs: int = 128
+    batch: int = 4
+    k_spec: int = 8
+    #: the study-axis width of the serve engine's stacked programs (a
+    #: small slot capacity; the family's graphs grow with it, one width
+    #: pins the family)
+    n_studies: int = 4
+
+    @property
+    def device(self):
+        return self.space.device
+
+    @functools.cached_property
+    def host_space(self):
+        """The space on the CPU: the inputs are drawn there and moved to
+        :attr:`device`, so a program's inputs on the card are bitwise its
+        inputs on the CPU."""
+        if self.space.device.type == "cpu":
+            return self.space
+        return PackedSpace(self.space.labels, self.space.hps)
+
+    def key_spec(self, seed=0):
+        from .. import random as R
+
+        return R.key(seed, device=self.device)
+
+    def keys_spec(self, n=None):
+        """[S, 2] keys, one per study slot."""
+        from .. import random as R
+
+        s = self.n_studies if n is None else int(n)
+        return R.split(R.key(0, device=self.device), s)
+
+    def history_specs(self, seed=1):
+        """(values [D, N], active [D, N], losses [N], valid [N]): the
+        first ``N // 2`` slots told."""
+        from .. import random as R
+
+        N, n = self.n_obs, self.n_obs // 2
+        v, a = self.host_space.sample_prior_fn(R.key(seed), N)
+        told = torch.arange(N) < n
+        values = torch.where(told, v, 0.0)
+        active = a & told
+        losses = torch.where(told, torch.where(active, values, 0.0).square().sum(0), 0.0)
+        return tuple(t.to(self.device) for t in (values, active, losses, told))
+
+    def delta_specs(self):
+        """One O(D) tell into the first free slot, as the resident history
+        stages it on the host: ``{"vcol": [D] float32, "acol": [D] bool,
+        "loss": float, "idx": int}`` (numpy columns; a program uploads
+        them)."""
+        from .. import random as R
+
+        v, a = self.host_space.sample_prior_fn(R.key(2), 1)
+        vcol = v[:, 0].numpy().copy()
+        acol = a[:, 0].numpy().copy()
+        loss = float(np.where(acol, vcol, np.float32(0.0)).astype(np.float32).__pow__(2).sum())
+        return {"vcol": vcol, "acol": acol, "loss": loss, "idx": self.n_obs // 2}
+
+    def study_history_specs(self, n=None):
+        """The four history tensors with a leading study axis (the
+        :class:`hyperopt_tpu_torch.serve.batched.StudyBatchState`
+        layout), study ``i`` told from seed ``i + 1``."""
+        s = self.n_studies if n is None else int(n)
+        hs = [self.history_specs(seed=i + 1) for i in range(s)]
+        return tuple(torch.stack([h[f] for h in hs]) for f in range(4))
+
+    def study_delta_specs(self, n=None):
+        """Per-slot O(D) tell deltas and the apply mask: (vcol [S, D],
+        acol [S, D], loss [S], idx [S], apply [S]); every other slot
+        applies."""
+        s = self.n_studies if n is None else int(n)
+        d = self.delta_specs()
+        dev = self.device
+        return (torch.from_numpy(d["vcol"]).to(dev).expand(s, -1).clone(),
+                torch.from_numpy(d["acol"]).to(dev).expand(s, -1).clone(),
+                torch.full((s,), d["loss"], dtype=torch.float32, device=dev),
+                torch.full((s,), d["idx"], dtype=torch.int64, device=dev),
+                torch.arange(s, device=dev) % 2 == 0)
+
+    def study_mask_spec(self, n=None):
+        """A [S] bool per-slot mask (warm/active flags): every slot set."""
+        s = self.n_studies if n is None else int(n)
+        return torch.ones(s, dtype=torch.bool, device=self.device)
+
+
+@dataclasses.dataclass
+class ProgramCapture:
+    """What a registered builder hands the program checker: the program
+    (a callable over tensors or pytrees of tensors), the concrete CPU
+    arguments to trace it over, static keyword arguments, and its
+    DECLARED contracts."""
+
+    fn: object
+    args: tuple
+    kwargs: dict = dataclasses.field(default_factory=dict)
+    #: the argument positions the program writes in place: its static
+    #: carry (GL403 compares them with the inputs whose ``_version``
+    #: moved over the traced call)
+    mutates: tuple = ()
+    #: GL401's explicit escape hatch: the host reads this program
+    #: DECLARES it makes (``"cpu"``, ``"tolist"``, ...).  An undeclared
+    #: read is a finding, and so is a declared one the program no longer
+    #: makes; the set is pinned in the manifest (GL406 ``syncs``)
+    allowed_syncs: tuple = ()
+    #: run the float64-default re-trace (GL402)?  A program that shares
+    #: its closure with another registration (same build, another batch)
+    #: may skip the duplicate re-trace
+    x64_check: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramSpec:
+    name: str
+    build: object          # build(params: ProgramParams) -> ProgramCapture
+    families: tuple        # program_family() keys this spec covers
+    path: str              # repo-relative source file of the registration
+    line: int
+
+
+PROGRAM_REGISTRY = {}
+
+#: modules that own registered programs; imported (once) by
+#: :func:`registered_programs` so their registrations run.  A new
+#: program starts by adding its module here and a ``@register_program``
+#: builder there.
+_PROGRAM_MODULES = (
+    "hyperopt_tpu_torch.ops.compile",
+    "hyperopt_tpu_torch.torch_trials",
+    "hyperopt_tpu_torch.tpe",
+    "hyperopt_tpu_torch.anneal",
+    "hyperopt_tpu_torch.atpe",
+    "hyperopt_tpu_torch.device_loop",
+    "hyperopt_tpu_torch.parallel.sharded",
+    "hyperopt_tpu_torch.ops.gmm_scores",
+    "hyperopt_tpu_torch.serve.batched",
+    "hyperopt_tpu_torch.pbt",
+    "hyperopt_tpu_torch.hyperband",
+    "hyperopt_tpu_torch.obs.device",
+)
+
+
+def _rel_source_path(filename):
+    """Repo-relative posix path of a registration site (anchored at the
+    package's parent, never the process cwd)."""
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        rel = os.path.relpath(os.path.abspath(filename), start=pkg_root)
+    except ValueError:  # another drive (windows)
+        rel = filename
+    return rel.replace(os.sep, "/")
+
+
+def register_program(name, families=()):
+    """Decorator registering a hot program.
+
+    The decorated ``build(params)`` returns a :class:`ProgramCapture` on
+    the CPU; it may build closures and small inputs but runs nothing on
+    a card.  ``families`` lists the :func:`program_family` keys of every
+    callable this program stands for, the completeness contract the
+    registry test enforces."""
+
+    def deco(build):
+        code = getattr(build, "__code__", None)
+        spec = ProgramSpec(
+            name=name, build=build, families=tuple(families),
+            path=_rel_source_path(code.co_filename if code else __file__),
+            line=code.co_firstlineno if code else 1,
+        )
+        if name in PROGRAM_REGISTRY:
+            raise ValueError(f"program {name!r} registered twice")
+        PROGRAM_REGISTRY[name] = spec
+        return build
+
+    return deco
+
+
+def registered_programs():
+    """Import every program-owning module and return the registry (name
+    -> :class:`ProgramSpec`, insertion-ordered)."""
+    for mod in _PROGRAM_MODULES:
+        importlib.import_module(mod)
+    return dict(PROGRAM_REGISTRY)
+
+
+def reference_space():
+    """The registry's canonical mixed space (the reference's): two
+    continuous families (bounded + log), one quantized, one categorical
+    -- every kernel family appears in the traced programs."""
+    from .. import hp
+
+    return {
+        "x": hp.uniform("x", -5.0, 5.0),
+        "lr": hp.loguniform("lr", -6.0, 0.0),
+        "width": hp.quniform("width", 16.0, 256.0, 16.0),
+        "unit": hp.choice("unit", [0, 1, 2]),
+    }
+
+
+def default_program_params(n_obs=128, batch=4, k_spec=8, device="cpu"):
+    """The parameterization the committed contracts are pinned at (on
+    the CPU; ``device="cuda"`` builds the same programs on the card)."""
+    ps = compile_space(reference_space(), device=device)
+    return ProgramParams(space=ps, n_obs=n_obs, batch=batch, k_spec=k_spec)
+
+
+@register_program(
+    "compile.sample_prior",
+    families=("hyperopt_tpu_torch.ops.compile:PackedSpace.sample_prior_fn",),
+)
+def _registry_sample_prior(p):
+    """The startup-regime ask: every suggest path below
+    ``n_startup_jobs`` serves prior draws through this program."""
+    return ProgramCapture(fn=p.space.sample_prior_fn, args=(p.key_spec(),),
+                          kwargs={"n": p.batch})

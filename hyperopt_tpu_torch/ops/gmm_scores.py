@@ -225,3 +225,59 @@ def _launch_checked(x, logspace, pre_b, pre_a, split_dims):
         raise RuntimeError(f"gmm_llr: kernel launch failed with CUDA error {err}")
     KERNEL.count_launch()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Program registration (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from .compile import ProgramCapture, register_program  # noqa: E402
+
+#: the registry's launch shape: candidates ``[B, Dg, S]``, the below and
+#: above mixtures of ``K_BELOW`` and ``K_ABOVE`` components
+REGISTRY_SHAPE = {"B": 4, "Dg": 2, "S": 128, "K_BELOW": 9, "K_ABOVE": 129}
+
+
+def registry_inputs(device="cpu", seed=0):
+    """``(x, logspace, pre_b, pre_a)`` at :data:`REGISTRY_SHAPE`, made
+    from ``seed`` with numpy (dim 0 in natural space, dim 1 in log
+    space): what the registration traces and what the card's check
+    holds the kernel against its plain version on."""
+    import numpy as np
+
+    from .kernels import gmm_precompute
+
+    rng = np.random.default_rng(seed)
+    sh = REGISTRY_SHAPE
+    B, Dg, S = sh["B"], sh["Dg"], sh["S"]
+    low = np.array([-5.0, -6.0], np.float32)
+    high = np.array([5.0, 0.0], np.float32)
+    lat = rng.uniform(low[:, None], high[:, None], size=(B, Dg, S)).astype(np.float32)
+    x = np.where(np.array([False, True])[None, :, None], np.exp(lat), lat).astype(np.float32)
+
+    def mixture(k):
+        w = rng.uniform(0.1, 1.0, size=(Dg, k)).astype(np.float32)
+        mus = rng.uniform(low[:, None], high[:, None], size=(Dg, k)).astype(np.float32)
+        sig = rng.uniform(0.2, 3.0, size=(Dg, k)).astype(np.float32)
+        t = [torch.from_numpy(a).to(device) for a in (w / w.sum(-1, keepdims=True), mus, sig)]
+        pre = gmm_precompute(*t, torch.from_numpy(low).to(device),
+                             torch.from_numpy(high).to(device))
+        return {k_: pre[k_] for k_ in _PRE_KEYS}
+
+    logspace = torch.tensor([False, True], device=device)
+    return (torch.from_numpy(x).to(device), logspace, mixture(sh["K_BELOW"]),
+            mixture(sh["K_ABOVE"]))
+
+
+@register_program(
+    "gmm_scores.gmm_llr",
+    families=(
+        "hyperopt_tpu_torch.ops.gmm_scores:gmm_llr",
+        "hyperopt_tpu_torch.ops.gmm_scores:gmm_llr_stacked",
+    ),
+)
+def _registry_gmm_llr(p):
+    """The EI scoring of unquantized continuous candidates, the twin of
+    the reference's ``pallas.ei_scores``: on a CPU trace the plain
+    version, on ``cuda`` the kernel (``csrc/gmm_scores.cu``)."""
+    return ProgramCapture(fn=gmm_llr, args=registry_inputs(p.device))

@@ -212,10 +212,11 @@ def apply_delta_stacked(values, active, losses, valid, vcol, acol, loss, idx, ap
 
 def _per_row(x, n, device):
     """A per-step scalar as an ``[..., n]`` float32 vector: a Python
-    number fills, a tensor (a traced adaptive setting, one per study of a
-    leading axis) is expanded as is, so no device->host sync is forced."""
+    number fills, a tensor (a traced adaptive setting on the program's
+    device, one per study of a leading axis) is expanded as is, so no
+    device->host sync and no transfer is made."""
     if torch.is_tensor(x):
-        x = x.to(device=device, dtype=torch.float32)
+        x = x.to(torch.float32)
         return x[..., None].expand(x.shape + (n,))
     return torch.full((n,), x, dtype=torch.float32, device=device)
 
@@ -299,7 +300,7 @@ def parzen_fit(obs, mask, prior_mu, prior_sigma, prior_weight, lf):
     sprior = torch.gather(is_prior, -1, order)
     svalid = torch.gather(valid, -1, order)
 
-    pad_f = torch.full(sv.shape[:-1] + (1,), -torch.inf, device=sv.device)
+    pad_f = torch.full(sv.shape[:-1] + (1,), -torch.inf, dtype=sv.dtype, device=sv.device)
     pad_b = torch.zeros(sv.shape[:-1] + (1,), dtype=torch.bool, device=sv.device)
     gap = sv[..., 1:] - sv[..., :-1]
     left_gap = torch.cat([pad_f, gap], dim=-1)

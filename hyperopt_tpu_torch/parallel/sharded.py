@@ -309,5 +309,29 @@ def sharded_suggest(
 
 suggest = sharded_suggest
 
-# The reference registers this step with its program contracts
-# (``register_program``); the port's contracts wait for ROADMAP item 18b.
+
+# ---------------------------------------------------------------------------
+# Program registration (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from ..ops.compile import ProgramCapture, register_program  # noqa: E402
+
+
+@register_program(
+    "sharded.suggest",
+    families=("hyperopt_tpu_torch.parallel.sharded:build_sharded_suggest_fn",
+              "hyperopt_tpu_torch.parallel.sharded:build_sharded_sweep"),
+)
+def _registry_sharded_suggest(p):
+    """The rank-sharded candidate sweep over a one-rank mesh: the
+    per-rank draw and the winners' reduction are rank-count-independent,
+    so the one-rank graph pins the program every mesh runs."""
+    from .mesh import virtual_mesh
+
+    fn = build_sharded_suggest_fn(
+        p.space, virtual_mesh(1), _default_n_EI_per_device, _default_gamma,
+        _default_linear_forgetting, _default_prior_weight,
+        n_cand_cat_per_device=_default_n_EI_cat_total,
+    )
+    return ProgramCapture(fn=fn, args=(p.key_spec(),) + p.history_specs(),
+                          kwargs={"batch": 1})

@@ -66,10 +66,11 @@ __all__ = ["compile_pbt"]
 def _perturb_factors(key, shape, lo, hi):
     """``jax.random.uniform(key, shape, minval=lo, maxval=hi)`` as XLA
     compiles it inside the schedule: the scale and shift contract into
-    one FMA."""
+    one FMA.  ``lo`` and ``hi`` are Python floats (a captured step reads
+    no tensor on the host)."""
     floats = (R.random_bits(key, shape) >> 9).to(torch.float32) * 2.0**-23
-    lo_t = R._const(float(lo), key.device)
-    hi_t = R._const(float(hi), key.device)
+    lo_t = R._const(lo, key.device)
+    hi_t = R._const(hi, key.device)
     return torch.maximum(lo_t, R._fma(floats, hi_t - lo_t, lo_t))
 
 
@@ -406,3 +407,42 @@ def compile_pbt(
     runner._round, runner._round_index = (lambda: play_round(False)), r
     runner._shard_mode = mode
     return runner
+
+
+# ---------------------------------------------------------------------------
+# Program registration (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from .ops.compile import ProgramCapture, register_program  # noqa: E402
+
+
+def _registry_train_fn(state, hypers, key):
+    """The reference registry's elementwise trainable."""
+    theta = state["theta"] - hypers["lr"] * 2.0 * (state["theta"] - 0.7)
+    return {"theta": theta}, (theta - 0.7) ** 2
+
+
+@register_program(
+    "pbt.sharded_round",
+    families=("hyperopt_tpu_torch.pbt:compile_pbt",),
+)
+def _registry_pbt_sharded(p):
+    """One captured PBT round with ``shard_mode="shard_map"`` over four
+    in-process member blocks: the blocks train apart and meet in one loss
+    gather and one state gather at the exploit (round 0 of a population
+    of 8; the round reads and writes the schedule's static tensors)."""
+    from .parallel.mesh import TRIAL_AXIS, virtual_mesh
+
+    runner = compile_pbt(
+        _registry_train_fn, {"theta": torch.zeros(8, dtype=torch.float32)},
+        {"lr": (1e-3, 1.0)}, pop_size=8, exploit_every=2, n_rounds=3,
+        mesh=virtual_mesh(4, TRIAL_AXIS), trial_axis=TRIAL_AXIS, shard_mode="shard_map",
+        device="cpu",
+    )
+    runner._run(0, None, eager=True)
+
+    def round0():
+        runner._round_index.zero_()
+        runner._round()
+
+    return ProgramCapture(fn=round0, args=())

@@ -235,6 +235,13 @@ def _log1p(x):
     return torch.where(torch.abs(x) < 0.41421356237309504880, small, _log(x + 1.0))
 
 
+def _f32(v, like):
+    """A Python float as a float32 0-dim tensor on ``like``'s device: a
+    ``torch.where`` of two Python floats takes the default dtype, which
+    a caller may have set to float64."""
+    return torch.scalar_tensor(v, dtype=torch.float32, device=like.device)
+
+
 def _erfinv(x):
     """float32 erfinv of ``x`` in (-1, 1) by XLA's polynomial, with XLA's
     log1p and its multiply-add contraction, so normals stay within 2 ulp
@@ -243,9 +250,9 @@ def _erfinv(x):
     w = -_log1p(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    p = torch.where(lt, _ERFINV_W_LT5[0], _ERFINV_W_GE5[0])
+    p = torch.where(lt, _f32(_ERFINV_W_LT5[0], lt), _f32(_ERFINV_W_GE5[0], lt))
     for a, b in zip(_ERFINV_W_LT5[1:], _ERFINV_W_GE5[1:]):
-        p = _fma(p, w, torch.where(lt, a, b))
+        p = _fma(p, w, torch.where(lt, _f32(a, lt), _f32(b, lt)))
     return p * x
 
 

@@ -353,3 +353,127 @@ def build_batched_delta_fn(mesh=None, mesh_axis=None):
         mesh_shards(mesh, mesh_axis)
         return _sharded_delta
     return K.apply_delta_stacked
+
+
+# ---------------------------------------------------------------------------
+# Program registrations (hyperopt-tpu-torch-lint --ir): the batched programs
+# ---------------------------------------------------------------------------
+
+from ..ops.compile import ProgramCapture, register_program  # noqa: E402
+
+#: the shard count of the registry's study-axis programs
+REGISTRY_SHARDS = 2
+
+
+def _step_args(p):
+    return ((p.keys_spec(),) + p.study_history_specs() + p.study_delta_specs()
+            + (p.study_mask_spec(),))
+
+
+@register_program(
+    "serve.batched_step",
+    families=("hyperopt_tpu_torch.serve.batched:build_batched_step_fn",),
+)
+def _registry_serve_step(p):
+    """The service's one launch sequence per round: every slot's staged
+    tell applied and every slot's ask drawn over the study axis, the
+    stacked state written in place."""
+    return ProgramCapture(
+        fn=build_batched_step_fn(p.space, algo="tpe", n_cand=16),
+        args=_step_args(p), kwargs={"batch": 1}, mutates=(1, 2, 3, 4),
+        # stacked forms of closures whose GL402 behavior their solo
+        # registrations pin (tpe.suggest, compile.sample_prior,
+        # serve.batched_apply_delta)
+        x64_check=False,
+    )
+
+
+@register_program(
+    "serve.batched_anneal_step",
+    families=("hyperopt_tpu_torch.serve.batched:build_batched_step_fn",),
+)
+def _registry_serve_anneal_step(p):
+    """The annealing twin of ``serve.batched_step``."""
+    return ProgramCapture(
+        fn=build_batched_step_fn(p.space, algo="anneal"),
+        args=_step_args(p), kwargs={"batch": 1}, mutates=(1, 2, 3, 4),
+        # pinned by anneal.suggest, compile.sample_prior and
+        # serve.batched_apply_delta
+        x64_check=False,
+    )
+
+
+@register_program(
+    "serve.batched_apply_delta",
+    families=("hyperopt_tpu_torch.serve.batched:build_batched_delta_fn",
+              "hyperopt_tpu_torch.ops.kernels:apply_delta_stacked"),
+)
+def _registry_serve_delta(p):
+    """The backlog drain: one masked O(D) delta per slot, the stacked
+    state written in place (the stacked ``torch_trials.apply_delta``)."""
+    return ProgramCapture(fn=build_batched_delta_fn(),
+                          args=p.study_history_specs() + p.study_delta_specs(),
+                          mutates=(0, 1, 2, 3))
+
+
+def _shard_state(fields):
+    """Four stacked state tensors cut into :data:`REGISTRY_SHARDS` blocks
+    of slots (the :class:`ShardedBatchState` layout)."""
+    blk = fields[0].shape[0] // REGISTRY_SHARDS
+    return tuple(tuple(f[k * blk:(k + 1) * blk].clone() for k in range(REGISTRY_SHARDS))
+                 for f in fields)
+
+
+def _registry_mesh():
+    from ..parallel.mesh import STUDY_AXIS, virtual_mesh
+
+    return virtual_mesh(REGISTRY_SHARDS, STUDY_AXIS), STUDY_AXIS
+
+
+@register_program(
+    "serve.batched_step_mesh",
+    families=("hyperopt_tpu_torch.serve.batched:build_batched_step_fn",
+              "hyperopt_tpu_torch.serve.batched:_sharded_step"),
+)
+def _registry_serve_step_mesh(p):
+    """``serve.batched_step`` over the study axis cut into in-process
+    shards (``mesh=virtual_mesh(2, "study")``): every shard's block of
+    slots stepped in shard order, its state written in place."""
+    mesh, axis = _registry_mesh()
+    args = _step_args(p)
+    return ProgramCapture(
+        fn=build_batched_step_fn(p.space, algo="tpe", n_cand=16, mesh=mesh, mesh_axis=axis),
+        args=args[:1] + _shard_state(args[1:5]) + args[5:], kwargs={"batch": 1},
+        mutates=(1, 2, 3, 4), x64_check=False,
+    )
+
+
+@register_program(
+    "serve.batched_delta_mesh",
+    families=("hyperopt_tpu_torch.serve.batched:build_batched_delta_fn",
+              "hyperopt_tpu_torch.serve.batched:_sharded_delta"),
+)
+def _registry_serve_delta_mesh(p):
+    """The sharded backlog drain: one masked O(D) delta per slot, every
+    shard's block written in place."""
+    mesh, axis = _registry_mesh()
+    return ProgramCapture(
+        fn=build_batched_delta_fn(mesh=mesh, mesh_axis=axis),
+        args=_shard_state(p.study_history_specs()) + p.study_delta_specs(),
+        mutates=(0, 1, 2, 3),
+    )
+
+
+@register_program(
+    "serve.guard_finite_check",
+    families=("hyperopt_tpu_torch.serve.batched:build_finite_check_fn",
+              "hyperopt_tpu_torch.serve.batched:_finite_check"),
+)
+def _registry_guard_finite_check(p):
+    """The poisoned-slot detector: one masked finiteness reduction over
+    the stacked state and the round's suggestion columns, ``[S]`` bool
+    out, read-only."""
+    new_v = torch.zeros((p.n_studies, p.space.n_dims, 1), dtype=torch.float32,
+                        device=p.device)
+    return ProgramCapture(fn=build_finite_check_fn(),
+                          args=p.study_history_specs() + (new_v,))

@@ -400,3 +400,22 @@ def cached_suggest_fn(domain, cache_attr, params, builder):
         fn = builder(ps, *params)
         cache[key] = fn
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Program registration (hyperopt-tpu-torch-lint --ir)
+# ---------------------------------------------------------------------------
+
+from .ops.compile import ProgramCapture, register_program  # noqa: E402
+
+
+@register_program(
+    "torch_trials.apply_delta",
+    families=("hyperopt_tpu_torch.ops.kernels:apply_delta",),
+)
+def _registry_apply_delta(p):
+    """The O(D) delta tell the resident history runs per staged
+    observation (:meth:`ObsBuffer._resident_sync`): the four history
+    tensors written in place."""
+    return ProgramCapture(fn=apply_delta, args=p.history_specs(), kwargs=p.delta_specs(),
+                          mutates=(0, 1, 2, 3))

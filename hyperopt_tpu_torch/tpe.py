@@ -534,3 +534,60 @@ def suggest(
         )
     idxs, vals = dense_to_idxs_vals(new_ids, ps.labels, values, active)
     return docs_from_idxs_vals(new_ids, domain, trials, *_cast_vals(ps, idxs, vals))
+
+
+# ---------------------------------------------------------------------------
+# Program registrations (hyperopt-tpu-torch-lint --ir): TPE's programs
+# ---------------------------------------------------------------------------
+
+from .ops.compile import ProgramCapture, register_program  # noqa: E402
+
+_TPE_FAMILIES = ("hyperopt_tpu_torch.tpe:build_suggest_fn",
+                 "hyperopt_tpu_torch.tpe:fused_state_io")
+
+
+def _registry_build(ps, n_cand, state_io=False):
+    return build_suggest_fn(
+        ps, n_cand, _default_gamma, _default_linear_forgetting, _default_prior_weight,
+        n_cand_cat=_default_n_EI_candidates_cat, state_io=state_io,
+    )
+
+
+@register_program("tpe.suggest", families=_TPE_FAMILIES)
+def _registry_tpe_suggest(p):
+    """The plain batched ask: one launch sequence draws ``batch``
+    suggestions from the settled history (``suggest_batch`` /
+    ``suggest_dense``)."""
+    return ProgramCapture(
+        fn=_registry_build(p.space, _default_n_EI_candidates),
+        args=(p.key_spec(),) + p.history_specs(), kwargs={"batch": p.batch},
+    )
+
+
+@register_program("tpe.fused_tell_ask", families=_TPE_FAMILIES)
+def _registry_tpe_fused(p):
+    """The ``state_io=True`` fused tell+ask of the sequential driver: the
+    staged O(D) delta written into the resident history in place, then
+    one ask from it (one launch sequence per trial)."""
+    return ProgramCapture(
+        fn=_registry_build(p.space, _default_n_EI_candidates, state_io=True),
+        args=(p.key_spec(),) + p.history_specs(),
+        kwargs={**p.delta_specs(), "batch": 1}, mutates=(1, 2, 3, 4),
+        # the suggest closure of tpe.suggest behind the delta write of
+        # torch_trials.apply_delta: both pin their GL402 behavior
+        x64_check=False,
+    )
+
+
+@register_program("tpe.speculative_redraw", families=_TPE_FAMILIES)
+def _registry_tpe_speculative(p):
+    """The k-wide speculative draw (``suggest(speculative=k)``): the suggest
+    program at ``batch=k``, pinned on its own because its output shapes
+    are the speculation cache's layout."""
+    return ProgramCapture(
+        fn=_registry_build(p.space, _default_n_EI_candidates),
+        args=(p.key_spec(),) + p.history_specs(), kwargs={"batch": p.k_spec},
+        # tpe.suggest's closure at another batch: its GL402 behavior is
+        # pinned there
+        x64_check=False,
+    )

@@ -121,16 +121,17 @@ def test_cli_write_baseline_roundtrip(bad_tree, tmp_path, capsys):
 def test_cli_list_rules(capsys):
     assert main(["--list-rules"]) == 0
     out = capsys.readouterr().out
-    for rid in ("GL001", "GL301", "GL309", "GL501", "GL606"):
+    for rid in ("GL001", "GL101", "GL203", "GL301", "GL309", "GL401", "GL406", "GL501",
+                "GL606"):
         assert rid in out
-    assert "GL101" not in out and "GL401" not in out
 
 
 def test_cli_pack_selection_exit_codes(tmp_path, capsys):
     assert main(["--trace", "--wire"]) == 2
-    assert main(["--update-contracts"]) == 2  # needs --wire
-    with pytest.raises(SystemExit) as e:  # no jaxpr pack in the port
-        main(["--ir"])
+    assert main(["--ir", "--trace"]) == 2
+    assert main(["--update-contracts"]) == 2  # needs --ir or --wire
+    with pytest.raises(SystemExit) as e:  # argparse's own usage error
+        main(["--no-such-pack"])
     assert e.value.code == 2
     capsys.readouterr()
 

@@ -79,11 +79,19 @@ def test_fixture_findings_equal_the_reference(pack, rule, kind):
 
 def test_every_ported_rule_has_a_fixture_pair():
     names = set()
-    for _root, _dirs, files in os.walk(FIXTURES):
-        names.update(files)
+    for fixtures in (FIXTURES, os.path.join(REPO, "tests", "lint_fixtures_torch")):
+        for _root, _dirs, files in os.walk(fixtures):
+            names.update(files)
+    capture = [f"GL10{i}" for i in range(1, 5)] + [f"GL20{i}" for i in range(1, 4)]
+    # the program pack's rules hold on hand-built programs
+    # (tests/test_torch_ir.py), not on source fixtures
+    program = [f"GL40{i}" for i in range(1, 7)]
     ported = sorted(r for r in RULES if r not in ("GL001", "GL002"))
-    assert ported == sorted(AST_RULES + TRACE_RULES + [f"GL60{i}" for i in range(1, 7)])
+    assert ported == sorted(AST_RULES + TRACE_RULES + [f"GL60{i}" for i in range(1, 7)]
+                            + capture + program)
     for rule in ported:
+        if rule in program:
+            continue
         assert f"{rule.lower()}_bad.py" in names and f"{rule.lower()}_good.py" in names, rule
 
 
@@ -237,9 +245,11 @@ def test_unknown_rule_id_in_pragma_is_itself_a_finding():
 
 
 def test_pragma_naming_an_unported_rule_is_gl001():
-    # the JAX program rules are not this package's: a pragma naming one
-    # protects nothing here
-    fs = _findings("x = 1  # graftlint: disable=GL101 jitted scope\n")
+    # every pack of the reference is ported (GL1xx/GL2xx as capture
+    # rules, GL4xx over aten graphs): a pragma naming one of them
+    # validates, one naming an ID no pack defines protects nothing
+    assert _findings("x = 1  # graftlint: disable=GL101 captured scope\n") == []
+    fs = _findings("x = 1  # graftlint: disable=GL105 no such rule\n")
     assert [f.rule for f in fs] == ["GL001"]
 
 

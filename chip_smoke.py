@@ -101,7 +101,7 @@ network.  Every phase asserts, and a failure exits non-zero:
    of all (after it the card's traces came back empty): 9a's model
    brackets under ``torch.profiler``;
 10. (after phase 7) durable fmin on the card, ``mixed_space()`` at
-   ``tpe.suggest``'s defaults, 120 trials: (a) ``fmin(engine=True)`` at
+   ``tpe.suggest``'s defaults, 60 trials: (a) ``fmin(engine=True)`` at
    ``ask_ahead`` 1 and 4 bitwise the solo fused stream from the same
    rstate, one ``gmm_llr`` launch per ask, ms per trial in pairs with the
    solo fused driver; (b) the same run on a ``SuggestService`` over a
@@ -339,6 +339,24 @@ network.  Every phase asserts, and a failure exits non-zero:
    kernel at stage C's launch shape B=2, Dg=2, S=24 (``launches_by_path``
    and ``checked_shapes`` key ``dcn_loop_2``; numbers under the kernels
    line's ``population_mesh``).
+21. (after phase 20, before any profiler) the compiled loop's ``cand``
+   axis and ``asha=`` over processes, and a mesh of two axes over
+   processes: (a) ``dcn_check.launch(world=2, stages="FG")`` and (b)
+   ``dcn_check.launch(world=4, stages="H")``, started together, ranks
+   sharing the card: F ``compile_fmin`` over the ``cand`` axis (TPE,
+   then ATPE, 64 evaluations at B=1; per model step two graphs and one
+   host gather of the packed winners), G ``compile_fmin(asha=)`` over the
+   ``trial`` axis (3 brackets of 8; two gathers per rung), H the ``trial``
+   2 x ``cand`` 2 mesh (``compile_fmin`` at B=2, ``compile_sha``,
+   ``compile_pbt``); each program run twice in the ranks, bitwise its
+   virtual twin there, the gathers per run and each rank's ``gmm_llr``
+   launches (one per model step at its slab width); (c) the same
+   programs on their virtual meshes here, the ranks' results bitwise
+   these, ms per step of each in pairs with the ranks' and the launches
+   (``launches_by_path`` keys ``dcn_*`` for the ranks, ``virtual_*``
+   here); (d) the kernel at every per-rank launch shape
+   (``checked_shapes``; numbers under the kernels line's
+   ``mesh_processes``).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
@@ -347,7 +365,8 @@ loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 ``fleet``, phase 13's under ``farm``, phase 14's under ``population``,
 phase 15's under ``baseline``, phase 16's under ``checks``, phase 17's
 under ``sharded``, phase 18's under ``study_mesh``, phase 19's under
-``compiled_mesh``, phase 20's under ``population_mesh``,
+``compiled_mesh``, phase 20's under ``population_mesh``, phase 21's under
+``mesh_processes``,
 each new path's launch shapes with their errors under
 ``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -2604,18 +2623,20 @@ def phase15d(card, card_trials):
 
 
 # cut from 300 when the whole script took 1095 s on an H100 (phase 10: 290
-# s of it) against its 1200 s limit, and from 200 when it took 1030-1035 s
-# (phase 10: 170-172 s); every kill point below fires at the 100th trial,
-# so each resumed run still has trials to ask
-PHASE10_TRIALS = 120
+# s of it) against its 1200 s limit, from 200 when it took 1030-1035 s
+# (phase 10: 170-172 s), and from 120 (phase 10: 84.5 s of 765.4) to make
+# room for phase 21; every kill point below fires at the 40th trial, or at
+# the 50th trial's bundle, so each resumed run still has trials to ask
+PHASE10_TRIALS = 60
 # the hit of each crash point to kill at, past startup: per tell or round
 # for the serve points, per append (an ask and a tell per trial) or per
 # bundle (every 25 tells; the trials pickle and the bundle each fire the
-# tmp point) for the driver's: the 100th trial, or its bundle
-SERVE_KILL_AT = 100
-DRIVER_KILL_AT = {"before_wal_append": 200, "after_wal_append_before_tell": 200,
-                  "after_tell_before_ask_ahead": 100, "after_ckpt_tmp_before_rename": 7,
-                  "after_ckpt_publish_before_wal_reset": 4}
+# tmp point) for DriverRecovery's: the 40th trial, or the 50th trial's
+# bundle
+SERVE_KILL_AT = 40
+DRIVER_KILL_AT = {"before_wal_append": 80, "after_wal_append_before_tell": 80,
+                  "after_tell_before_ask_ahead": 40, "after_ckpt_tmp_before_rename": 3,
+                  "after_ckpt_publish_before_wal_reset": 2}
 PHASE10_CONTAINMENT_TRIALS = 100
 
 
@@ -5487,6 +5508,142 @@ def phase20(card):
     return launches, out
 
 
+P21_DEVICE = "cuda"  # where phase 21's ranks and virtual twins compute
+P21_TIMEOUT = 300  # seconds each spawn of ranks may take
+DCN_MESH = {key: re.compile(rf"\b{key}=(\{{[^}}]*\}})") for key in
+            ("mesh_gathers", "mesh_launches_by_rank", "mesh_ms_per_step", "stage_seconds")}
+# 21: each program's gmm_llr launches per run on each rank (one per model
+# step at the rank's slab width: F 44 of 64 steps; G one per model
+# bracket, 2 of 3; H's loop 22 of 32 steps; the populations none), and on
+# its virtual twin in this process (the cand axis's ranks in turn: 2 per
+# model step)
+P21_RANK_LAUNCHES = {"F_tpe": 44, "F_atpe": 44, "G": 2, "H_fmin": 22}
+P21_VIRTUAL_LAUNCHES = {"F_tpe": 88, "F_atpe": 88, "G": 2, "H_fmin": 44, "H_sha": 0,
+                        "H_pbt": 0}
+P21_PATHS = {"F_tpe": "cand_tpe", "F_atpe": "cand_atpe", "G": "asha_trial",
+             "H_fmin": "two_axes_fmin", "H_sha": "two_axes_sha", "H_pbt": "two_axes_pbt"}
+
+
+def p21_sync():
+    import torch
+
+    if P21_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def phase21(card):
+    """The compiled loop's ``cand`` axis and ``asha=`` over processes, and
+    a mesh of two axes over processes, on the one card: (a)
+    ``dcn_check.launch(world=2, stages="FG")`` -- F, ``compile_fmin`` over
+    the ``cand`` axis of two ``gloo`` ranks (TPE, then ATPE; 64
+    evaluations at B=1; one host gather of the packed winners per model
+    step between the step's two graphs), G, ``compile_fmin(asha=)`` over
+    the ``trial`` axis (two gathers per rung) -- and (b)
+    ``dcn_check.launch(world=4, stages="H")``, the ``trial`` 2 x ``cand``
+    2 mesh of four ranks (``compile_fmin`` at B=2, ``compile_sha``,
+    ``compile_pbt``), the two spawns started together; in the ranks each
+    program runs twice, bitwise its virtual twin there; (c) the same
+    programs on their virtual meshes in this process: the ranks' results
+    bitwise these, the launches of each path, and ms per step of each in
+    pairs with the ranks' (the second run of each, its graphs captured by
+    the first); (d) the kernel against its plain version at every
+    per-rank launch shape.  Returns the launches by path and the
+    numbers."""
+    import ast
+
+    import torch
+
+    from hyperopt_tpu_torch.parallel import dcn_check
+
+    t_phase = time.perf_counter()
+    launches, shapes, out = {}, {}, {}
+    assert not torch.distributed.is_initialized()
+    # -- 21a, 21b. the ranks: two for F and G, four for H, spawned together --
+    reports, errors, walls = {}, [], {}
+
+    def spawn(key, world, stages):
+        t0 = time.perf_counter()
+        try:
+            reports[key] = dcn_check.launch(world=world, timeout=P21_TIMEOUT,
+                                            device=P21_DEVICE, stages=stages)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+        walls[key] = time.perf_counter() - t0
+
+    spawns = [threading.Thread(target=spawn, args=args)
+              for args in (("FG", 2, "FG"), ("H", dcn_check.MESH_WORLD, "H"))]
+    for t in spawns:
+        t.start()
+    for t in spawns:
+        t.join()
+    if errors:
+        raise errors[0]
+    spawned, rank_fields = {}, {}
+    for key, report in reports.items():
+        result = next(ln for ln in report.splitlines() if ln.startswith("DCN RESULT"))
+        spawned.update(dcn_check.parse_values(report))
+        fields = {k: ast.literal_eval(rx.search(result).group(1)) for k, rx in DCN_MESH.items()}
+        rank_fields[key] = dict(fields, result=result, seconds=walls[key])
+        log(f"[21{'a' if key == 'FG' else 'b'}] {card}: the ranks with their start "
+            f"{walls[key]:.2f} s: {result}")
+        for flag in (["cand_matches_virtual=True", "cand_deterministic=True",
+                      "asha_matches_virtual=True", "asha_deterministic=True"] if key == "FG"
+                     else ["two_axes_matches_virtual=True", "two_axes_deterministic=True"]):
+            assert flag in result, (flag, result)
+        assert "ranks_agree=True" in result, result
+    gathers = {**rank_fields["FG"]["mesh_gathers"], **rank_fields["H"]["mesh_gathers"]}
+    rank_launches = {**rank_fields["FG"]["mesh_launches_by_rank"],
+                     **rank_fields["H"]["mesh_launches_by_rank"]}
+    rank_ms = {**rank_fields["FG"]["mesh_ms_per_step"], **rank_fields["H"]["mesh_ms_per_step"]}
+    for name, n in gathers.items():
+        assert n == dcn_check.mesh_boundaries(name), (name, n)
+    for name, per_rank in rank_launches.items():
+        want = 2 * P21_RANK_LAUNCHES[name]  # two runs in the ranks
+        assert per_rank == [want] * len(per_rank), (name, per_rank, want)
+        launches[f"dcn_{P21_PATHS[name]}_{len(per_rank)}"] = sum(per_rank)
+
+    # -- 21c. the virtual twins in this process -------------------------------
+    twins = {**dcn_check.mesh_runners(P21_DEVICE, 2, "FG"),
+             **dcn_check.mesh_runners(P21_DEVICE, dcn_check.MESH_WORLD, "H")}
+    twin_ms, bitwise = {}, {}
+    for name, runner in twins.items():
+        seed = dcn_check.mesh_seed(name)
+        with launch_shapes() as seen:
+            first = dcn_check.mesh_values(name, runner(seed=seed))  # and capture
+        p21_sync()
+        t0 = time.perf_counter()
+        again = dcn_check.mesh_values(name, runner(seed=seed))
+        twin_ms[name] = (time.perf_counter() - t0) * 1e3 / dcn_check.mesh_steps(name)
+        bitwise[name] = first == again == spawned[name]
+        path = f"virtual_{P21_PATHS[name]}"
+        n = dcn_check.compiled_launches(runner) if hasattr(runner, "_program") else 0
+        launches[path] = n
+        assert n == P21_VIRTUAL_LAUNCHES[name], (path, n)
+        if seen:
+            shapes[path] = seen
+    out["ranks"] = rank_fields
+    out["pairs_ms_per_step"] = {name: {"ranks": rank_ms[name], "virtual": twin_ms[name]}
+                                for name in twin_ms}
+    out["bitwise_virtual_here"] = bitwise
+    log(f"[21c] {card}: stages F-H on their virtual meshes here, the ranks' results bitwise "
+        f"these: {bitwise}; gathers per run {gathers}; gmm_llr launches by path "
+        f"{launches}; ms per step (second run; ranks' rank 0, virtual here): "
+        + ", ".join(f"{name} {rank_ms[name]:.3f} / {twin_ms[name]:.3f}" for name in twin_ms))
+    assert all(bitwise.values()), bitwise
+
+    # -- 21d. the kernel at every per-rank launch shape ------------------------
+    largest = 0.0
+    for path, seen in shapes.items():
+        CHECKED_SHAPES[path] = check_shapes(f"21 {path}, {card}", seen, seed=211)
+        largest = max([largest] + [c["max_abs_err"] for c in CHECKED_SHAPES[path]])
+    out["checked_max_abs_err"] = largest
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[21d] {card}: the kernel at {sum(len(v) for v in shapes.values())} per-rank launch "
+        f"shapes of {sorted(shapes)}, largest error {largest:.3e} against the plain version")
+    log(f"[21] {card}: phase 21 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -5578,6 +5735,10 @@ def main():
     population_mesh_launches, population_mesh = phase20(card)
     compiled_launches_by_path.update(population_mesh_launches)
     lap("20")
+    # -- 21. the cand axis, asha= and a mesh of two axes over processes -----
+    mesh_process_launches, mesh_processes = phase21(card)
+    compiled_launches_by_path.update(mesh_process_launches)
+    lap("21")
     # then the kernel's timings at both shapes and the profiled window of
     # the compiled loop (the ASHA brackets' window runs last of all)
     profile_8f()
@@ -5841,6 +6002,7 @@ def main():
         "study_mesh": study_mesh_out,
         "compiled_mesh": compiled_mesh,
         "population_mesh": population_mesh,
+        "mesh_processes": mesh_processes,
         "checked_shapes": CHECKED_SHAPES,
         "phase_seconds": phase_seconds,
     }]}

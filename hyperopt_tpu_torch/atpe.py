@@ -220,7 +220,14 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
     over the fits computed here): the adapted candidate count stays the
     TOTAL sweep width, each rank drawing ``ceil(total / ranks)``.  The
     settings and the lock set do not depend on the ranks, so the sharded
-    and unsharded steps differ only in the sweep's key folding.
+    and unsharded steps differ only in the sweep's key folding.  With a
+    ``cand_axis`` the step also has two halves, ``fn.local(key, values,
+    active, losses, valid, batch, rank)`` (the settings, the fits and the
+    rank's packed winners, then the settings the rolls read) and
+    ``fn.reduce(key, values, active, losses, valid, batch, gathered,
+    ctx)`` (the argmax over the ranks' winners, the restarts and the
+    locks): the compiled loop's step over processes, with the host
+    gather of the winners between two captured graphs.
     """
     K.check_prior_weight(prior_weight)
     if base_n_ei is None:
@@ -363,26 +370,28 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
         rank = torch.empty_like(order_s).scatter_(-1, order_s, arange_d.expand_as(order_s))
         return torch.isfinite(scores) & (rank < max_lock), lock_vals
 
-    def fn(key, values, active, losses, valid, batch):
-        lead = key.shape[:-1]  # () for one history, (S,) for a seed sweep
+    def decide(key, values, active, losses, valid):
+        """The step's keys, the fits and what the column rolls read (the
+        settings' explore fraction, ``ok`` and ``n``; none on a
+        pure-categorical space)."""
         k_tpe, k_prior, k_roll = R.split(key, 3).unbind(-2)
         if pure_categorical:
             # plain TPE settings: a boosted prior would flatten the
             # posterior that is the exploitation mechanism there
-            gamma, pw = base_gamma, pw0
+            gamma, pw, ctx = base_gamma, pw0, ()
         else:
             gamma, pw, explore_frac, ok, n = settings(losses, valid)
+            ctx = (explore_frac, ok, n)
         fits = K.fit_all_dims(c, values, active, losses, valid, gamma, lf_f, pw,
                               pad_gamma=_MAX_ADAPTIVE_GAMMA, above_cap=a_cap)
+        return k_tpe, k_prior, k_roll, fits, ctx
 
-        if sharded_sweep is not None:
-            new_values, _ = sharded_sweep(k_tpe, fits, batch)
-        else:
-            new_values = _sweep(k_tpe, fits, lead, batch)
-
+    def finish(k_prior, k_roll, values, active, losses, new_values, ctx, batch):
+        """The swept columns -> ``(new_values, active)``: stall restarts and
+        converged-parameter locks."""
         if pure_categorical:
             return new_values, ps.active_fn(new_values)
-
+        explore_frac, ok, n = ctx
         # stall-triggered restarts: whole columns become prior draws
         prior_vals, _ = ps.sample_prior_fn(k_prior, batch)
         k_explore, k_lock = R.split(k_roll).unbind(-2)
@@ -395,6 +404,28 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
         apply = lock_mask[..., :, None] & lock_col[..., None, :]
         new_values = torch.where(apply, lock_vals[..., :, None], new_values)
         return new_values, ps.active_fn(new_values)
+
+    def fn(key, values, active, losses, valid, batch):
+        lead = key.shape[:-1]  # () for one history, (S,) for a seed sweep
+        k_tpe, k_prior, k_roll, fits, ctx = decide(key, values, active, losses, valid)
+        if sharded_sweep is not None:
+            new_values, _ = sharded_sweep(k_tpe, fits, batch)
+        else:
+            new_values = _sweep(k_tpe, fits, lead, batch)
+        return finish(k_prior, k_roll, values, active, losses, new_values, ctx, batch)
+
+    def local(key, values, active, losses, valid, batch, rank):
+        """The first half of the step split at the packed winners: this
+        rank's winners, then what :func:`finish` reads."""
+        k_tpe, _, _, fits, ctx = decide(key, values, active, losses, valid)
+        return (sharded_sweep.local(k_tpe, fits, batch, rank),) + ctx
+
+    def reduce(key, values, active, losses, valid, batch, gathered, ctx):
+        """The second half: every rank's winners, reduced, then the
+        restarts and locks over the first half's settings ``ctx``."""
+        _, k_prior, k_roll = R.split(key, 3).unbind(-2)
+        new_values, _ = sharded_sweep.reduce(gathered)
+        return finish(k_prior, k_roll, values, active, losses, new_values, ctx, batch)
 
     def _sweep(k_tpe, fits, lead, batch):
         """The unsharded sweep: every dim's best of ``n_ei`` (``n_cat``)
@@ -417,6 +448,9 @@ def build_atpe_device_fn(ps, lf, prior_weight=1.0, elite_count=8,
     # the two decision stages, for inspection: settings(losses, valid) and
     # lock_set(values, active, losses, ok, n)
     fn.settings, fn.lock_set = settings, lock_set
+    if sharded_sweep is not None:
+        # the step split at the packed winners (parallel.sharded)
+        fn.local, fn.reduce = local, reduce
     return fn
 
 

@@ -70,6 +70,7 @@ posterior.
 
 from __future__ import annotations
 
+import functools
 import inspect
 import math
 
@@ -82,6 +83,7 @@ from .ops import gmm_scores as G
 from .ops.compile import PackedSpace, compile_space
 from .ops.kernels import HistoryState, history_summary
 from .utils import capture_graph, host_copy, tree_map
+from .utils.population import copy_into
 
 __all__ = [
     "STOP_POLL",
@@ -214,10 +216,10 @@ class _Program:
     ``gmm_llr`` launches captured in each regime's graph (the kernel's
     wrapper counts at capture, not at replay); ``replays`` counts the
     replays of the current run, per regime.  Over real ranks (the
-    ``trial`` axis across processes) a step is two graphs, the regime's
-    :meth:`ask` and the one :meth:`tell`, with the host gather between
-    them: ``replays`` counts steps, each two graph replays and one
-    ``all_gather``."""
+    ``trial`` or ``cand`` axis across processes) a step is a few graphs,
+    the stages of :meth:`plan`, with a host gather after some of them:
+    ``replays`` counts steps, and ``launches_per_replay`` sums the
+    launches of a regime's stages."""
 
     def __init__(self, loop, n_seeds):
         self.loop = loop
@@ -238,27 +240,38 @@ class _Program:
             self.best = torch.full(lead, math.inf, dtype=torch.float32, device=dev)
             self.stale = torch.zeros(lead, dtype=torch.int64, device=dev)
             self.n_done = torch.zeros(lead, dtype=torch.int64, device=dev)
-        if lp.ranks is not None:
+        if lp.block is not None:
             # the step's suggestions, this rank's block losses and the
-            # gathered losses, between the two graphs of a rank's step
+            # gathered losses, between the graphs of a rank's step
             self.pend_v = torch.zeros(lead + (lp.D, lp.B), dtype=torch.float32, device=dev)
             self.pend_a = torch.zeros(lead + (lp.D, lp.B), dtype=torch.bool, device=dev)
             self.blk_l = torch.zeros(lead + (lp.block[1],), dtype=torch.float32, device=dev)
             self.full_l = torch.zeros(lead + (lp.B,), dtype=torch.float32, device=dev)
+        if lp.cand is not None:
+            # the cand line's packed winners on a leading rank axis, and
+            # the first half's outputs (made static at its first call)
+            n_c = len(lp.ps.cont_idx) + len(lp.ps.cat_idx)
+            self.gathered = torch.zeros((lp.cand[0],) + lead + (lp.B, n_c, 2),
+                                        dtype=torch.float32, device=dev)
+            self.mid = None
         self.rung_of = self.win = None
         if lp.asha is not None:
             # the highest rung each slot reached; -1: warm or untouched
             self.rung_of = torch.full((lp.cap,), -1, dtype=torch.int32, device=dev)
             if lp.asha.collect:
                 self.win = lp.asha.winner_buffers(dev)
-        self.graphs, self.tell_graph = {}, None
+            if lp.ranks is not None:
+                self._rung_buffers(dev)
+        self.graphs, self.stage_graphs, self.stage_launches = {}, {}, {}
+        self.plans = ({r: self.plan(r) for r in lp.regimes} if lp.over_ranks else {})
         self.launches_per_replay = {}
         self.replays = {r: 0 for r in lp.regimes}
         if dev.type == "cuda":
             for regime in lp.regimes:
-                self._capture(regime)
-            if lp.ranks is not None:
-                self.tell_graph = capture_graph(self.tell, self.values.device)
+                if lp.over_ranks:
+                    self._capture_plan(regime)
+                else:
+                    self._capture(regime)
 
     def state(self):
         return HistoryState(self.values, self.active, self.losses, self.valid)
@@ -280,27 +293,96 @@ class _Program:
             return lp.ps.sample_prior_fn(key, lp.B)
         return lp.model(key, self.values, self.active, self.losses, self.valid, lp.B)
 
+    def _key(self):
+        """The step's key, ``fold_in(fold_in(key(seed), c0), i)``."""
+        return R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
+
     def step(self, regime):
         """One step, eagerly: fold the key, draw ``B`` suggestions, evaluate
         them, write them into the carry, advance the counter (with
-        ``asha=``: one bracket, :meth:`bracket`; over real ranks
-        :meth:`ask`, :meth:`gather` and :meth:`tell`)."""
+        ``asha=``: one bracket, :meth:`bracket`; over real ranks the
+        stages of :meth:`plan`, the host gathers between them)."""
         lp = self.loop
+        if lp.over_ranks:
+            return self._play(regime, False)
         if lp.asha is not None:
             return self.bracket(regime)
-        if lp.ranks is not None:
-            self.ask(regime)
-            self.gather()
-            return self.tell()
-        key = R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
+        self._plain_step(regime)
+
+    def _plain_step(self, regime):
+        key = self._key()
         new_v, new_a = self._suggest(regime, key)
         self._write(new_v, new_a, self._evaluate(key, new_v, new_a))
+
+    def plan(self, regime):
+        """Over real ranks, one step of ``regime`` as ``(stage, gather)``
+        pairs: ``stage`` the key of one captured graph (:meth:`stage`;
+        None: a stage this rank sits out), ``gather`` the host gather that
+        follows it (None: none).  The ``trial`` blocks: :meth:`ask`, the
+        losses' gather, :meth:`tell`.  The ``cand`` axis, in a model step:
+        :meth:`cand_local`, the winners' gather, then :meth:`cand_write`
+        (or, with ``trial`` blocks too, :meth:`cand_ask`, the losses'
+        gather and :meth:`tell`); a prior step has no sweep and is the
+        one-graph step.  With ``asha=``, each rung's
+        :meth:`rung_train` (this rank's block), the gather of the block
+        losses and states, and :meth:`rung_promote`."""
+        lp = self.loop
+        if lp.asha is not None:
+            out = []
+            for r, (_, _, owner) in enumerate(lp.rung_blocks):
+                train = ("rung", r, regime) if r == 0 else (("rung", r, None) if owner else None)
+                out += [(train, functools.partial(self.gather_rung, r)), (("promote", r), None)]
+            return out
+        if regime == "model" and lp.cand is not None:
+            if lp.ranks is None:
+                return [(("cand_local",), self.gather_winners), (("cand_write",), None)]
+            return [(("cand_local",), self.gather_winners), (("cand_ask",), self.gather),
+                    (("tell",), None)]
+        if lp.ranks is None:
+            return [(("step", regime), None)]
+        return [(("ask", regime), self.gather), (("tell",), None)]
+
+    def stage(self, key):
+        """Run stage ``key`` of :meth:`plan` (one captured graph on the
+        card)."""
+        kind = key[0]
+        if kind == "ask":
+            self.ask(key[1])
+        elif kind == "tell":
+            self.tell()
+        elif kind == "step":
+            self._plain_step(key[1])
+        elif kind == "cand_local":
+            self.cand_local()
+        elif kind == "cand_ask":
+            self.cand_ask()
+        elif kind == "cand_write":
+            self.cand_write()
+        elif kind == "rung":
+            self.rung_train(key[1], key[2])
+        else:
+            self.rung_promote(key[1])
+
+    def _play(self, regime, replay):
+        """Over real ranks, one step: every stage of the regime's plan, as
+        its graph's replay when ``replay`` (else eagerly), each followed by
+        its host gather."""
+        for key, gather in self.plans[regime]:
+            if key is not None:
+                if replay:
+                    self.stage_graphs[key].replay()
+                else:
+                    self.stage(key)
+            if gather is not None:
+                gather()
 
     def ask(self, regime):
         """Over real ranks, a step's first graph: every rank draws the same
         ``B`` suggestions and evaluates its own block of them."""
-        key = R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
-        new_v, new_a = self._suggest(regime, key)
+        key = self._key()
+        self._ask_block(key, *self._suggest(regime, key))
+
+    def _ask_block(self, key, new_v, new_a):
         lo, b = self.loop.block
         self.pend_v.copy_(new_v)
         self.pend_a.copy_(new_a)
@@ -308,16 +390,59 @@ class _Program:
 
     def gather(self):
         """Over real ranks, on the host: every rank's block losses, one
-        all_gather, joined in rank order along the batch."""
+        all_gather over the ``trial`` line, joined in rank order along the
+        batch."""
         from .parallel.multihost import fetch_global
 
         joined = fetch_global(self.blk_l.movedim(-1, 0), sharded=True, group=self.loop.ranks[2])
         self.full_l.copy_(torch.from_numpy(joined).movedim(0, -1))
 
     def tell(self):
-        """Over real ranks, a step's second graph: every rank writes the
+        """Over real ranks, a step's last graph: every rank writes the
         same suggestions and gathered losses into its carry."""
         self._write(self.pend_v, self.pend_a, self.full_l)
+
+    def cand_local(self):
+        """Over real ranks on the ``cand`` axis, a model step's first graph:
+        the fits and this rank's packed winners at its position on the
+        axis (and the settings ATPE's second half reads), held in static
+        tensors."""
+        lp = self.loop
+        mid = lp.model.local(self._key(), self.values, self.active, self.losses, self.valid,
+                             lp.B, lp.cand[1])
+        if self.mid is None:
+            self.mid = tuple(t.clone() for t in mid)
+        else:
+            for held, t in zip(self.mid, mid):
+                held.copy_(t)
+
+    def gather_winners(self):
+        """Over real ranks on the ``cand`` axis, on the host: every rank's
+        packed winners, one all_gather over the ``cand`` line, stacked on a
+        new leading rank axis (a seed sweep's axis stays behind it)."""
+        from .parallel.multihost import fetch_global
+
+        joined = fetch_global(self.mid[0].unsqueeze(0), sharded=True, group=self.loop.cand[2])
+        self.gathered.copy_(torch.from_numpy(joined))
+
+    def _cand_suggest(self):
+        """The step's key and its suggestions from the gathered winners."""
+        lp = self.loop
+        key = self._key()
+        return key, lp.model.reduce(key, self.values, self.active, self.losses, self.valid,
+                                    lp.B, self.gathered, self.mid[1:])
+
+    def cand_write(self):
+        """Over real ranks on the ``cand`` axis alone, a model step's second
+        graph: the reduction, the whole batch's evaluation and the write."""
+        key, (new_v, new_a) = self._cand_suggest()
+        self._write(new_v, new_a, self._evaluate(key, new_v, new_a))
+
+    def cand_ask(self):
+        """With ``trial`` blocks too, a model step's second graph: the
+        reduction and this rank's block of the evaluation."""
+        key, (new_v, new_a) = self._cand_suggest()
+        self._ask_block(key, new_v, new_a)
 
     def _write(self, new_v, new_a, new_l):
         """Write one step's suggestions and losses at ``c0 + i*B +
@@ -350,6 +475,29 @@ class _Program:
         self.losses.index_copy_(-1, idx, new_l)
         self.i.add_(1)
 
+    def _draw_bracket(self, regime):
+        """A bracket's ``B`` configs, each written with its history slot
+        (valid; its loss comes from its rungs): the step key, the configs
+        and the slots."""
+        lp = self.loop
+        key = self._key()
+        new_v, new_a = self._suggest(regime, key)
+        idx = self.c0 + self.i * lp.B + self.slots
+        self.values.index_copy_(-1, idx, new_v)
+        self.active.index_copy_(-1, idx, new_a)
+        self.valid.index_fill_(-1, idx, True)
+        return key, new_v, new_a, idx
+
+    def _winner_row(self, order, slots, losses, states):
+        """The full-fidelity winner's slot, loss and trained state into row
+        ``i % chunk_steps`` of the artifact buffer."""
+        w = order[:1]
+        row = (self.i % self.loop.asha.chunk_steps).reshape(1)
+        self.win["slot"].index_copy_(0, row, slots.index_select(0, w).to(torch.int32))
+        self.win["loss"].index_copy_(0, row, losses.index_select(0, w))
+        tree_map(lambda dst, x: dst.index_copy_(0, row, x.index_select(0, w)),
+                 self.win["params"], states)
+
     def bracket(self, regime):
         """One ASHA bracket, eagerly: suggest ``B`` configs, give each its
         history slot, then the compacting rung ladder -- rung ``r`` trains
@@ -362,13 +510,8 @@ class _Program:
 
         lp = self.loop
         a = lp.asha
-        key = R.fold_in(R.fold_in(self.base_key, self.c0), self.i)
-        new_v, new_a = self._suggest(regime, key)
+        key, new_v, new_a, idx = self._draw_bracket(regime)
         states = a.init_states(R.split(R.fold_in(key, _TRAIN_TAG), lp.B), new_v, new_a)
-        idx = self.c0 + self.i * lp.B + self.slots
-        self.values.index_copy_(-1, idx, new_v)
-        self.active.index_copy_(-1, idx, new_a)
-        self.valid.index_fill_(-1, idx, True)
         slots, vals, act = idx, new_v, new_a
         for r, (width, _, _) in enumerate(a.ladder):
             states, losses = a.rung_train[r](states, vals, act)
@@ -382,44 +525,140 @@ class _Program:
                 act = act.index_select(1, keep)
                 slots = slots.index_select(0, keep)
             elif self.win is not None:
-                w = order[:1]
-                row = (self.i % a.chunk_steps).reshape(1)
-                self.win["slot"].index_copy_(0, row, slots.index_select(0, w).to(torch.int32))
-                self.win["loss"].index_copy_(0, row, losses.index_select(0, w))
-                tree_map(lambda dst, x: dst.index_copy_(0, row, x.index_select(0, w)),
-                         self.win["params"], states)
+                self._winner_row(order, slots, losses, states)
+        self.i.add_(1)
+
+    def _rung_buffers(self, dev):
+        """Over real ranks with ``asha=``, each rung's static tensors: its
+        configs, activity and slots (``r_vals``, ``r_act``, ``r_slots``),
+        its survivors' states (``r_in``, from rung 1 on), this rank's
+        trained block and its losses (``r_blk``, ``r_blk_loss``; an idle
+        rank's are padding) and the gathered rung (``r_st``, ``r_loss``)."""
+        lp = self.loop
+        one = lp.asha.template(dev)
+
+        def zeros(m):
+            return tree_map(lambda x: torch.zeros((m,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                                  device=dev), one)
+
+        self.r_vals, self.r_act, self.r_slots, self.r_in = [], [], [], []
+        self.r_blk, self.r_blk_loss, self.r_st, self.r_loss = [], [], [], []
+        for (m, _, _), (_, b, _) in zip(lp.asha.ladder, lp.rung_blocks):
+            self.r_vals.append(torch.zeros((lp.D, m), dtype=torch.float32, device=dev))
+            self.r_act.append(torch.zeros((lp.D, m), dtype=torch.bool, device=dev))
+            self.r_slots.append(torch.zeros((m,), dtype=torch.int64, device=dev))
+            self.r_in.append(zeros(m) if self.r_in else None)
+            self.r_blk.append(zeros(b))
+            self.r_blk_loss.append(torch.zeros((b,), dtype=torch.float32, device=dev))
+            self.r_st.append(zeros(m))
+            self.r_loss.append(torch.zeros((m,), dtype=torch.float32, device=dev))
+
+    def rung_train(self, r, regime=None):
+        """Over real ranks with ``asha=``, rung ``r``'s first graph: this
+        rank's block of the rung's trials trains; rung 0 first draws the
+        bracket's configs and writes them into the carry on every rank,
+        and inits its block's states from the block's slice of the
+        training keys."""
+        lp = self.loop
+        a = lp.asha
+        lo, b, owner = lp.rung_blocks[r]
+        if r == 0:
+            key, new_v, new_a, idx = self._draw_bracket(regime)
+            self.r_vals[0].copy_(new_v)
+            self.r_act[0].copy_(new_a)
+            self.r_slots[0].copy_(idx)
+            if not owner:
+                return
+            keys = R.split(R.fold_in(key, _TRAIN_TAG), lp.B)[lo:lo + b]
+            states = a.init_states(keys, new_v[:, lo:lo + b], new_a[:, lo:lo + b])
+        else:
+            states = tree_map(lambda x: x[lo:lo + b], self.r_in[r])
+        states, losses = a.rung_train[r](states, self.r_vals[r][:, lo:lo + b],
+                                         self.r_act[r][:, lo:lo + b])
+        copy_into(self.r_blk[r], states)
+        self.r_blk_loss[r].copy_(losses)
+
+    def gather_rung(self, r):
+        """Over real ranks with ``asha=``, on the host: every rank's block
+        losses and block states of rung ``r``, one all_gather each over the
+        ``trial`` line, the rung's rows into ``r_loss`` and ``r_st``."""
+        from .pbt import _gather_ranks
+
+        _gather_ranks(self.r_loss[r], self.r_st[r], self.r_blk_loss[r], self.r_blk[r],
+                      self.loop.ranks[2])
+
+    def rung_promote(self, r):
+        """Over real ranks with ``asha=``, rung ``r``'s second graph, the
+        same on every rank: the rung's losses and ``rung_of`` written, the
+        ranking, and the survivors' states, configs and slots gathered into
+        rung ``r + 1``'s buffers (after the last rung: the winner row and
+        the step counter)."""
+        from .hyperband import rung_rank
+
+        a = self.loop.asha
+        slots, losses = self.r_slots[r], self.r_loss[r]
+        self.losses.index_copy_(-1, slots, losses)
+        self.rung_of.index_fill_(-1, slots, r)
+        order = rung_rank(losses, 1, a.ladder[r][0])[0]
+        if r + 1 < len(a.ladder):
+            keep = order[: a.ladder[r + 1][0]]
+            copy_into(self.r_in[r + 1], tree_map(lambda x: x.index_select(0, keep), self.r_st[r]))
+            self.r_vals[r + 1].copy_(self.r_vals[r].index_select(1, keep))
+            self.r_act[r + 1].copy_(self.r_act[r].index_select(1, keep))
+            self.r_slots[r + 1].copy_(slots.index_select(0, keep))
+            return
+        if self.win is not None:
+            self._winner_row(order, slots, losses, self.r_st[r])
         self.i.add_(1)
 
     def _capture(self, regime):
         """Warm the step up once on a side stream (the kernel's build, the
         launch-config cache, the cached constants), then capture it; the
         kernel's launches of the captured call are the replay's.  The
-        warm-up writes the zero carry; :meth:`reset` refills it.  Over
-        real ranks the captured step is :meth:`ask` (the host gather and
-        the ``tell`` graph follow it at every replay)."""
+        warm-up writes the zero carry; :meth:`reset` refills it."""
         launches = []
-        body = self.step if self.loop.ranks is None else self.ask
 
         def counted_step():
             before = G.KERNEL.launches
-            body(regime)
+            self.step(regime)
             launches.append(G.KERNEL.launches - before)
 
         self.graphs[regime] = capture_graph(counted_step, self.values.device)
         self.launches_per_replay[regime] = launches[-1]
 
+    def _capture_plan(self, regime):
+        """Over real ranks, capture each stage of the regime's plan once (a
+        stage two regimes share, once), as :meth:`_capture` does; the
+        regime's launches per replay are its stages' sum."""
+        for key, _ in self.plans[regime]:
+            if key is not None and key not in self.stage_graphs:
+                self._capture_stage(key)
+        self.launches_per_replay[regime] = sum(
+            self.stage_launches[key] for key, _ in self.plans[regime] if key is not None)
+
+    def _capture_stage(self, key):
+        """Capture stage ``key`` as :meth:`_capture` captures a step (each
+        names its body, so the capture-scope lint reads it)."""
+        launches = []
+
+        def counted_stage():
+            before = G.KERNEL.launches
+            self.stage(key)
+            launches.append(G.KERNEL.launches - before)
+
+        self.stage_graphs[key] = capture_graph(counted_stage, self.values.device)
+        self.stage_launches[key] = launches[-1]
+
     def run(self, regime):
-        """One step: a graph replay on the card (over real ranks two, with
-        the host gather between them), the eager step on the CPU."""
-        graph = self.graphs.get(regime)
-        if graph is None:
-            self.step(regime)
-        elif self.loop.ranks is None:
-            graph.replay()
+        """One step: a graph replay on the card (over real ranks the plan's
+        replays, with the host gathers between them), the eager step on
+        the CPU."""
+        if self.loop.over_ranks:
+            self._play(regime, self.values.device.type == "cuda")
+        elif regime in self.graphs:
+            self.graphs[regime].replay()
         else:
-            graph.replay()
-            self.gather()
-            self.tell_graph.replay()
+            self.step(regime)
         self.replays[regime] += 1
 
     def reset(self, seeds, state, c0, best0, start_step=0, rung_of=None):
@@ -485,13 +724,18 @@ class _Asha:
         self.collect = collect
         self.chunk_steps = chunk_steps
 
+    def template(self, device):
+        """One trial's init as a one-row state: the leaves' shapes and
+        dtypes of the static buffers that hold states."""
+        D = self.n_dims
+        return self.init_states(R.split(R.key(0, device=device), 1),
+                                torch.zeros((D, 1), dtype=torch.float32, device=device),
+                                torch.ones((D, 1), dtype=torch.bool, device=device))
+
     def winner_buffers(self, device):
         """One row per bracket of a chunk: the full-fidelity winner's slot,
-        loss and trained state (its template from one trial's init)."""
-        D = self.n_dims
-        one = self.init_states(R.split(R.key(0, device=device), 1),
-                               torch.zeros((D, 1), dtype=torch.float32, device=device),
-                               torch.ones((D, 1), dtype=torch.bool, device=device))
+        loss and trained state."""
+        one = self.template(device)
         n = self.chunk_steps
         return {
             "slot": torch.zeros((n,), dtype=torch.int32, device=device),
@@ -510,12 +754,21 @@ class _Loop:
     geometry, the model step and the objective."""
 
     def __init__(self, ps, D, B, cap, n_startup_jobs, algo, model, evaluate, early, thr,
-                 stale_cap, asha=None, ranks=None):
+                 stale_cap, asha=None, ranks=None, cand=None):
         self.ps, self.D, self.B, self.cap = ps, D, B, cap
-        # over real ranks: (n, index, group) of the trial axis, and this
-        # rank's block of the batch, (first column, width)
-        self.ranks = ranks
-        self.block = None if ranks is None else (ranks[1] * (B // ranks[0]), B // ranks[0])
+        # over real ranks: (n, index, group) of the trial axis and of the
+        # cand axis; this rank's block of the batch, (first column, width),
+        # or with asha= of each rung, (first trial, width, whether this
+        # rank trains it: the rung's gcd sub-mesh holds it)
+        self.ranks, self.cand = ranks, cand
+        self.over_ranks = ranks is not None or cand is not None
+        self.block = self.rung_blocks = None
+        if ranks is not None and asha is None:
+            self.block = (ranks[1] * (B // ranks[0]), B // ranks[0])
+        elif ranks is not None:
+            from .parallel.mesh import rung_block
+
+            self.rung_blocks = [rung_block(m, ranks[0], ranks[1]) for m, _, _ in asha.ladder]
         self.n_startup_jobs = n_startup_jobs
         self.algo = algo
         self.model = model
@@ -613,18 +866,20 @@ def compile_fmin(
     every block would share the one device and the one captured graph,
     so the batch and the rungs run as the unsharded body and the stream
     is the unsharded one, bit for bit (blocks on cards of their own are
-    ROADMAP.md Queue A, item 15c, part 6).  On a 1-D ``trial`` mesh of
-    real ranks (:func:`~hyperopt_tpu_torch.parallel.mesh.default_mesh`
-    after :func:`~hyperopt_tpu_torch.parallel.multihost.initialize`) each
-    rank evaluates its ``B / n`` columns of every step's batch: a step is
-    two captured graphs (the suggestion and this rank's evaluation; the
-    history write) with one host ``all_gather`` of the losses between
-    them, since a ``gloo`` collective cannot sit inside a graph, and
-    every rank ends with the same history.  On an objective whose
-    per-trial math does not depend on its place in the batch the stream
-    is bitwise the unsharded one.  A ``cand`` axis or ``asha=`` over
-    processes is refused (``NotImplementedError``): their gathers would
-    sit inside the sweep or the bracket.
+    ROADMAP.md Queue A, item 15c, part 6).  On a mesh of real ranks
+    (:func:`~hyperopt_tpu_torch.parallel.mesh.default_mesh` or
+    :func:`~hyperopt_tpu_torch.parallel.mesh.mesh_from_spec` after
+    :func:`~hyperopt_tpu_torch.parallel.multihost.initialize`) each rank
+    evaluates its ``B / n`` columns of every step's batch, scores its
+    slab of the ``cand`` sweep, or trains its block of every ASHA rung,
+    and a step is a few captured graphs with host ``all_gather`` between
+    them, since a ``gloo`` collective cannot sit inside a graph (the
+    module's docstring); every rank ends with the same history, and a
+    step on a ``cand`` line is bitwise the same step on a
+    ``virtual_mesh``.  On an objective whose per-trial math does not
+    depend on its place in the batch the stream is bitwise the unsharded
+    one (a per-trial matmul on cuBLAS picks its kernel by width, and may
+    part in the last bits).
 
     The result dict has ``best`` (``{label: value}``, the index form
     ``fmin`` returns), ``best_loss``, ``best_index``, ``losses [N]``,
@@ -710,25 +965,20 @@ def compile_fmin(
 
     ps = compile_space(space, device=device)
     D = ps.n_dims
-    n_ranks = trial_ranks = None
+    n_ranks = trial_ranks = cand_ranks = None
     if mesh is not None:
-        from .parallel.mesh import in_process_shards, over_processes, process_block
+        from .parallel.mesh import in_process_shards, over_processes, process_block, process_line
 
         what = "compile_fmin(mesh=...)"
         if over_processes(mesh):
-            # over real ranks a step's blocks meet in a host gather between
-            # two graphs; a gather inside the sweep or the bracket cannot
+            # over real ranks the ranks of a line meet in a host gather
+            # between two captured graphs: the trial blocks' losses (and
+            # an ASHA rung's states), the cand line's packed winners
+            if shard_trials:
+                trial_ranks = process_block(mesh, trial_axis, what)
             if cand_axis is not None:
-                raise NotImplementedError(
-                    f"{what}: the {cand_axis!r} axis over {mesh.size} processes would gather "
-                    "inside the candidate sweep, which a captured step cannot hold over gloo "
-                    "(ROADMAP.md Queue A, item 15c, part 6)")
-            if asha is not None:
-                raise NotImplementedError(
-                    f"{what}: asha= over {mesh.size} processes would gather inside the "
-                    "bracket, which a captured step cannot hold over gloo (ROADMAP.md Queue "
-                    "A, item 15c, part 6)")
-            trial_ranks = process_block(mesh, trial_axis, what)
+                cand_ranks = process_line(mesh, cand_axis, what)
+                n_ranks = cand_ranks[0]
         else:
             # every shard inside this process, on ps.device
             if shard_trials:
@@ -837,7 +1087,8 @@ def compile_fmin(
         # ONE sub-mesh for the whole program, sized by the smallest rung:
         # every wider rung is a power-of-eta multiple of it, so one gcd
         # covers the ladder (reported only: inside one process the rungs
-        # train as the unsharded body)
+        # train as the unsharded body; over real ranks each rung trains
+        # on its own gcd sub-mesh, _Loop.rung_blocks)
         a_k = 1
         if shard_trials:
             from .parallel.mesh import rung_submesh
@@ -870,7 +1121,7 @@ def compile_fmin(
         eval_trainable if trainable else eval_plain, early,
         -math.inf if loss_threshold is None else float(loss_threshold),
         n_steps + 1 if no_progress_steps is None else int(no_progress_steps),
-        asha=a_spec, ranks=trial_ranks,
+        asha=a_spec, ranks=trial_ranks, cand=cand_ranks,
     )
     programs = {}
 

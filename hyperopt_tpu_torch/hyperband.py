@@ -516,7 +516,8 @@ def compile_sha(
     when it takes a required argument, else ``init_state()``), called
     once per run.
 
-    ``mesh`` (a 1-D mesh along ``trial_axis`` inside this process) with
+    ``mesh`` (a mesh with a ``trial_axis`` inside this process; its other
+    axes replicate) with
     ``shard_mode="shard_map"`` shards every rung over the gcd-sized
     sub-mesh of :func:`~hyperopt_tpu_torch.parallel.mesh.rung_submesh`:
     the rung's member blocks train on their own, the rung's losses are
@@ -529,9 +530,10 @@ def compile_sha(
     mesh and runs the unsharded rungs, bit for bit the ladder without a
     mesh.  ``runner._rung_meshes`` holds each rung's sub-mesh.
 
-    On a 1-D ``trial`` mesh of real ranks, one process each, rank ``i``
-    owns block ``i`` of every rung whose sub-mesh holds it (the others
-    wait out that rung).  A ``gloo`` gather cannot sit inside a captured
+    On a ``trial`` mesh of real ranks, one process each, the rank at
+    position ``i`` on the axis owns block ``i`` of every rung whose
+    sub-mesh holds it (the others wait out that rung; on a mesh of several
+    axes each line along the axis runs the ladder on its own).  A ``gloo`` gather cannot sit inside a captured
     graph, so a rung is two graphs with the host between them: the
     rank's block trains (one graph), the host gathers every rank's block
     losses and block states (one
@@ -573,7 +575,7 @@ def compile_sha(
         if over_processes(mesh):
             ranks = process_block(mesh, trial_axis, "compile_sha")
         else:
-            in_process_shards(mesh, trial_axis, "compile_sha", dev)
+            in_process_shards(mesh, trial_axis, "compile_sha", dev, one_axis=False)
         rung_meshes = [rung_submesh(mesh, trial_axis, Rn * p)[0] for p, _, _ in ladder]
 
     def _validate_leading(state):
@@ -606,8 +608,9 @@ def compile_sha(
     def _owner_block(r):
         """Over real ranks, rung ``r``'s block of this rank: (its first
         member, its width, whether this rank trains it)."""
-        m, k = Rn * ladder[r][0], rung_meshes[r].size
-        return ranks[1] * (m // k), m // k, ranks[1] < k
+        from .parallel.mesh import rung_block
+
+        return rung_block(Rn * ladder[r][0], ranks[0], ranks[1])
 
     def _build(template):
         # one member's leaves, as shapes and dtypes only

@@ -7,7 +7,7 @@ axis and the population schedulers span real process boundaries.  Run
 one worker per rank::
 
     python -m hyperopt_tpu_torch.parallel.dcn_check <rank> <world> <init>
-        [--device cpu|cuda] [--batch B] [--n-per-rank N] [--stages ABCDE]
+        [--device cpu|cuda] [--batch B] [--n-per-rank N] [--stages ABCDEFGH]
 
 ``init`` is ``file://<path>`` (a ``FileStore``) or ``host:port``.  Each
 rank joins one process group (:func:`.multihost.initialize`: ``gloo``,
@@ -28,16 +28,31 @@ history and runs the public API over the 1-D mesh of every rank:
   states per rung;
 * stage E, ``compile_pbt`` over the ``trial`` axis (``pop = world``,
   ``exploit_every=2``, 4 rounds) on the same ``train_fn``: one
-  ``all_gather`` of the losses and one of the states per exploit.
+  ``all_gather`` of the losses and one of the states per exploit;
+* stage F, ``compile_fmin`` over the ``cand`` axis of every rank on the
+  mixed space, B=1, 64 evaluations, TPE and then ATPE: each model step
+  is two graphs with one ``all_gather`` of the packed winners between
+  them (the 20 startup steps none);
+* stage G, ``compile_fmin(asha=)`` over the ``trial`` axis on an
+  elementwise trainable (3 brackets of 8, ``eta=2``, 3 rungs, TPE): one
+  ``all_gather`` of the block losses and one of the block states per
+  rung;
+* stage H (four ranks), the ``trial`` 2 x ``cand`` 2 mesh: stage F's
+  ``compile_fmin`` at B=2 (a model step gathers on the rank's ``cand``
+  line and then on its ``trial`` line, a startup step on its ``trial``
+  line), then ``compile_sha`` (4 configs) and ``compile_pbt`` (pop 4)
+  over the ``trial`` axis, ``cand`` replicating.
 
 Every collective is counted inside the ranks (stages A and B: exactly
-one ``all_gather`` per step; C-E: the gathers above at each boundary,
-and no other collective).  Stages C-E must repeat their bits on the
-second run and be bitwise the unsharded single-process run of the same
-program, which every rank also runs; the ranks must end with the same
+one ``all_gather`` per step; C-H: the gathers above at each boundary,
+and no other collective).  Stages C-H must repeat their bits on the
+second run; C-E must be bitwise the unsharded single-process run of the
+same program and F-H the same program on a ``virtual_mesh`` of the same
+shape, which every rank also runs; the ranks must end with the same
 results (each rank's ``gmm_llr`` launches are reported beside them:
-stages A and B counted by the kernel's wrapper, stage C as the compiled
-program's captured launches times its replays).  Rank 0 then checks
+stages A and B counted by the kernel's wrapper, the compiled loops of
+stages C, F, G and H as each program's captured launches times its
+replays).  Rank 0 then checks
 stage A and B's winners against the unsharded
 :func:`hyperopt_tpu_torch.tpe.suggest_batch` at equal total candidates
 (a two-sample KS distance per dim) and prints ``DCN VALUES`` (every
@@ -63,13 +78,23 @@ KS_LIMIT_256 = 0.2
 DEFAULT_BATCH, DEFAULT_N_PER_RANK = 256, 32
 SEED_A, SEED_B = 5, 11
 CONT_LABELS, MIXED_LABELS = ("x", "y"), ("x", "k", "r")
-STAGES = "ABCDE"
+STAGES = "ABCDEFGH"
+# the reference's stages; F-H are the port's own
+DEFAULT_STAGES = "ABCDE"
 # stages C-E at the reference's sizes (``dcn_check.py:219-353``); each
 # population is as wide as the world
 LOOP_EVALS = 64
 SHA_STEPS_PER_RUNG, PBT_EXPLOIT_EVERY, PBT_ROUNDS = 2, 2, 4
 POP_BOUNDS = {"lr": (1e-3, 1.0)}
 POP_SEEDS = {"C": 2, "D": 9, "E": 13}
+# stage F: the loop's default 20 startup steps, then 44 model steps;
+# stage G: 3 brackets of 8 (8 -> 4 -> 2), the first on the prior;
+# stage H: four ranks, populations of 4
+LOOP_STARTUP = 20
+ASHA = {"eta": 2, "rung_epochs": 1, "n_rungs": 3}
+ASHA_BATCH, ASHA_EVALS, ASHA_STARTUP = 8, 24, 8
+MESH_POP, MESH_WORLD = 4, 4
+MESH_SEEDS = {"F": 4, "G": 5, "H": 6}
 
 
 def _complete_history(space, fn, n_obs, seed, device):
@@ -317,15 +342,170 @@ def run_population_stages(device, width, stages, counter, seconds=None):
             runs.append(population_values(st, out))
             counts.setdefault(st, []).append(c)
             if st == "C":
-                prog = runners["C"]._program()
-                loop_launches += sum(prog.launches_per_replay.get(r, 0) * n
-                                     for r, n in prog.replays.items())
+                loop_launches += compiled_launches(runners["C"])
         if seconds is not None:
             seconds[st] = time.perf_counter() - t0
         assert runs[0] == runs[1], f"stage {st} is not deterministic across processes"
         assert runs[0] == want[st], f"stage {st} differs from the single-process run"
         vals[st] = runs[0]
     return vals, counts, population_boundaries(runners, width), loop_launches
+
+
+def mixed_loop_fn(cfg):
+    """Stage F's objective on :func:`mixed_space` (categorical dims as
+    float indices), elementwise."""
+    return (cfg["x"] - 1.0) ** 2 + 0.1 * cfg["k"] + 0.25 * cfg["r"]
+
+
+def asha_space(hp):
+    return {"decay": hp.uniform("decay", 0.05, 0.6), "t": hp.uniform("t", -2.0, 2.0)}
+
+
+def asha_trainable():
+    """Stage G's ``TrainableObjective``: each trial's ``theta`` starts
+    uniform in [0, 1)^3 and every epoch moves it toward ``t``, elementwise
+    float32 (every trial's bits independent of its place in the batch)."""
+    from .. import random as R
+    from ..device_loop import TrainableObjective
+
+    def init(k, cfg):
+        return {"theta": R.uniform(k, (3,))}
+
+    def step(s, cfg, epoch):
+        return {"theta": (s["theta"] - cfg["t"]) * (1.0 - cfg["decay"])}
+
+    def loss(s, cfg):
+        return s["theta"][0] * s["theta"][0]
+
+    return TrainableObjective(init, step, loss)
+
+
+def mesh_runners(device, world, stages, real=False):
+    """Stages F-H's runners (those in ``stages``), by name: over the
+    ranks' meshes (``real``), or the same programs on virtual meshes of
+    the same shapes in this process."""
+    import torch
+
+    from .. import hp
+    from ..device_loop import compile_fmin
+    from ..hyperband import compile_sha
+    from ..pbt import compile_pbt
+    from .mesh import CAND_AXIS, TRIAL_AXIS, default_mesh, mesh_from_spec, virtual_mesh
+
+    out = {}
+    if "F" in stages:
+        cand = default_mesh(CAND_AXIS) if real else virtual_mesh(world, CAND_AXIS)
+        for algo in ("tpe", "atpe"):
+            out[f"F_{algo}"] = compile_fmin(mixed_loop_fn, mixed_space(hp), max_evals=LOOP_EVALS,
+                                            algo=algo, mesh=cand, cand_axis=CAND_AXIS,
+                                            device=device)
+    if "G" in stages:
+        trial = default_mesh(TRIAL_AXIS) if real else virtual_mesh(world, TRIAL_AXIS)
+        out["G"] = compile_fmin(asha_trainable(), asha_space(hp), max_evals=ASHA_EVALS,
+                                batch_size=ASHA_BATCH, n_startup_jobs=ASHA_STARTUP,
+                                n_EI_candidates=8, asha=ASHA, mesh=trial, trial_axis=TRIAL_AXIS,
+                                device=device)
+    if "H" in stages:
+        axes = (TRIAL_AXIS, CAND_AXIS)
+        two = mesh_from_spec((2, 2), axes) if real else virtual_mesh((2, 2), axes)
+        kw = {"device": device, "mesh": two, "trial_axis": TRIAL_AXIS}
+        init = {"theta": torch.linspace(0.5, 5.0, MESH_POP)}
+        out["H_fmin"] = compile_fmin(mixed_loop_fn, mixed_space(hp), max_evals=LOOP_EVALS,
+                                     batch_size=2, cand_axis=CAND_AXIS, **kw)
+        out["H_sha"] = compile_sha(member_train_fn, init, POP_BOUNDS, n_configs=MESH_POP, eta=2,
+                                   steps_per_rung=SHA_STEPS_PER_RUNG, **kw)
+        out["H_pbt"] = compile_pbt(member_train_fn, init, POP_BOUNDS, pop_size=MESH_POP,
+                                   exploit_every=PBT_EXPLOIT_EVERY, n_rounds=PBT_ROUNDS, **kw)
+    return out
+
+
+def mesh_boundaries(name):
+    """The gathers a run of stage F-H's program ``name`` makes on each
+    rank: one per model step on the ``cand`` line (stage F); two per
+    rung of each bracket (G); on the 2 x 2 mesh two per model step and
+    one per startup step, two per rung and two per exploit (H)."""
+    n_model = LOOP_EVALS - LOOP_STARTUP
+    if name.startswith("F_"):
+        return n_model
+    if name == "G":
+        return 2 * ASHA["n_rungs"] * (ASHA_EVALS // ASHA_BATCH)
+    if name == "H_fmin":
+        return 2 * (n_model // 2) + LOOP_STARTUP // 2
+    if name == "H_sha":
+        return 2 * 3  # 4 -> 2 -> 1 configs
+    return 2 * PBT_ROUNDS
+
+
+def mesh_steps(name):
+    """The steps of a run of stage F-H's program ``name``: loop steps,
+    brackets, rungs or exploit rounds."""
+    if name.startswith("F_"):
+        return LOOP_EVALS
+    if name == "G":
+        return ASHA_EVALS // ASHA_BATCH
+    if name == "H_fmin":
+        return LOOP_EVALS // 2
+    return 3 if name == "H_sha" else PBT_ROUNDS
+
+
+def mesh_values(name, out):
+    """A stage F-H result as JSON values (every float exact)."""
+    if name.startswith(("F_", "H_fmin")):
+        return {"losses": out["losses"].tolist(), "values": out["values"].tolist(),
+                "best_loss": out["best_loss"]}
+    if name == "G":
+        return {"losses": out["losses"].tolist(), "values": out["values"].tolist(),
+                "rung_of": out["rung_of"].tolist(), "best_loss": out["best_loss"]}
+    return population_values("D" if name == "H_sha" else "E", out)
+
+
+def mesh_seed(name):
+    return MESH_SEEDS[name[0]]
+
+
+def compiled_launches(runner):
+    """A compiled loop's ``gmm_llr`` launches in its last run: each
+    regime's captured launches times its replays."""
+    prog = runner._program()
+    return sum(prog.launches_per_replay.get(r, 0) * n for r, n in prog.replays.items())
+
+
+def virtual_mesh_values(device, world, stages="FGH"):
+    """Stages F-H (those in ``stages``) on virtual meshes in this one
+    process: what the ranks must give, bit for bit, by program name."""
+    runners = mesh_runners(device, world, stages)
+    return {name: mesh_values(name, r(seed=mesh_seed(name))) for name, r in runners.items()}
+
+
+def run_mesh_stages(device, world, stages, counter, seconds=None):
+    """Stages F-H (those in ``stages``) over the ranks, each program run
+    twice, against its virtual twin in this process: the values, each
+    run's collective counts, the loops' ``gmm_llr`` launches and the ms
+    per step of the second run (its graphs captured by the first), by
+    program; each stage's wall (its runs, the first one's capture
+    included) into ``seconds``."""
+    if "H" in stages and world != MESH_WORLD:
+        raise ValueError(f"stage H runs on {MESH_WORLD} ranks, not {world}")
+    runners = mesh_runners(device, world, stages, real=True)
+    want = virtual_mesh_values(device, world, stages)
+    vals, counts, launches, step_ms, t0 = {}, {}, {}, {}, {}
+    for name, runner in runners.items():
+        t0.setdefault(name[0], time.perf_counter())
+        runs = []
+        for _ in range(2):
+            t_run = time.perf_counter()
+            out, c = counter.step(lambda r=runner, n=name: r(seed=mesh_seed(n)))
+            step_ms[name] = (time.perf_counter() - t_run) * 1e3 / mesh_steps(name)
+            runs.append(mesh_values(name, out))
+            counts.setdefault(name, []).append(c)
+            if not name.startswith(("H_sha", "H_pbt")):
+                launches[name] = launches.get(name, 0) + compiled_launches(runner)
+        if seconds is not None:
+            seconds[name[0]] = time.perf_counter() - t0[name[0]]
+        assert runs[0] == runs[1], f"{name} is not deterministic across processes"
+        assert runs[0] == want[name], f"{name} differs from its virtual mesh run"
+        vals[name] = runs[0]
+    return vals, counts, launches, step_ms
 
 
 def main(argv=None):
@@ -338,7 +518,9 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="cpu or cuda (default: the card)")
     p.add_argument("--batch", type=int, default=DEFAULT_BATCH)
     p.add_argument("--n-per-rank", type=int, default=DEFAULT_N_PER_RANK)
-    p.add_argument("--stages", default=STAGES, help="the stages to run, a subset of ABCDE")
+    p.add_argument("--stages", default=DEFAULT_STAGES,
+                   help="the stages to run, a subset of ABCDEFGH (H: four ranks; default "
+                        "ABCDE, the reference's)")
     args = p.parse_args(argv)
     if not args.stages or set(args.stages) - set(STAGES):
         p.error(f"--stages {args.stages!r}: expected a subset of {STAGES}")
@@ -362,6 +544,8 @@ def main(argv=None):
             ab_launches = KERNEL.launches
             pop_vals, pop_counts, boundaries, loop_launches = run_population_stages(
                 device, args.world, args.stages, counter, seconds)
+            mesh_vals, mesh_counts, mesh_launches, step_ms = run_mesh_stages(
+                device, args.world, args.stages, counter, seconds)
         finally:
             counter.uninstall()
         assert all(s == (1, 0) for s in steps), f"collectives per step: {steps}"
@@ -370,14 +554,20 @@ def main(argv=None):
         for st, runs in pop_counts.items():
             want = (per_boundary[st] * boundaries[st], 0)
             assert all(c == want for c in runs), f"stage {st}: collectives {runs}, not {want}"
+        for name, runs in mesh_counts.items():
+            want = (mesh_boundaries(name), 0)
+            assert all(c == want for c in runs), f"{name}: collectives {runs}, not {want}"
         vals.update(pop_vals)
+        vals.update(mesh_vals)
         mine = json.dumps(vals, sort_keys=True)
         everyone = [None] * args.world
-        dist.all_gather_object(everyone, (mine, ab_launches, loop_launches))
-        assert all(v == mine for v, _, _ in everyone), "the ranks ended with different results"
+        dist.all_gather_object(everyone, (mine, ab_launches, loop_launches, mesh_launches))
+        assert all(v[0] == mine for v in everyone), "the ranks ended with different results"
         if multihost.process_index() == 0:
-            _report(args, vals, hist, steps, mesh.size, [n for _, n, _ in everyone],
-                    pop_counts, boundaries, [n for _, _, n in everyone], seconds)
+            _report(args, vals, hist, steps, mesh.size, [v[1] for v in everyone],
+                    pop_counts, boundaries, [v[2] for v in everyone], seconds,
+                    mesh_counts, {name: [v[3][name] for v in everyone]
+                                  for name in mesh_launches}, step_ms)
         else:
             print(f"DCN RESULT rank={args.rank} ok n={args.batch}", flush=True)
     finally:
@@ -386,12 +576,13 @@ def main(argv=None):
 
 
 def _report(args, vals, hist, steps, n_ranks, launches, pop_counts, boundaries, loop_launches,
-            seconds):
+            seconds, mesh_counts, mesh_launches, step_ms):
     """Rank 0's checks of stages A and B against the unsharded path at
     equal TOTAL candidates (local, no collective) and its two output
     lines; ``launches`` are each rank's ``gmm_llr`` launches in stages A
-    and B, ``loop_launches`` in stage C, ``seconds`` rank 0's wall per
-    stage."""
+    and B, ``loop_launches`` in stage C, ``mesh_launches`` in each loop of
+    stages F-H (by program, by rank), ``seconds`` rank 0's wall per
+    stage and ``step_ms`` its ms per step of each program of F-H."""
     from ..tpe import suggest_batch
     from .mesh import CAND_AXIS
     from .sharded import _default_n_EI_cat_total, per_device_count
@@ -437,6 +628,23 @@ def _report(args, vals, hist, steps, n_ranks, launches, pop_counts, boundaries, 
         gathers = {st: runs[0][0] for st, runs in pop_counts.items()}
         ran = {st: boundaries[st] for st in gathers}
         fields.append(f"boundaries={ran} gathers_by_stage={gathers}")
+    if "F_tpe" in vals:
+        fields.append(f"cand_loop={{cand: {w}}} cand_best={{tpe: "
+                      f"{vals['F_tpe']['best_loss']:.5f}, atpe: {vals['F_atpe']['best_loss']:.5f}}} "
+                      "cand_matches_virtual=True cand_deterministic=True")
+    if "G" in vals:
+        fields.append(f"asha_loop={{trial: {w}, batch: {ASHA_BATCH}}} "
+                      f"asha_best={vals['G']['best_loss']:.5f} asha_matches_virtual=True "
+                      "asha_deterministic=True")
+    if "H_fmin" in vals:
+        fields.append(f"two_axes={{trial: 2, cand: 2}} two_axes_best={{fmin: "
+                      f"{vals['H_fmin']['best_loss']:.5f}, sha: {vals['H_sha']['best_loss']:.5f}, "
+                      f"pbt: {vals['H_pbt']['best_loss']:.5f}}} two_axes_matches_virtual=True "
+                      "two_axes_deterministic=True")
+    if mesh_counts:
+        gathers = {name: runs[0][0] for name, runs in mesh_counts.items()}
+        fields.append(f"mesh_gathers={gathers} mesh_launches_by_rank={mesh_launches} "
+                      f"mesh_ms_per_step={ {k: round(v, 4) for k, v in step_ms.items()} }")
     print("DCN VALUES " + json.dumps({k: v for k, v in vals.items() if k != "A_again"},
                                      sort_keys=True), flush=True)
     walls = {st: round(t, 3) for st, t in seconds.items()}
@@ -445,10 +653,11 @@ def _report(args, vals, hist, steps, n_ranks, launches, pop_counts, boundaries, 
 
 
 def launch(world=2, timeout=600, device=None, batch=DEFAULT_BATCH,
-           n_per_rank=DEFAULT_N_PER_RANK, workdir=None, stages=STAGES):
+           n_per_rank=DEFAULT_N_PER_RANK, workdir=None, stages=DEFAULT_STAGES):
     """Spawn ``world`` ranks (a ``FileStore`` and each rank's log under
     ``workdir``, a fresh temporary directory by default) running the
-    ``stages`` (a subset of ``"ABCDE"``) and return rank 0's output.
+    ``stages`` (a subset of ``"ABCDEFGH"``, by default the reference's
+    ``"ABCDE"``; stage H needs four ranks) and return rank 0's output.
 
     Raises ``RuntimeError`` with every rank's tail as soon as one exits
     non-zero, or when ``timeout`` seconds pass first; every rank still

@@ -26,10 +26,14 @@ only.  :func:`in_process_shards` gives a named axis's width inside this
 process, and :func:`shard_devices` places the shards.
 
 Over real ranks, one process each, the ``trial`` axis of
-``compile_pbt``, ``compile_sha`` and ``compile_fmin`` gives rank ``r``
-member block ``r`` (:func:`process_block`): each rank runs its block's
-captured graph, and the blocks meet in a host gather between graphs
-(:func:`~.multihost.fetch_global`), never inside one.
+``compile_pbt``, ``compile_sha`` and ``compile_fmin`` gives the rank at
+position ``r`` on it member block ``r`` (:func:`process_block`), and the
+``cand`` axis of ``compile_fmin`` gives each rank its candidate slab
+(:func:`process_line`): each rank runs its own captured graphs, and the
+ranks of a line meet in a host gather between graphs
+(:func:`~.multihost.fetch_global` over the line's group), never inside
+one.  On a mesh of several axes the other axes replicate: ranks that
+share a ``trial`` coordinate hold the same block.
 
 The reference's virtual-device harness has no twin here:
 ``force_host_cpu_devices``, ``subprocess_env_with_devices``,
@@ -58,6 +62,8 @@ __all__ = [
     "mesh_from_spec",
     "over_processes",
     "process_block",
+    "process_line",
+    "rung_block",
     "rung_submesh",
     "shard_devices",
     "study_mesh",
@@ -192,11 +198,22 @@ def rung_submesh(mesh, axis, members):
     return RankMesh((k,), (axis,), mesh.ranks[:k], virtual=mesh.virtual), k
 
 
+def rung_block(members, n_ranks, index):
+    """Over real ranks, the block of a rung of ``members`` trials that the
+    rank at position ``index`` of ``n_ranks`` trains: ``(first, width,
+    trains)``.  The rung runs on its :func:`rung_submesh`, the first
+    ``gcd(members, n_ranks)`` positions; a rank past them trains nothing
+    and sends a block of padding to the rung's gather."""
+    width = int(members) // math.gcd(int(members), int(n_ranks))
+    return int(index) * width, width, int(index) < int(members) // width
+
+
 def in_process_shards(mesh, axis, what, device=None, one_axis=True):
     """The number of shards ``mesh`` lays along ``axis`` inside this
     process: the axis's width on a virtual mesh, or 1 on a mesh of one
     rank.  A 1-D mesh is required unless ``one_axis=False`` (the other
-    axes then replicate; ``compile_fmin``'s ``trial`` x ``cand`` mesh).
+    axes then replicate: ``compile_fmin``'s, ``compile_pbt``'s and
+    ``compile_sha``'s ``trial`` x ``cand`` mesh).
     A mesh over several processes is refused here: its shards would meet
     in a collective inside a captured step (the callers that take one
     ask :func:`process_block` first; the rest is ROADMAP.md Queue A, item
@@ -226,19 +243,12 @@ def over_processes(mesh):
     return mesh is not None and not mesh.virtual and mesh.size > 1
 
 
-def process_block(mesh, axis, what):
-    """The member block of this process on a 1-D ``axis`` mesh of real
-    ranks: ``(n, index, group)``, the axis's width, this rank's position
-    on it (rank ``r`` owns block ``r``) and the process group its blocks
-    meet in (None: every process).  The run must have joined a process
-    group holding the mesh's ranks (:func:`~.multihost.initialize`)."""
+def _line(mesh, axis, what):
+    """``(n, index, group)`` of the line along ``axis`` through this
+    process: the axis's width, this rank's position on it and the
+    process group of the line (None: every process)."""
     if axis not in mesh.shape:
         raise ValueError(f"{what}: mesh {mesh!r} has no {axis!r} axis")
-    if len(mesh.shape) != 1:
-        raise NotImplementedError(
-            f"{what}: a mesh of more than one axis over processes ({mesh!r}) is not ported "
-            "yet (ROADMAP.md Queue A, item 15c, part 6)"
-        )
     if process_count() < mesh.size or process_index() not in mesh.ranks:
         raise RuntimeError(
             f"{what}: {mesh!r} spans {mesh.size} processes, but this process (rank "
@@ -247,6 +257,25 @@ def process_block(mesh, axis, what):
             "parallel.mesh.virtual_mesh")
     rank = process_index()
     return int(mesh.shape[axis]), mesh.axis_index(axis, rank), mesh.group(axis, rank)
+
+
+def process_block(mesh, axis, what):
+    """The member block of this process on the ``axis`` of a mesh of real
+    ranks: ``(n, index, group)``, the axis's width, this rank's position
+    on it (the rank at position ``r`` owns block ``r``) and the process
+    group its blocks meet in, the line along ``axis`` through this rank
+    (None: every process).  The mesh's other axes replicate.  The run
+    must have joined a process group holding the mesh's ranks
+    (:func:`~.multihost.initialize`)."""
+    return _line(mesh, axis, what)
+
+
+def process_line(mesh, axis, what):
+    """This process's place on a second axis of a mesh of real ranks (the
+    ``cand`` axis beside the ``trial`` blocks): ``(n, index, group)`` as
+    :func:`process_block` gives them, the rank's slab of a sweep at
+    position ``index`` and the group its winners meet in."""
+    return _line(mesh, axis, what)
 
 
 def shard_devices(n, device, what="sharding"):

@@ -22,9 +22,13 @@ back to the device: every draw and score still runs on the rank's
 device.
 
 The sweep is also the model step of ``compile_fmin(mesh=,
-cand_axis=)`` and of ``atpe.build_atpe_device_fn(mesh=, cand_axis=)``:
-there the mesh is virtual, so the ranks' bodies and the reduction run
-in turn inside the one captured step, with no host read.  Keys with a
+cand_axis=)`` and of ``atpe.build_atpe_device_fn(mesh=, cand_axis=)``.
+On a virtual mesh the ranks' bodies and the reduction run in turn inside
+the one captured step, with no host read.  Over real ranks the compiled
+loop splits the step at the packed winners (the step's ``local`` and
+``reduce`` halves): one captured graph draws and scores this rank's
+slab, the host gathers the winners of the ``cand`` line, and a second
+graph reduces them.  Keys with a
 leading seed axis (``[S, 2]``, a history ``[S, D, cap]``) sweep S
 experiments at once, each seed's slice by the same operations as its
 solo call.
@@ -153,6 +157,11 @@ def build_sharded_sweep(ps, mesh, n_cand_per_device, axis=CAND_AXIS,
             gathered = packed[None] if width == 1 else _all_gather(packed, mesh, axis, rank)
         return reduce_best(ps, gathered)
 
+    # the two halves, for a step split at the packed winners (the compiled
+    # loop's axis over processes, a host gather between two graphs):
+    # ``local(key, fits, batch, rank)`` and ``reduce(gathered)``
+    sweep.local = local_best
+    sweep.reduce = lambda gathered: reduce_best(ps, gathered)
     return sweep
 
 
@@ -183,11 +192,24 @@ def build_sharded_suggest_fn(
     sweep = build_sharded_sweep(ps, mesh, n_cand_per_device, axis=axis,
                                 n_cand_cat_per_device=n_cand_cat_per_device)
 
-    def fn(key, values, active, losses, valid, batch):
-        fits = K.fit_all_dims(c, values, active, losses, valid, gamma, lf_f, pw,
+    def fits_of(values, active, losses, valid):
+        return K.fit_all_dims(c, values, active, losses, valid, gamma, lf_f, pw,
                               above_cap=a_cap)
-        return sweep(key, fits, batch)
 
+    def fn(key, values, active, losses, valid, batch):
+        return sweep(key, fits_of(values, active, losses, valid), batch)
+
+    def local(key, values, active, losses, valid, batch, rank):
+        """The first half: this rank's packed winners, as a one-tuple."""
+        return (sweep.local(key, fits_of(values, active, losses, valid), batch, rank),)
+
+    def reduce(key, values, active, losses, valid, batch, gathered, ctx):
+        """The second half: every rank's winners ``[W, ..., B, Dc+Dk, 2]``
+        -> ``(new_values, active)``."""
+        return sweep.reduce(gathered)
+
+    # the step split at the packed winners (see build_sharded_sweep)
+    fn.local, fn.reduce = local, reduce
     return fn
 
 

@@ -10,8 +10,10 @@ exploit/explore event -- is captured once into a ``torch.cuda.CUDAGraph``
 and replayed ``n_rounds`` times over static tensors; on the CPU the same
 round runs eagerly.
 
-``shard_mode="shard_map"`` with a 1-D ``trial`` mesh inside this process
-(:func:`~hyperopt_tpu_torch.parallel.mesh.virtual_mesh`) splits the
+``shard_mode="shard_map"`` with a ``trial`` mesh inside this process
+(:func:`~hyperopt_tpu_torch.parallel.mesh.virtual_mesh`; on a mesh of
+several axes the others replicate, as the reference's
+``Pspec(trial_axis)`` does) splits the
 population into per-shard member blocks on the caller's device: every
 block trains its ``exploit_every`` steps on its own, and each exploit
 gathers twice -- the losses, and the member states -- into static
@@ -24,10 +26,12 @@ checked and the unsharded round runs, bit for bit the schedule without
 a mesh (blocks on one card buy nothing and a ``train_fn`` whose batched
 products pick their kernels by width would change bits).
 
-On a 1-D ``trial`` mesh of real ranks, one process each
+On a ``trial`` mesh of real ranks, one process each
 (:func:`~hyperopt_tpu_torch.parallel.mesh.default_mesh` after
-:func:`~hyperopt_tpu_torch.parallel.multihost.initialize`), rank ``r``
-owns member block ``r``.  A ``gloo`` gather goes through the host and
+:func:`~hyperopt_tpu_torch.parallel.multihost.initialize`), the rank at
+position ``r`` on the axis owns member block ``r`` (on a mesh of several
+axes the ranks that share a ``trial`` coordinate hold the same block,
+and each line along the axis gathers on its own).  A ``gloo`` gather goes through the host and
 cannot sit inside a captured graph, so a round is two graphs with the
 host between them: the rank's block trains its ``exploit_every`` steps
 (one graph), the host gathers the block losses and the block states of
@@ -212,7 +216,8 @@ def compile_pbt(
     steps per round, ``n_rounds`` rounds, ``exploit_quantile`` the share
     replaced each round, ``perturb_factors`` the explore range.
 
-    ``mesh`` (a 1-D mesh along ``trial_axis`` inside this process) with
+    ``mesh`` (a mesh with a ``trial_axis`` inside this process; its other
+    axes replicate) with
     ``shard_mode="shard_map"`` splits the population into equal member
     blocks: ``train_fn`` receives one block (``P / n_shards`` leading
     axis) and its hypers, and the blocks meet only at each exploit, in one
@@ -243,7 +248,7 @@ def compile_pbt(
         if over_processes(mesh):
             ranks = process_block(mesh, trial_axis, "compile_pbt")
         else:
-            n = in_process_shards(mesh, trial_axis, "compile_pbt", dev)
+            n = in_process_shards(mesh, trial_axis, "compile_pbt", dev, one_axis=False)
             n_shards = n if mode == "shard_map" else 1
     names, log_lo, log_hi = log_bounds(hyper_bounds, dev)
     H = len(names)

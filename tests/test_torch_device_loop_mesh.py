@@ -25,8 +25,10 @@ on :func:`~hyperopt_tpu_torch.parallel.mesh.virtual_mesh` with
 * ASHA's rung sub-mesh: ``_asha_submesh_devices`` the reference's (1,
   then gcd 2 at 4 ranks), the streams bitwise the reference's sharded
   runs under random search and the unsharded run, chunked bitwise flat;
-* every validation message of the reference's mesh options, and the
-  port's refusal of a mesh over several processes.
+* every validation message of the reference's mesh options, and a mesh
+  over several processes refused without the process group that holds
+  its ranks (``tests/test_torch_mesh_ranks.py`` runs it over thread
+  ranks).
 """
 
 import numpy as np
@@ -340,16 +342,16 @@ def test_mesh_options_the_reference_accepts():
 
 
 def test_a_mesh_over_processes_is_refused():
-    """A collective between processes cannot run inside the captured
-    step: a ``cand`` axis, or ``asha=``, over several processes raises
-    naming its part of item 15c, as does a mesh that is not a RankMesh.
-    The ``trial`` axis over processes runs (two graphs per step, the host
-    gather between them), given the process group that holds its ranks."""
+    """A mesh over several processes runs its ``trial`` blocks, its
+    ``cand`` slabs and its ASHA rungs as captured graphs with host gathers
+    between them, given the process group that holds its ranks: without
+    one, each raises naming ``multihost.initialize``.  A mesh that is not
+    a RankMesh is refused."""
     procs = RankMesh((2,), ("cand",), (0, 1))
-    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+    with pytest.raises(RuntimeError, match="is not one of its ranks"):
         compile_fmin(DL.t_quad, DL.quad_space(thp), max_evals=8, mesh=procs, cand_axis="cand",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+    with pytest.raises(RuntimeError, match="is not one of its ranks"):
         compile_fmin(AS.t_objective(), AS.space(thp), mesh=RankMesh((2,), ("trial",), (0, 1)),
                      device="cpu", **AS.KW)
     with pytest.raises(RuntimeError, match="multihost.initialize"):

@@ -316,26 +316,36 @@ def test_two_spawned_ranks_are_bitwise_the_virtual_ranks(tmp_path):
 
 
 def test_two_spawned_ranks_run_the_populations_bitwise(tmp_path):
-    """Stages C-E on two ``gloo`` ranks at the reference's sizes (every
-    population two wide): ``compile_fmin``'s trial axis (64 evaluations,
-    each rank one column of every batch), ``compile_sha`` and
-    ``compile_pbt`` over the ranks, each run twice and bitwise the
+    """Stages C-G on two ``gloo`` ranks: C-E at the reference's sizes
+    (every population two wide): ``compile_fmin``'s trial axis (64
+    evaluations, each rank one column of every batch), ``compile_sha``
+    and ``compile_pbt`` over the ranks, each run twice and bitwise the
     unsharded run of the same program in this process; one all_gather
     of the losses per loop step, one of the losses and one of the states
-    per rung and per exploit, and no other collective (counted inside
-    the ranks); nothing of ``torch.distributed`` left here."""
+    per rung and per exploit.  F, ``compile_fmin``'s ``cand`` axis over
+    the ranks for TPE and ATPE (one all_gather of the packed winners per
+    model step, 44 of 64), and G, ``asha=`` over the ``trial`` axis (two
+    per rung, 18 in 3 brackets), each run twice and bitwise its
+    ``virtual_mesh`` run, which the ranks run too.  No other collective
+    (counted inside the ranks); nothing of ``torch.distributed`` left
+    here."""
     assert _no_distributed_state()
-    out = t_dcn.launch(world=2, timeout=180, device="cpu", workdir=tmp_path, stages="CDE")
+    out = t_dcn.launch(world=2, timeout=240, device="cpu", workdir=tmp_path, stages="CDEFG")
     result = next(ln for ln in out.splitlines() if ln.startswith("DCN RESULT"))
     for field in ("loop_matches_unsharded=True", "sha_matches_unsharded=True",
                   "pbt_matches_unsharded=True", "loop_deterministic=True",
                   "sha_deterministic=True", "pbt_deterministic=True", "ranks_agree=True",
                   "boundaries={'C': 32, 'D': 2, 'E': 4}",
-                  "gathers_by_stage={'C': 32, 'D': 4, 'E': 8}", "loop_launches_by_rank=[0, 0]"):
+                  "gathers_by_stage={'C': 32, 'D': 4, 'E': 8}", "loop_launches_by_rank=[0, 0]",
+                  "cand_matches_virtual=True", "cand_deterministic=True",
+                  "asha_matches_virtual=True", "asha_deterministic=True",
+                  "mesh_gathers={'F_tpe': 44, 'F_atpe': 44, 'G': 18}",
+                  "mesh_launches_by_rank={'F_tpe': [0, 0], 'F_atpe': [0, 0], 'G': [0, 0]}"):
         assert field in result, (field, result)
     assert "ks=" not in result  # stages A and B did not run
     spawned = t_dcn.parse_values(out)
-    assert spawned == t_dcn.unsharded_population("cpu", 2)
+    assert {st: spawned[st] for st in "CDE"} == t_dcn.unsharded_population("cpu", 2)
+    assert sorted(spawned) == ["C", "D", "E", "F_atpe", "F_tpe", "G"]
     # the PBT schedule really exploited across the ranks: both members
     # end on the rank-0 or rank-1 member that won
     assert len(set(spawned["E"]["state"])) == 1
@@ -412,6 +422,25 @@ def test_fetch_global_in_one_process_is_the_local_fetch():
         assert np.array_equal(got["b"][0], [True, True]) and got["b"][1] == 2.5
         got["a"][0] = 7.0
         assert tree["a"][0] == 0.0  # not an alias of the tensor
+
+
+@pytest.mark.slow
+def test_four_spawned_ranks_run_the_two_axis_mesh_bitwise(tmp_path):
+    """Stage H on four ``gloo`` ranks: the ``trial`` 2 x ``cand`` 2 mesh,
+    its line groups built by their own ranks; ``compile_fmin`` at B=2
+    (a model step gathers on the rank's ``cand`` line, then on its
+    ``trial`` line: 2 x 22 + 10 startup steps), ``compile_sha`` and
+    ``compile_pbt`` over the ``trial`` axis (two per rung and per
+    exploit), each run twice and bitwise its ``virtual_mesh((2, 2))``
+    run, which the ranks and this process both run."""
+    assert _no_distributed_state()
+    out = t_dcn.launch(world=4, timeout=400, device="cpu", workdir=tmp_path, stages="H")
+    result = next(ln for ln in out.splitlines() if ln.startswith("DCN RESULT"))
+    for field in ("two_axes_matches_virtual=True", "two_axes_deterministic=True",
+                  "ranks_agree=True", "mesh_gathers={'H_fmin': 54, 'H_sha': 6, 'H_pbt': 8}"):
+        assert field in result, (field, result)
+    assert t_dcn.parse_values(out) == t_dcn.virtual_mesh_values("cpu", 4, "H")
+    assert _no_distributed_state()
 
 
 @pytest.mark.slow

@@ -5,15 +5,16 @@ Over a ``trial`` mesh of real ranks (a ``RankMesh`` that is not virtual)
 ``compile_pbt``, ``compile_sha`` and ``compile_fmin`` give rank ``r``
 member (or batch) block ``r`` and meet in ``parallel.multihost.
 fetch_global`` between two graphs.  Here ``process_block`` names each
-thread's rank and ``fetch_global`` exchanges the blocks through shared
-slots between two barriers, so two, three and four ranks run without a
-process group (the spawned ``gloo`` ranks of ``tests/test_torch_parallel.py``
+thread's rank and ``fetch_global`` exchanges the blocks of a line's ranks
+through shared slots between two barriers, so two, three and four ranks
+run without a process group (the spawned ``gloo`` ranks of ``tests/test_torch_parallel.py``
 and ``dcn_check`` stages C-E check the real collective).  On the
 reference's elementwise ``train_fn`` and objective every rank's result
 is bitwise the single-process run, with one gather of the losses (and
 one of the member states) per boundary: per loop step, rung and exploit.
 """
 
+import collections
 import threading
 
 import numpy as np
@@ -32,31 +33,45 @@ THETA0 = np.linspace(0.5, 5.0, 8, dtype=np.float32)
 
 
 class ThreadRanks:
-    """``n`` ranks as threads: ``process_block`` gives each thread its own
-    rank, ``fetch_global(..., sharded=True)`` joins every rank's blocks in
-    rank order (and counts the gathers per rank)."""
+    """``n`` ranks as threads: ``process_block`` and ``process_line`` give
+    each thread its own rank's width, position and line (the tuple of the
+    line's ranks stands for its process group), and ``fetch_global(...,
+    sharded=True, group=line)`` joins the blocks of the line's ranks in
+    line order, between barriers keyed by the line (and counts the
+    gathers per rank, and per rank and line)."""
 
     def __init__(self, n):
         self.n = n
-        self.barrier = threading.Barrier(n, timeout=120)
-        self.slots = [None] * n
+        self.lock = threading.Lock()
+        self.barriers, self.slots = {}, {}
         self.gathers = [0] * n
+        self.line_gathers = collections.Counter()
         self.local = threading.local()
         self.real_fetch = TMH.fetch_global
 
     def process_block(self, mesh, axis, what):
-        return int(mesh.shape[axis]), self.local.rank, None
+        rank = self.local.rank
+        return int(mesh.shape[axis]), mesh.axis_index(axis, rank), mesh.axis_ranks(axis, rank)
+
+    def _line(self, line):
+        with self.lock:
+            if line not in self.barriers:
+                self.barriers[line] = threading.Barrier(len(line), timeout=120)
+                self.slots[line] = [None] * len(line)
+            return self.barriers[line], self.slots[line]
 
     def fetch_global(self, tree, sharded=False, group=None):
         if sharded is False:
             return self.real_fetch(tree)
-        assert sharded is True and group is None
+        assert sharded is True and isinstance(group, tuple)
         rank = self.local.rank
-        self.slots[rank] = tree_map(lambda x: x.detach().cpu().clone(), tree)
+        barrier, slots = self._line(group)
+        slots[group.index(rank)] = tree_map(lambda x: x.detach().cpu().clone(), tree)
         self.gathers[rank] += 1
-        self.barrier.wait()
-        out = tree_map(lambda *xs: torch.cat(xs).numpy(), *self.slots)
-        self.barrier.wait()
+        self.line_gathers[rank, group] += 1
+        barrier.wait()
+        out = tree_map(lambda *xs: torch.cat(xs).numpy(), *slots)
+        barrier.wait()
         return out
 
     def run(self, make_and_run):
@@ -69,7 +84,9 @@ class ThreadRanks:
                 results[rank] = make_and_run()
             except BaseException as e:  # noqa: BLE001 -- reported below
                 errors.append(e)
-                self.barrier.abort()
+                with self.lock:
+                    for barrier in self.barriers.values():
+                        barrier.abort()
 
         threads = [threading.Thread(target=rank_main, args=(r,)) for r in range(self.n)]
         for t in threads:
@@ -86,6 +103,7 @@ def thread_ranks(monkeypatch):
     def make(n):
         ranks = ThreadRanks(n)
         monkeypatch.setattr(TM, "process_block", ranks.process_block)
+        monkeypatch.setattr(TM, "process_line", ranks.process_block)
         monkeypatch.setattr(TMH, "fetch_global", ranks.fetch_global)
         return ranks
 
@@ -253,13 +271,13 @@ def test_fmin_trial_axis_over_ranks_is_bitwise_the_unsharded_loop(thread_ranks, 
 
 
 def test_fmin_trial_axis_over_ranks_refusals():
-    """Over processes, the batch must divide by the ranks, the ``cand``
-    axis and ``asha=`` are refused (part 6 of item 15c), and without the
-    process group that holds the ranks the loop does not build."""
+    """Over processes, the batch must divide by the ranks, and without the
+    process group that holds the ranks the loop does not build -- a
+    ``trial`` x ``cand`` mesh no more than a ``trial`` one."""
     with pytest.raises(ValueError, match="must be a multiple of mesh axis 'trial' size 2"):
         compile_fmin(dcn_check.loop_fn, quad_space(), max_evals=8, batch_size=3,
                      mesh=rank_mesh(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+    with pytest.raises(RuntimeError, match="rank 0 of 1\\) is not one of its ranks"):
         compile_fmin(dcn_check.loop_fn, quad_space(), max_evals=8, batch_size=2,
                      mesh=TM.RankMesh((2, 2), ("trial", "cand"), range(4)), cand_axis="cand",
                      device="cpu")
@@ -284,14 +302,34 @@ def test_over_processes(mesh, spans):
 
 @pytest.mark.parametrize("mesh,axis,error,match", [
     (TM.RankMesh((2,), ("cand",), (0, 1)), TM.TRIAL_AXIS, ValueError, "has no 'trial' axis"),
-    (TM.RankMesh((2, 2), ("trial", "cand"), range(4)), TM.TRIAL_AXIS, NotImplementedError,
-     "item 15c, part 6"),
+    (TM.RankMesh((2, 2), ("trial", "cand"), range(4)), "cand", RuntimeError,
+     "rank 0 of 1\\) is not one of its ranks"),
     (TM.RankMesh((2,), ("trial",), (0, 1)), TM.TRIAL_AXIS, RuntimeError,
      "rank 0 of 1\\) is not one of its ranks"),
 ])
 def test_process_block_refusals(mesh, axis, error, match):
+    """A missing axis, and a mesh (of one axis or two) whose ranks this
+    process's group does not hold."""
     with pytest.raises(error, match=match):
         TM.process_block(mesh, axis, "x")
+    with pytest.raises(error, match=match):
+        TM.process_line(mesh, axis, "x")
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_process_block_and_line_on_a_two_axis_mesh(monkeypatch, rank):
+    """On a ``trial`` x ``cand`` mesh of four ranks each rank's block is its
+    ``trial`` coordinate and its slab its ``cand`` coordinate, each with
+    the group of the line through it (a proper line: a group of its own
+    ranks, built here as a stand-in)."""
+    mesh = TM.RankMesh((2, 2), ("trial", "cand"), range(4))
+    monkeypatch.setattr(TM, "process_count", lambda: 4)
+    monkeypatch.setattr(TM, "process_index", lambda: rank)
+    for line in ((0, 2), (1, 3), (0, 1), (2, 3)):
+        mesh._groups[line] = ("group", line)
+    trial, cand = TM.process_block(mesh, "trial", "x"), TM.process_line(mesh, "cand", "x")
+    assert trial == (2, rank // 2, ("group", (rank % 2, rank % 2 + 2)))
+    assert cand == (2, rank % 2, ("group", (rank - rank % 2, rank - rank % 2 + 1)))
 
 
 def _echo_step(pop_params, pop_momentum, lr, wd, *data):

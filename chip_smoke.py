@@ -357,6 +357,23 @@ network.  Every phase asserts, and a failure exits non-zero:
    here); (d) the kernel at every per-rank launch shape
    (``checked_shapes``; numbers under the kernels line's
    ``mesh_processes``).
+22. (after phase 21, before any profiler) a model's data axis over
+   processes, ranks sharing the card: (a) ``dcn_check.launch(world=2,
+   stages="I")`` and (b) ``dcn_check.launch(world=4, stages="J")``,
+   started together: I TinyLM (pop 32 at ``bench_pbt``'s width) and
+   ResNet-20 x 8 at batch 128 with the batch split over the ``cand`` axis
+   of a ``(1, 2)`` mesh (each rank's gradient half on its rows, one host
+   gather of the gradients and losses per step, the combine and the
+   update half), each step program run twice in pairs with the unsharded
+   step, and 14e's 30-trial ``fmin`` over ResNet's
+   ``population_objective(mesh=)`` in both ranks; J TinyLM on the
+   ``(2, 2)`` mesh; (c) the twins here while the ranks run, the ranks'
+   values bitwise these, and the unsharded objective at the ranks'
+   ``fmin`` configurations; (d) the kernel at the ``fmin``'s launch shape
+   (``launches_by_path`` keys ``dcn_data_fmin_2``, ``twin_data_fmin``);
+   (e) where ResNet's split difference comes from, and a combine that
+   drops a slice rejected by the card's tolerance (numbers under the
+   kernels line's ``data_axis``).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``,
 with each path's launches under ``launches_by_path``, the compiled
@@ -366,7 +383,7 @@ loop's numbers under ``compiled``, phase 9's under ``schedulers``, phase
 phase 15's under ``baseline``, phase 16's under ``checks``, phase 17's
 under ``sharded``, phase 18's under ``study_mesh``, phase 19's under
 ``compiled_mesh``, phase 20's under ``population_mesh``, phase 21's under
-``mesh_processes``,
+``mesh_processes``, phase 22's under ``data_axis``,
 each new path's launch shapes with their errors under
 ``checked_shapes``, and each phase's seconds under ``phase_seconds``),
 the card's ``nvidia-smi`` name and power limit, and
@@ -5644,6 +5661,138 @@ def phase21(card):
     return launches, out
 
 
+P22_DEVICE = "cuda"  # where phase 22's ranks and twins compute
+P22_TIMEOUT = 300  # seconds each spawn of ranks may take
+DCN_DATA = {key: re.compile(rf"\b{key}=(\{{[^}}]*\}})") for key in
+            ("data_gathers", "data_launches_by_rank", "data_ms", "data_max_abs_diff",
+             "data_loss_rel_diff", "stage_seconds")}
+
+
+def phase22(card):
+    """A model's data axis over processes, on the one card: (a)
+    ``dcn_check.launch(world=2, stages="I")`` -- TinyLM at ``bench_pbt``'s
+    width (pop 32) and ResNet-20 x 8 at batch 128 with their batch split
+    over the ``cand`` axis of a ``(1, 2)`` mesh of two ``gloo`` ranks
+    (each rank's gradient half on 64 or 16 rows, one host gather of the
+    gradients and losses per step, the combine and the update half), in
+    pairs with the unsharded step, and 14e's ``fmin`` over ResNet's
+    ``population_objective(mesh=)`` in both ranks -- and (b)
+    ``launch(world=4, stages="J")``, TinyLM on the ``(2, 2)`` mesh, the
+    two spawns started together; in the ranks each program runs twice,
+    the steps bitwise their in-process twin there; (c) the same programs
+    here while the ranks run (``split_twin``, member block by member
+    block, and the ``fmin`` over the twin's objective, then the unsharded
+    objective at its configurations): the ranks' values bitwise these, so
+    the configurations are the ranks' own; (d) the kernel against its plain version at the
+    ``fmin``'s launch shape; (e) ``dcn_check.data_probe`` on ResNet-20:
+    the first step's combined slice gradients against the whole batch's,
+    the split and a combine that drops a slice against the unsharded step
+    (the tolerance must pass the one and reject the other), and both
+    float32 steps against the unsharded step in float64.  Returns the
+    launches by path and the numbers."""
+    import ast
+
+    import torch
+
+    from hyperopt_tpu_torch.ops import gmm_scores as G
+    from hyperopt_tpu_torch.parallel import dcn_check
+
+    t_phase = time.perf_counter()
+    launches, out = {}, {}
+    dev = torch.device(P22_DEVICE)
+    assert not torch.distributed.is_initialized()
+    # -- 22a, 22b. the ranks: two for I, four for J, spawned together ------
+    reports, errors, walls = {}, [], {}
+
+    def spawn(stage):
+        t0 = time.perf_counter()
+        try:
+            reports[stage] = dcn_check.launch(world=dcn_check.DATA_WORLD[stage],
+                                              timeout=P22_TIMEOUT, device=P22_DEVICE,
+                                              stages=stage)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+        walls[stage] = time.perf_counter() - t0
+
+    spawns = [threading.Thread(target=spawn, args=(stage,)) for stage in "IJ"]
+    for t in spawns:
+        t.start()
+    # -- 22c. the twins in this process, while the ranks run ------------------
+    G.KERNEL.launches = 0
+    with launch_shapes() as seen:
+        t0 = time.perf_counter()
+        twin = dcn_check.data_twin_values(dev, "IJ")
+        twin_s = time.perf_counter() - t0
+    launches["twin_data_fmin"] = G.KERNEL.launches
+    # the unsharded objective at the twin's configurations, the ranks' own
+    # once the twin is found bitwise the ranks below
+    t0 = time.perf_counter()
+    unsharded_rel = dcn_check.data_unsharded_diff(dev, twin["I_fmin"])
+    unsharded_s = time.perf_counter() - t0
+    for t in spawns:
+        t.join()
+    if errors:
+        raise errors[0]
+    spawned, ranks = {}, {}
+    for stage, report in sorted(reports.items()):
+        result = next(ln for ln in report.splitlines() if ln.startswith("DCN RESULT"))
+        spawned.update(dcn_check.parse_values(report))
+        fields = {k: ast.literal_eval(rx.search(result).group(1)) for k, rx in DCN_DATA.items()}
+        ranks[stage] = dict(fields, result=result, seconds=walls[stage])
+        log(f"[22{'a' if stage == 'I' else 'b'}] {card}: the ranks with their start "
+            f"{walls[stage]:.2f} s: {result}")
+        for flag in ("data_matches_twin=True", "data_deterministic=True",
+                     "data_lines_agree=True", "ranks_agree=True"):
+            assert flag in result, (flag, result)
+        for name, n in fields["data_gathers"].items():
+            assert n == dcn_check.data_gathers(name, dev.type), (name, n)
+    sz = dcn_check.DATA_SIZES[dev.type]
+    per_rank = ranks["I"]["data_launches_by_rank"]["I_fmin"]
+    want = sz["trials"] - sz["startup"]  # one launch per model trial
+    assert per_rank == [want] * dcn_check.DATA_WORLD["I"], (per_rank, want)
+    launches["dcn_data_fmin_2"] = sum(per_rank)
+
+    assert launches["twin_data_fmin"] == sz["trials"] - sz["startup"], launches
+    bitwise = {name: twin[name] == spawned[name] for name in twin}
+    out["ranks"] = ranks
+    out["bitwise_twin_here"] = bitwise
+    out["twin_seconds"], out["unsharded_seconds"] = twin_s, unsharded_s
+    out["fmin_unsharded_loss_rel_diff"] = unsharded_rel
+    out["fmin_best_loss"] = spawned["I_fmin"]["best_loss"]
+    log(f"[22c] {card}: stages I-J's twins here while the ranks ran ({twin_s:.2f} s, then "
+        f"the unsharded objective {unsharded_s:.2f} s), the ranks' values bitwise "
+        f"these: {bitwise}; gmm_llr launches {launches}; the unsharded objective at the "
+        f"ranks' {len(spawned['I_fmin']['configs'])} fmin configurations: max relative loss "
+        f"difference {unsharded_rel:.3e} (tolerance "
+        f"{dcn_check.DATA_FMIN_RTOL[dev.type]}); best {out['fmin_best_loss']:.6f}")
+    assert all(bitwise.values()), bitwise
+    assert unsharded_rel <= dcn_check.DATA_FMIN_RTOL[dev.type], unsharded_rel
+
+    # -- 22d. the kernel at the fmin's launch shape ----------------------------
+    CHECKED_SHAPES["data_fmin"] = check_shapes(f"22 data_fmin, {card}", seen, seed=221)
+    out["checked_max_abs_err"] = max(c["max_abs_err"] for c in CHECKED_SHAPES["data_fmin"])
+    log(f"[22d] {card}: the kernel at the fmin's launch shapes {sorted(seen)}, largest error "
+        f"{out['checked_max_abs_err']:.3e} against the plain version")
+
+    # -- 22e. where ResNet's split difference comes from, and whether the
+    # card's tolerance rejects a combine that drops a slice ------------------
+    probe = dcn_check.data_probe(dev, "I_resnet")
+    atol = dcn_check.DATA_TOL[dev.type]["resnet"][0]
+    out["resnet_split_probe"] = probe
+    out["seconds"] = time.perf_counter() - t_phase
+    net = "ResNet-20" if sz["resnet"]["model"] is None else "the 1-1-1 ResNet"
+    log(f"[22e] {card}: {net} x {sz['resnet']['pop']} at batch {sz['resnet']['batch']}: "
+        f"the first step's combined slice gradients against the whole batch's (no update "
+        f"between) max abs {probe['grad0']:.3e} (largest gradient {probe['grad0_scale']:.3e}); "
+        f"after {sz['steps']} steps, max abs from the unsharded step: split "
+        f"{probe['split']:.3e}, one slice kept and the other dropped {probe['fault']:.3e} "
+        f"(tolerance {atol}); from the unsharded step in float64: unsharded float32 "
+        f"{probe['f32_from_f64']:.3e}, split float32 {probe['split_from_f64']:.3e}")
+    assert probe["split"] <= atol < probe["fault"], (probe, atol)
+    log(f"[22] {card}: phase 22 took {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -5739,6 +5888,10 @@ def main():
     mesh_process_launches, mesh_processes = phase21(card)
     compiled_launches_by_path.update(mesh_process_launches)
     lap("21")
+    # -- 22. a model's data axis over processes -----------------------------
+    data_launches, data_axis = phase22(card)
+    compiled_launches_by_path.update(data_launches)
+    lap("22")
     # then the kernel's timings at both shapes and the profiled window of
     # the compiled loop (the ASHA brackets' window runs last of all)
     profile_8f()
@@ -6003,6 +6156,7 @@ def main():
         "compiled_mesh": compiled_mesh,
         "population_mesh": population_mesh,
         "mesh_processes": mesh_processes,
+        "data_axis": data_axis,
         "checked_shapes": CHECKED_SHAPES,
         "phase_seconds": phase_seconds,
     }]}

@@ -17,16 +17,29 @@ embeddings; zeros for biases; ones and zeros for the norms).  Its bits
 are not flax's, which folds module paths into its keys: only the
 distribution is the reference's.
 
-A step on a mesh (:func:`on_mesh`) is the reference's GSPMD placement
-read for the port: the population on the ``trial`` axis and the data
-batch on ``data_axis``, checked as the reference's sharding constraints
-check them, and the unsharded step computed, so it is bitwise the step
-without a mesh.
+A step (:class:`PopulationStep`) has two halves: the gradient half,
+``grad_and_value`` of each member's loss on the given rows, and the
+update half, :func:`sgd_update`.  A step on a mesh (:func:`on_mesh`) is
+the reference's GSPMD placement read for the port: the population on the
+``trial`` axis and the data batch on ``data_axis``, checked as the
+reference's sharding constraints check them.  Inside one process (a
+``virtual_mesh``, or one rank) the unsharded step runs, bitwise the step
+without a mesh.  Over real ranks each rank passes its own block of
+members, and a ``data_axis`` over processes cuts the step where GSPMD
+puts its gradient all-reduce: each rank of the data line runs the
+gradient half on its rows of the batch, one host gather
+(:func:`~hyperopt_tpu_torch.parallel.multihost.fetch_global`) brings every
+rank's gradients and losses, and every rank combines them in rank order
+(:func:`combine_slices`: the mean of the slices' means, the full batch's
+mean since the slices are equal) before the update half.  The ranks of a
+line then hold the same bits, those of :func:`split_twin`, which runs
+the slices in turn in one process.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 
@@ -37,8 +50,8 @@ from torch import nn
 from .. import random as R
 from ..utils import resolve_device
 
-__all__ = ["apply", "deterministic_kernels", "init_members", "member_train_step", "on_mesh",
-           "sgd_update", "zeros_like"]
+__all__ = ["PopulationStep", "apply", "combine_slices", "deterministic_kernels", "init_members",
+           "member_grads", "on_mesh", "sgd_update", "split_twin", "zeros_like"]
 
 # lecun_normal: a normal truncated to [-2, 2] scaled by this back to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -126,12 +139,10 @@ def sgd_update(params, momentum, grads, lr, wd):
     return new_params, new_momentum
 
 
-def member_train_step(loss_fn, params, momentum, lr, wd, *data):
-    """One member's gradient step: ``(params, momentum, loss)``, the loss
-    taken before the update."""
-    grads, loss = torch.func.grad_and_value(loss_fn)(params, *data)
-    params, momentum = sgd_update(params, momentum, grads, lr, wd)
-    return params, momentum, loss
+def member_grads(loss_fn, params, *data):
+    """One member's gradient half: ``(grads, loss)`` of ``loss_fn`` at
+    ``params`` on the given rows."""
+    return torch.func.grad_and_value(loss_fn)(params, *data)
 
 
 @contextlib.contextmanager
@@ -149,22 +160,114 @@ def deterministic_kernels():
         cudnn.deterministic, cudnn.benchmark = prev
 
 
+class PopulationStep:
+    """``step(pop_params, pop_momentum, lr [P], wd [P], *data) -> (params,
+    momentum, losses [P])``: every member's gradient half
+    (:meth:`grad_half`, the data tensors shared) and then its update half
+    (:meth:`update_half`), each under ``context()`` (ResNet's
+    :func:`deterministic_kernels`); the losses are taken before the
+    update."""
+
+    def __init__(self, loss_fn, context=contextlib.nullcontext):
+        self._member_grads = functools.partial(member_grads, loss_fn)
+        self._update = torch.func.vmap(sgd_update)
+        self.context = context
+
+    def __call__(self, pop_params, pop_momentum, lr, wd, *data):
+        grads, losses = self.grad_half(pop_params, *data)
+        params, momentum = self.update_half(pop_params, pop_momentum, grads, lr, wd)
+        return params, momentum, losses
+
+    def grad_half(self, pop_params, *data):
+        """``(grads {name: [P, ...]}, losses [P])`` of every member on the
+        given rows."""
+        grads = torch.func.vmap(self._member_grads, in_dims=(0,) + (None,) * len(data))
+        with self.context():
+            return grads(pop_params, *data)
+
+    def update_half(self, pop_params, pop_momentum, grads, lr, wd):
+        """``(params, momentum)`` after every member's :func:`sgd_update`."""
+        with self.context():
+            return self._update(pop_params, pop_momentum, grads, lr, wd)
+
+
+def combine_slices(stacked):
+    """The mean of the ``n`` slice means stacked on the leading axis, in
+    rank order: ``(((s_0 + s_1) + s_2) ...) / n``."""
+    acc = stacked[0]
+    for k in range(1, stacked.shape[0]):
+        acc = acc + stacked[k]
+    return acc / stacked.shape[0]
+
+
+def _rows(data, n, index):
+    """Slice ``index`` of ``n`` equal slices of each data tensor's rows."""
+    rows = data[0].shape[0] // n
+    return [d[index * rows:(index + 1) * rows] for d in data]
+
+
+def _combined_update(step, pop_params, pop_momentum, lr, wd, slices):
+    """The update half on the combined gradients of ``slices`` (``{"grads":
+    {name: [n, P, ...]}, "losses": [n, P]}``): ``(params, momentum,
+    losses [P])``."""
+    grads = {k: combine_slices(v) for k, v in slices["grads"].items()}
+    params, momentum = step.update_half(pop_params, pop_momentum, grads, lr, wd)
+    return params, momentum, combine_slices(slices["losses"])
+
+
+def split_twin(step, n):
+    """The in-process twin of ``step`` (a :class:`PopulationStep`) with its
+    data batch split over ``n`` ranks: the gradient half on each slice of
+    the rows in turn, then the combine and the update half every rank of
+    the line runs.  Bitwise each rank's step; the checks' reference."""
+
+    def twin(pop_params, pop_momentum, lr, wd, *data):
+        halves = [step.grad_half(pop_params, *_rows(data, n, i)) for i in range(int(n))]
+        slices = {"grads": {k: torch.stack([g[k] for g, _ in halves]) for k in halves[0][0]},
+                  "losses": torch.stack([loss for _, loss in halves])}
+        return _combined_update(step, pop_params, pop_momentum, lr, wd, slices)
+
+    return twin
+
+
+def _over_line(step, n, index, group):
+    """``step`` with its data split over the ``n`` ranks of ``group``: this
+    rank's gradient half on slice ``index``, ONE gather of every rank's
+    gradients and losses (each stacked on a new leading axis), then the
+    combine and the update half.  A failed gather raises."""
+    from ..parallel import multihost
+
+    def split(pop_params, pop_momentum, lr, wd, *data):
+        grads, losses = step.grad_half(pop_params, *_rows(data, n, index))
+        got = multihost.fetch_global({"grads": {k: v[None] for k, v in grads.items()},
+                                      "losses": losses[None]}, sharded=True, group=group)
+        dev = losses.device
+        slices = {"grads": {k: torch.from_numpy(v).to(dev) for k, v in got["grads"].items()},
+                  "losses": torch.from_numpy(got["losses"]).to(dev)}
+        return _combined_update(step, pop_params, pop_momentum, lr, wd, slices)
+
+    return split
+
+
 def on_mesh(step, mesh, trial_axis, data_axis, what):
     """``step(pop_params, pop_momentum, lr, wd, *data)`` placed on
     ``mesh`` as the reference constrains it: the population along
     ``trial_axis``, each data tensor's leading (batch) axis along
-    ``data_axis`` (None replicates it).  GSPMD computes the unsharded
-    math, and so does the port: the axes must exist and the widths
-    divide, and then the unsharded step runs.  On a mesh of real ranks
+    ``data_axis`` (None replicates it).  The axes must exist and the
+    widths divide.  Inside one process GSPMD's unsharded math runs, the
+    step itself.  On a mesh of real ranks
     (:func:`~hyperopt_tpu_torch.parallel.mesh.over_processes`) each rank
-    passes its own block of members; a ``data_axis`` over processes would
-    need a gradient all-reduce inside the captured step, which ``gloo``
-    cannot join, and is refused.  None returns ``step``."""
+    passes its own block of members; a ``data_axis`` over processes splits
+    the batch over the rank's line on it
+    (:func:`~hyperopt_tpu_torch.parallel.mesh.process_line`), the step a
+    :class:`PopulationStep`: the rank's gradient half, one gather, the
+    combine and the update half (bitwise :func:`split_twin`).  None
+    returns ``step``."""
     if mesh is None:
         return step
-    from ..parallel.mesh import RankMesh, over_processes
+    from ..parallel import mesh as M
 
-    if not isinstance(mesh, RankMesh):
+    if not isinstance(mesh, M.RankMesh):
         raise TypeError(
             f"{what}: mesh= takes a parallel.mesh.RankMesh (virtual_mesh, mesh_from_spec); got "
             f"{type(mesh).__name__}")
@@ -174,13 +277,11 @@ def on_mesh(step, mesh, trial_axis, data_axis, what):
                 f"{what}: {name} {axis!r} is not an axis of the mesh (axes: {tuple(mesh.shape)})")
     n_trial = int(mesh.shape[trial_axis]) if trial_axis is not None else 1
     n_data = int(mesh.shape[data_axis]) if data_axis is not None else 1
-    if over_processes(mesh):
-        if n_data > 1:
-            raise NotImplementedError(
-                f"{what}: the data axis {data_axis!r} over {n_data} processes needs a gradient "
-                "all-reduce inside the captured step, which gloo cannot join (ROADMAP.md Queue "
-                "A, item 15c, part 6: nccl, a card per rank)")
+    run = step
+    if M.over_processes(mesh):
         n_trial = 1  # each rank passes its own block of members
+        if n_data > 1:
+            run = _over_line(step, *M.process_line(mesh, data_axis, what))
 
     def placed(pop_params, pop_momentum, lr, wd, *data):
         for label, x, n, axis in [("population", next(iter(pop_params.values())), n_trial,
@@ -190,6 +291,6 @@ def on_mesh(step, mesh, trial_axis, data_axis, what):
                 raise ValueError(
                     f"{what}: the {label}'s dimension 0 ({x.shape[0]}) must divide by the "
                     f"{axis!r} mesh axis size {n} (full shape: {tuple(x.shape)})")
-        return step(pop_params, pop_momentum, lr, wd, *data)
+        return run(pop_params, pop_momentum, lr, wd, *data)
 
     return placed

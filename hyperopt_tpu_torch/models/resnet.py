@@ -27,8 +27,13 @@ carried over by :func:`hyperopt_tpu_torch.convert.resnet_params_from_numpy`.
 Entry points compute on the card unless the caller passes
 ``device="cpu"``.  ``mesh=`` places the population step as the
 reference's sharding constraints place it
-(:func:`~hyperopt_tpu_torch.models._population.on_mesh`): bitwise the
-step without a mesh.
+(:func:`~hyperopt_tpu_torch.models._population.on_mesh`): inside one
+process bitwise the step without a mesh; over real ranks each rank
+passes its own block of members, and a data axis over processes splits
+the images and labels over the ranks of the line, one gather of the
+gradients per step (GroupNorm holds no batch statistics, so the mean of
+the slices' gradients is the full batch's), every rank of the line
+ending with the same bits.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ from torch import nn
 
 from .. import random as R
 from ..utils import resolve_device
-from ._population import (apply, deterministic_kernels, init_members, member_train_step,
-                          on_mesh, zeros_like)
+from ._population import (PopulationStep, apply, deterministic_kernels, init_members, on_mesh,
+                          zeros_like)
 
 __all__ = [
     "ResNet",
@@ -164,25 +169,22 @@ def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="
     algorithms.  The tensors live on ``device`` (None = the card).
     ``mesh`` places the population on ``trial_axis`` and the images and
     labels on ``data_axis``, as the reference's sharding constraints do
-    (:func:`~hyperopt_tpu_torch.models._population.on_mesh`): the same
-    step, bit for bit."""
+    (:func:`~hyperopt_tpu_torch.models._population.on_mesh`): inside one
+    process the same step, bit for bit; over real ranks each passes its
+    own block of members, and on a ``(1, n)`` or ``(2, 2)`` ``("trial",
+    "cand")`` mesh the ranks of a ``cand`` line each take their slice of
+    the batch and meet in one gather of the gradients per step, both
+    halves under the deterministic algorithms, every one of them ending
+    with the line's twin's bits
+    (:func:`~hyperopt_tpu_torch.models._population.split_twin`)."""
     resolve_device(device)
 
     def loss_fn(params, images, labels):
         logits = apply(model, params, images)
         return F.cross_entropy(logits, labels)
 
-    pop_step = torch.func.vmap(
-        lambda p, m, lr, wd, images, labels: member_train_step(loss_fn, p, m, lr, wd, images,
-                                                               labels),
-        in_dims=(0, 0, 0, 0, None, None),
-    )
-
-    def train_step(pop_params, pop_momentum, lr, wd, images, labels):
-        with deterministic_kernels():
-            return pop_step(pop_params, pop_momentum, lr, wd, images, labels)
-
-    return on_mesh(train_step, mesh, trial_axis, data_axis, "make_population_train_step")
+    return on_mesh(PopulationStep(loss_fn, deterministic_kernels), mesh, trial_axis,
+                   data_axis, "make_population_train_step")
 
 
 def init_population(model, pop_size, key, image_size=32, device=None):
@@ -205,15 +207,22 @@ def hpo_space():
 
 
 def population_objective(pop_size=4, n_steps=3, batch_size=32, image_size=8, width=8, seed=0,
-                         mesh=None, device=None):
+                         mesh=None, device=None, wrap_step=None):
     """An ``fmin`` objective: train one member (the tiny 1-1-1 net at
     ``width <= 8``, else ``resnet20()``) with the suggested lr/wd for
     ``n_steps`` population steps on ``device`` (None = the card) from
     the same initial point each call, and return the last step's
-    training loss (``pop_size`` is unused, as in the reference)."""
+    training loss (``pop_size`` is unused, as in the reference).  With
+    ``mesh=`` the steps are placed as :func:`make_population_train_step`
+    places them: over the ranks of a data line each rank's objective
+    returns the same float.  ``wrap_step(step) -> step``, where given,
+    replaces the placed step (the checks pass
+    :func:`~hyperopt_tpu_torch.models._population.split_twin`'s)."""
     dev = resolve_device(device)
     model = ResNet(stage_sizes=(1, 1, 1), width=width) if width <= 8 else resnet20()
     step = make_population_train_step(model, mesh=mesh, device=dev)
+    if wrap_step is not None:
+        step = wrap_step(step)
     init_key, data_key = R.split(R.key(seed, device=dev)).unbind(0)
     images, labels = synthetic_cifar_batch(data_key, batch_size, image_size)
 

@@ -27,8 +27,11 @@ parity with the reference holds on weights carried over by
 Entry points compute on the card unless the caller passes
 ``device="cpu"``.  ``mesh=`` places the population step as the
 reference's sharding constraints place it
-(:func:`~hyperopt_tpu_torch.models._population.on_mesh`): bitwise the
-step without a mesh.
+(:func:`~hyperopt_tpu_torch.models._population.on_mesh`): inside one
+process bitwise the step without a mesh; over real ranks each rank
+passes its own block of members, and a data axis over processes splits
+the token batch over the ranks of the line, one gather of the gradients
+per step, every rank of the line ending with the same bits.
 """
 
 from __future__ import annotations
@@ -42,8 +45,7 @@ from torch import nn
 
 from .. import random as R
 from ..utils import capture_graph, resolve_device
-from ._population import (apply, init_members, member_train_step, on_mesh, sgd_update,
-                          zeros_like)
+from ._population import PopulationStep, apply, init_members, on_mesh, sgd_update, zeros_like
 
 __all__ = [
     "TinyLM",
@@ -147,12 +149,9 @@ def _next_token_loss_fn(model):
 
 def _population_step(model):
     """``step(params, momentum, lr, wd, tokens)``: the member step mapped
-    over the population, the tokens shared."""
-    loss_fn = _next_token_loss_fn(model)
-    return torch.func.vmap(
-        lambda p, m, lr, wd, tokens: member_train_step(loss_fn, p, m, lr, wd, tokens),
-        in_dims=(0, 0, 0, 0, None),
-    )
+    over the population, the tokens shared (a
+    :class:`~hyperopt_tpu_torch.models._population.PopulationStep`)."""
+    return PopulationStep(_next_token_loss_fn(model))
 
 
 def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="cand",
@@ -163,8 +162,13 @@ def make_population_train_step(model, mesh=None, trial_axis="trial", data_axis="
     tensors live on ``device`` (None = the card).  ``mesh`` places the
     population on ``trial_axis`` and the token batch on ``data_axis``, as
     the reference's sharding constraints do
-    (:func:`~hyperopt_tpu_torch.models._population.on_mesh`): the same
-    step, bit for bit."""
+    (:func:`~hyperopt_tpu_torch.models._population.on_mesh`): inside one
+    process the same step, bit for bit; over real ranks each passes its
+    own block of members, and on a ``(1, n)`` or ``(2, 2)`` ``("trial",
+    "cand")`` mesh the ranks of a ``cand`` line each take their slice of
+    the sequences and meet in one gather of the gradients per step, every
+    one of them ending with the line's twin's bits
+    (:func:`~hyperopt_tpu_torch.models._population.split_twin`)."""
     resolve_device(device)
     return on_mesh(_population_step(model), mesh, trial_axis, data_axis,
                    "make_population_train_step")
@@ -328,15 +332,22 @@ def budget_objective(batch_size=16, seq_len=16, vocab=16, d_model=16, n_heads=2,
 
 
 def population_objective(n_steps=4, batch_size=16, seq_len=16, vocab=16, d_model=16,
-                         n_heads=2, n_layers=1, seed=0, mesh=None, device=None):
+                         n_heads=2, n_layers=1, seed=0, mesh=None, device=None, wrap_step=None):
     """An ``fmin`` objective: train a TinyLM with the suggested lr/wd for
     ``n_steps`` population steps (a population of one, from
     ``init_population``) on ``device`` (None = the card) and return the
-    last step's next-token loss."""
+    last step's next-token loss.  With ``mesh=`` the steps are placed as
+    :func:`make_population_train_step` places them: over the ranks of a
+    data line each rank's objective returns the same float.
+    ``wrap_step(step) -> step``, where given, replaces the placed step
+    (the checks pass
+    :func:`~hyperopt_tpu_torch.models._population.split_twin`'s)."""
     dev = resolve_device(device)
     model = TinyLM(vocab=vocab, d_model=d_model, n_heads=n_heads, n_layers=n_layers,
                    max_len=seq_len)
     step = make_population_train_step(model, mesh=mesh, device=dev)
+    if wrap_step is not None:
+        step = wrap_step(step)
     init_key, data_key = R.split(R.key(seed, device=dev)).unbind(0)
     tokens = synthetic_token_batch(data_key, batch_size, seq_len, vocab,
                                    n_deltas=min(8, vocab - 1))

@@ -7,7 +7,7 @@ axis and the population schedulers span real process boundaries.  Run
 one worker per rank::
 
     python -m hyperopt_tpu_torch.parallel.dcn_check <rank> <world> <init>
-        [--device cpu|cuda] [--batch B] [--n-per-rank N] [--stages ABCDEFGH]
+        [--device cpu|cuda] [--batch B] [--n-per-rank N] [--stages ABCDEFGHIJ]
 
 ``init`` is ``file://<path>`` (a ``FileStore``) or ``host:port``.  Each
 rank joins one process group (:func:`.multihost.initialize`: ``gloo``,
@@ -41,15 +41,33 @@ history and runs the public API over the 1-D mesh of every rank:
   ``compile_fmin`` at B=2 (a model step gathers on the rank's ``cand``
   line and then on its ``trial`` line, a startup step on its ``trial``
   line), then ``compile_sha`` (4 configs) and ``compile_pbt`` (pop 4)
-  over the ``trial`` axis, ``cand`` replicating.
+  over the ``trial`` axis, ``cand`` replicating;
+* stage I (two ranks), the models' population steps with their data
+  axis over the ranks of a ``(1, 2)`` ``trial`` x ``cand`` mesh: TinyLM's
+  and ResNet's steps (each rank the gradient half on its half of the
+  batch, one ``all_gather`` of the gradients and losses per step, the
+  combine and the update half), beside the unsharded step in pairs, and
+  ``fmin(resnet.population_objective(..., mesh=), hpo_space(),
+  tpe.suggest)`` in every rank (on the card phase 14e's: 30 trials, 20
+  of them startup, of 3 steps at batch 128; on the CPU 6, 4 of them
+  startup, of 2);
+* stage J (four ranks), TinyLM's step on the ``(2, 2)`` mesh: member
+  blocks on ``trial``, batch halves on ``cand``.
+  Stages I-J run the test files' small sizes on the CPU and full width
+  on the card (:data:`DATA_SIZES`).
 
 Every collective is counted inside the ranks (stages A and B: exactly
-one ``all_gather`` per step; C-H: the gathers above at each boundary,
-and no other collective).  Stages C-H must repeat their bits on the
-second run; C-E must be bitwise the unsharded single-process run of the
-same program and F-H the same program on a ``virtual_mesh`` of the same
-shape, which every rank also runs; the ranks must end with the same
-results (each rank's ``gmm_llr`` launches are reported beside them:
+one ``all_gather`` per step; C-J: the gathers above at each boundary,
+and no other collective).  Stages C-J must repeat their bits on the
+second run (I's ``fmin`` runs once, its repeat its twin's run in
+another process); C-E must be bitwise the unsharded single-process run of the
+same program, F-H the same program on a ``virtual_mesh`` of the same
+shape, which every rank also runs, and I-J's steps their in-process
+twin (:func:`~hyperopt_tpu_torch.models._population.split_twin`, which
+every rank runs on its member block), within :data:`DATA_TOL` of the
+unsharded step, the ranks of each data line bitwise each other (I's
+``fmin`` is held to its twin by the caller: :func:`data_twin_values`);
+the ranks must end with the same results (each rank's ``gmm_llr`` launches are reported beside them:
 stages A and B counted by the kernel's wrapper, the compiled loops of
 stages C, F, G and H as each program's captured launches times its
 replays).  Rank 0 then checks
@@ -63,6 +81,7 @@ stage's results, as JSON) and the ``DCN RESULT`` line.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import sys
@@ -78,8 +97,8 @@ KS_LIMIT_256 = 0.2
 DEFAULT_BATCH, DEFAULT_N_PER_RANK = 256, 32
 SEED_A, SEED_B = 5, 11
 CONT_LABELS, MIXED_LABELS = ("x", "y"), ("x", "k", "r")
-STAGES = "ABCDEFGH"
-# the reference's stages; F-H are the port's own
+STAGES = "ABCDEFGHIJ"
+# the reference's stages; F-J are the port's own
 DEFAULT_STAGES = "ABCDE"
 # stages C-E at the reference's sizes (``dcn_check.py:219-353``); each
 # population is as wide as the world
@@ -508,6 +527,365 @@ def run_mesh_stages(device, world, stages, counter, seconds=None):
     return vals, counts, launches, step_ms
 
 
+# stages I-J: the models' population steps with the data axis over the
+# ranks.  On the CPU the test files' small sizes, on the card full width:
+# TinyLM at bench_pbt's width (pop 32), ResNet-20 x 8 members at batch
+# 128 of 32x32x3 (BASELINE #4) and 14e's fmin over its objective
+DATA_SHAPES = {"I": (1, 2), "J": (2, 2)}  # trial x cand
+DATA_WORLD = {stage: int(np.prod(shape)) for stage, shape in DATA_SHAPES.items()}
+DATA_SEED = 21
+DATA_SIZES = {
+    "cpu": {"tinylm": dict(model=dict(vocab=16, d_model=16, n_heads=2, n_layers=1, max_len=16),
+                           pop=4, batch=16, seq=16),
+            "resnet": dict(model=dict(stage_sizes=(1, 1, 1), width=8), pop=4, batch=16, image=8),
+            "fmin": dict(width=8, image_size=8, batch_size=16, n_steps=2), "trials": 6,
+            "startup": 4, "steps": 2},
+    "cuda": {"tinylm": dict(model=dict(vocab=32, d_model=32, n_heads=2, n_layers=2, max_len=32),
+                            pop=32, batch=32, seq=32),
+             "resnet": dict(model=None, pop=8, batch=128, image=32),
+             "fmin": dict(width=16, image_size=32, batch_size=128, n_steps=3), "trials": 30,
+             "startup": 20, "steps": 3},
+}
+# the split step against the unsharded step from the same start after the
+# run's steps, by device and model: (the max abs difference of the
+# parameters and momenta, the max relative difference of the losses).
+# A split batch sums in another order.  The CPU's are the model test
+# files' PARAM_ATOL and LOSS_RTOL (measured 1.2e-7 and 1.6e-7 for both
+# models at the small sizes).  On the card (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md, PR 23) TinyLM's at bench_pbt's width measured 2.4e-7 and
+# 1.3e-7.  ResNet-20's measured 5.2e-4 and 1.3e-5 after 3 steps at lr up
+# to 0.3 (the same with cuDNN's TF32 off): data_probe finds its first
+# step's gradients already 1.3e-4 apart (4.7e-5 of the largest; cuDNN's
+# deterministic convolutions sum 64 images in another order than 128)
+# and the momenta adding that up, the unsharded float32 step itself 1.2e-3
+# from its float64 run, and a combine that drops a slice 5.1 away.  Its
+# limit 2e-3 lies between the split and the dropped slice
+DATA_TOL = {"cpu": {"tinylm": (1e-6, 1e-5), "resnet": (1e-6, 1e-5)},
+            "cuda": {"tinylm": (1e-6, 1e-5), "resnet": (2e-3, 1e-4)}}
+# the fmin's losses against the unsharded objective at the same configs,
+# relative (measured 1.9e-7 on the CPU, 1.9e-6 on the card)
+DATA_FMIN_RTOL = {"cpu": 1e-5, "cuda": 1e-4}
+
+
+def _one_thread_on_cpu(fn):
+    """``fn(device, ...)`` on one intra-op thread when ``device`` is the
+    CPU: the ranks of stages I-J share one host's cores (``world`` x
+    cores threads would oversubscribe it), and their twins must sum as the
+    ranks do, so ranks and twins alike compute single-threaded there."""
+
+    @functools.wraps(fn)
+    def run(device, *args, **kwargs):
+        import torch
+
+        if device.type != "cpu":
+            return fn(device, *args, **kwargs)
+        prev = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(device, *args, **kwargs)
+        finally:
+            torch.set_num_threads(prev)
+
+    return run
+
+
+def data_programs(stage):
+    """Stage I's or J's programs, by name."""
+    return ("I_tinylm", "I_resnet", "I_fmin") if stage == "I" else ("J_tinylm",)
+
+
+def data_setup(name, device):
+    """A step program's model family, model, full population (its
+    members' lr and wd from numpy, the same bits on every device) and
+    data batch, at the device's sizes."""
+    import torch
+
+    from .. import random as R
+    from ..models import resnet as TR, transformer as TT
+
+    sz = DATA_SIZES[device.type]
+    kind = name.split("_", 1)[1]
+    cfg = sz[kind]
+    if kind == "tinylm":
+        fam, model = TT, TT.TinyLM(**cfg["model"])
+        data = (TT.synthetic_token_batch(R.key(DATA_SEED + 1, device=device), cfg["batch"],
+                                         cfg["seq"], cfg["model"]["vocab"], n_deltas=8),)
+    else:
+        fam = TR
+        model = TR.resnet20() if cfg["model"] is None else TR.ResNet(**cfg["model"])
+        data = TR.synthetic_cifar_batch(R.key(DATA_SEED + 1, device=device), cfg["batch"],
+                                        cfg["image"])
+    params = fam.init_population(model, cfg["pop"], R.key(DATA_SEED, device=device),
+                                 device=device)
+
+    def hyper(lo, hi):
+        grid = np.exp(np.linspace(np.log(lo), np.log(hi), cfg["pop"])).astype(np.float32)
+        return torch.from_numpy(grid).to(device)
+
+    return fam, model, params, hyper(0.3, 0.003), hyper(1e-5, 1e-3), data
+
+
+def _digest(tree):
+    """sha256 of a population's bytes, leaf by leaf in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(k.encode())
+        h.update(tree[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def data_pairs(step, plain, block, data, n_steps, counter=None):
+    """``n_steps`` of ``step`` and of the unsharded ``plain`` in pairs from
+    the same start (``block``: a member block's ``(params, lr, wd)``),
+    each timed by the host clock up to the host read of its losses (the
+    read waits for the step's every kernel, enqueued before it): the values
+    (each step's losses, the final population's digest and its
+    difference from the unsharded run's), the ms per step of each, and
+    the collective counts of each ``step``."""
+    from ..models._population import zeros_like
+
+    params, lr, wd = block
+    runs = {"split": (params, zeros_like(params)), "plain": (params, zeros_like(params))}
+    ms, losses, counts = {"split": [], "plain": []}, {"split": [], "plain": []}, []
+    for _ in range(int(n_steps)):
+        for which, fn in (("split", step), ("plain", plain)):
+            p, m = runs[which]
+            t0 = time.perf_counter()
+            if which == "split" and counter is not None:
+                out, c = counter.step(lambda fn=fn, p=p, m=m: fn(p, m, lr, wd, *data))
+                counts.append(c)
+            else:
+                out = fn(p, m, lr, wd, *data)
+            losses[which].append(out[2].cpu())
+            ms[which].append((time.perf_counter() - t0) * 1e3)
+            runs[which] = out[:2]
+    (sp, sm), (pp, pm) = runs["split"], runs["plain"]
+    diff = max(float((a[k] - b[k]).abs().max()) for a, b in ((sp, pp), (sm, pm)) for k in a)
+    rel = max(float(((a - b) / b).abs().max()) for a, b in zip(losses["split"], losses["plain"]))
+    values = {"losses": [x.tolist() for x in losses["split"]],
+              "digest": _digest({**{f"p.{k}": v for k, v in sp.items()},
+                                 **{f"m.{k}": v for k, v in sm.items()}}),
+              "max_abs_diff": diff, "loss_rel_diff": rel}
+    return values, {k: sum(v) / len(v) for k, v in ms.items()}, counts
+
+
+def _member_block(full, lr, wd, n_blocks, index):
+    """Block ``index`` of ``n_blocks`` of a population and its hypers."""
+    w = lr.shape[0] // n_blocks
+    cut = slice(index * w, (index + 1) * w)
+    return {k: v[cut] for k, v in full.items()}, lr[cut], wd[cut]
+
+
+def data_fmin(device, mesh=None, twin=None):
+    """Stage I's ``fmin(resnet.population_objective(..., mesh=),
+    hpo_space(), tpe.suggest)`` at the device's sizes (``twin``: the
+    objective on ``split_twin(step, twin)`` in this process): the trials'
+    configs and losses and the ``gmm_llr`` launches of the run."""
+
+    from .. import tpe
+    from ..base import Trials
+    from ..fmin import fmin
+    from ..models import _population as TP, resnet as TR
+    from ..ops.gmm_scores import KERNEL
+
+    sz = DATA_SIZES[device.type]
+    kw = sz["fmin"]
+    wrap = None if twin is None else functools.partial(TP.split_twin, n=twin)
+    obj = TR.population_objective(seed=DATA_SEED, mesh=mesh, device=device, wrap_step=wrap,
+                                  **kw)
+    trials, before = Trials(), KERNEL.launches
+    fmin(obj, TR.hpo_space(), algo=functools.partial(tpe.suggest, n_startup_jobs=sz["startup"]),
+         max_evals=sz["trials"], trials=trials,
+         rstate=np.random.default_rng(DATA_SEED), show_progressbar=False, device=device)
+    configs = [{k: float(v[0]) for k, v in t["misc"]["vals"].items()} for t in trials.trials]
+    return {"losses": [float(x) for x in trials.losses()], "configs": configs,
+            "best_loss": float(min(trials.losses()))}, KERNEL.launches - before
+
+
+@_one_thread_on_cpu
+def data_unsharded_diff(device, values):
+    """The unsharded ``population_objective`` at stage I's ``fmin`` configs
+    (the ranks' own): the max relative difference of its losses from the
+    ranks'."""
+    from ..models import resnet as TR
+
+    obj = TR.population_objective(seed=DATA_SEED, device=device,
+                                  **DATA_SIZES[device.type]["fmin"])
+    return max(abs(obj(cfg) - loss) / abs(loss)
+               for cfg, loss in zip(values["configs"], values["losses"]))
+
+
+@_one_thread_on_cpu
+def data_twin_values(device, stages="IJ"):
+    """Stages I-J (those in ``stages``) in this one process, each rank's
+    split step as :func:`~hyperopt_tpu_torch.models._population.
+    split_twin` runs it, member block by member block: what the ranks must
+    give, bit for bit, by program name (each step program a list of its
+    blocks' values)."""
+    from ..models import _population as TP
+
+    out = {}
+    for stage in "IJ":
+        if stage not in stages:
+            continue
+        n_trial, n_data = DATA_SHAPES[stage]
+        for name in data_programs(stage):
+            if name == "I_fmin":
+                out[name] = data_fmin(device, twin=n_data)[0]
+                continue
+            fam, model, full, lr, wd, data = data_setup(name, device)
+            plain = fam.make_population_train_step(model, device=device)
+            out[name] = [data_pairs(TP.split_twin(plain, n_data), plain,
+                                    _member_block(full, lr, wd, n_trial, b), data,
+                                    DATA_SIZES[device.type]["steps"])[0]
+                         for b in range(n_trial)]
+    return out
+
+
+def _dropped_slices(step, n):
+    """``split_twin(step, n)`` with a broken combine that keeps slice 0's
+    gradients and losses and drops the other slices: the fault the
+    tolerances of :data:`DATA_TOL` must reject."""
+
+    def faulty(pop_params, pop_momentum, lr, wd, *data):
+        rows = data[0].shape[0] // n
+        grads, losses = step.grad_half(pop_params, *(d[:rows] for d in data))
+        return (*step.update_half(pop_params, pop_momentum, grads, lr, wd), losses)
+
+    return faulty
+
+
+def _final_state(step, params, lr, wd, data, n_steps):
+    """The params and momenta after ``n_steps`` of ``step`` from zero
+    momenta, by ``p.``/``m.`` name."""
+    from ..models._population import zeros_like
+
+    momentum = zeros_like(params)
+    for _ in range(int(n_steps)):
+        params, momentum, _ = step(params, momentum, lr, wd, *data)
+    return {**{f"p.{k}": v for k, v in params.items()},
+            **{f"m.{k}": v for k, v in momentum.items()}}
+
+
+def _max_abs_diff(a, b):
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+@_one_thread_on_cpu
+def data_probe(device, name="I_resnet"):
+    """Where a step program of stage I differs from its unsharded step, on
+    the whole population at the device's sizes: ``grad0``, the max abs
+    difference of the first step's combined slice gradients from the
+    whole batch's gradients (no update between them: the order of the
+    convolutions' and reductions' sums alone), beside ``grad0_scale``, the
+    largest gradient; ``split``, the split step's max abs difference of
+    params and momenta from the unsharded step's after the run's steps
+    (what :data:`DATA_TOL` bounds); ``fault``, the same of a combine that
+    keeps one slice and drops the rest; ``f32_from_f64`` and
+    ``split_from_f64``, the unsharded and the split float32 steps' max abs
+    difference from the unsharded step run in float64 from the same
+    start."""
+    import torch
+
+    from ..models import _population as TP
+
+    fam, model, full, lr, wd, data = data_setup(name, device)
+    n, steps = DATA_SHAPES["I"][1], DATA_SIZES[device.type]["steps"]
+    plain = fam.make_population_train_step(model, device=device)
+    whole = plain.grad_half(full, *data)[0]
+    rows = data[0].shape[0] // n
+    halves = [plain.grad_half(full, *(d[i * rows:(i + 1) * rows] for d in data))[0]
+              for i in range(n)]
+    combined = {k: TP.combine_slices(torch.stack([h[k] for h in halves])) for k in whole}
+    unsharded = _final_state(plain, full, lr, wd, data, steps)
+    split = _final_state(TP.split_twin(plain, n), full, lr, wd, data, steps)
+    fault = _final_state(_dropped_slices(plain, n), full, lr, wd, data, steps)
+    as64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    f64 = _final_state(plain, {k: v.double() for k, v in full.items()}, lr.double(),
+                       wd.double(), tuple(map(as64, data)), steps)
+    return {"grad0": _max_abs_diff(combined, whole),
+            "grad0_scale": max(float(v.abs().max()) for v in whole.values()),
+            "split": _max_abs_diff(split, unsharded), "fault": _max_abs_diff(fault, unsharded),
+            "f32_from_f64": _max_abs_diff(unsharded, f64),
+            "split_from_f64": _max_abs_diff(split, f64)}
+
+
+@_one_thread_on_cpu
+def run_data_stages(device, world, stages, counter, seconds=None):
+    """Stages I-J (those in ``stages``) over the ranks: each step program
+    run twice, beside its unsharded step in pairs and against its
+    in-process twin on the rank's member block, and I's ``fmin`` once (its
+    twin in the caller's process holds it); the values
+    (each step program's by member block, exchanged between the ranks and
+    the ranks of each data line checked bitwise each other), each run's
+    collective counts, the ``fmin``'s ``gmm_llr`` launches, and the ms per
+    step of the second run (split and unsharded) or per trial."""
+    import torch.distributed as dist
+
+    from ..models import _population as TP
+    from .mesh import CAND_AXIS, TRIAL_AXIS, mesh_from_spec, process_index
+
+    vals, counts, launches, step_ms = {}, {}, {}, {}
+    for stage in "IJ":
+        if stage not in stages:
+            continue
+        if world != DATA_WORLD[stage]:
+            raise ValueError(f"stage {stage} runs on {DATA_WORLD[stage]} ranks, not {world}")
+        t0 = time.perf_counter()
+        n_trial, n_data = DATA_SHAPES[stage]
+        mesh = mesh_from_spec((n_trial, n_data), (TRIAL_AXIS, CAND_AXIS))
+        rank = process_index()
+        block_of = [mesh.axis_index(TRIAL_AXIS, r) for r in mesh.ranks]
+        for name in data_programs(stage):
+            runs = []
+            if name == "I_fmin":
+                # run once: the caller holds it bitwise to its twin, which
+                # another process computes (data_twin_values)
+                t_run = time.perf_counter()
+                (vals[name], launches[name]), c = counter.step(lambda: data_fmin(device, mesh))
+                step_ms[name] = ((time.perf_counter() - t_run) * 1e3  # per trial
+                                 / DATA_SIZES[device.type]["trials"])
+                counts[name] = [c]
+                continue
+            fam, model, full, lr, wd, data = data_setup(name, device)
+            block = _member_block(full, lr, wd, n_trial, block_of[rank])
+            step = fam.make_population_train_step(model, mesh=mesh, device=device)
+            plain = fam.make_population_train_step(model, device=device)
+            for _ in range(2):
+                out, ms, c = data_pairs(step, plain, block, data,
+                                        DATA_SIZES[device.type]["steps"], counter)
+                runs.append(out)
+                counts.setdefault(name, []).append(tuple(map(sum, zip(*c))))
+                step_ms[f"{name}.split"], step_ms[f"{name}.plain"] = ms["split"], ms["plain"]
+            twin = data_pairs(TP.split_twin(plain, n_data), plain, block, data,
+                              DATA_SIZES[device.type]["steps"])[0]
+            assert runs[0] == runs[1], f"{name} is not deterministic across processes"
+            assert runs[0] == twin, f"{name} differs from its in-process twin"
+            atol, rtol = DATA_TOL[device.type][name.split("_", 1)[1]]
+            assert runs[0]["max_abs_diff"] <= atol, (name, runs[0], atol)
+            assert runs[0]["loss_rel_diff"] <= rtol, (name, runs[0], rtol)
+            everyone = [None] * world
+            dist.all_gather_object(everyone, runs[0])
+            blocks = [None] * n_trial
+            for r, v in zip(mesh.ranks, everyone):
+                b = block_of[r]
+                assert blocks[b] is None or blocks[b] == v, f"{name}: a data line disagrees"
+                blocks[b] = v
+            vals[name] = blocks
+        if seconds is not None:
+            seconds[stage] = time.perf_counter() - t0
+    return vals, counts, launches, step_ms
+
+
+def data_gathers(name, device_type):
+    """The gathers of a run of stage I-J's program ``name`` on each rank:
+    one per population step (the ``fmin``'s: each trial's)."""
+    sz = DATA_SIZES[device_type]
+    return sz["trials"] * sz["fmin"]["n_steps"] if name == "I_fmin" else sz["steps"]
+
+
 def main(argv=None):
     import argparse
 
@@ -519,8 +897,8 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=DEFAULT_BATCH)
     p.add_argument("--n-per-rank", type=int, default=DEFAULT_N_PER_RANK)
     p.add_argument("--stages", default=DEFAULT_STAGES,
-                   help="the stages to run, a subset of ABCDEFGH (H: four ranks; default "
-                        "ABCDE, the reference's)")
+                   help="the stages to run, a subset of ABCDEFGHIJ (H and J: four ranks, I: "
+                        "two; default ABCDE, the reference's)")
     args = p.parse_args(argv)
     if not args.stages or set(args.stages) - set(STAGES):
         p.error(f"--stages {args.stages!r}: expected a subset of {STAGES}")
@@ -546,6 +924,8 @@ def main(argv=None):
                 device, args.world, args.stages, counter, seconds)
             mesh_vals, mesh_counts, mesh_launches, step_ms = run_mesh_stages(
                 device, args.world, args.stages, counter, seconds)
+            data_vals, data_counts, data_launches, data_ms = run_data_stages(
+                device, args.world, args.stages, counter, seconds)
         finally:
             counter.uninstall()
         assert all(s == (1, 0) for s in steps), f"collectives per step: {steps}"
@@ -557,17 +937,24 @@ def main(argv=None):
         for name, runs in mesh_counts.items():
             want = (mesh_boundaries(name), 0)
             assert all(c == want for c in runs), f"{name}: collectives {runs}, not {want}"
+        for name, runs in data_counts.items():
+            want = (data_gathers(name, device.type), 0)
+            assert all(c == want for c in runs), f"{name}: collectives {runs}, not {want}"
         vals.update(pop_vals)
         vals.update(mesh_vals)
+        vals.update(data_vals)
         mine = json.dumps(vals, sort_keys=True)
         everyone = [None] * args.world
-        dist.all_gather_object(everyone, (mine, ab_launches, loop_launches, mesh_launches))
+        dist.all_gather_object(everyone, (mine, ab_launches, loop_launches, mesh_launches,
+                                          data_launches))
         assert all(v[0] == mine for v in everyone), "the ranks ended with different results"
         if multihost.process_index() == 0:
             _report(args, vals, hist, steps, mesh.size, [v[1] for v in everyone],
                     pop_counts, boundaries, [v[2] for v in everyone], seconds,
                     mesh_counts, {name: [v[3][name] for v in everyone]
-                                  for name in mesh_launches}, step_ms)
+                                  for name in mesh_launches}, step_ms,
+                    data_counts, {name: [v[4][name] for v in everyone]
+                                  for name in data_launches}, data_ms)
         else:
             print(f"DCN RESULT rank={args.rank} ok n={args.batch}", flush=True)
     finally:
@@ -576,13 +963,15 @@ def main(argv=None):
 
 
 def _report(args, vals, hist, steps, n_ranks, launches, pop_counts, boundaries, loop_launches,
-            seconds, mesh_counts, mesh_launches, step_ms):
+            seconds, mesh_counts, mesh_launches, step_ms, data_counts, data_launches, data_ms):
     """Rank 0's checks of stages A and B against the unsharded path at
     equal TOTAL candidates (local, no collective) and its two output
     lines; ``launches`` are each rank's ``gmm_llr`` launches in stages A
     and B, ``loop_launches`` in stage C, ``mesh_launches`` in each loop of
-    stages F-H (by program, by rank), ``seconds`` rank 0's wall per
-    stage and ``step_ms`` its ms per step of each program of F-H."""
+    stages F-H and ``data_launches`` in I's ``fmin`` (by program, by
+    rank), ``seconds`` rank 0's wall per stage, ``step_ms`` its ms per
+    step of each program of F-H and ``data_ms`` of I-J (split and
+    unsharded, or per trial)."""
     from ..tpe import suggest_batch
     from .mesh import CAND_AXIS
     from .sharded import _default_n_EI_cat_total, per_device_count
@@ -645,6 +1034,19 @@ def _report(args, vals, hist, steps, n_ranks, launches, pop_counts, boundaries, 
         gathers = {name: runs[0][0] for name, runs in mesh_counts.items()}
         fields.append(f"mesh_gathers={gathers} mesh_launches_by_rank={mesh_launches} "
                       f"mesh_ms_per_step={ {k: round(v, 4) for k, v in step_ms.items()} }")
+    if data_counts:
+        diffs = {name: max(b["max_abs_diff"] for b in vals[name])
+                 for name in data_counts if name != "I_fmin"}
+        rels = {name: max(b["loss_rel_diff"] for b in vals[name])
+                for name in data_counts if name != "I_fmin"}
+        ran = {st: DATA_SHAPES[st] for st in "IJ" if f"{st}_tinylm" in vals}
+        gathers = {name: runs[0][0] for name, runs in data_counts.items()}
+        fields.append(f"data_axis={ran} data_gathers={gathers} "
+                      f"data_max_abs_diff={diffs} data_loss_rel_diff={rels} "
+                      f"data_launches_by_rank={data_launches} data_ms={data_ms} "
+                      "data_matches_twin=True data_deterministic=True data_lines_agree=True")
+        if "I_fmin" in vals:
+            fields.append(f"data_fmin_best={vals['I_fmin']['best_loss']:.6f}")
     print("DCN VALUES " + json.dumps({k: v for k, v in vals.items() if k != "A_again"},
                                      sort_keys=True), flush=True)
     walls = {st: round(t, 3) for st, t in seconds.items()}
@@ -656,8 +1058,9 @@ def launch(world=2, timeout=600, device=None, batch=DEFAULT_BATCH,
            n_per_rank=DEFAULT_N_PER_RANK, workdir=None, stages=DEFAULT_STAGES):
     """Spawn ``world`` ranks (a ``FileStore`` and each rank's log under
     ``workdir``, a fresh temporary directory by default) running the
-    ``stages`` (a subset of ``"ABCDEFGH"``, by default the reference's
-    ``"ABCDE"``; stage H needs four ranks) and return rank 0's output.
+    ``stages`` (a subset of ``"ABCDEFGHIJ"``, by default the reference's
+    ``"ABCDE"``; stages H and J need four ranks, I two) and return rank
+    0's output.
 
     Raises ``RuntimeError`` with every rank's tail as soon as one exits
     non-zero, or when ``timeout`` seconds pass first; every rank still

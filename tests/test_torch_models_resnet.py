@@ -206,12 +206,13 @@ def test_init_statistics_match_the_reference(ref):
 
 
 def test_sharding_is_refused():
-    """What ``mesh=`` still refuses: a data axis over processes (its
-    gradient all-reduce would sit inside the captured step), a mesh that
-    is not a RankMesh, an axis the mesh lacks, and widths that do not
-    divide (the reference's sharding constraints refuse those too)."""
+    """What ``mesh=`` still refuses: a data axis over processes that this
+    process has not joined (outside a process group the line's gather
+    has no ranks to meet), a mesh that is not a RankMesh, an axis the
+    mesh lacks, and widths that do not divide (the reference's sharding
+    constraints refuse those too)."""
     net = TR.ResNet(**NET)
-    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+    with pytest.raises(RuntimeError, match="join a process group"):
         TR.make_population_train_step(net, mesh=RankMesh((2, 2), ("trial", "cand"), range(4)),
                                       device="cpu")
     with pytest.raises(TypeError, match="RankMesh"):

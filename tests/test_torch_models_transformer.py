@@ -134,19 +134,20 @@ def test_next_token_loss(ref, tokens):
 
 
 def test_member_step_params_momentum_and_loss(ref, tokens):
-    """One member's step from a nonzero momentum: the same SGD rule
-    (``m' = 0.9 m + g``, ``p' = p - lr (m' + wd p)``)."""
+    """One member's step from a nonzero momentum, its gradient half and
+    then its update half: the same SGD rule (``m' = 0.9 m + g``, ``p' = p
+    - lr (m' + wd p)``)."""
     jm, pop = ref
     params = jax.tree.map(lambda x: x[2], pop)
     momentum = jax.tree.map(lambda x: 0.01 * x, params)
     step = jax.jit(lambda p, m, t: JT._member_train_step(JT._next_token_loss_fn(jm), p, m,
                                                          0.3, 1e-3, t))
     jp, jmom, jloss = _np(step(params, momentum, tokens))
-    tp, tmom, tloss = TP.member_train_step(
-        TT._next_token_loss_fn(TT.TinyLM(**KW)),
-        convert.tinylm_params_from_numpy(params, device="cpu"),
-        convert.tinylm_params_from_numpy(_np(momentum), device="cpu"),
-        torch.tensor(0.3), torch.tensor(1e-3), _t(tokens, torch.int64))
+    t_params = convert.tinylm_params_from_numpy(params, device="cpu")
+    grads, tloss = TP.member_grads(TT._next_token_loss_fn(TT.TinyLM(**KW)), t_params,
+                                   _t(tokens, torch.int64))
+    t_momentum = convert.tinylm_params_from_numpy(_np(momentum), device="cpu")
+    tp, tmom = TP.sgd_update(t_params, t_momentum, grads, torch.tensor(0.3), torch.tensor(1e-3))
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=LOSS_RTOL)
     for want, got in ((jp, tp), (jmom, tmom)):
         want = convert.tinylm_params_from_numpy(want, device="cpu")
@@ -298,12 +299,13 @@ def test_compile_pbt_on_tinylm_from_carried_state(ref):
 
 
 def test_sharding_is_refused():
-    """What ``mesh=`` still refuses: a data axis over processes (its
-    gradient all-reduce would sit inside the captured step), a mesh that
-    is not a RankMesh, an axis the mesh lacks, and widths that do not
-    divide (the reference's sharding constraints refuse those too)."""
+    """What ``mesh=`` still refuses: a data axis over processes that this
+    process has not joined (outside a process group the line's gather
+    has no ranks to meet), a mesh that is not a RankMesh, an axis the
+    mesh lacks, and widths that do not divide (the reference's sharding
+    constraints refuse those too)."""
     model = TT.TinyLM(**KW)
-    with pytest.raises(NotImplementedError, match="item 15c, part 6"):
+    with pytest.raises(RuntimeError, match="join a process group"):
         TT.make_population_train_step(model, mesh=RankMesh((2, 2), ("trial", "cand"), range(4)),
                                       device="cpu")
     with pytest.raises(TypeError, match="RankMesh"):

@@ -41,6 +41,7 @@ history.
 import copy
 import json
 import os
+import threading
 import warnings
 from functools import partial
 
@@ -316,7 +317,7 @@ def test_two_spawned_ranks_are_bitwise_the_virtual_ranks(tmp_path):
 
 
 def test_two_spawned_ranks_run_the_populations_bitwise(tmp_path):
-    """Stages C-G on two ``gloo`` ranks: C-E at the reference's sizes
+    """Stages C-G and I on two ``gloo`` ranks: C-E at the reference's sizes
     (every population two wide): ``compile_fmin``'s trial axis (64
     evaluations, each rank one column of every batch), ``compile_sha``
     and ``compile_pbt`` over the ranks, each run twice and bitwise the
@@ -326,11 +327,31 @@ def test_two_spawned_ranks_run_the_populations_bitwise(tmp_path):
     the ranks for TPE and ATPE (one all_gather of the packed winners per
     model step, 44 of 64), and G, ``asha=`` over the ``trial`` axis (two
     per rung, 18 in 3 brackets), each run twice and bitwise its
-    ``virtual_mesh`` run, which the ranks run too.  No other collective
+    ``virtual_mesh`` run, which the ranks run too.  I, the models' data
+    axis over the ranks of a ``(1, 2)`` mesh: TinyLM's and ResNet's steps
+    (one all_gather per step) bitwise their in-process twin, in the ranks
+    and here, and within the tolerances of the unsharded step, and
+    ``fmin`` over ResNet's ``population_objective(mesh=)`` in both ranks
+    (one all_gather per population step) bitwise the same ``fmin`` over
+    the twin's objective here, its losses within DATA_FMIN_RTOL (1e-5) of
+    the unsharded objective's at the ranks' configurations.  No other collective
     (counted inside the ranks); nothing of ``torch.distributed`` left
     here."""
     assert _no_distributed_state()
-    out = t_dcn.launch(world=2, timeout=240, device="cpu", workdir=tmp_path, stages="CDEFG")
+    cpu = torch.device("cpu")
+    here = {}
+
+    def twins():  # I's twins and the unsharded objective, here while the ranks run
+        here["twin"] = t_dcn.data_twin_values(cpu, "I")
+        here["diff"] = t_dcn.data_unsharded_diff(cpu, here["twin"]["I_fmin"])
+
+    beside = threading.Thread(target=twins)
+    beside.start()
+    try:
+        out = t_dcn.launch(world=2, timeout=300, device="cpu", workdir=tmp_path,
+                           stages="CDEFGI")
+    finally:
+        beside.join()
     result = next(ln for ln in out.splitlines() if ln.startswith("DCN RESULT"))
     for field in ("loop_matches_unsharded=True", "sha_matches_unsharded=True",
                   "pbt_matches_unsharded=True", "loop_deterministic=True",
@@ -340,12 +361,20 @@ def test_two_spawned_ranks_run_the_populations_bitwise(tmp_path):
                   "cand_matches_virtual=True", "cand_deterministic=True",
                   "asha_matches_virtual=True", "asha_deterministic=True",
                   "mesh_gathers={'F_tpe': 44, 'F_atpe': 44, 'G': 18}",
-                  "mesh_launches_by_rank={'F_tpe': [0, 0], 'F_atpe': [0, 0], 'G': [0, 0]}"):
+                  "mesh_launches_by_rank={'F_tpe': [0, 0], 'F_atpe': [0, 0], 'G': [0, 0]}",
+                  "data_axis={'I': (1, 2)}",
+                  "data_gathers={'I_tinylm': 2, 'I_resnet': 2, 'I_fmin': 12}",
+                  "data_launches_by_rank={'I_fmin': [0, 0]}", "data_matches_twin=True",
+                  "data_deterministic=True", "data_lines_agree=True"):
         assert field in result, (field, result)
     assert "ks=" not in result  # stages A and B did not run
     spawned = t_dcn.parse_values(out)
     assert {st: spawned[st] for st in "CDE"} == t_dcn.unsharded_population("cpu", 2)
-    assert sorted(spawned) == ["C", "D", "E", "F_atpe", "F_tpe", "G"]
+    assert sorted(spawned) == ["C", "D", "E", "F_atpe", "F_tpe", "G", "I_fmin", "I_resnet",
+                               "I_tinylm"]
+    # the twins' fmin configurations are the ranks' once the values agree
+    assert {k: spawned[k] for k in ("I_tinylm", "I_resnet", "I_fmin")} == here["twin"]
+    assert here["diff"] <= t_dcn.DATA_FMIN_RTOL["cpu"]
     # the PBT schedule really exploited across the ranks: both members
     # end on the rank-0 or rank-1 member that won
     assert len(set(spawned["E"]["state"])) == 1

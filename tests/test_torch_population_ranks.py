@@ -348,14 +348,14 @@ def _echo_step(pop_params, pop_momentum, lr, wd, *data):
     (TM.RankMesh((2,), ("trial",), (0, 1)), ("trial", None), 3, 5, None, None),
     (TM.RankMesh((2, 1), ("trial", "cand"), (0, 1)), ("trial", "cand"), 3, 5, None, None),
     (TM.RankMesh((1, 2), ("trial", "cand"), (0, 1)), ("trial", "cand"), 2, 4,
-     NotImplementedError, "data axis 'cand' over 2 processes"),
+     RuntimeError, "is not one of its ranks: join a process group"),
     (object(), ("trial", "cand"), 2, 4, TypeError, "RankMesh"),
 ])
 def test_the_models_placement_on_a_mesh(mesh, axes, pop, batch, error, match):
     """``mesh=`` of the models' population steps: the reference's axes and
     divisibility, the unsharded step on a virtual mesh, a rank's own block
     of members over processes (no width to divide), and a data axis over
-    processes refused."""
+    processes refused outside a process group of its ranks."""
     from hyperopt_tpu_torch.models._population import on_mesh
 
     params = {"w": torch.arange(pop * 2, dtype=torch.float32).reshape(pop, 2)}
